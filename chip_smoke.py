@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/H100 port's main path once on one CUDA card.
+"""Drives the PyTorch/H100 port's two main paths once on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--actions N] [--profile]
+    python3 chip_smoke.py [--seed N] [--actions N] [--steps N] [--profile]
 
 Run from the repository root. The phases:
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 2. build every CUDA kernel from ``tensor2robot_tpu_torch/ops/csrc``;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes: the pool bitwise (values and slots) at the three
-   QT-Opt pools in bfloat16 plus odd and tie cases in float32; conv1 at
-   [64, 472, 472, 3] in bfloat16 (band: 2**-7 relative, one bfloat16 ulp)
-   and in float32 with TF32 off (band 1e-5);
-4. the main path at full width: ``GraspingModelWrapper(device_type='gpu',
+   main paths' shapes: the pool forward and backward bitwise (values, slots
+   and routed gradients) at the three QT-Opt pools in bfloat16 (B=64 for
+   serving, B=32 for training) plus odd, overlapping and planted-tie cases
+   in float32; conv1 forward at [64, 472, 472, 3] and its dW and dx at
+   [32, 472, 472, 3], in bfloat16 (band: 2**-7 relative, one bfloat16 ulp,
+   plus 1e-5 of the largest magnitude for the gradients' reassociated
+   sums) and in float32 with TF32 off (band 1e-5); dW run twice must agree
+   bit for bit;
+4. the serving path at full width: ``GraspingModelWrapper(device_type='gpu',
    kernel_policy='pool_conv')`` -> ``CheckpointPredictor`` with seeded
    random weights -> ``CEMPolicy(64 samples x 3 iterations,
    device_resident=True)`` on 512x640 uint8 frames, one warm-up action and
@@ -22,12 +26,34 @@ Run from the repository root. The phases:
    network on the card against the same network on the CPU (plain
    versions) on 2 pairs: q, and the end points ``pool2``, ``final_conv``
    and ``logits``;
-5. timings at the main path's shapes with CUDA events: each kernel, its
+5. the training path at full width: ``Trainer(GraspingModelWrapper(
+   device_type='gpu', kernel_policy='pool_conv'), TrainerConfig(...))
+   .train(...)`` on seeded 512x640 uint8 frames, actions and 0/1 rewards
+   at batch 32, one warm-up step and then timed steps, with every launch
+   counter set to 0 just before and read just after (per step: 3
+   ``pool_fwd``, 3 ``pool_bwd``, 1 ``conv_s2d_fwd``, 1 ``conv_s2d_dw``, 0
+   ``conv_s2d_dx``); a finite loss, a finite gradient on every trainable
+   parameter, parameters and EMA moved; then the EMA weights and batch
+   statistics served by a ``CheckpointPredictor`` on 8 pairs;
+6. dx on a path: a full-width conv1 whose input requires a gradient
+   launches ``conv_s2d_dx`` once, and its dx matches the plain version;
+7. a float32 training step on the card (kernels) against the same step on
+   the CPU (plain versions) at full width and batch 2, TF32 off, both held
+   to a float64 CPU gradient of the same step: the losses within 1e-4;
+   every leaf of the card's gradient no further from float64 (relative
+   L2) than 3x the CPU float32 gradient's worst leaf, and within 0.1 of the
+   leaf's largest magnitude of the CPU's (the float32 gradient of the
+   train-mode network is itself ill-conditioned; see
+   ``phase_train_reference``);
+8. timings at the main paths' shapes with CUDA events: each kernel, its
    plain version, one library call computing the same function
-   (``F.max_pool2d(return_indices=True)``, ``F.conv2d`` in channels-last),
-   and each kernel's bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16);
-   ``--profile`` adds a ``torch.profiler`` breakdown of two actions,
-   written to ``chiprun_out/chip_smoke_profile.txt``.
+   (``F.max_pool2d(return_indices=True)``,
+   ``aten.max_pool2d_with_indices_backward``, ``F.conv2d`` in
+   channels-last, ``torch.nn.grad.conv2d_weight`` and
+   ``torch.nn.grad.conv2d_input``), and each kernel's bound on an H100 SXM
+   (3.35 TB/s, 989 TFLOP/s bf16); ``--profile`` adds a ``torch.profiler``
+   breakdown of two actions and of one training step, written to
+   ``chiprun_out/chip_smoke_profile*.txt``.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it,
@@ -50,6 +76,8 @@ from tensor2robot_tpu_torch.ops import _build, _dispatch, conv_s2d, pool
 from tensor2robot_tpu_torch.policies import CEMPolicy
 from tensor2robot_tpu_torch.predictors import CheckpointPredictor
 from tensor2robot_tpu_torch.research.qtopt import GraspingModelWrapper
+from tensor2robot_tpu_torch.research.qtopt import networks
+from tensor2robot_tpu_torch.train import Trainer, TrainerConfig
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
@@ -58,13 +86,56 @@ POOLS = (  # name, input NHWC, window, strides (all SAME padding)
     ('pool2', (64, 79, 79, 64), (3, 3), (3, 3)),
     ('pool3', (64, 27, 27, 64), (2, 2), (2, 2)),
 )
+TRAIN_BATCH = 32
+TRAIN_POOLS = tuple((name, (TRAIN_BATCH,) + shape[1:], window, strides)
+                    for name, shape, window, strides in POOLS)
 CONV1_X = (64, 472, 472, 3)
 CONV1_W = (6, 6, 3, 64)
+TRAIN_CONV1_X = (TRAIN_BATCH,) + CONV1_X[1:]
+CONV1_PADS = ((2, 2), (2, 2))  # SAME, 6x6/s2 on 472
+# Kernel launches per training step on the main path.
+TRAIN_LAUNCHES = {'pool_fwd': 3, 'pool_bwd': 3, 'conv_s2d_fwd': 1,
+                  'conv_s2d_dw': 1, 'conv_s2d_dx': 0}
 OUT_DIR = pathlib.Path(__file__).resolve().parent / 'chiprun_out'
+# The float32 training step, card against CPU and float64 (see
+# phase_train_reference): a leaf of the card's gradient may lie at most
+# this many times as far from float64 (relative L2) as the CPU's float32
+# gradient's worst leaf does, and its largest element error against the
+# CPU may reach this share of the leaf's largest magnitude (a relu kink or
+# a pool near-tie that flips between two float32 computations moves a
+# whole element of the gradient).
+REFERENCE_L2_RATIO = 3.0
+REFERENCE_MAX_BAND = 0.1
 
 
 def log(*parts):
   print(*parts, flush=True)
+
+
+def counters():
+  """Every kernel wrapper's launch count, by kernel name."""
+  return {'pool_fwd': pool.pool_fwd, 'pool_bwd': pool.pool_bwd,
+          'conv_s2d_fwd': conv_s2d.conv_s2d_fwd,
+          'conv_s2d_dw': conv_s2d.conv_s2d_dw,
+          'conv_s2d_dx': conv_s2d.conv_s2d_dx}
+
+
+def zero_counters():
+  for fn in counters().values():
+    fn.launches = 0
+
+
+def read_counters():
+  return {name: fn.launches for name, fn in counters().items()}
+
+
+def within(got, want, rel, of_max):
+  """Max abs error, and whether every element lies within ``rel`` of its
+  own magnitude plus ``of_max`` of the largest magnitude."""
+  got, want = got.float(), want.float()
+  err = (got - want).abs()
+  limit = rel * want.abs() + of_max * float(want.abs().max())
+  return float(err.max()), bool((err <= limit).all())
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -183,19 +254,19 @@ def phase_main_path(seed, actions):
   with _dispatch.force_kernels(True):
     policy.SelectAction(frames[0], None, 0)  # warm-up
     torch.cuda.synchronize()
-    pool.pool_fwd.launches = 0
-    conv_s2d.conv_s2d_fwd.launches = 0
+    zero_counters()
     start = time.perf_counter()
     chosen = [policy.SelectAction(frames[t], None, t)
               for t in range(1, actions + 1)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches = {'conv_s2d_fwd': conv_s2d.conv_s2d_fwd.launches,
-                'pool_fwd': pool.pool_fwd.launches}
+    launches = read_counters()
   for action in chosen:
     if action.shape != (5,) or not np.isfinite(action).all():
       raise AssertionError(f'bad action {action!r}')
-  if launches != {'conv_s2d_fwd': 3 * actions, 'pool_fwd': 9 * actions}:
+  want = {'pool_fwd': 9 * actions, 'pool_bwd': 0,
+          'conv_s2d_fwd': 3 * actions, 'conv_s2d_dw': 0, 'conv_s2d_dx': 0}
+  if launches != want:
     raise AssertionError(f'launches over {actions} actions: {launches}')
   ms_per_action = 1e3 * seconds / actions
   log(f'main path: {actions} actions, {ms_per_action:.2f} ms/action '
@@ -283,6 +354,275 @@ def phase_reference(seed):
         f'{err:.2e} at max magnitude {scale:.3e} (band 1e-4 relative)')
 
 
+def phase_check_pool_bwd(generator):
+  """pool_bwd against plain_max_pool_bwd, bitwise: the three training
+  pools in bfloat16, an odd and an overlapping case in float32, and a
+  planted tie whose cotangent must go to the first slot."""
+  cases = [(name, shape, window, strides, torch.bfloat16)
+           for name, shape, window, strides in TRAIN_POOLS]
+  cases += [('odd_f32', (2, 11, 13, 16), (3, 2), (1, 2), torch.float32),
+            ('overlap_f32', (4, 23, 23, 64), (3, 3), (2, 2), torch.float32)]
+  for name, shape, window, strides, dtype in cases:
+    x = tied_normal(shape, dtype, generator, 'cuda')
+    pads = pool.resolve_padding('SAME', window, strides, shape[1:3])
+    _, slot = pool.pool_fwd(x, window, strides, pads)
+    g = tied_normal(tuple(slot.shape), dtype, generator, 'cuda')
+    got = pool.pool_bwd(g, slot, shape, window, strides, pads)
+    want = pool.plain_max_pool_bwd(g, slot, shape, window, strides, pads)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+      raise AssertionError(f'pool_bwd {name} differs from its plain version')
+    log(f'check pool_bwd {name} {shape} {str(dtype)[6:]}: bitwise')
+    del x, slot, g, got, want
+  tie = torch.zeros((1, 4, 4, 8), device='cuda')
+  tie[0, 2, 2] = tie[0, 3, 3] = 9.0
+  _, slot = pool.pool_fwd(tie, (2, 2), (2, 2), ((0, 0), (0, 0)))
+  g = torch.full((1, 2, 2, 8), 3.0, device='cuda')
+  dx = pool.pool_bwd(g, slot, tie.shape, (2, 2), (2, 2), ((0, 0), (0, 0)))
+  torch.cuda.synchronize()
+  if float(dx[0, 2, 2].min()) != 3.0 or float(dx[0, 3, 3].abs().max()) != 0:
+    raise AssertionError('pool_bwd tie did not route to the first slot')
+  log('check pool_bwd planted tie: the cotangent goes to the first slot')
+  return 0.0
+
+
+def phase_check_conv_grads(generator):
+  """conv_s2d_dw and conv_s2d_dx against their plain versions at the
+  training conv1 shape, bfloat16 and float32 (TF32 off); dW twice."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  wshape, strides, pads = CONV1_W, (2, 2), CONV1_PADS
+  gshape = (TRAIN_BATCH, 236, 236, CONV1_W[3])
+  errors = {}
+  for dtype, rel, of_max in ((torch.bfloat16, 2.0**-7, 1e-5),
+                             (torch.float32, 0.0, 1e-5)):
+    x = torch.rand(TRAIN_CONV1_X, generator=generator, device='cuda').to(
+        dtype)
+    w = (0.1 * torch.randn(wshape, generator=generator, device='cuda')).to(
+        dtype)
+    g = torch.randn(gshape, generator=generator, device='cuda').to(dtype)
+    dw = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
+    dw_again = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
+    dx = conv_s2d.conv_s2d_dx(g, w, TRAIN_CONV1_X, strides, pads)
+    want_dw = conv_s2d.plain_conv2d_dw(x, g, wshape, strides, pads)
+    want_dx = conv_s2d.plain_conv2d_dx(g, w, TRAIN_CONV1_X, strides, pads)
+    torch.cuda.synchronize()
+    if not torch.equal(dw, dw_again):
+      raise AssertionError(f'conv_s2d_dw {dtype} is not deterministic')
+    for name, got, want in (('conv_s2d_dw', dw, want_dw),
+                            ('conv_s2d_dx', dx, want_dx)):
+      err, ok = within(got, want, rel, of_max)
+      if not ok:
+        raise AssertionError(
+            f'{name} {dtype} outside its band: max abs err {err} at max '
+            f'magnitude {float(want.float().abs().max())}')
+      errors[(name, dtype)] = err
+      log(f'check {name} {TRAIN_CONV1_X} {str(dtype)[6:]}: max abs err '
+          f'{err:.3e} at max magnitude {float(want.float().abs().max()):.3e}'
+          f' (band {rel:.1e} relative + {of_max:.0e} of the max)')
+    log(f'check conv_s2d_dw {str(dtype)[6:]} twice: bitwise equal')
+    del x, w, g, dw, dw_again, dx, want_dw, want_dx
+  return (errors[('conv_s2d_dw', torch.bfloat16)],
+          errors[('conv_s2d_dx', torch.bfloat16)])
+
+
+def train_batches(seed, count, batch, shuffle_rewards=True):
+  """Seeded (features, labels) host batches: uint8 frames, actions, 0/1
+  rewards."""
+  rng = np.random.RandomState(seed)
+  batches = []
+  for _ in range(count):
+    features = {
+        'state/image': rng.randint(0, 256, (batch, 512, 640, 3),
+                                   dtype=np.uint8),
+        'action/world_vector': rng.randn(batch, 3).astype(np.float32),
+        'action/vertical_rotation': rng.randn(batch, 2).astype(np.float32),
+    }
+    rewards = rng.randint(0, 2, (batch, 1)) if shuffle_rewards else (
+        np.arange(batch)[:, None] % 2)
+    batches.append((features, {'reward': rewards.astype(np.float32)}))
+  return batches
+
+
+def phase_train(seed, steps):
+  """The training main path at full width, batch 32, bf16."""
+  model = GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv')
+  trainer = Trainer(model, TrainerConfig(model_dir='', max_train_steps=1,
+                                         log_interval_steps=0, seed=seed))
+  batches = iter(train_batches(seed, 1 + steps, TRAIN_BATCH))
+  with _dispatch.force_kernels(True):
+    trainer.train(batches, None)  # builds the state; warm-up step
+    torch.cuda.synchronize()
+    state = trainer.state
+    params = dict(state.network.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    ema_before = {k: v.clone() for k, v in state.ema.items()}
+    copies = pool.MaxPoolArgmax.cotangent_copies
+    trainer.config.max_train_steps = 1 + steps
+    zero_counters()
+    start = time.perf_counter()
+    scalars = trainer.train(batches, None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read_counters()
+  copies = pool.MaxPoolArgmax.cotangent_copies - copies
+  want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+  if launches != want or trainer.step != 1 + steps:
+    raise AssertionError(
+        f'launches over {steps} steps: {launches}, expected {want}')
+  if not all(np.isfinite(v) for v in scalars.values()):
+    raise AssertionError(f'non-finite step summaries {scalars}')
+  for name, param in params.items():
+    if param.grad is None or not bool(torch.isfinite(param.grad).all()):
+      raise AssertionError(f'{name}: gradient {param.grad!r}')
+    if torch.equal(param.detach(), before[name]):
+      raise AssertionError(f'{name} did not move in {steps} steps')
+  ema_moved = [k for k in ema_before
+               if not torch.equal(state.ema[k], ema_before[k])]
+  if not ema_moved:
+    raise AssertionError('the EMA did not move')
+  ms_per_step = 1e3 * seconds / steps
+  log(f'train: {steps} steps at batch {TRAIN_BATCH}, {ms_per_step:.2f} '
+      f'ms/step (host clock, synchronised), loss {scalars["loss"]:.4f}, '
+      f'q_mean {scalars["q_mean"]:.4f}, launches {launches}, '
+      f'{len(params)} parameters with finite gradients, all moved; EMA '
+      f'moved in {len(ema_moved)} of {len(ema_before)}; cotangent layout '
+      f'copies {copies / steps:g} per step')
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  log(f'train: peak device memory so far {peak:.2f} GiB')
+
+  predictor = CheckpointPredictor(model, device='cuda')
+  predictor.load_state_dict(state.eval_state_dict(), global_step=trainer.step)
+  rng = np.random.RandomState(seed + 3)
+  pairs = rng.randn(8, 5).astype(np.float32)
+  with _dispatch.force_kernels(True):
+    q = predictor.predict({
+        'state/image': rng.randint(0, 256, (8, 512, 640, 3), dtype=np.uint8),
+        'action/world_vector': pairs[:, :3],
+        'action/vertical_rotation': pairs[:, 3:]})['q_predicted']
+  if q.shape != (8,) or not np.isfinite(q).all() or not (
+      (q >= 0) & (q <= 1)).all():
+    raise AssertionError(f'bad predict output from the EMA weights {q!r}')
+  log(f'train: EMA weights served, q_predicted '
+      f'{np.array2string(q, precision=4)}')
+  return ms_per_step, launches, trainer
+
+
+def phase_dx_path(generator):
+  """A full-width conv1 whose input requires a gradient launches dx."""
+  x = torch.rand(TRAIN_CONV1_X, generator=generator, device='cuda').to(
+      torch.bfloat16).requires_grad_()
+  w = (0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')).to(
+      torch.bfloat16).requires_grad_()
+  g = torch.randn((TRAIN_BATCH, 236, 236, 64), generator=generator,
+                  device='cuda').to(torch.bfloat16)
+  with _dispatch.force_kernels(True):
+    zero_counters()
+    conv_s2d.conv2d(x, w, (2, 2), 'SAME').backward(g)
+    torch.cuda.synchronize()
+    launches = read_counters()
+  want = {'pool_fwd': 0, 'pool_bwd': 0, 'conv_s2d_fwd': 1, 'conv_s2d_dw': 1,
+          'conv_s2d_dx': 1}
+  if launches != want:
+    raise AssertionError(f'dx path launches {launches}, expected {want}')
+  plain = conv_s2d.plain_conv2d_dx(g, w.detach(), TRAIN_CONV1_X, (2, 2),
+                                   CONV1_PADS)
+  err, ok = within(x.grad, plain, 2.0**-7, 1e-5)
+  if not ok:
+    raise AssertionError(f'dx path: dx outside its band, max abs err {err}')
+  log(f'dx path: conv1 {TRAIN_CONV1_X} bf16 with an input that needs a '
+      f'gradient: launches {launches}; dx max abs err {err:.3e} against '
+      'the plain version')
+  return launches['conv_s2d_dx']
+
+
+def float64_gradients(state, batch, seed):
+  """The step's loss and gradients in float64 on the CPU, stock ops: the
+  trainer's weights, and its crop (the same draws from a generator seeded
+  as the trainer's) of the same batch, on the same float32 image."""
+  model = GraspingModelWrapper(device_type='cpu', kernel_policy='none')
+  network = networks.Grasping44(dtype=None, kernel_policy='none')
+  generator = torch.Generator().manual_seed(seed)
+  model.init_network(network, generator)
+  network.load_state_dict(state)
+  network = network.double().train()
+  features, labels = batch
+  features, labels = model.preprocessor.preprocess(
+      {k: torch.from_numpy(v) for k, v in features.items()},
+      {k: torch.from_numpy(v) for k, v in labels.items()}, ModeKeys.TRAIN,
+      generator)
+  _, ends = network(features['state/image'].double(),
+                    model.grasp_params(features).double())
+  q = torch.clamp(ends['predictions'], 1e-7, 1 - 1e-7)
+  reward = labels['reward'].double().reshape(q.shape)
+  loss = -torch.mean(reward * torch.log(q) + (1 - reward) * torch.log(1 - q))
+  loss.backward()
+  return float(loss.detach()), {k: p.grad for k, p in network.named_parameters()}
+
+
+def phase_train_reference(seed):
+  """One float32 training step on the card (kernels) against the same
+  step on the CPU (plain versions), full width, batch 2, TF32 off.
+
+  The float32 gradient of the full-depth train-mode network is itself
+  ill-conditioned (batch norms over the batch, relu kinks, pool near-ties),
+  so both are also held to a float64 gradient of the same step: every
+  leaf of the card's gradient must lie no further from it, in relative L2,
+  than REFERENCE_L2_RATIO times the CPU float32 gradient's worst leaf, and
+  within REFERENCE_MAX_BAND of the leaf's largest magnitude of the CPU's."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  state = spread_weights(
+      GraspingModelWrapper(device_type='cpu').create_module(),
+      torch.Generator().manual_seed(seed))
+  batch = train_batches(seed + 4, 1, 2, shuffle_rewards=False)
+  results = {}
+  for device in ('cuda', 'cpu'):
+    model = GraspingModelWrapper(
+        device_type='cpu', kernel_policy='pool_conv',
+        init_from_checkpoint_fn=lambda network: network.load_state_dict(
+            state))
+    trainer = Trainer(model, TrainerConfig(max_train_steps=1,
+                                           log_interval_steps=0, seed=seed),
+                      device=device)
+    with _dispatch.force_kernels(device == 'cuda'):
+      scalars = trainer.train(iter(batch), None)
+    results[device] = (scalars['loss'], {
+        k: p.grad.detach().cpu().double()
+        for k, p in trainer.state.network.named_parameters()})
+  exact_loss, exact = float64_gradients(state, batch[0], seed)
+  (card_loss, card), (cpu_loss, cpu) = results['cuda'], results['cpu']
+  if not (np.isfinite(card_loss) and abs(card_loss - cpu_loss) <= 1e-4 and
+          abs(cpu_loss - exact_loss) <= 1e-4):
+    raise AssertionError(f'reference step: loss card {card_loss}, cpu '
+                         f'{cpu_loss}, float64 {exact_loss}')
+  l2 = {}
+  for name, want in exact.items():
+    norm = float(want.norm())
+    l2[name] = (float((card[name] - want).norm()) / norm,
+                float((cpu[name] - want).norm()) / norm)
+  cpu_worst = max(cpu_l2 for _, cpu_l2 in l2.values())
+  card_worst = max((card_l2, name) for name, (card_l2, _) in l2.items())
+  worst_max = (0.0, '')
+  for name, (card_l2, cpu_l2) in l2.items():
+    max_err = float((card[name] - cpu[name]).abs().max())
+    scale = float(cpu[name].abs().max())
+    if not (card_l2 <= REFERENCE_L2_RATIO * cpu_worst and
+            max_err <= REFERENCE_MAX_BAND * scale):
+      raise AssertionError(
+          f'reference step: gradient of {name}: card {card_l2:.3e} and cpu '
+          f'{cpu_l2:.3e} relative L2 from float64 (cpu worst '
+          f'{cpu_worst:.3e}); card vs cpu max err {max_err:.3e} at scale '
+          f'{scale:.3e}')
+    worst_max = max(worst_max, (max_err / max(scale, 1e-30), name))
+  log(f'reference: float32 training step at batch 2, loss card '
+      f'{card_loss:.7f}, cpu {cpu_loss:.7f}, float64 {exact_loss:.7f}; '
+      f'relative L2 from float64: cpu float32 up to {cpu_worst:.2e}, card '
+      f'up to {card_worst[0]:.2e} ({card_worst[1]}); card vs cpu max err '
+      f'up to {worst_max[0]:.2e} of the leaf\'s largest magnitude '
+      f'({worst_max[1]})')
+
+
 def pool_bytes(shape, window, strides, itemsize):
   pads = pool.resolve_padding('SAME', window, strides, shape[1:3])
   (plh, phh), (plw, phw) = pads
@@ -303,9 +643,33 @@ def library_pool(x_nhwc, window, strides, pads):
   return F.max_pool2d(x, window, strides, ceil_mode=True, return_indices=True)
 
 
-def phase_timing(generator, pool_err, conv_err, launches):
-  record = {'pool_fwd': dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                             bytes=0, ops=0)}
+def library_pool_bwd(g_nhwc, x_nhwc, indices, window, strides, pads):
+  """One aten.max_pool2d_with_indices_backward call for the same pool, on
+  the NCHW views, with the library forward's indices."""
+  (plh, _), _ = pads
+  return torch.ops.aten.max_pool2d_with_indices_backward(
+      g_nhwc.permute(0, 3, 1, 2), x_nhwc.permute(0, 3, 1, 2), list(window),
+      list(strides), [plh, plh], [1, 1], not plh, indices)
+
+
+def timing_entry(record, name, ms, plain, lib, nbytes, ops):
+  entry = record.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                       bytes=0, ops=0))
+  entry['ms'] += ms
+  entry['plain_ms'] += plain
+  entry['library_ms'] += lib
+  entry['bytes'] += nbytes
+  entry['ops'] += ops
+
+
+def bound_text(nbytes, ops):
+  return (f'bytes bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms '
+          f'({nbytes / 1e6:.1f} MB), ops bound '
+          f'{1e3 * ops / BF16_FLOP_PER_S:.4f} ms ({ops / 1e9:.2f} G)')
+
+
+def phase_timing(generator, errors, launches):
+  record = {}
   for name, shape, window, strides in POOLS:
     x = tied_normal(shape, torch.bfloat16, generator, 'cuda')
     nbytes, pads, ops = pool_bytes(shape, window, strides, 2)
@@ -317,23 +681,39 @@ def phase_timing(generator, pool_err, conv_err, launches):
     plain = cuda_ms(
         lambda: pool.plain_max_pool_argmax(x, window, strides, pads), iters=5)
     lib = cuda_ms(lambda: library_pool(x, window, strides, pads))
-    bound = 1e3 * nbytes / HBM_BYTES_PER_S
     log(f'time pool_fwd {name} {shape} bf16: kernel {ms:.4f} ms, plain '
-        f'{plain:.4f} ms, F.max_pool2d {lib:.4f} ms, bound {bound:.4f} ms '
-        f'({nbytes / 1e6:.1f} MB)')
-    entry = record['pool_fwd']
-    entry['ms'] += ms
-    entry['plain_ms'] += plain
-    entry['library_ms'] += lib
-    entry['bytes'] += nbytes
-    entry['ops'] += ops
+        f'{plain:.4f} ms, F.max_pool2d {lib:.4f} ms, '
+        f'{bound_text(nbytes, ops)}')
+    timing_entry(record, 'pool_fwd', ms, plain, lib, nbytes, ops)
     del x, lib_vals
+
+  for name, shape, window, strides in TRAIN_POOLS:
+    x = tied_normal(shape, torch.bfloat16, generator, 'cuda')
+    pads = pool.resolve_padding('SAME', window, strides, shape[1:3])
+    _, slot = pool.pool_fwd(x, window, strides, pads)
+    g = tied_normal(tuple(slot.shape), torch.bfloat16, generator, 'cuda')
+    _, indices = library_pool(x, window, strides, pads)
+    dx = pool.pool_bwd(g, slot, shape, window, strides, pads)
+    lib_dx = library_pool_bwd(g, x, indices, window, strides, pads)
+    same = torch.equal(lib_dx.permute(0, 2, 3, 1), dx)
+    ms = cuda_ms(lambda: pool.pool_bwd(g, slot, shape, window, strides, pads))
+    plain = cuda_ms(lambda: pool.plain_max_pool_bwd(
+        g, slot, shape, window, strides, pads), iters=5)
+    lib = cuda_ms(
+        lambda: library_pool_bwd(g, x, indices, window, strides, pads))
+    nbytes = slot.numel() * (2 + 4) + x.numel() * 2
+    ops = x.numel()  # one slot compare per covering window
+    log(f'time pool_bwd {name} {shape} bf16: kernel {ms:.4f} ms, plain '
+        f'{plain:.4f} ms, max_pool2d_with_indices_backward {lib:.4f} ms '
+        f'(equal to the kernel: {same}), {bound_text(nbytes, ops)}')
+    timing_entry(record, 'pool_bwd', ms, plain, lib, nbytes, ops)
+    del x, slot, g, indices, dx, lib_dx
 
   x = torch.rand(CONV1_X, generator=generator, device='cuda').to(
       torch.bfloat16)
   w = (0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')).to(
       torch.bfloat16)
-  pads = conv_s2d.resolve_padding('SAME', CONV1_W[:2], (2, 2), CONV1_X[1:3])
+  pads = CONV1_PADS
   x_cl = x.permute(0, 3, 1, 2)
   w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
   ms = cuda_ms(lambda: conv_s2d.conv_s2d_fwd(x, w, (2, 2), pads))
@@ -344,33 +724,80 @@ def phase_timing(generator, pool_err, conv_err, launches):
   nbytes = 2 * (np.prod(CONV1_X) + np.prod(CONV1_W) + pixels * CONV1_W[3])
   ops = 2 * pixels * patch * CONV1_W[3]
   log(f'time conv_s2d_fwd {CONV1_X} bf16: kernel {ms:.4f} ms, plain '
-      f'{plain:.4f} ms, F.conv2d {lib:.4f} ms, bytes bound '
-      f'{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms ({nbytes / 1e6:.1f} MB), '
-      f'ops bound {1e3 * ops / BF16_FLOP_PER_S:.4f} ms ({ops / 1e9:.1f} '
-      'GFLOP)')
-  record['conv_s2d_fwd'] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                bytes=nbytes, ops=ops)
+      f'{plain:.4f} ms, F.conv2d {lib:.4f} ms, {bound_text(nbytes, ops)}')
+  timing_entry(record, 'conv_s2d_fwd', ms, plain, lib, nbytes, ops)
+  del x, w, x_cl, w_cl
+
+  x = torch.rand(TRAIN_CONV1_X, generator=generator, device='cuda').to(
+      torch.bfloat16)
+  w = (0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')).to(
+      torch.bfloat16)
+  g = torch.randn((TRAIN_BATCH, 236, 236, 64), generator=generator,
+                  device='cuda').to(torch.bfloat16)
+  x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+  w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+  pixels = TRAIN_BATCH * 236 * 236
+  ops = 2 * pixels * patch * CONV1_W[3]
+  nbytes = 2 * (np.prod(TRAIN_CONV1_X) + np.prod(CONV1_W) +
+                pixels * CONV1_W[3])
+  for name, kernel_fn, plain_fn, lib_fn, lib_name in (
+      ('conv_s2d_dw',
+       lambda: conv_s2d.conv_s2d_dw(x, g, CONV1_W, (2, 2), pads),
+       lambda: conv_s2d.plain_conv2d_dw(x, g, CONV1_W, (2, 2), pads),
+       lambda: torch.nn.grad.conv2d_weight(x_cl, w_oihw.shape, g_cl,
+                                           stride=2, padding=2),
+       'torch.nn.grad.conv2d_weight'),
+      ('conv_s2d_dx',
+       lambda: conv_s2d.conv_s2d_dx(g, w, TRAIN_CONV1_X, (2, 2), pads),
+       lambda: conv_s2d.plain_conv2d_dx(g, w, TRAIN_CONV1_X, (2, 2), pads),
+       lambda: torch.nn.grad.conv2d_input(x_cl.shape, w_oihw, g_cl,
+                                          stride=2, padding=2),
+       'torch.nn.grad.conv2d_input')):
+    ms = cuda_ms(kernel_fn)
+    plain = cuda_ms(plain_fn, iters=5)
+    lib = cuda_ms(lib_fn)
+    log(f'time {name} {TRAIN_CONV1_X} bf16: kernel {ms:.4f} ms, plain '
+        f'{plain:.4f} ms, {lib_name} {lib:.4f} ms, {bound_text(nbytes, ops)}')
+    timing_entry(record, name, ms, plain, lib, nbytes, ops)
+  del x, w, g, x_cl, g_cl, w_oihw
 
   kernels = []
   meta = {
       'pool_fwd': ('tensor2robot_tpu_torch/ops/csrc/pool.cu',
-                   'tensor2robot_tpu/ops/pool.py:258', pool_err),
+                   'tensor2robot_tpu/ops/pool.py:258'),
+      'pool_bwd': ('tensor2robot_tpu_torch/ops/csrc/pool.cu',
+                   'tensor2robot_tpu/ops/pool.py:284'),
       'conv_s2d_fwd': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
-                       'tensor2robot_tpu/ops/conv_s2d.py:223', conv_err),
+                       'tensor2robot_tpu/ops/conv_s2d.py:223'),
+      'conv_s2d_dw': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
+                      'tensor2robot_tpu/ops/conv_s2d.py:246'),
+      'conv_s2d_dx': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
+                      'tensor2robot_tpu/ops/conv_s2d.py:269'),
   }
-  for name, (source, replaces, err) in meta.items():
+  for name, (source, replaces) in meta.items():
     entry = record[name]
     bytes_ms = 1e3 * entry['bytes'] / HBM_BYTES_PER_S
     ops_ms = 1e3 * entry['ops'] / BF16_FLOP_PER_S
     kernels.append({
         'name': name, 'route': 'cuda', 'source': source,
         'replaces': replaces, 'launches': launches[name],
-        'max_abs_err': err, 'ms': entry['ms'],
+        'max_abs_err': errors[name], 'ms': entry['ms'],
         'plain_ms': entry['plain_ms'], 'bound_ms': max(bytes_ms, ops_ms),
         'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
         'library_ms': entry['library_ms'],
     })
   return kernels
+
+
+def device_time_us(averages, prefix=''):
+  """Device time of the kernels' and copies' own rows (device_type CUDA;
+  older torch names the device time after CUDA), without the profiler's
+  own 'Activity Buffer Request' row, which shadows other activity."""
+  return sum(
+      getattr(e, 'self_device_time_total', None) or
+      getattr(e, 'self_cuda_time_total', 0) for e in averages
+      if str(getattr(e, 'device_type', '')).endswith('CUDA') and
+      e.key != 'Activity Buffer Request' and e.key.startswith(prefix))
 
 
 def phase_profile(policy, frames):
@@ -387,15 +814,38 @@ def phase_profile(policy, frames):
   table = averages.table(sort_by='self_cuda_time_total', row_limit=40)
   OUT_DIR.mkdir(exist_ok=True)
   (OUT_DIR / 'chip_smoke_profile.txt').write_text(table)
-  # The kernels' own rows (device_type CUDA); older torch names the
-  # device time after CUDA.
-  device_us = sum(
-      getattr(e, 'self_device_time_total', None) or
-      getattr(e, 'self_cuda_time_total', 0) for e in averages
-      if str(getattr(e, 'device_type', '')).endswith('CUDA'))
+  device_us = device_time_us(averages)
   log(f'profile: {device_us / 2e3:.3f} ms of device kernel time per action '
       f'(2 actions); table in chiprun_out/chip_smoke_profile.txt')
   for line in table.splitlines()[:16]:
+    log('  ' + line)
+
+
+def phase_profile_train(trainer, seed):
+  """Device time by kernel over one training step (torch.profiler)."""
+  from torch.profiler import ProfilerActivity, profile
+
+  trainer.config.max_train_steps = trainer.step + 1
+  batches = iter(train_batches(seed + 5, 1, TRAIN_BATCH))
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    with _dispatch.force_kernels(True):
+      trainer.train(batches, None)
+    torch.cuda.synchronize()
+  averages = prof.key_averages()
+  table = averages.table(sort_by='self_cuda_time_total', row_limit=50)
+  OUT_DIR.mkdir(exist_ok=True)
+  (OUT_DIR / 'chip_smoke_profile_train.txt').write_text(table)
+  device_us = device_time_us(averages)
+  upload_us = device_time_us(averages, 'Memcpy HtoD')
+  kernels = sum(e.count for e in averages
+                if str(getattr(e, 'device_type', '')).endswith('CUDA') and
+                not e.key.startswith(('Memcpy', 'Memset', 'Activity')))
+  log(f'profile: {device_us / 1e3:.3f} ms of device time per training step, '
+      f'{upload_us / 1e3:.3f} ms of it the host-to-device copy of the '
+      f'batch; {kernels} kernel launches; table in '
+      'chiprun_out/chip_smoke_profile_train.txt')
+  for line in table.splitlines()[:24]:
     log('  ' + line)
 
 
@@ -403,6 +853,7 @@ def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--actions', type=int, default=5)
+  parser.add_argument('--steps', type=int, default=3)
   parser.add_argument('--profile', action='store_true')
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
@@ -412,17 +863,34 @@ def main(argv=None):
   card = phase_card()
   phase_build()
   generator = torch.Generator(device='cuda').manual_seed(args.seed)
-  pool_err = phase_check_pool(generator)
-  conv_err = phase_check_conv(generator)
+  errors = {'pool_fwd': phase_check_pool(generator),
+            'pool_bwd': phase_check_pool_bwd(generator),
+            'conv_s2d_fwd': phase_check_conv(generator)}
+  errors['conv_s2d_dw'], errors['conv_s2d_dx'] = phase_check_conv_grads(
+      generator)
   torch.cuda.empty_cache()
-  ms_per_action, launches, policy, frames = phase_main_path(args.seed,
-                                                            args.actions)
+  ms_per_action, serve_launches, policy, frames = phase_main_path(
+      args.seed, args.actions)
   phase_reference(args.seed)
   torch.cuda.empty_cache()
-  kernels = phase_timing(generator, pool_err, conv_err, launches)
+  ms_per_step, train_launches, trainer = phase_train(args.seed, args.steps)
+  dx_launches = phase_dx_path(generator)
+  phase_train_reference(args.seed)
+  torch.cuda.empty_cache()
+  # Launches: the forward kernels over both main paths, the backward ones
+  # over the training path, dx over the path that needs it.
+  launches = {name: serve_launches[name] + train_launches[name]
+              for name in serve_launches}
+  launches['conv_s2d_dx'] = dx_launches
+  log(f'launches: serving {serve_launches} over {args.actions} actions; '
+      f'training {train_launches} over {args.steps} steps; dx path '
+      f'{dx_launches}')
+  kernels = phase_timing(generator, errors, launches)
   if args.profile:
     phase_profile(policy, frames)
-  log(f'ms/action {ms_per_action:.3f} on {card}')
+    phase_profile_train(trainer, args.seed)
+  log(f'ms/action {ms_per_action:.3f}, ms/train step {ms_per_step:.3f} at '
+      f'batch {TRAIN_BATCH} on {card}')
   log(json.dumps({'kernels': kernels}))
   log(card)
   log(json.dumps({'ok': True, 'device': {

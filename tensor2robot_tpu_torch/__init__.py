@@ -6,7 +6,9 @@ sits at the same relative path as the module it mirrors. The port imports
 pieces (specs, modes, padding rules) rather than importing them.
 
 Covered so far: the QT-Opt Grasping44 serving path, from a numpy frame
-through the predictor to the device-resident cross-entropy method, with
-hand-written CUDA kernels for the argmax-slot max pool and the
-space-to-depth first convolution (``ops/``).
+through the predictor to the device-resident cross-entropy method, and
+its training step (``train/``: TRAIN preprocessing, log loss, momentum SGD
+with a staircase learning rate, parameter averaging), with hand-written
+CUDA kernels for the argmax-slot max pool and the space-to-depth first
+convolution, forward and backward (``ops/``).
 """

@@ -1,4 +1,4 @@
-"""Model protocol and the critic base (PREDICT subset)."""
+"""Model protocol, the critic base and the optimizers."""
 
 from tensor2robot_tpu_torch.models.base import (AbstractT2RModel,
                                                 ModelInterface)

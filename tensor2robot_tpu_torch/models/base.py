@@ -1,5 +1,5 @@
-"""Model protocol, PREDICT subset: the port's counterpart of
-``tensor2robot_tpu/models/base.py``.
+"""Model protocol: the port's counterpart of
+``tensor2robot_tpu/models/base.py`` (PREDICT and the TRAIN surface).
 
 * ``get_feature_specification(mode)`` / ``get_label_specification(mode)``
   declare the device-side data contract (post-preprocessing).
@@ -10,6 +10,11 @@
   it. Train mode updates stateful buffers (batch-norm statistics) in place
   on the module, the PyTorch idiom for what the JAX package returns as
   updated variables.
+* ``model_train_fn(features, labels, inference_outputs, mode)`` returns
+  (scalar loss, scalar summaries); ``create_optimizer()`` builds the
+  optimizer factory that the train state applies to the network's
+  parameters; ``use_avg_model_params`` keeps an exponential moving average
+  of the parameters (``avg_model_params_decay``) for eval and export.
 * ``create_export_outputs_fn`` and ``pack_features`` keep their roles
   (serving outputs; a policy's state/action packing).
 """
@@ -17,7 +22,7 @@
 from __future__ import annotations
 
 import abc
-from typing import Any, Optional, Tuple, Type
+from typing import Any, Callable, Dict, Optional, Tuple, Type
 
 import torch
 from torch import nn
@@ -64,18 +69,36 @@ class AbstractT2RModel(ModelInterface):
   * ``kernel_policy``: ``'none' | 'pool' | 'pool_conv'``, which kernel
     families the network routes through its kernel entries
     (``ops/_dispatch.py``). The parameters are the same under every policy.
+  * ``create_optimizer_fn``: zero-argument factory returning an optimizer
+    factory ``fn(params) -> torch.optim.Optimizer`` (see
+    ``models/optimizers.py``); None takes Adam at 1e-4, the JAX
+    package's default.
+  * ``use_avg_model_params`` / ``avg_model_params_decay``: keep an
+    exponential moving average of the parameters in the train state.
+  * ``init_from_checkpoint_fn``: ``fn(network) -> None``, run on the freshly
+    initialised network before the optimizer and the average are built
+    (the warm-start hook; it loads weights into the module in place).
   """
 
   def __init__(self,
                preprocessor_cls: Optional[Type[AbstractPreprocessor]] = None,
+               create_optimizer_fn: Optional[Callable[[], Any]] = None,
                device_type: str = DEVICE_TYPE_GPU,
+               use_avg_model_params: bool = False,
+               avg_model_params_decay: float = 0.9999,
+               init_from_checkpoint_fn: Optional[Callable[[nn.Module],
+                                                          None]] = None,
                kernel_policy: str = 'none'):
     if device_type not in DEVICE_TYPES:
       raise ValueError(
           f'Unknown device_type {device_type!r}; expected one of '
           f'{DEVICE_TYPES}.')
     self._preprocessor_cls = preprocessor_cls
+    self._create_optimizer_fn = create_optimizer_fn
     self._device_type = device_type
+    self.use_avg_model_params = use_avg_model_params
+    self.avg_model_params_decay = avg_model_params_decay
+    self.init_from_checkpoint_fn = init_from_checkpoint_fn
     self._kernel_policy = dispatch.validate_kernel_policy(kernel_policy)
 
   @property
@@ -121,6 +144,21 @@ class AbstractT2RModel(ModelInterface):
                            labels: Optional[SpecStruct],
                            mode: str) -> SpecStruct:
     """Forward pass; returns the predictions."""
+
+  @abc.abstractmethod
+  def model_train_fn(self, features: SpecStruct,
+                     labels: Optional[SpecStruct],
+                     inference_outputs: SpecStruct,
+                     mode: str) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (scalar loss, scalar summaries) for one batch."""
+
+  def create_optimizer(self) -> Callable:
+    """The optimizer factory ``fn(params) -> torch.optim.Optimizer``."""
+    if self._create_optimizer_fn is not None:
+      return self._create_optimizer_fn()
+    from tensor2robot_tpu_torch.models import optimizers
+
+    return optimizers.default_create_optimizer_fn()
 
   def create_export_outputs_fn(self, features: SpecStruct,
                                inference_outputs: SpecStruct) -> SpecStruct:

@@ -1,18 +1,22 @@
-"""Space-to-depth first-layer conv: CUDA kernel for the card, plain version
+"""Space-to-depth first-layer conv: CUDA kernels for the card, plain versions
 for the CPU.
 
-The port's counterpart of ``tensor2robot_tpu/ops/conv_s2d.py`` (forward
-only; dW and dx come with the training slice). A shallow-input conv
-(QT-Opt conv1: 6x6/s2, 3 -> 64 channels) is computed as an im2col product
-of [pixels, kh*kw*Cin] patches with the [kh*kw*Cin, Cout] weight matrix,
-in float32 accumulation, in the tap order (dy, dx, cin).
+The port's counterpart of ``tensor2robot_tpu/ops/conv_s2d.py``. A
+shallow-input conv (QT-Opt conv1: 6x6/s2, 3 -> 64 channels) is computed as
+an im2col product of [pixels, kh*kw*Cin] patches with the [kh*kw*Cin,
+Cout] weight matrix, in float32 accumulation, in the tap order (dy, dx,
+cin). Its gradients are the patch matrix's transpose times the cotangent
+(dW, rounded once to the weights' dtype) and the transposed conv of the
+cotangent (dx).
 
 Entry points take NHWC activations and HWIO weights, as the JAX package
-does. :func:`conv2d` dispatches on the tensor's device
-(``ops/_dispatch.py``): a CUDA tensor launches :func:`conv_s2d_fwd` (the
-kernel in ``csrc/conv_s2d.cu``), a CPU tensor runs :func:`plain_conv2d`.
-Results are banded, not bitwise, against a stock convolution
-(reassociated sums): 1e-5 in float32.
+does. :func:`conv2d` goes through the autograd Function
+:class:`Conv2dS2D` on every device. A CUDA tensor launches
+:func:`conv_s2d_fwd`, :func:`conv_s2d_dw` and :func:`conv_s2d_dx` (the
+kernels in ``csrc/conv_s2d.cu``); a CPU tensor runs :func:`plain_conv2d`,
+:func:`plain_conv2d_dw` and :func:`plain_conv2d_dx`. The backward computes
+dx only when the input needs a gradient. Results are banded, not bitwise,
+against a stock convolution (reassociated sums): 1e-5 in float32.
 
 :class:`SpaceToDepthConv` is the module form. Its parameter tree is that
 of flax's ``nn.Conv``: a ``kernel`` of shape (kh, kw, cin, cout) and an
@@ -36,6 +40,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     't2r_conv_s2d_fwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 +
                         [ctypes.c_void_p],
+    't2r_conv_s2d_dw': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 +
+                       [ctypes.c_void_p],
+    't2r_conv_s2d_dx': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 +
+                       [ctypes.c_void_p],
 }
 # The patch depth kh*kw*Cin this form is for: a deep-Cin conv is already
 # matmul-shaped and belongs to the stock convolution.
@@ -46,6 +54,11 @@ _MAX_PATCH_DEPTH = 512
 # weight matrix and one [patch, pixels] patch matrix.
 _MAX_SMEM_BYTES = 232448
 _TILE_PIXELS = 64
+# dW's first pass splits the output pixels into this many fixed runs, one
+# block each, and its second pass adds the runs' float32 partials in order:
+# three blocks per SM of an H100 at conv1's shared-memory footprint. The
+# split depends on the shapes alone, so dW repeats bit for bit.
+_DW_CHUNKS = 396
 
 
 def _plan(xshape, wshape, strides, pads, x_dtype, w_dtype) -> Optional[dict]:
@@ -68,7 +81,13 @@ def _plan(xshape, wshape, strides, pads, x_dtype, w_dtype) -> Optional[dict]:
   ow = (w + plw + phw - kw) // sw + 1
   if oh < 1 or ow < 1:
     return None
-  smem = 4 * ((patch * cout + 3) // 4 * 4 + patch * _TILE_PIXELS)
+  # Shared memory of the forward (weights + patch tile) and of dW's first
+  # pass (accumulator + patch and cotangent tiles, rows padded to 4, then
+  # its pixel and tap tables); dx stages the weights alone.
+  kp, cp = -(-patch // 4) * 4, -(-cout // 4) * 4
+  smem = max(4 * ((patch * cout + 3) // 4 * 4 + patch * _TILE_PIXELS),
+             4 * (kp * cp + _TILE_PIXELS * (kp + cp)) + 16 * _TILE_PIXELS +
+             12 * kp)
   if smem > _MAX_SMEM_BYTES:
     return None
   return dict(h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw, sh=sh, sw=sw,
@@ -132,32 +151,189 @@ def conv_s2d_fwd(x: torch.Tensor, w: torch.Tensor, strides: Tuple[int, int],
 conv_s2d_fwd.launches = 0
 
 
-def plain_conv2d(x: torch.Tensor, w: torch.Tensor, strides: Tuple[int, int],
-                 pads: Pads) -> torch.Tensor:
-  """The kernel's function in plain PyTorch, on any device: an explicit
-  im2col in tap order (dy, dx, cin), then one float32 matmul."""
-  p = _require_plan(x, w, strides, pads)
+def _patches(x: torch.Tensor, p: dict) -> torch.Tensor:
+  """[pixels, kh*kw*Cin] im2col matrix of NHWC ``x``, taps (dy, dx, cin)."""
   sh, sw, oh, ow = p['sh'], p['sw'], p['oh'], p['ow']
   xp = F.pad(x, (0, 0, p['plw'], p['phw'], p['plh'], p['phh']))
   taps = [
       xp[:, dy:dy + (oh - 1) * sh + 1:sh, dx:dx + (ow - 1) * sw + 1:sw]
       for dy in range(p['kh']) for dx in range(p['kw'])
   ]
-  patches = torch.cat(taps, dim=-1).reshape(-1, p['patch'])
-  out = patches.float() @ w.reshape(p['patch'], p['cout']).float()
-  return out.reshape(x.shape[0], oh, ow, p['cout']).to(x.dtype)
+  return torch.cat(taps, dim=-1).reshape(-1, p['patch'])
+
+
+def plain_conv2d(x: torch.Tensor, w: torch.Tensor, strides: Tuple[int, int],
+                 pads: Pads) -> torch.Tensor:
+  """The kernel's function in plain PyTorch, on any device: an explicit
+  im2col in tap order (dy, dx, cin), then one float32 matmul."""
+  p = _require_plan(x, w, strides, pads)
+  out = _patches(x, p).float() @ w.reshape(p['patch'], p['cout']).float()
+  return out.reshape(x.shape[0], p['oh'], p['ow'], p['cout']).to(x.dtype)
+
+
+def _cuda_operands(what: str, *tensors: torch.Tensor) -> None:
+  device = tensors[0].device
+  if device.type != 'cuda' or any(t.device != device for t in tensors):
+    raise ValueError(
+        f'{what} takes CUDA tensors on one device, got '
+        f'{[str(t.device) for t in tensors]}.')
+  if not all(t.is_contiguous() for t in tensors):
+    raise ValueError(f'{what} takes contiguous NHWC/HWIO tensors.')
+
+
+def _require_grad_plan(what, xshape, wshape, gshape, strides, pads, dtype,
+                       g_dtype) -> dict:
+  plan = _plan(tuple(xshape), tuple(wshape), tuple(strides), pads, dtype,
+               dtype)
+  if (plan is None or g_dtype != dtype or tuple(gshape) != (
+      xshape[0], plan['oh'], plan['ow'], plan['cout'])):
+    raise ValueError(
+        f'{what} unsupported for x {tuple(xshape)}, w {tuple(wshape)}, g '
+        f'{tuple(gshape)} {g_dtype}, dtype {dtype}, strides {strides}, pads '
+        f'{pads}.')
+  return plan
+
+
+def conv_s2d_dw(x: torch.Tensor, g: torch.Tensor, w_shape: Sequence[int],
+                strides: Tuple[int, int], pads: Pads) -> torch.Tensor:
+  """Launches the dW kernel (``csrc/conv_s2d.cu``) on the current stream.
+
+  ``x``: contiguous NHWC input, ``g``: contiguous NHWC cotangent of the
+  output, both float32 or both bfloat16 on one CUDA device. Returns dW of
+  shape ``w_shape`` (HWIO) in their dtype: the float32 sum rounded once.
+  Raises on any other input, and when a launch reports an error.
+  """
+  _cuda_operands('conv_s2d_dw', x, g)
+  p = _require_grad_plan('conv_s2d_dw', x.shape, w_shape, g.shape, strides,
+                         pads, x.dtype, g.dtype)
+  partial = torch.empty((_DW_CHUNKS, p['patch'], p['cout']),
+                        dtype=torch.float32, device=x.device)
+  dw = torch.empty(tuple(w_shape), dtype=x.dtype, device=x.device)
+  lib = _build.load('conv_s2d', _SIGNATURES)
+  with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = lib.t2r_conv_s2d_dw(
+        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+        _DTYPE_CODES[x.dtype], x.shape[0], p['h'], p['w'], p['cin'],
+        p['kh'], p['kw'], p['sh'], p['sw'], p['plh'], p['plw'], p['oh'],
+        p['ow'], p['cout'], _DW_CHUNKS, stream)
+  _build.check(lib, status, 'conv_s2d_dw')
+  conv_s2d_dw.launches += 1
+  return dw
+
+
+conv_s2d_dw.launches = 0
+
+
+def conv_s2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],
+                strides: Tuple[int, int], pads: Pads) -> torch.Tensor:
+  """Launches the dx kernel (``csrc/conv_s2d.cu``) on the current stream.
+
+  ``g``: contiguous NHWC cotangent of the output, ``w``: contiguous HWIO
+  weights, both float32 or both bfloat16 on one CUDA device. Returns dx of
+  shape ``x_shape`` (NHWC) in their dtype. Raises on any other input, and
+  when the launch reports an error.
+  """
+  _cuda_operands('conv_s2d_dx', g, w)
+  p = _require_grad_plan('conv_s2d_dx', x_shape, w.shape, g.shape, strides,
+                         pads, w.dtype, g.dtype)
+  dx = torch.empty(tuple(x_shape), dtype=w.dtype, device=w.device)
+  lib = _build.load('conv_s2d', _SIGNATURES)
+  with torch.cuda.device(w.device):
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    status = lib.t2r_conv_s2d_dx(
+        g.data_ptr(), w.data_ptr(), dx.data_ptr(), _DTYPE_CODES[w.dtype],
+        x_shape[0], p['h'], p['w'], p['cin'], p['kh'], p['kw'], p['sh'],
+        p['sw'], p['plh'], p['plw'], p['oh'], p['ow'], p['cout'], stream)
+  _build.check(lib, status, 'conv_s2d_dx')
+  conv_s2d_dx.launches += 1
+  return dx
+
+
+conv_s2d_dx.launches = 0
+
+
+def plain_conv2d_dw(x: torch.Tensor, g: torch.Tensor,
+                    w_shape: Sequence[int], strides: Tuple[int, int],
+                    pads: Pads) -> torch.Tensor:
+  """dW in plain PyTorch, on any device: patchesᵀ · g in float32, rounded
+  once to x's dtype, HWIO."""
+  p = _require_grad_plan('conv2d dW', x.shape, w_shape, g.shape, strides,
+                         pads, x.dtype, g.dtype)
+  dw = _patches(x, p).float().t() @ g.reshape(-1, p['cout']).float()
+  return dw.reshape(tuple(w_shape)).to(x.dtype)
+
+
+def plain_conv2d_dx(g: torch.Tensor, w: torch.Tensor,
+                    x_shape: Sequence[int], strides: Tuple[int, int],
+                    pads: Pads) -> torch.Tensor:
+  """dx in plain PyTorch, on any device: the patch gradient g · Wᵀ in
+  float32, added back tap by tap into the padded input, cropped and
+  rounded once to w's dtype."""
+  p = _require_grad_plan('conv2d dx', x_shape, w.shape, g.shape, strides,
+                         pads, w.dtype, g.dtype)
+  sh, sw, oh, ow, cin = p['sh'], p['sw'], p['oh'], p['ow'], p['cin']
+  dpatch = g.reshape(-1, p['cout']).float() @ w.reshape(
+      p['patch'], p['cout']).float().t()
+  dpatch = dpatch.reshape(x_shape[0], oh, ow, p['patch'])
+  hp = max((oh - 1) * sh + p['kh'], p['plh'] + p['h'])
+  wp = max((ow - 1) * sw + p['kw'], p['plw'] + p['w'])
+  dxp = dpatch.new_zeros((x_shape[0], hp, wp, cin))
+  for dy in range(p['kh']):
+    for dx in range(p['kw']):
+      k = (dy * p['kw'] + dx) * cin
+      dxp[:, dy:dy + (oh - 1) * sh + 1:sh,
+          dx:dx + (ow - 1) * sw + 1:sw] += dpatch[..., k:k + cin]
+  dxp = dxp[:, p['plh']:p['plh'] + p['h'], p['plw']:p['plw'] + p['w']]
+  return dxp.to(w.dtype)
+
+
+class Conv2dS2D(torch.autograd.Function):
+  """NHWC x HWIO conv with explicit pads, differentiable in x and w.
+
+  Each direction runs the kernel for a CUDA tensor and the plain version
+  for a CPU tensor. The backward computes dW only when the weights need a
+  gradient and dx only when the input does (the image at the bottom of a
+  tower does not); both leave in the operands' dtype, so under bfloat16 dW
+  is rounded to bfloat16 before autograd casts it into a float32
+  parameter's gradient, as the JAX package does.
+  """
+
+  @staticmethod
+  def forward(ctx, x, w, strides, pads):  # pylint: disable=arguments-differ
+    if dispatch.kernels_enabled(x):
+      out = conv_s2d_fwd(x.contiguous(), w.contiguous(), strides, pads)
+    else:
+      out = plain_conv2d(x, w, strides, pads)
+    ctx.save_for_backward(x, w)
+    ctx.geometry = (strides, pads)
+    return out
+
+  @staticmethod
+  def backward(ctx, g):  # pylint: disable=arguments-differ
+    x, w = ctx.saved_tensors
+    strides, pads = ctx.geometry
+    on_card = dispatch.kernels_enabled(g)
+    if on_card:
+      x, w, g = x.contiguous(), w.contiguous(), g.contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+      dx = (conv_s2d_dx if on_card else plain_conv2d_dx)(
+          g, w, tuple(x.shape), strides, pads)
+    if ctx.needs_input_grad[1]:
+      dw = (conv_s2d_dw if on_card else plain_conv2d_dw)(
+          x, g, tuple(w.shape), strides, pads)
+    return dx, dw, None, None
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, strides: Tuple[int, int],
            padding: Union[str, Sequence[Tuple[int, int]]]) -> torch.Tensor:
-  """NHWC x HWIO conv through the kernel entry: the kernel on a CUDA
-  tensor, the plain version on a CPU tensor."""
+  """NHWC x HWIO conv through :class:`Conv2dS2D`: the kernels on a CUDA
+  tensor, the plain versions on a CPU tensor."""
   strides = tuple(strides)
   pads = resolve_padding(padding, tuple(w.shape[:2]), strides,
                          tuple(x.shape[1:3]))
-  if dispatch.kernels_enabled(x):
-    return conv_s2d_fwd(x.contiguous(), w.contiguous(), strides, pads)
-  return plain_conv2d(x, w, strides, pads)
+  return Conv2dS2D.apply(x, w, strides, pads)
 
 
 def reference_conv2d(x: torch.Tensor, w: torch.Tensor,

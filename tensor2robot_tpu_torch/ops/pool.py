@@ -1,21 +1,27 @@
-"""Argmax-slot max pool: CUDA kernel for the card, plain version for the CPU.
+"""Argmax-slot max pool: CUDA kernels for the card, plain versions for the CPU.
 
-The port's counterpart of ``tensor2robot_tpu/ops/pool.py`` (forward only;
-the routing backward comes with the training slice). The forward emits,
-beside each pooled value, the int32 row-major *window slot* that won it.
-Semantics are bitwise those of the TPU kernel:
+The port's counterpart of ``tensor2robot_tpu/ops/pool.py``. The forward
+emits, beside each pooled value, the int32 row-major *window slot* that
+won it; the backward routes the cotangent back through those slots.
+Semantics are bitwise those of the TPU kernels:
 
 * padding contributes ``-inf`` and never wins against finite data;
 * the maximum moves only on a strictly greater value, so ties keep the
-  FIRST maximal slot in row-major window order.
+  FIRST maximal slot in row-major window order;
+* where windows overlap, an input element sums the cotangents of the
+  windows that selected it in ascending (oh, ow) order, in the
+  cotangent's dtype.
 
 Entry points take NHWC tensors, as the JAX package does.
-:func:`max_pool_argmax` dispatches on the tensor's device
-(``ops/_dispatch.py``): a CUDA tensor launches :func:`pool_fwd` (the
-kernel in ``csrc/pool.cu``), a CPU tensor runs :func:`plain_max_pool_argmax`.
-:func:`reference_max_pool` is the stock ``F.max_pool2d`` form, used by
-towers whose kernel policy leaves pools off the kernel path and as a
-yardstick; no kernel entry calls it.
+:func:`max_pool_argmax` (and :func:`max_pool` on top of it) goes through
+the autograd Function :class:`MaxPoolArgmax` on every device. Its forward
+dispatches on the tensor's device (``ops/_dispatch.py``): a CUDA tensor
+launches :func:`pool_fwd` (``csrc/pool.cu``), a CPU tensor runs
+:func:`plain_max_pool_argmax`. Its backward does the same with
+:func:`pool_bwd` and :func:`plain_max_pool_bwd`. :func:`reference_max_pool`
+is the stock ``F.max_pool2d`` form, used by towers whose kernel policy
+leaves pools off the kernel path and as a yardstick; no kernel entry calls
+it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     't2r_pool_fwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 +
+                    [ctypes.c_void_p],
+    't2r_pool_bwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 +
                     [ctypes.c_void_p],
 }
 
@@ -158,14 +166,127 @@ def plain_max_pool_argmax(x: torch.Tensor, window: Tuple[int, int],
   return best, slot
 
 
+def pool_bwd(g: torch.Tensor, slot: torch.Tensor, x_shape: Sequence[int],
+             window: Tuple[int, int], strides: Tuple[int, int],
+             pads: Pads) -> torch.Tensor:
+  """Launches the routing backward (``csrc/pool.cu``) on the current stream.
+
+  ``g``: contiguous NHWC float32 or bfloat16 cotangent of the pooled
+  output, ``slot``: the forward's contiguous int32 slots of the same shape,
+  both on one CUDA device. Returns dx of shape ``x_shape`` in g's dtype.
+  Raises on any other input, and when the launch reports an error.
+  """
+  if g.device.type != 'cuda' or slot.device != g.device:
+    raise ValueError(
+        f'pool_bwd takes CUDA tensors on one device, got {g.device} and '
+        f'{slot.device}.')
+  if not (g.is_contiguous() and slot.is_contiguous()):
+    raise ValueError('pool_bwd takes a contiguous NHWC cotangent and slots.')
+  p = _plan(tuple(x_shape), tuple(window), tuple(strides), pads, g.dtype)
+  b = int(x_shape[0])
+  out_shape = (b, p['oh'], p['ow'], p['c']) if p else None
+  if (p is None or tuple(g.shape) != out_shape or
+      tuple(slot.shape) != out_shape or slot.dtype != torch.int32):
+    raise ValueError(
+        f'pool_bwd unsupported for g {tuple(g.shape)} {g.dtype}, slot '
+        f'{tuple(slot.shape)} {slot.dtype}, x shape {tuple(x_shape)}, '
+        f'window {window} strides {strides} pads {pads}.')
+  dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
+  lib = _build.load('pool', _SIGNATURES)
+  with torch.cuda.device(g.device):
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    status = lib.t2r_pool_bwd(
+        g.data_ptr(), slot.data_ptr(), dx.data_ptr(), _DTYPE_CODES[g.dtype],
+        b, p['h'], p['w'], p['c'], p['kh'], p['kw'], p['sh'], p['sw'],
+        p['plh'], p['plw'], p['oh'], p['ow'], stream)
+  _build.check(lib, status, 'pool_bwd')
+  pool_bwd.launches += 1
+  return dx
+
+
+pool_bwd.launches = 0
+
+
+def plain_max_pool_bwd(g: torch.Tensor, slot: torch.Tensor,
+                       x_shape: Sequence[int], window: Tuple[int, int],
+                       strides: Tuple[int, int], pads: Pads) -> torch.Tensor:
+  """The backward kernel's function in plain PyTorch, on any device.
+
+  Each slot's routed cotangent (``g`` where the slot won, else 0) is added
+  into the padded extent at its stride and offset, slots in reverse
+  row-major order, so the windows covering one element add in ascending
+  (oh, ow) order, in g's dtype; then the padding is cropped off.
+  """
+  p = _plan(tuple(x_shape), tuple(window), tuple(strides), pads, g.dtype)
+  if p is None or tuple(g.shape[1:3]) != (p['oh'], p['ow']):
+    raise ValueError(
+        f'max_pool backward unsupported for g {tuple(g.shape)} {g.dtype}, '
+        f'x shape {tuple(x_shape)}, window {window} strides {strides} '
+        f'pads {pads}.')
+  kh, kw, sh, sw = p['kh'], p['kw'], p['sh'], p['sw']
+  oh, ow = p['oh'], p['ow']
+  # The windows' extent in the padded input covers every padded element.
+  acc = g.new_zeros((g.shape[0], oh * sh + kh - 1, ow * sw + kw - 1,
+                     g.shape[3]))
+  zero = g.new_zeros(())
+  for dy in reversed(range(kh)):
+    for dx in reversed(range(kw)):
+      acc[:, dy:dy + (oh - 1) * sh + 1:sh,
+          dx:dx + (ow - 1) * sw + 1:sw] += torch.where(
+              slot == dy * kw + dx, g, zero)
+  return acc[:, p['plh']:p['plh'] + p['h'], p['plw']:p['plw'] + p['w']]
+
+
+class MaxPoolArgmax(torch.autograd.Function):
+  """(pooled, slot) = max pool of NHWC ``x``, differentiable in ``x``.
+
+  The forward saves the slots; the backward routes the pooled output's
+  cotangent through them. Each direction runs the kernel for a CUDA
+  tensor and the plain version for a CPU tensor. The slot output is not
+  differentiable.
+
+  A cotangent that arrives in another layout than NHWC-contiguous (the
+  towers read pooled outputs through NCHW channels-last views, so a
+  consumer may hand back an NCHW-contiguous gradient) is copied once
+  before the kernel reads it; :attr:`cotangent_copies` counts those
+  copies.
+  """
+
+  cotangent_copies = 0
+
+  @staticmethod
+  def forward(ctx, x, window, strides, pads):  # pylint: disable=arguments-differ
+    if dispatch.kernels_enabled(x):
+      out, slot = pool_fwd(x, window, strides, pads)
+    else:
+      out, slot = plain_max_pool_argmax(x, window, strides, pads)
+    ctx.save_for_backward(slot)
+    ctx.geometry = (tuple(x.shape), window, strides, pads)
+    ctx.mark_non_differentiable(slot)
+    return out, slot
+
+  @staticmethod
+  def backward(ctx, g, g_slot):  # pylint: disable=arguments-differ
+    del g_slot
+    (slot,) = ctx.saved_tensors
+    if not g.is_contiguous():
+      g = g.contiguous()
+      MaxPoolArgmax.cotangent_copies += 1
+    if dispatch.kernels_enabled(g):
+      dx = pool_bwd(g, slot, *ctx.geometry)
+    else:
+      dx = plain_max_pool_bwd(g, slot, *ctx.geometry)
+    return dx, None, None, None
+
+
 def max_pool_argmax(x: torch.Tensor, window: Tuple[int, int],
                     strides: Tuple[int, int],
                     pads: Pads) -> Tuple[torch.Tensor, torch.Tensor]:
-  """(pooled, window-slot argmax) for NHWC ``x`` with explicit ``pads``:
-  the kernel on a CUDA tensor, the plain version on a CPU tensor."""
-  if dispatch.kernels_enabled(x):
-    return pool_fwd(x, window, strides, pads)
-  return plain_max_pool_argmax(x, window, strides, pads)
+  """(pooled, window-slot argmax) for NHWC ``x`` with explicit ``pads``,
+  through :class:`MaxPoolArgmax`: the kernels on a CUDA tensor, the plain
+  versions on a CPU tensor."""
+  return MaxPoolArgmax.apply(x, tuple(window), tuple(strides),
+                             tuple(tuple(p) for p in pads))
 
 
 def max_pool(x: torch.Tensor, window_shape: Tuple[int, int],

@@ -11,9 +11,11 @@ preprocess -> network -> export outputs:
   policy) can close a whole loop on the card around it without a host
   round trip;
 * weights come from :meth:`init_randomly` (a seeded ``torch.Generator``
-  and the JAX package's initialisers) or :meth:`load_variables` (a JAX
-  variables tree as numpy, through ``utils/convert.py``). Restoring a
-  trainer checkpoint arrives with the checkpoint slice of the port.
+  and the JAX package's initialisers), :meth:`load_variables` (a JAX
+  variables tree as numpy, through ``utils/convert.py``) or
+  :meth:`load_state_dict` (the network's own ``state_dict``, e.g. a train
+  state's ``eval_state_dict()``). Restoring a trainer checkpoint arrives
+  with the checkpoint slice of the port.
 """
 
 from __future__ import annotations
@@ -150,6 +152,16 @@ class CheckpointPredictor(AbstractPredictor):
     network = self._model.create_module()
     network.load_state_dict(convert.jax_variables_to_torch(variables),
                             strict=True)
+    self._publish(network, global_step)
+
+  def load_state_dict(self, state_dict: Mapping[str, torch.Tensor],
+                      global_step: int = 0) -> None:
+    """Loads the network's ``state_dict`` (every parameter and batch
+    statistic)."""
+    network = self._model.create_module()
+    network.load_state_dict(
+        {k: v.detach().float().cpu() for k, v in state_dict.items()},
+        strict=True)
     self._publish(network, global_step)
 
   def restore(self) -> bool:

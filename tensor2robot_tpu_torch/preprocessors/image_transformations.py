@@ -1,14 +1,20 @@
-"""Device-side image crops on torch tensors.
+"""Device-side image transformations on torch tensors.
 
-The port's counterpart of the crops in
-``tensor2robot_tpu/preprocessors/image_transformations.py``. Images are
-``[batch, H, W, C]`` (uint8 or float); a crop is a view, so it costs no
-copy until the next op reads it. The photometric chain is not ported yet.
+The port's counterpart of
+``tensor2robot_tpu/preprocessors/image_transformations.py``: the crops and
+the photometric distortion chain. Images are ``[batch, H, W, C]`` (crops
+also take uint8; the photometric chain takes float images in [0, 1]). A
+crop is a view, so it costs no copy until the next op reads it.
+
+Randomness comes from an explicit ``torch.Generator`` where the JAX
+package takes a key. The two give different numbers from one seed, so a
+test that needs both packages to agree injects the crop offsets
+(``offsets=``) or leaves the distortions off.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -23,18 +29,27 @@ def _check_crop(input_shape, target_shape) -> None:
 
 def random_crop_images(images: torch.Tensor,
                        target_shape: Sequence[int],
-                       generator: Optional[torch.Generator] = None
+                       generator: Optional[torch.Generator] = None,
+                       offsets: Optional[Tuple[int, int]] = None
                        ) -> torch.Tensor:
   """Random spatial crop with ONE offset shared across the batch.
 
-  The offsets are drawn on the host from ``generator`` (a CPU generator),
-  so the crop itself is a view with no device round trip.
+  The offsets (row, column) are drawn on the host from ``generator``
+  (a CPU generator), so the crop itself is a view with no device round
+  trip; ``offsets`` injects them instead, and must lie in range.
   """
   _check_crop(images.shape, target_shape)
   th, tw = int(target_shape[0]), int(target_shape[1])
   h, w = images.shape[-3], images.shape[-2]
-  oh = int(torch.randint(0, h - th + 1, (), generator=generator))
-  ow = int(torch.randint(0, w - tw + 1, (), generator=generator))
+  if offsets is None:
+    oh = int(torch.randint(0, h - th + 1, (), generator=generator))
+    ow = int(torch.randint(0, w - tw + 1, (), generator=generator))
+  else:
+    oh, ow = (int(o) for o in offsets)
+    if not (0 <= oh <= h - th and 0 <= ow <= w - tw):
+      raise ValueError(
+          f'Crop offsets {offsets} out of range for a {target_shape} crop '
+          f'of {(h, w)}')
   return images[..., oh:oh + th, ow:ow + tw, :]
 
 
@@ -46,3 +61,130 @@ def center_crop_images(images: torch.Tensor,
   h, w = images.shape[-3], images.shape[-2]
   oh, ow = (h - th) // 2, (w - tw) // 2
   return images[..., oh:oh + th, ow:ow + tw, :]
+
+
+# ------------------------------------------------------------- color space
+
+
+def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+  """Vectorized RGB->HSV on [..., 3] tensors in [0, 1]."""
+  r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+  max_c = rgb.amax(dim=-1)
+  min_c = rgb.amin(dim=-1)
+  delta = max_c - min_c
+  safe = torch.where(delta == 0, torch.ones_like(delta), delta)
+  hue = torch.where(
+      max_c == r, (g - b) / safe % 6.0,
+      torch.where(max_c == g, (b - r) / safe + 2.0, (r - g) / safe + 4.0))
+  hue = torch.where(delta == 0, torch.zeros_like(hue), hue / 6.0)
+  sat = torch.where(max_c == 0, torch.zeros_like(delta),
+                    delta / torch.where(max_c == 0, torch.ones_like(max_c),
+                                        max_c))
+  return torch.stack([hue, sat, max_c], dim=-1)
+
+
+def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+  """Vectorized HSV->RGB on [..., 3] tensors in [0, 1]."""
+  h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+  h6 = h * 6.0
+  k = torch.stack([(5.0 + h6) % 6.0, (3.0 + h6) % 6.0, (1.0 + h6) % 6.0],
+                  dim=-1)
+  t = torch.minimum(k, torch.clamp(4.0 - k, max=1.0))
+  t = torch.clamp(t, 0.0, 1.0)
+  return v[..., None] * (1.0 - s[..., None] * t)
+
+
+# ------------------------------------------------------ photometric chain
+
+
+def adjust_brightness(images, delta):
+  return images + delta
+
+
+def adjust_saturation(images, factor):
+  hsv = rgb_to_hsv(torch.clamp(images, 0.0, 1.0))
+  hsv = torch.cat([hsv[..., :1], hsv[..., 1:2] * factor[..., None],
+                   hsv[..., 2:]], dim=-1)
+  return hsv_to_rgb(torch.clamp(hsv, 0.0, 1.0))
+
+
+def adjust_hue(images, delta):
+  hsv = rgb_to_hsv(torch.clamp(images, 0.0, 1.0))
+  hsv = torch.cat([(hsv[..., :1] + delta[..., None]) % 1.0, hsv[..., 1:]],
+                  dim=-1)
+  return hsv_to_rgb(hsv)
+
+
+def adjust_contrast(images, factor):
+  mean = images.mean(dim=(-3, -2), keepdim=True)
+  return (images - mean) * factor + mean
+
+
+def _uniform(generator, shape, low, high, device) -> torch.Tensor:
+  """Uniform [low, high) draws from ``generator``, moved to ``device``."""
+  u = torch.rand(shape, generator=generator,
+                 device=generator.device if generator is not None else 'cpu')
+  return (u * (high - low) + low).to(device)
+
+
+def apply_photometric_image_distortions(
+    images: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    random_brightness: bool = False,
+    max_delta_brightness: float = 0.125,
+    random_saturation: bool = False,
+    lower_saturation: float = 0.5,
+    upper_saturation: float = 1.5,
+    random_hue: bool = False,
+    max_delta_hue: float = 0.2,
+    random_contrast: bool = False,
+    lower_contrast: float = 0.5,
+    upper_contrast: float = 1.5,
+    random_noise_level: float = 0.0,
+    random_noise_apply_probability: float = 0.5,
+    use_fused_kernel: bool = False,
+) -> torch.Tensor:
+  """Per-image random photometric distortion chain, then a clip to [0, 1].
+
+  The options are the JAX function's; ``generator`` takes the place of its
+  key. Each enabled distortion draws independent per-image parameters from
+  ``generator`` (on the generator's device, then moved to the images'),
+  in the JAX chain's order: brightness, saturation, hue, contrast, noise.
+  With every distortion off (the default) only the clip runs.
+
+  ``use_fused_kernel`` asks for the fused brightness+contrast kernel
+  (``ops/photometric.py:72`` of the JAX package), which the port has not
+  ported yet: that combination raises instead of computing without it.
+  """
+  if (use_fused_kernel and random_brightness and random_contrast and
+      not random_saturation and not random_hue and not random_noise_level):
+    raise NotImplementedError(
+        'The fused brightness+contrast kernel (_fused_kernel, '
+        'tensor2robot_tpu/ops/photometric.py:72) is not ported yet; see '
+        'ROADMAP.md queue 2. Pass use_fused_kernel=False.')
+  batch, device = images.shape[0], images.device
+  if random_brightness:
+    delta = _uniform(generator, (batch, 1, 1, 1), -max_delta_brightness,
+                     max_delta_brightness, device)
+    images = adjust_brightness(images, delta)
+  if random_saturation:
+    factor = _uniform(generator, (batch, 1, 1), lower_saturation,
+                      upper_saturation, device)
+    images = adjust_saturation(images, factor)
+  if random_hue:
+    delta = _uniform(generator, (batch, 1, 1), -max_delta_hue, max_delta_hue,
+                     device)
+    images = adjust_hue(images, delta)
+  if random_contrast:
+    factor = _uniform(generator, (batch, 1, 1, 1), lower_contrast,
+                      upper_contrast, device)
+    images = adjust_contrast(images, factor)
+  if random_noise_level:
+    noise = torch.randn(
+        images.shape, generator=generator,
+        device=generator.device if generator is not None else 'cpu'
+    ).to(device) * random_noise_level
+    apply = _uniform(generator, (batch, 1, 1, 1), 0.0, 1.0,
+                     device) < random_noise_apply_probability
+    images = torch.where(apply, images + noise, images)
+  return torch.clamp(images, 0.0, 1.0)

@@ -1,13 +1,16 @@
-"""QT-Opt T2R model, PREDICT subset: the port's counterpart of
+"""QT-Opt T2R model: the port's counterpart of
 ``tensor2robot_tpu/research/qtopt/t2r_models.py``.
 
 * :class:`DefaultGrasping44ImagePreprocessor`: the 512x640 uint8 frame is
-  center-cropped to 472x472 and scaled to float32 [0, 1] on the device
-  (PREDICT/EVAL). TRAIN takes a random crop; its photometric distortions
-  are not ported yet and TRAIN raises rather than skip them.
-* :class:`GraspingModelWrapper`: the critic over Grasping44, with the
-  state/action specs, ``grasp_params``, ``inference_network_fn`` and
-  ``pack_features`` of the JAX wrapper.
+  cropped to 472x472 and scaled to float32 [0, 1] on the device. TRAIN
+  takes a random crop (one offset per batch) and then the photometric
+  distortion chain, which at its defaults only clips to [0, 1];
+  PREDICT/EVAL take the center crop.
+* :class:`GraspingModelWrapper`: the critic over Grasping44 with the JAX
+  wrapper's state/action specs, log loss, QT-Opt's momentum optimizer and
+  parameter averaging (``optimizer_builder``), ``grasp_params``,
+  ``inference_network_fn`` (TRAIN mode updates the batch statistics in
+  place) and ``pack_features``.
 """
 
 from __future__ import annotations
@@ -19,11 +22,12 @@ import torch
 
 from tensor2robot_tpu_torch.models import critic_model
 from tensor2robot_tpu_torch.models.base import set_mode
+from tensor2robot_tpu_torch.models.critic_model import log_loss
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.preprocessors.base import (
     SpecTransformationPreprocessor)
-from tensor2robot_tpu_torch.research.qtopt import networks
+from tensor2robot_tpu_torch.research.qtopt import networks, optimizer_builder
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec
 
 INPUT_SHAPE = (512, 640, 3)
@@ -31,7 +35,11 @@ TARGET_SHAPE = (472, 472)
 
 
 class DefaultGrasping44ImagePreprocessor(SpecTransformationPreprocessor):
-  """Crop + scale of the grasp image."""
+  """Crop + scale (+ distortions in TRAIN) of the grasp image.
+
+  TRAIN draws from the ``generator`` that ``preprocess`` threads in: the
+  crop offsets first, then the distortions' parameters.
+  """
 
   def __init__(self, input_shape=INPUT_SHAPE, target_shape=TARGET_SHAPE,
                **kwargs):
@@ -47,27 +55,50 @@ class DefaultGrasping44ImagePreprocessor(SpecTransformationPreprocessor):
   def _preprocess_fn(self, features, labels, mode, generator):
     image = features['state/image']
     if mode == ModeKeys.TRAIN:
-      raise NotImplementedError(
-          'TRAIN preprocessing applies photometric distortions, which are '
-          'not ported yet.')
-    image = image_transformations.center_crop_images(image,
-                                                     self._target_shape)
-    features['state/image'] = image.to(torch.float32) / 255.0
+      image = image_transformations.random_crop_images(
+          image, self._target_shape, generator)
+      image = image.to(torch.float32) / 255.0
+      image = image_transformations.apply_photometric_image_distortions(
+          image, generator)
+    else:
+      image = image_transformations.center_crop_images(
+          image, self._target_shape)
+      image = image.to(torch.float32) / 255.0
+    features['state/image'] = image
     return features, labels
 
 
 class GraspingModelWrapper(critic_model.CriticModel):
-  """Critic over Grasping44 (PREDICT subset of the JAX wrapper)."""
+  """Critic over Grasping44 with QT-Opt's training hyperparameters."""
 
   def __init__(self,
+               loss_function=log_loss,
+               learning_rate: float = 1e-4,
+               model_weights_averaging: float = 0.9999,
+               momentum: float = 0.9,
+               use_avg_model_params: bool = True,
+               learning_rate_decay_factor: float = 0.999,
                input_shape=INPUT_SHAPE,
                target_shape=TARGET_SHAPE,
                num_convs=(6, 6, 3),
                **kwargs):
+    self.hparams = optimizer_builder.default_hparams()
+    self.hparams.update(
+        learning_rate=learning_rate,
+        model_weights_averaging=model_weights_averaging,
+        momentum=momentum,
+        learning_rate_decay_factor=learning_rate_decay_factor,
+        use_avg_model_params=use_avg_model_params)
     self._input_shape = tuple(input_shape)
     self._target_shape = tuple(target_shape)
     self._num_convs = tuple(num_convs)
-    super().__init__(**kwargs)
+    kwargs.setdefault('create_optimizer_fn',
+                      lambda: optimizer_builder.build_opt(self.hparams))
+    super().__init__(
+        loss_function=loss_function,
+        use_avg_model_params=use_avg_model_params,
+        avg_model_params_decay=model_weights_averaging,
+        **kwargs)
 
   @property
   def default_preprocessor_cls(self):

@@ -37,7 +37,7 @@ def _c_entry_points(name):
                                          ('conv_s2d', conv_s2d)])
 def test_argtypes_match_c_signature(name, module):
   entries = _c_entry_points(name)
-  assert set(module._SIGNATURES) <= set(entries)
+  assert set(module._SIGNATURES) == set(entries)
   for fn_name, argtypes in module._SIGNATURES.items():
     assert list(argtypes) == entries[fn_name], fn_name
 

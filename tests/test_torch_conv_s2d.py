@@ -1,15 +1,17 @@
 """Port parity: the space-to-depth first-layer conv against the JAX package.
 
-The port's plain ``conv2d`` (im2col in tap order + one float32 matmul; what
-a CPU tensor runs, and what ``chip_smoke.py`` holds the CUDA kernel
-against on the card) is compared with the JAX Pallas kernel
-``pallas_conv2d`` (interpreted on the CPU) and with ``reference_conv2d``
-(``lax.conv_general_dilated``).
+The port's plain ``conv2d``, ``plain_conv2d_dw`` and ``plain_conv2d_dx``
+(im2col in tap order + float32 matmuls; what a CPU tensor runs, and what
+``chip_smoke.py`` holds the CUDA kernels against on the card) are compared
+with the JAX Pallas kernels ``pallas_conv2d`` and its VJP (interpreted on
+the CPU) and with ``reference_conv2d`` (``lax.conv_general_dilated``).
 
-Bands: 1e-5 (rtol and atol) in float32, the JAX kernel's own bar; in
-bfloat16 both sides accumulate in float32 and round once, so they may
-differ by one bfloat16 ulp where the float32 sums straddle a rounding
-boundary: rtol 2**-7.
+Bands: 1e-5 (rtol and atol) in float32, the JAX kernel's own bar, and for
+dW and dx 1e-5 of the gradient's largest magnitude (dW sums batch*H*W
+products, so its reassociation noise scales with it); in bfloat16 both
+sides accumulate in float32 and round once, so they may differ by one
+bfloat16 ulp where the float32 sums straddle a rounding boundary: rtol
+2**-7.
 """
 
 import flax.linen as nn
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tensor2robot_tpu.ops import _pallas_dispatch
 from tensor2robot_tpu.ops import conv_s2d as jax_conv
 from tensor2robot_tpu_torch.ops import conv_s2d as torch_conv
 
@@ -131,3 +134,78 @@ def test_unsupported_conv_raises():
     torch_conv.conv2d(torch.zeros((1, 8, 8, 3)),
                       torch.zeros((3, 3, 3, 8), dtype=torch.bfloat16),
                       (1, 1), 'SAME')
+
+
+def _assert_band(got, want, band=1e-5):
+  scale = float(np.abs(want).max()) or 1.0
+  np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=band)
+
+
+@pytest.mark.parametrize('xshape,wshape,strides,padding', CASES, ids=IDS)
+def test_plain_conv_grads_band_vs_jax(xshape, wshape, strides, padding):
+  """plain dW and dx against jax.grad of the JAX kernel (its dW and dx
+  kernels), and the autograd Function's gradients against both."""
+  x, w = _inputs(xshape, wshape, seed=3)
+  pads = torch_conv.resolve_padding(padding, wshape[:2], strides, xshape[1:3])
+  tx = torch.from_numpy(x).requires_grad_()
+  tw = torch.from_numpy(w).requires_grad_()
+  out = torch_conv.conv2d(tx, tw, strides, padding)
+  assert type(out.grad_fn).__name__ == 'Conv2dS2DBackward'
+  g = np.random.RandomState(4).randn(*out.shape).astype(np.float32)
+  tg = torch.from_numpy(g)
+  out.backward(tg)
+  with _pallas_dispatch.force_kernels(True):
+    want_dx, want_dw = jax.grad(
+        lambda a, b: jnp.sum(jax_conv.pallas_conv2d(a, b, strides, pads) * g),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+  want_dx, want_dw = np.asarray(want_dx), np.asarray(want_dw)
+  dw = torch_conv.plain_conv2d_dw(torch.from_numpy(x), tg, wshape, strides,
+                                  pads)
+  dx = torch_conv.plain_conv2d_dx(tg, torch.from_numpy(w), xshape, strides,
+                                  pads)
+  for got, want in ((dw, want_dw), (dx, want_dx), (tw.grad, want_dw),
+                    (tx.grad, want_dx)):
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    _assert_band(got.numpy(), want)
+
+
+def test_plain_dw_rounds_to_the_weights_dtype():
+  """Under bfloat16 dW leaves the kernel in bfloat16: the float32 sum
+  rounded once, as the JAX kernel casts to w.dtype; autograd then casts it
+  into the float32 parameter's gradient."""
+  x, w = _inputs((2, 29, 31, 3), (6, 6, 3, 8), seed=6)
+  xb = torch.from_numpy(x).to(torch.bfloat16)
+  param = torch.from_numpy(w).requires_grad_()
+  out = torch_conv.conv2d(xb, param.to(torch.bfloat16), (2, 2), 'SAME')
+  g = torch.from_numpy(
+      np.random.RandomState(2).randn(*out.shape).astype(np.float32)).to(
+          torch.bfloat16)
+  out.backward(g)
+  pads = torch_conv.resolve_padding('SAME', (6, 6), (2, 2), (29, 31))
+  dw32 = torch_conv.plain_conv2d_dw(xb.float(), g.float(), w.shape, (2, 2),
+                                    pads)
+  dwb = torch_conv.plain_conv2d_dw(xb, g, w.shape, (2, 2), pads)
+  assert dwb.dtype == torch.bfloat16
+  assert torch.equal(dwb, dw32.to(torch.bfloat16))
+  assert param.grad.dtype == torch.float32
+  assert torch.equal(param.grad, dwb.float())
+
+
+@pytest.mark.parametrize('input_grad', [False, True])
+def test_backward_computes_dx_only_when_the_input_needs_it(monkeypatch,
+                                                           input_grad):
+  calls = []
+  plain_dx = torch_conv.plain_conv2d_dx
+
+  def counting_dx(*args):
+    calls.append(1)
+    return plain_dx(*args)
+
+  monkeypatch.setattr(torch_conv, 'plain_conv2d_dx', counting_dx)
+  x, w = _inputs((1, 20, 20, 3), (6, 6, 3, 8))
+  tx = torch.from_numpy(x).requires_grad_(input_grad)
+  tw = torch.from_numpy(w).requires_grad_()
+  torch_conv.conv2d(tx, tw, (2, 2), 'SAME').sum().backward()
+  assert len(calls) == int(input_grad)
+  assert (tx.grad is not None) == input_grad
+  assert tw.grad is not None

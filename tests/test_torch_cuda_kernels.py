@@ -5,7 +5,9 @@ visible. ``chip_smoke.py`` holds the kernels at the main path's shapes;
 these tests cover the other geometries the wrappers accept (odd sizes,
 VALID and explicit pads, overlapping windows, Cout that is not a multiple
 of the kernel's 64-channel block, one and two input channels, partial
-pixel tiles). The file imports neither JAX nor the JAX package, and the
+pixel tiles), for the forward kernels and for the backward ones (pool
+routing: bitwise; conv dW and dx: the forward's bands, dW repeated bit for
+bit), and the autograd Functions launching them. The file imports neither JAX nor the JAX package, and the
 repository's ``tests/conftest.py`` does, so on a machine with a card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -95,6 +97,77 @@ def test_conv_kernel_band_vs_plain(device, name, xshape, wshape, strides,
                              atol=band if dtype == torch.float32 else 1e-6)
 
 
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('name,shape,window,strides,padding', POOL_CASES,
+                         ids=[case[0] for case in POOL_CASES])
+def test_pool_bwd_kernel_bitwise_vs_plain(device, name, shape, window,
+                                          strides, padding, dtype):
+  del name
+  x = _tied(shape, dtype, device)
+  pads = pool.resolve_padding(padding, window, strides, shape[1:3])
+  _, slot = pool.pool_fwd(x, window, strides, pads)
+  g = _tied(tuple(slot.shape), dtype, device, seed=3)
+  before = pool.pool_bwd.launches
+  got = pool.pool_bwd(g, slot, shape, window, strides, pads)
+  want = pool.plain_max_pool_bwd(g, slot, shape, window, strides, pads)
+  torch.cuda.synchronize()
+  assert pool.pool_bwd.launches == before + 1
+  assert got.dtype == dtype and tuple(got.shape) == shape
+  assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('name,xshape,wshape,strides,padding', CONV_CASES,
+                         ids=[case[0] for case in CONV_CASES])
+def test_conv_grad_kernels_band_vs_plain(device, name, xshape, wshape,
+                                         strides, padding, dtype):
+  """dW and dx in the forward's bands, relative to each gradient's largest
+  magnitude; dW twice, bit for bit."""
+  del name
+  generator = torch.Generator().manual_seed(2)
+  x = torch.randn(xshape, generator=generator).to(device=device, dtype=dtype)
+  w = (0.1 * torch.randn(wshape, generator=generator)).to(device=device,
+                                                          dtype=dtype)
+  pads = conv_s2d.resolve_padding(padding, wshape[:2], strides, xshape[1:3])
+  out_shape = conv_s2d.plain_conv2d(x, w, strides, pads).shape
+  g = torch.randn(out_shape, generator=generator).to(device=device,
+                                                     dtype=dtype)
+  before = (conv_s2d.conv_s2d_dw.launches, conv_s2d.conv_s2d_dx.launches)
+  dw = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
+  dw_again = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
+  dx = conv_s2d.conv_s2d_dx(g, w, xshape, strides, pads)
+  want_dw = conv_s2d.plain_conv2d_dw(x, g, wshape, strides, pads)
+  want_dx = conv_s2d.plain_conv2d_dx(g, w, xshape, strides, pads)
+  torch.cuda.synchronize()
+  assert (conv_s2d.conv_s2d_dw.launches,
+          conv_s2d.conv_s2d_dx.launches) == (before[0] + 2, before[1] + 1)
+  assert torch.equal(dw, dw_again)
+  band = 1e-5 if dtype == torch.float32 else 2.0**-7
+  for got, want in ((dw, want_dw), (dx, want_dx)):
+    assert got.dtype == dtype and got.shape == want.shape
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                               rtol=band, atol=band)
+
+
+def test_autograd_functions_launch_the_backward_kernels(device):
+  x = _tied((2, 12, 12, 8), torch.float32, device).requires_grad_()
+  before = (pool.pool_fwd.launches, pool.pool_bwd.launches)
+  pool.max_pool(x, (2, 2), (2, 2), 'SAME').sum().backward()
+  assert (pool.pool_fwd.launches, pool.pool_bwd.launches) == (
+      before[0] + 1, before[1] + 1)
+  image = _tied((1, 20, 20, 3), torch.float32, device)
+  kernel = _tied((6, 6, 3, 8), torch.float32, device).requires_grad_()
+  counts = (conv_s2d.conv_s2d_dw.launches, conv_s2d.conv_s2d_dx.launches)
+  conv_s2d.conv2d(image, kernel, (2, 2), 'SAME').sum().backward()
+  assert (conv_s2d.conv_s2d_dw.launches,
+          conv_s2d.conv_s2d_dx.launches) == (counts[0] + 1, counts[1])
+  image.requires_grad_()
+  conv_s2d.conv2d(image, kernel, (2, 2), 'SAME').sum().backward()
+  assert conv_s2d.conv_s2d_dx.launches == counts[1] + 1
+  assert image.grad is not None and kernel.grad is not None
+
+
 def test_kernel_entries_launch_on_cuda_tensors(device):
   x = _tied((1, 12, 12, 8), torch.float32, device)
   before = pool.pool_fwd.launches
@@ -121,3 +194,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     conv_s2d.conv_s2d_fwd(_tied((1, 8, 8, 16), torch.float32, device),
                           _tied((3, 3, 16, 4), torch.float32, device),
                           (1, 1), ((1, 1), (1, 1)))
+  _, slot = pool.pool_fwd(x, (2, 2), (2, 2), ((0, 0), (0, 0)))
+  g = _tied(tuple(slot.shape), torch.float32, device)
+  with pytest.raises(ValueError, match='contiguous'):
+    pool.pool_bwd(g.permute(0, 2, 1, 3), slot, x.shape, (2, 2), (2, 2),
+                  ((0, 0), (0, 0)))
+  with pytest.raises(ValueError, match='unsupported'):
+    pool.pool_bwd(g, slot.long(), x.shape, (2, 2), (2, 2), ((0, 0), (0, 0)))
+  image = _tied((1, 12, 12, 3), torch.float32, device)
+  cot = _tied((1, 6, 6, 8), torch.float32, device)
+  with pytest.raises(ValueError, match='unsupported'):
+    conv_s2d.conv_s2d_dw(image, cot.bfloat16(), (3, 3, 3, 8), (2, 2),
+                         ((1, 1), (1, 1)))
+  with pytest.raises(ValueError, match='unsupported'):
+    conv_s2d.conv_s2d_dx(cot, _tied((3, 3, 3, 8), torch.float32, device),
+                         (1, 13, 12, 3), (2, 2), ((1, 1), (1, 1)))
+  with pytest.raises(ValueError, match='CUDA'):
+    conv_s2d.conv_s2d_dw(image.cpu(), cot, (3, 3, 3, 8), (2, 2),
+                         ((1, 1), (1, 1)))

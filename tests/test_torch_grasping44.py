@@ -12,7 +12,8 @@ batch-norm reductions run in another order):
 * eval logits: atol 1e-5; predictions: atol 1e-6;
 * train-mode logits: atol 2e-4, since batch statistics over a batch of 4
   divide by small variances and amplify the reassociation noise;
-* batch statistics after one train-mode forward: atol 1e-6.
+* batch statistics after one train-mode forward: atol 1e-6;
+* bn1's input gradient (pool route + statistics route): atol 1e-5.
 """
 
 import jax
@@ -23,7 +24,9 @@ import torch
 from torch_port_weights import random_variables
 
 from tensor2robot_tpu.ops import _pallas_dispatch
+from tensor2robot_tpu.ops import pool as jax_pool
 from tensor2robot_tpu.research.qtopt import networks as jax_networks
+from tensor2robot_tpu_torch.ops import pool as torch_pool
 from tensor2robot_tpu_torch.research.qtopt import networks as torch_networks
 from tensor2robot_tpu_torch.utils import convert
 
@@ -149,3 +152,42 @@ def test_init_weights_is_seeded_truncated_normal():
   assert torch.equal(a['conv2.bn.scale'], torch.ones(64))
   assert torch.equal(a['bn1.var'], torch.ones(64))
   assert torch.equal(a['logit.bias'], torch.zeros(1))
+
+
+def test_pooled_batch_norm_gradient_takes_both_routes():
+  """In train mode the gradient of bn1's input arrives through the pool
+  (the MaxPoolArgmax Function) and through the pre-pool batch statistics;
+  the sum matches jax.grad of the JAX module, and dropping the statistics
+  route changes it."""
+  rng = np.random.RandomState(4)
+  x = rng.randn(2, 12, 12, 8).astype(np.float32)
+  bias = (0.1 * rng.randn(8)).astype(np.float32)
+  g = rng.randn(2, 4, 4, 8).astype(np.float32)
+  pads = ((0, 0), (0, 0))
+
+  jax_bn = jax_networks._PooledBatchNormRelu()  # pylint: disable=protected-access
+  jax_vars = {'params': {'bias': jnp.asarray(bias)},
+              'batch_stats': {'mean': jnp.zeros(8), 'var': jnp.ones(8)}}
+
+  def jax_out(v):
+    pooled = jax_pool.reference_max_pool(v, (3, 3), (3, 3), pads)
+    out, _ = jax_bn.apply(jax_vars, v, pooled, True, mutable=['batch_stats'])
+    return jnp.sum(out * g)
+
+  want = np.asarray(jax.grad(jax_out)(jnp.asarray(x)))
+
+  def torch_grad(stats_route):
+    bn = torch_networks._PooledBatchNormRelu(8, 0.9997, 0.001)  # pylint: disable=protected-access
+    bn.bias.data = torch.from_numpy(bias)
+    bn.train(True)
+    tx = torch.from_numpy(x).requires_grad_()
+    pooled, _ = torch_pool.max_pool_argmax(tx, (3, 3), (3, 3), pads)
+    assert type(pooled.grad_fn).__name__ == 'MaxPoolArgmaxBackward'
+    out = bn(tx if stats_route else tx.detach(), pooled, feature_dim=3)
+    (out * torch.from_numpy(g)).sum().backward()
+    return tx.grad.numpy()
+
+  got = torch_grad(stats_route=True)
+  np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+  pool_only = torch_grad(stats_route=False)
+  assert np.abs(pool_only - want).max() > 1e-3

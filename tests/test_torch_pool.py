@@ -1,25 +1,28 @@
 """Port parity: the argmax-slot max pool against the JAX package.
 
-The port's plain ``max_pool_argmax`` (what a CPU tensor runs; the CUDA
-kernel is held against it on the card by ``chip_smoke.py``) must equal the
-JAX Pallas pool kernel (interpreted on the CPU) BITWISE, pooled values and
-int32 slots alike, in float32 and bfloat16. Inputs come from a seeded
-numpy generator with planted ties.
+The port's plain ``max_pool_argmax`` and ``plain_max_pool_bwd`` (what a
+CPU tensor runs; the CUDA kernels are held against them on the card by
+``chip_smoke.py``) must equal the JAX Pallas pool kernels (interpreted on
+the CPU, ``force_kernels(True)``) BITWISE: pooled values, int32 slots and
+the routed input gradient alike, in float32 and bfloat16. Inputs come
+from a seeded numpy generator with planted ties.
 
 The JAX package's public ``max_pool_argmax`` refuses bfloat16 (its
 geometry plan tests ``np.issubdtype(dtype, np.floating)``, which is False
-for bfloat16), so the bfloat16 cases call its kernel launcher
-``_pool_call`` with the plan it builds for float32; the kernel body is the
-same for both dtypes. ``test_jax_pool_gate_refuses_bfloat16`` pins that
+for bfloat16), so the bfloat16 cases call its kernel launchers
+``_pool_call`` and ``_pool_grad_call`` with the plan it builds for
+float32; the kernel bodies are the same for both dtypes. ``test_jax_pool_gate_refuses_bfloat16`` pins that
 fault of the JAX package.
 """
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+from tensor2robot_tpu.ops import _pallas_dispatch
 from tensor2robot_tpu.ops import pool as jax_pool
 from tensor2robot_tpu_torch.ops import pool as torch_pool
 
@@ -150,3 +153,87 @@ def test_unsupported_geometry_raises():
   with pytest.raises(ValueError):
     torch_pool.max_pool_argmax(x.to(torch.int32), (2, 2), (2, 2),
                                ((0, 0), (0, 0)))
+
+
+def _jax_pool_bwd(x, g, window, strides, pads):
+  """dx of the JAX Pallas pool: its custom VJP (the routing kernel) on
+  float32, its backward launcher on bfloat16 (see module docstring)."""
+  with _pallas_dispatch.force_kernels(True):
+    if x.dtype == jnp.float32:
+      _, vjp = jax.vjp(
+          lambda v: jax_pool.pallas_max_pool(v, window, strides, pads), x)
+      return vjp(g)[0]
+    plan = jax_pool._plan(x.shape, window, strides, pads, np.float32)  # pylint: disable=protected-access
+    _, slot = jax_pool._pool_call(x, plan)  # pylint: disable=protected-access
+    return jax_pool._pool_grad_call(g, slot, x.shape, plan)  # pylint: disable=protected-access
+
+
+@pytest.mark.parametrize('dtype_name', sorted(DTYPES))
+@pytest.mark.parametrize('name,shape,window,strides,padding', CASES,
+                         ids=[c[0] for c in CASES])
+def test_plain_pool_bwd_bitwise_vs_jax(name, shape, window, strides, padding,
+                                       dtype_name):
+  """The routed input gradient, QT-Opt pads (asymmetric at pool1/pool3),
+  overlapping windows (ordered sums in the cotangent's dtype), VALID
+  tails that no window covers, and ties."""
+  del name
+  jx, tx = _both(_tied(shape, seed=sum(shape)), dtype_name)
+  pads = torch_pool.resolve_padding(padding, window, strides, shape[1:3])
+  out, slot = torch_pool.plain_max_pool_argmax(tx, window, strides, pads)
+  g32 = _tied(tuple(out.shape), seed=7)
+  jg, tg = _both(g32, dtype_name)
+  got = torch_pool.plain_max_pool_bwd(tg, slot, shape, window, strides, pads)
+  want = _jax_pool_bwd(jx, jg, window, strides, pads)
+  assert got.dtype == tg.dtype and tuple(got.shape) == shape
+  np.testing.assert_array_equal(got.float().numpy(),
+                                np.asarray(want).astype(np.float32))
+
+
+@pytest.mark.parametrize('dtype_name', sorted(DTYPES))
+def test_pool_bwd_tie_routes_to_first_slot(dtype_name):
+  """A planted tie: the whole cotangent goes to the first maximal slot."""
+  x = np.zeros((1, 4, 4, 8), np.float32)
+  x[0, 2, 2] = x[0, 3, 3] = 9.0
+  _, tx = _both(x, dtype_name)
+  pads = ((0, 0), (0, 0))
+  _, slot = torch_pool.max_pool_argmax(tx, (2, 2), (2, 2), pads)
+  g = torch.full((1, 2, 2, 8), 3.0, dtype=tx.dtype)
+  dx = torch_pool.plain_max_pool_bwd(g, slot, x.shape, (2, 2), (2, 2), pads)
+  assert (dx[0, 2, 2].float() == 3.0).all()
+  assert (dx[0, 3, 3].float() == 0.0).all()
+  assert float(dx.float().sum()) == 4 * 8 * 3.0
+
+
+def test_pool_function_is_differentiable_on_cpu():
+  """max_pool_argmax goes through the MaxPoolArgmax Function on a CPU
+  tensor: its backward is the plain routing backward, and the slots carry
+  no gradient."""
+  x = torch.from_numpy(_tied((2, 23, 23, 8), seed=4)).requires_grad_()
+  pads = torch_pool.resolve_padding('SAME', (3, 3), (2, 2), (23, 23))
+  out, slot = torch_pool.max_pool_argmax(x, (3, 3), (2, 2), pads)
+  assert type(out.grad_fn).__name__ == 'MaxPoolArgmaxBackward'
+  assert not slot.requires_grad
+  g = torch.from_numpy(_tied(tuple(out.shape), seed=9))
+  out.backward(g)
+  want = torch_pool.plain_max_pool_bwd(g, slot, x.shape, (3, 3), (2, 2),
+                                       pads)
+  assert torch.equal(x.grad, want)
+  pooled = torch_pool.max_pool(x, (2, 2), (2, 2), 'SAME')
+  assert type(pooled.grad_fn).__name__ == 'MaxPoolArgmaxBackward'
+
+
+def test_pool_bwd_copies_a_cotangent_in_another_layout_once():
+  """A consumer reading the pooled NHWC output through an NCHW view may
+  hand back an NCHW-contiguous gradient: it is copied to NHWC once,
+  counted, and routes as the contiguous one does."""
+  x = torch.from_numpy(_tied((2, 12, 12, 8), seed=6)).requires_grad_()
+  pads = ((0, 0), (0, 0))
+  out, slot = torch_pool.max_pool_argmax(x, (2, 2), (2, 2), pads)
+  g_nchw = torch.from_numpy(_tied((2, 8, 6, 6), seed=8))
+  before = torch_pool.MaxPoolArgmax.cotangent_copies
+  (out.permute(0, 3, 1, 2) * g_nchw).sum().backward()
+  assert torch_pool.MaxPoolArgmax.cotangent_copies == before + 1
+  want = torch_pool.plain_max_pool_bwd(
+      g_nchw.permute(0, 2, 3, 1).contiguous(), slot, x.shape, (2, 2),
+      (2, 2), pads)
+  assert torch.equal(x.grad, want)
