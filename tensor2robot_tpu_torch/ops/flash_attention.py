@@ -1,0 +1,417 @@
+"""Flash attention: CUDA kernels for the card, plain versions for the CPU.
+
+The port's counterpart of ``tensor2robot_tpu/ops/flash_attention.py``:
+[B, T, H, D] attention with O(T·D) memory, the online-softmax forward and
+the FlashAttention-2 backward (dq in a q-tile grid, dk/dv in a k-tile grid,
+``delta = rowsum(dO ⊙ O)`` precomputed in plain torch).
+
+* :func:`flash_attention` goes through the autograd Function
+  :class:`FlashAttention` on every device. Its forward dispatches on the
+  tensors' device (``ops/_dispatch.py``): a CUDA tensor launches
+  :func:`flash_fwd` (``csrc/flash_attention.cu``), a CPU tensor runs
+  :func:`plain_flash_fwd`. Its backward does the same with
+  :func:`flash_dq` / :func:`flash_dkv` and their plain versions.
+* The plain versions transcribe the JAX package's staged kernels
+  (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) block by block, with
+  the blocks :func:`_resolve_blocks` picks and the same clamps. The
+  streamed TPU kernels compute the same function in another order of
+  grid steps; the CUDA kernels tile K/V through shared memory in every
+  regime, so one kernel per function covers both.
+* :func:`is_supported`, :func:`_check`, :func:`_use_streamed` and
+  :func:`_resolve_blocks` keep the JAX package's thresholds and messages,
+  with the 8-row block minimum the package applies off-TPU (the 128-row
+  minimum was Mosaic's lane tile, which a CUDA kernel does not have).
+
+Layout: the kernels read q, k, v and the cotangent through their
+[B, T, H, D] strides (no head fold copy); the logsumexp is float32
+[B*H, 1, T], as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from tensor2robot_tpu_torch.ops import _build
+from tensor2robot_tpu_torch.ops import _dispatch as dispatch
+
+_NEG_INF = -1e30  # large-negative instead of -inf, as in the JAX kernels
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURES = {
+    't2r_flash_fwd': [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
+                     [ctypes.c_float, ctypes.c_void_p],
+    't2r_flash_dq': [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
+                    [ctypes.c_float, ctypes.c_void_p],
+    't2r_flash_dkv': [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
+                     [ctypes.c_float, ctypes.c_void_p],
+}
+
+DEFAULT_BLOCK_Q = 256
+DEFAULT_BLOCK_K = 512
+
+# The JAX package's regime switch: whole-sequence K/V staging fits a TPU
+# core's VMEM up to 2·t·d·itemsize ≤ 8 MB; past it the streamed kernels
+# take over. Kept so the block defaults (and the function's summation
+# order) resolve as in the JAX package.
+_MAX_STAGED_KV_BYTES = 8 * 1024 * 1024
+_STREAMED_BLOCK = 1024
+_MIN_BLOCK = 8
+
+
+def _use_streamed(t: int, d: int, itemsize: int = 2) -> bool:
+  return 2 * t * d * itemsize > _MAX_STAGED_KV_BYTES
+
+
+def _resolve_blocks(t: int, d: int, block_q: Optional[int],
+                    block_k: Optional[int],
+                    itemsize: int = 2) -> Tuple[int, int]:
+  """Regime-dependent block defaults (None → auto)."""
+  if block_q is None or block_k is None:
+    if _use_streamed(t, d, itemsize):
+      best = next((blk for blk in (_STREAMED_BLOCK, 512, 256, 128, 8)
+                   if t % blk == 0), DEFAULT_BLOCK_Q)
+      block_q = block_q if block_q is not None else best
+      block_k = block_k if block_k is not None else best
+    else:
+      block_q = block_q if block_q is not None else DEFAULT_BLOCK_Q
+      block_k = block_k if block_k is not None else DEFAULT_BLOCK_K
+  return block_q, block_k
+
+
+def is_supported(t: int, d: int, block_q: Optional[int] = None,
+                 block_k: Optional[int] = None, itemsize: int = 2) -> bool:
+  """Whether :func:`flash_attention` handles a [_, t, _, d] problem: head
+  dim a multiple of 8 up to 128, ``t`` divisible by the resolved blocks,
+  blocks multiples of 8. ``itemsize`` is the input's, so the regime (and
+  with it the blocks) resolves as the call will."""
+  block_q, block_k = _resolve_blocks(t, d, block_q, block_k, itemsize)
+  bq, bk = min(block_q, t), min(block_k, t)
+  return (0 < d <= 128 and d % 8 == 0 and
+          t % bq == 0 and t % bk == 0 and
+          bq % _MIN_BLOCK == 0 and bk % _MIN_BLOCK == 0)
+
+
+def _check(q: torch.Tensor, block_q, block_k) -> Tuple[int, int]:
+  _, t, _, d = q.shape
+  if d > 128:
+    raise ValueError(f'flash_attention requires head dim <= 128, got {d}')
+  itemsize = q.dtype.itemsize
+  block_q, block_k = _resolve_blocks(t, d, block_q, block_k, itemsize)
+  bq, bk = min(block_q, t), min(block_k, t)
+  if t % bq or t % bk:
+    raise ValueError(
+        f'sequence length {t} must be divisible by block sizes '
+        f'({bq}, {bk}); pad the sequence.')
+  if not is_supported(t, d, block_q, block_k, itemsize=itemsize):
+    raise ValueError(
+        f'flash_attention unsupported for T={t}, D={d} '
+        f'(alignment; see is_supported).')
+  return bq, bk
+
+
+def _scale(d: int) -> float:
+  return 1.0 / math.sqrt(d)
+
+
+# ----------------------------------------------------- plain versions
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+  """[B, T, H, D] → float32 [B*H, T, D]."""
+  b, t, h, d = x.shape
+  return x.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
+
+
+def _unfold(x: torch.Tensor, b: int, h: int, dtype) -> torch.Tensor:
+  bh, t, d = x.shape
+  return x.reshape(b, h, t, d).permute(0, 2, 1, 3).to(dtype).contiguous()
+
+
+def _scores(q, k, q0, k0, causal, scale=None):
+  """Scaled (optional) masked q·kᵀ block scores, (q0, k0) the blocks'
+  offsets: the JAX package's ``_scores``."""
+  s = torch.matmul(q, k.transpose(-1, -2))
+  if scale is not None:
+    s = s * scale
+  if causal:
+    bq, bk = s.shape[-2:]
+    qpos = q0 + torch.arange(bq, device=s.device)[:, None]
+    kpos = k0 + torch.arange(bk, device=s.device)[None, :]
+    s = torch.where(qpos >= kpos, s, torch.full_like(s, _NEG_INF))
+  return s
+
+
+def _online_softmax_step(s, m, l, acc, v):
+  """One flash accumulator update from a block of scores."""
+  m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+  # Rows with every key masked so far have m_new == _NEG_INF; clamp the
+  # subtrahend so exp(_NEG_INF - m_new) stays 0 instead of exp(0) = 1.
+  m_sub = torch.clamp_min(m_new, 0.5 * _NEG_INF)
+  p = torch.exp(s - m_sub)
+  corr = torch.exp(m - m_sub)
+  l = l * corr + p.sum(dim=-1, keepdim=True)
+  acc = acc * corr + torch.matmul(p, v)
+  return m_new, l, acc
+
+
+def _ds_block(s, lse, do, v, delta):
+  """FlashAttention-2 backward core: (p, ds) from the saved logsumexp."""
+  p = torch.exp(s - lse)
+  dp = torch.matmul(do, v.transpose(-1, -2))
+  return p, p * (dp - delta)
+
+
+def plain_flash_fwd(q, k, v, causal: bool = False,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None):
+  """The forward kernel's function in plain PyTorch, on any device.
+
+  Returns (out [B, T, H, D] in q's dtype, lse float32 [B*H, 1, T]).
+  """
+  b, t, h, d = q.shape
+  bq, bk = _check(q, block_q, block_k)
+  scale = _scale(d)
+  qf, kf, vf = _fold(q) * scale, _fold(k), _fold(v)
+  nk = t // bk
+  outs, lses = [], []
+  for qb in range(t // bq):
+    qblk = qf[:, qb * bq:(qb + 1) * bq]
+    m = qblk.new_full((b * h, bq, 1), _NEG_INF)
+    l = qblk.new_zeros((b * h, bq, 1))
+    acc = qblk.new_zeros((b * h, bq, d))
+    # Causal: only key blocks at/before this q block's diagonal contribute.
+    nk_eff = min((qb * bq + bq + bk - 1) // bk, nk) if causal else nk
+    for i in range(nk_eff):
+      s = _scores(qblk, kf[:, i * bk:(i + 1) * bk], qb * bq, i * bk, causal)
+      m, l, acc = _online_softmax_step(s, m, l, acc,
+                                       vf[:, i * bk:(i + 1) * bk])
+    l = torch.clamp_min(l, 1e-30)
+    outs.append(acc / l)
+    lses.append((m + torch.log(l))[..., 0])
+  out = _unfold(torch.cat(outs, dim=1), b, h, q.dtype)
+  return out, torch.cat(lses, dim=1)[:, None, :]
+
+
+def plain_flash_dq(q, k, v, do, lse, delta, causal: bool = False,
+                   block_q: Optional[int] = None,
+                   block_k: Optional[int] = None):
+  """The dq kernel's function in plain PyTorch: ``lse`` and ``delta`` are
+  float32 [B*H, 1, T]; returns dq [B, T, H, D] in q's dtype."""
+  b, t, h, d = q.shape
+  bq, bk = _check(q, block_q, block_k)
+  scale = _scale(d)
+  qf, kf, vf, dof = _fold(q), _fold(k), _fold(v), _fold(do)
+  lse, delta = lse[:, 0, :, None], delta[:, 0, :, None]
+  nk = t // bk
+  dqs = []
+  for qb in range(t // bq):
+    rows = slice(qb * bq, (qb + 1) * bq)
+    dq = qf.new_zeros((b * h, bq, d))
+    nk_eff = min((qb * bq + bq + bk - 1) // bk, nk) if causal else nk
+    for i in range(nk_eff):
+      kblk = kf[:, i * bk:(i + 1) * bk]
+      s = _scores(qf[:, rows], kblk, qb * bq, i * bk, causal, scale)
+      _, ds = _ds_block(s, lse[:, rows], dof[:, rows],
+                        vf[:, i * bk:(i + 1) * bk], delta[:, rows])
+      dq = dq + torch.matmul(ds, kblk)
+    dqs.append(dq * scale)
+  return _unfold(torch.cat(dqs, dim=1), b, h, q.dtype)
+
+
+def plain_flash_dkv(q, k, v, do, lse, delta, causal: bool = False,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None):
+  """The dk/dv kernel's function in plain PyTorch; returns (dk, dv)
+  [B, T, H, D] in k's and v's dtypes."""
+  b, t, h, d = q.shape
+  bq, bk = _check(q, block_q, block_k)
+  scale = _scale(d)
+  qf, kf, vf, dof = _fold(q), _fold(k), _fold(v), _fold(do)
+  lse, delta = lse[:, 0, :, None], delta[:, 0, :, None]
+  nq = t // bq
+  dks, dvs = [], []
+  for kb in range(t // bk):
+    keys = slice(kb * bk, (kb + 1) * bk)
+    dk = kf.new_zeros((b * h, bk, d))
+    dv = kf.new_zeros((b * h, bk, d))
+    # Causal: only q blocks at/after this k block's diagonal contribute.
+    start = (kb * bk) // bq if causal else 0
+    for i in range(start, nq):
+      rows = slice(i * bq, (i + 1) * bq)
+      s = _scores(qf[:, rows], kf[:, keys], i * bq, kb * bk, causal, scale)
+      p, ds = _ds_block(s, lse[:, rows], dof[:, rows], vf[:, keys],
+                        delta[:, rows])
+      dv = dv + torch.matmul(p.transpose(-1, -2), dof[:, rows])
+      dk = dk + torch.matmul(ds.transpose(-1, -2), qf[:, rows])
+    dks.append(dk * scale)
+    dvs.append(dv)
+  return (_unfold(torch.cat(dks, dim=1), b, h, k.dtype),
+          _unfold(torch.cat(dvs, dim=1), b, h, v.dtype))
+
+
+def flash_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+  """``rowsum(dO ⊙ O)`` in float32 as [B*H, 1, T], computed outside the
+  kernels as the JAX package does."""
+  b, t, h, _ = out.shape
+  delta = (do.float() * out.float()).sum(dim=-1)  # [B, T, H]
+  return delta.permute(0, 2, 1).reshape(b * h, 1, t).contiguous()
+
+
+# ------------------------------------------------------- CUDA kernels
+
+
+def _require_cuda(what: str, *tensors: torch.Tensor) -> None:
+  device = tensors[0].device
+  if device.type != 'cuda' or any(x.device != device for x in tensors):
+    raise ValueError(
+        f'{what} takes CUDA tensors on one device, got '
+        f'{[str(x.device) for x in tensors]}.')
+  if not all(x.is_contiguous() for x in tensors):
+    raise ValueError(f'{what} takes contiguous tensors.')
+
+
+def _require_qkv(what: str, q, k, v, *like) -> None:
+  _require_cuda(what, q, k, v, *like)
+  if q.dim() != 4 or q.dtype not in _DTYPE_CODES:
+    raise ValueError(
+        f'{what} takes [B, T, H, D] float32 or bfloat16 tensors, got '
+        f'{tuple(q.shape)} {q.dtype}.')
+  for x in (k, v) + like:
+    if x.shape != q.shape or x.dtype != q.dtype:
+      raise ValueError(
+          f'{what}: every [B, T, H, D] operand must match q '
+          f'{tuple(q.shape)} {q.dtype}, got {tuple(x.shape)} {x.dtype}.')
+  d = q.shape[3]
+  if not (8 <= d <= 128 and d % 8 == 0):
+    raise ValueError(f'{what} takes a head dim in 8..128, a multiple of 8, '
+                     f'got {d}.')
+
+
+def _require_stats(what: str, q, *stats) -> None:
+  b, t, h, _ = q.shape
+  for x in stats:
+    if (x.dtype != torch.float32 or tuple(x.shape) != (b * h, 1, t) or
+        x.device != q.device or not x.is_contiguous()):
+      raise ValueError(
+          f'{what} takes contiguous float32 [B*H, 1, T] = {(b * h, 1, t)} '
+          f'statistics on {q.device}, got {tuple(x.shape)} {x.dtype} on '
+          f'{x.device}.')
+
+
+def _launch(fn_name: str, what: str, q: torch.Tensor, causal: bool,
+            *pointers) -> None:
+  b, t, h, d = q.shape
+  lib = _build.load('flash_attention', _SIGNATURES)
+  with torch.cuda.device(q.device):
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = getattr(lib, fn_name)(
+        *(x.data_ptr() for x in pointers), _DTYPE_CODES[q.dtype], b, t, h, d,
+        int(bool(causal)), _scale(d), stream)
+  _build.check(lib, status, what)
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Launches the forward kernel (``csrc/flash_attention.cu``) on the
+  current stream. q, k, v: contiguous [B, T, H, D] float32 or bfloat16 on
+  one CUDA device. Returns (out in q's dtype, lse float32 [B*H, 1, T]).
+  Raises on any other input, and when the launch reports an error."""
+  _require_qkv('flash_fwd', q, k, v)
+  b, t, h, _ = q.shape
+  out = torch.empty_like(q)
+  lse = torch.empty((b * h, 1, t), dtype=torch.float32, device=q.device)
+  _launch('t2r_flash_fwd', 'flash_fwd', q, causal, q, k, v, out, lse)
+  flash_fwd.launches += 1
+  return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_dq(q, k, v, do, lse, delta, causal: bool = False) -> torch.Tensor:
+  """Launches the dq kernel on the current stream: q, k, v, do as for
+  :func:`flash_fwd`, ``lse`` the forward's, ``delta`` from
+  :func:`flash_delta`. Returns dq in q's dtype."""
+  _require_qkv('flash_dq', q, k, v, do)
+  _require_stats('flash_dq', q, lse, delta)
+  dq = torch.empty_like(q)
+  _launch('t2r_flash_dq', 'flash_dq', q, causal, q, k, v, do, lse, delta, dq)
+  flash_dq.launches += 1
+  return dq
+
+
+flash_dq.launches = 0
+
+
+def flash_dkv(q, k, v, do, lse, delta,
+              causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Launches the dk/dv kernel on the current stream (arguments as
+  :func:`flash_dq`). Returns (dk, dv) in the inputs' dtype."""
+  _require_qkv('flash_dkv', q, k, v, do)
+  _require_stats('flash_dkv', q, lse, delta)
+  dk = torch.empty_like(k)
+  dv = torch.empty_like(v)
+  _launch('t2r_flash_dkv', 'flash_dkv', q, causal, q, k, v, do, lse, delta,
+          dk, dv)
+  flash_dkv.launches += 1
+  return dk, dv
+
+
+flash_dkv.launches = 0
+
+
+# ------------------------------------------------------ autograd + api
+
+
+class FlashAttention(torch.autograd.Function):
+  """out = softmax(q·kᵀ/√D [+ causal mask])·v on [B, T, H, D], with the
+  FlashAttention-2 backward.
+
+  The forward saves q, k, v, out and the float32 logsumexp; the backward
+  computes ``delta`` in plain torch, then dq and dk/dv. Each direction
+  runs the kernels for CUDA tensors and the plain versions for CPU
+  tensors.
+  """
+
+  @staticmethod
+  def forward(ctx, q, k, v, causal, block_q, block_k):  # pylint: disable=arguments-differ
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check(q, block_q, block_k)
+    if dispatch.kernels_enabled(q):
+      out, lse = flash_fwd(q, k, v, causal)
+    else:
+      out, lse = plain_flash_fwd(q, k, v, causal, block_q, block_k)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.config = (causal, block_q, block_k)
+    return out
+
+  @staticmethod
+  def backward(ctx, g):  # pylint: disable=arguments-differ
+    q, k, v, out, lse = ctx.saved_tensors
+    causal, block_q, block_k = ctx.config
+    g = g.contiguous().to(q.dtype)
+    delta = flash_delta(out, g)
+    if dispatch.kernels_enabled(g):
+      dq = flash_dq(q, k, v, g, lse, delta, causal)
+      dk, dv = flash_dkv(q, k, v, g, lse, delta, causal)
+    else:
+      dq = plain_flash_dq(q, k, v, g, lse, delta, causal, block_q, block_k)
+      dk, dv = plain_flash_dkv(q, k, v, g, lse, delta, causal, block_q,
+                               block_k)
+    return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
+  """[B, T, H, D] attention, O(T·D) memory, through
+  :class:`FlashAttention`. Same contract as
+  ``parallel.sequence_parallel.reference_attention``. ``block_q`` /
+  ``block_k`` default per regime (see :func:`_resolve_blocks`); they set
+  the plain versions' blocks, while the kernels tile by 64 in every
+  regime."""
+  return FlashAttention.apply(q, k, v, causal, block_q, block_k)

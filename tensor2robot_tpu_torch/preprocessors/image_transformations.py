@@ -14,8 +14,10 @@ test that needs both packages to agree injects the crop offsets
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -61,6 +63,66 @@ def center_crop_images(images: torch.Tensor,
   h, w = images.shape[-3], images.shape[-2]
   oh, ow = (h - th) // 2, (w - tw) // 2
   return images[..., oh:oh + th, ow:ow + tw, :]
+
+
+@functools.lru_cache(maxsize=None)
+def resize_weights(input_size: int, output_size: int) -> np.ndarray:
+  """[output_size, input_size] float32 weights of ``jax.image.resize(...,
+  method='bilinear')`` along one axis: the rows of resizing an identity.
+
+  The triangle kernel is widened by the inverse scale on a downscale
+  (antialiasing), each output's weights are normalised to sum to 1, and
+  outputs whose sample point falls outside the input get none; computed
+  in float32 as ``jax.image.scale.compute_weight_mat`` computes it.
+  ``F.interpolate`` does not antialias this way, so it is not used.
+  """
+  if input_size == output_size:
+    return np.eye(output_size, dtype=np.float32)
+  f32 = np.float32
+  inv_scale = f32(1.0 / (output_size / input_size))
+  kernel_scale = max(inv_scale, f32(1.0))
+  # XLA contracts (i + 0.5) * inv_scale - 0.5 into one fused multiply-add
+  # (one rounding): the float64 product of two float32 values is exact.
+  sample_f = ((np.arange(output_size, dtype=f32) + f32(0.5)).astype(
+      np.float64) * np.float64(inv_scale) - 0.5).astype(f32)
+  x = np.abs(sample_f[None, :] - np.arange(input_size, dtype=f32)[:, None]
+            ) * (f32(1.0) / kernel_scale)
+  weights = np.maximum(f32(0.0), f32(1.0) - x)
+  total = weights.sum(axis=0, keepdims=True, dtype=f32)
+  weights = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                     weights / np.where(total != 0, total, f32(1.0)),
+                     f32(0.0))
+  inside = (sample_f >= -0.5) & (sample_f <= input_size - 0.5)
+  return np.ascontiguousarray(
+      np.where(inside[None, :], weights, f32(0.0)).T.astype(f32))
+
+
+def crop_resize_images(offset_y: int, offset_x: int, images: torch.Tensor,
+                       crop_shape: Sequence[int],
+                       target_shape: Sequence[int]) -> torch.Tensor:
+  """Bilinear ``resize(crop(images, offset, crop_shape), target_shape)``
+  as two contractions with per-axis weight matrices (:func:`resize_weights`):
+  an H pass, then a W pass, over the crop (a view).
+
+  The JAX package pads its matrices to the full image and rolls them by
+  the offset; contracting the cropped view with the unpadded matrices
+  sums the same non-zero terms. Input may be uint8; the output is
+  float32 in the input's units (divide by 255 afterwards).
+  """
+  _check_crop(images.shape, crop_shape)
+  th, tw = int(target_shape[0]), int(target_shape[1])
+  ch, cw = int(crop_shape[0]), int(crop_shape[1])
+  h, w = images.shape[-3], images.shape[-2]
+  oy, ox = int(offset_y), int(offset_x)
+  if not (0 <= oy <= h - ch and 0 <= ox <= w - cw):
+    raise ValueError(
+        f'Crop offsets {(oy, ox)} out of range for a {crop_shape} crop of '
+        f'{(h, w)}')
+  a_h = torch.from_numpy(resize_weights(ch, th)).to(images.device)
+  a_w = torch.from_numpy(resize_weights(cw, tw)).to(images.device)
+  x = images[..., oy:oy + ch, ox:ox + cw, :].float()
+  x = torch.einsum('iy,byxc->bixc', a_h, x)
+  return torch.einsum('jx,bixc->bijc', a_w, x)
 
 
 # ------------------------------------------------------------- color space

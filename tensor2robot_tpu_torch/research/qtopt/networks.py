@@ -14,8 +14,9 @@ converted ``fc0`` weights line up.
 
 Numerics follow flax's modules:
 
-* ``_BatchNorm`` is ``flax.linen.BatchNorm``: statistics in float32 with
-  the biased variance E[x^2] - E[x]^2, running averages updated as
+* ``_BatchNorm`` is ``flax.linen.BatchNorm`` (``layers/normalization.py``):
+  statistics in at least float32 with the biased variance
+  E[x^2] - E[x]^2, running averages updated as
   ``momentum * old + (1 - momentum) * new`` (flax's ``momentum=0.9997`` is
   torch's ``momentum=0.0003``), output cast to the compute dtype.
 * ``bn1`` takes its statistics from the pre-pool tensor and applies them
@@ -41,67 +42,23 @@ the flax tree): ``conv1_1.kernel`` (HWIO), ``bn1.{bias,mean,var}``,
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.layers.normalization import BatchNorm as _BatchNorm
+from tensor2robot_tpu_torch.layers.normalization import \
+    batch_stats as _batch_stats
+from tensor2robot_tpu_torch.layers.normalization import \
+    feature_shape as _feature_shape
 from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 from tensor2robot_tpu_torch.ops import pool as pool_ops
 from tensor2robot_tpu_torch.ops.conv_s2d import SpaceToDepthConv
 from tensor2robot_tpu_torch.ops.pool import resolve_padding
 
 _INIT_STDDEV = 0.01
-
-
-def _batch_stats(x: torch.Tensor, dims: Sequence[int]):
-  """flax's fast variance: float32 mean and max(E[x^2] - E[x]^2, 0)."""
-  xf = x.float()
-  mean = xf.mean(dim=dims)
-  mean2 = (xf * xf).mean(dim=dims)
-  return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
-
-
-def _feature_shape(x: torch.Tensor, feature_dim: int):
-  shape = [1] * x.dim()
-  shape[feature_dim] = x.shape[feature_dim]
-  return shape
-
-
-class _BatchNorm(nn.Module):
-  """``flax.linen.BatchNorm`` over one feature dimension (see module doc)."""
-
-  def __init__(self, features: int, use_scale: bool, momentum: float,
-               epsilon: float, dtype: Optional[torch.dtype]):
-    super().__init__()
-    self.momentum, self.epsilon, self.dtype = momentum, epsilon, dtype
-    if use_scale:
-      self.scale = nn.Parameter(torch.ones(features))
-    else:
-      self.register_parameter('scale', None)
-    self.bias = nn.Parameter(torch.zeros(features))
-    self.register_buffer('mean', torch.zeros(features))
-    self.register_buffer('var', torch.ones(features))
-
-  def forward(self, x: torch.Tensor, feature_dim: int) -> torch.Tensor:
-    feature_dim %= x.dim()
-    if self.training:
-      dims = [d for d in range(x.dim()) if d != feature_dim]
-      mean, var = _batch_stats(x, dims)
-      with torch.no_grad():
-        self.mean.copy_(self.momentum * self.mean +
-                        (1.0 - self.momentum) * mean)
-        self.var.copy_(self.momentum * self.var + (1.0 - self.momentum) * var)
-    else:
-      mean, var = self.mean, self.var
-    shape = _feature_shape(x, feature_dim)
-    y = x - mean.reshape(shape)
-    mul = torch.rsqrt(var + self.epsilon)
-    if self.scale is not None:
-      mul = mul * self.scale
-    y = y * mul.reshape(shape) + self.bias.reshape(shape)
-    return y.to(self.dtype or y.dtype)
 
 
 class _PooledBatchNormRelu(nn.Module):

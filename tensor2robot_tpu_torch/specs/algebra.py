@@ -1,7 +1,7 @@
 """Spec algebra: flatten / pack / validate / filter.
 
 The port's counterpart of ``tensor2robot_tpu/specs/algebra.py``, limited
-to what the serving path calls. Semantics are the same:
+to what the port's paths call. Semantics are the same:
 
 * flattening joins paths with '/' and drops ``None`` leaves;
 * packing matches the flat path keys of the expected spec;
@@ -195,6 +195,25 @@ def validate_and_pack(expected_spec,
   assert_required(expected_spec, actual_tensors_or_spec, ignore_batch)
   return pack_flat_sequence_to_spec_structure(expected_spec,
                                               actual_tensors_or_spec)
+
+
+def copy_tensorspec(spec_structure,
+                    prefix: str = '',
+                    batch_size: int = -1) -> SpecStruct:
+  """Copies a spec structure, optionally renaming and batching.
+
+  ``prefix`` is prepended to every spec *name* (the meta-learning
+  condition/inference split); ``batch_size`` follows
+  :meth:`TensorSpec.from_spec`.
+  """
+  out = SpecStruct()
+  for key, value in flatten_spec_structure(spec_structure).items():
+    spec = TensorSpec.to_spec(value)
+    name = spec.name or key.split('/')[-1]
+    if prefix:
+      name = prefix + '/' + name
+    out[key] = TensorSpec.from_spec(spec, name=name, batch_size=batch_size)
+  return out
 
 
 def filter_required_flat_tensor_spec(flat_tensor_spec) -> SpecStruct:

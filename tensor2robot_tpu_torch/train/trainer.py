@@ -63,6 +63,10 @@ class Trainer:
     self._model = model
     self._config = config
     self._device = dispatch.resolve_device(device)
+    if hasattr(model, 'set_mesh'):
+      # Mesh-aware models get the mesh the step runs over before any module
+      # is built; the port's trainer runs on one device, so there is none.
+      model.set_mesh(None)
     self._preprocessor = model.preprocessor
     self._state: Optional[TrainState] = None
 

@@ -1,4 +1,8 @@
-"""JAX variables -> port state_dict for the Grasping44 network.
+"""JAX variables -> port state_dicts: Grasping44 and the SNAIL networks.
+
+:func:`jax_variables_to_torch` maps the Grasping44 tree;
+:func:`snail_variables_to_torch` maps the SNAIL trees of the vrgripper
+meta models (see its docstring). The Grasping44 rules:
 
 Takes the variables tree the JAX package serves from
 (``jax.device_get(state.eval_variables)``: ``{'params': ...,
@@ -114,4 +118,73 @@ def jax_variables_to_torch(
   if unmapped:
     raise ValueError(
         f'Unmapped JAX variables (no Grasping44 counterpart): {unmapped}')
+  return state_dict
+
+
+# ------------------------------------------------------------ SNAIL trees
+
+_SNAIL_SCOPES = {'Conv_0': 'conv', 'Dense_0': 'key', 'Dense_1': 'query',
+                 'Dense_2': 'value'}
+_DENSE_BLOCK = re.compile(r'DenseBlock_(\d+)$')
+
+
+def _kernel_to_weight(a: np.ndarray) -> np.ndarray:
+  """flax kernel layouts -> torch weight layouts, by rank: Dense [in, out]
+  -> [out, in]; 1-D Conv [k, in, out] -> [out, in, k]; 2-D Conv HWIO ->
+  OIHW."""
+  if a.ndim == 2:
+    return a.T
+  if a.ndim == 3:
+    return a.transpose(2, 1, 0)
+  if a.ndim == 4:
+    return _hwio_to_oihw(a)
+  raise ValueError(f'No torch layout for a rank-{a.ndim} kernel')
+
+
+def _snail_scope(name: str) -> str:
+  block = _DENSE_BLOCK.match(name)
+  if block:
+    return f'blocks.{int(block.group(1)) - 1}'
+  return _SNAIL_SCOPES.get(name, name)
+
+
+def snail_variables_to_torch(
+    variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """The JAX variables tree of a vrgripper SNAIL network
+  (``_SnailSequenceNet`` / ``_LongHorizonSnailNet``, or any of their
+  layers: the vision tower, ``TCBlock``, the attention blocks) -> the
+  port's ``state_dict``.
+
+  * scopes keep their names, except flax's automatic ones:
+    ``DenseBlock_<i>`` -> ``blocks.<i-1>``, a CausalConv's ``Conv_0`` ->
+    ``conv``, and in ``AttentionBlock`` ``Dense_0`` / ``Dense_1`` /
+    ``Dense_2`` -> ``key`` / ``query`` / ``value`` (the order the flax
+    module creates them); ``MultiHeadAttentionBlock`` names its own;
+  * ``kernel`` -> ``weight`` in torch's layout (:func:`_kernel_to_weight`);
+    ``bias`` and LayerNorm/BatchNorm ``scale`` keep their names;
+  * ``batch_stats`` ``mean`` / ``var`` -> the BatchNorm buffers.
+
+  Every leaf must map, as for :func:`jax_variables_to_torch`.
+  """
+  state_dict: Dict[str, torch.Tensor] = {}
+  unmapped = []
+  for path, value in _flatten(variables):
+    collection, *head, leaf = path
+    key = '/'.join(path)
+    if collection == 'params' and leaf in ('kernel', 'bias', 'scale'):
+      transform = _kernel_to_weight if leaf == 'kernel' else None
+      leaf = 'weight' if leaf == 'kernel' else leaf
+    elif collection == 'batch_stats' and leaf in ('mean', 'var'):
+      transform = None
+    else:
+      unmapped.append(key)
+      continue
+    name = '.'.join([_snail_scope(h) for h in head] + [leaf])
+    array = np.array(value, dtype=np.float32)
+    if transform is not None:
+      array = transform(array)
+    state_dict[name] = torch.from_numpy(np.ascontiguousarray(array))
+  if unmapped:
+    raise ValueError(f'Unmapped JAX variables (no SNAIL counterpart): '
+                     f'{unmapped}')
   return state_dict

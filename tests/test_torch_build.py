@@ -12,11 +12,11 @@ import re
 
 import pytest
 
-from tensor2robot_tpu_torch.ops import _build, conv_s2d, pool
+from tensor2robot_tpu_torch.ops import _build, conv_s2d, flash_attention, pool
 
 _ENTRY = re.compile(r'^int\s+(t2r_\w+)\(([^)]*)\)\s*\{', re.MULTILINE)
 _C_TYPES = {'const void*': ctypes.c_void_p, 'void*': ctypes.c_void_p,
-            'int': ctypes.c_int}
+            'int': ctypes.c_int, 'float': ctypes.c_float}
 
 
 def _c_entry_points(name):
@@ -34,7 +34,8 @@ def _c_entry_points(name):
 
 
 @pytest.mark.parametrize('name,module', [('pool', pool),
-                                         ('conv_s2d', conv_s2d)])
+                                         ('conv_s2d', conv_s2d),
+                                         ('flash_attention', flash_attention)])
 def test_argtypes_match_c_signature(name, module):
   entries = _c_entry_points(name)
   assert set(module._SIGNATURES) == set(entries)

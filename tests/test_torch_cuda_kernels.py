@@ -7,7 +7,10 @@ VALID and explicit pads, overlapping windows, Cout that is not a multiple
 of the kernel's 64-channel block, one and two input channels, partial
 pixel tiles), for the forward kernels and for the backward ones (pool
 routing: bitwise; conv dW and dx: the forward's bands, dW repeated bit for
-bit), and the autograd Functions launching them. The file imports neither JAX nor the JAX package, and the
+bit), the flash attention forward, dq and dk/dv kernels (the JAX suite's
+bars scaled to the largest magnitude, each kernel twice bit for bit, at
+ragged, odd-head-dim and streamed-regime shapes), and the autograd
+Functions launching them. The file imports neither JAX nor the JAX package, and the
 repository's ``tests/conftest.py`` does, so on a machine with a card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from tensor2robot_tpu_torch.ops import conv_s2d, pool
+from tensor2robot_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
@@ -37,6 +41,13 @@ CONV_CASES = [
     ('valid_cin1', (2, 15, 11, 1), (5, 3, 1, 8), (3, 2), 'VALID'),
 ]
 DTYPES = [torch.float32, torch.bfloat16]
+FLASH_CASES = [  # name, [B, T, H, D]
+    ('long_horizon_heads', (2, 128, 2, 8)),
+    ('sequential', (2, 80, 1, 64)),
+    ('d32', (1, 256, 2, 32)),
+    ('ragged_d128', (1, 200, 1, 128)),
+    ('d24', (1, 96, 3, 24)),
+]
 
 
 @pytest.fixture(name='device')
@@ -212,3 +223,96 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
   with pytest.raises(ValueError, match='CUDA'):
     conv_s2d.conv_s2d_dw(image.cpu(), cot, (3, 3, 3, 8), (2, 2),
                          ((1, 1), (1, 1)))
+
+
+def _qkv(shape, dtype, device, seed):
+  generator = torch.Generator().manual_seed(seed)
+  return tuple(torch.randn(shape, generator=generator).to(device=device,
+                                                          dtype=dtype)
+               for _ in range(4))
+
+
+def _assert_flash_band(got, want, dtype, grad):
+  """The JAX suite's bars (float32: out 2e-5, gradients 5e-4; bfloat16:
+  3e-2), scaled to the largest magnitude when it exceeds 1."""
+  band = (5e-4 if grad else 2e-5) if dtype == torch.float32 else 3e-2
+  scale = max(1.0, float(want.float().abs().max()))
+  err = float((got.float() - want.float()).abs().max())
+  assert err <= band * scale, (err, band, scale)
+
+
+@pytest.mark.parametrize('streamed', [False, True], ids=['staged', 'streamed'])
+@pytest.mark.parametrize('causal', [False, True], ids=['full', 'causal'])
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('name,shape', FLASH_CASES,
+                         ids=[case[0] for case in FLASH_CASES])
+def test_flash_kernels_band_vs_plain(device, monkeypatch, name, shape, dtype,
+                                     causal, streamed):
+  """Forward (out and lse), dq and dk/dv against the plain versions; the
+  streamed cases resolve the plain versions' blocks as the JAX package's
+  streamed kernels do (the kernels tile the same way in both regimes).
+  Each kernel run twice agrees bit for bit."""
+  del name
+  if streamed:
+    monkeypatch.setattr(fa, '_MAX_STAGED_KV_BYTES', 1)
+  q, k, v, do = _qkv(shape, dtype, device, seed=shape[1])
+  before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches)
+  out, lse = fa.flash_fwd(q, k, v, causal)
+  out2, lse2 = fa.flash_fwd(q, k, v, causal)
+  want_out, want_lse = fa.plain_flash_fwd(q, k, v, causal)
+  delta = fa.flash_delta(want_out, do)
+  dq = fa.flash_dq(q, k, v, do, want_lse, delta, causal)
+  dq2 = fa.flash_dq(q, k, v, do, want_lse, delta, causal)
+  dk, dv = fa.flash_dkv(q, k, v, do, want_lse, delta, causal)
+  dk2, dv2 = fa.flash_dkv(q, k, v, do, want_lse, delta, causal)
+  want_dq = fa.plain_flash_dq(q, k, v, do, want_lse, delta, causal)
+  want_dk, want_dv = fa.plain_flash_dkv(q, k, v, do, want_lse, delta, causal)
+  torch.cuda.synchronize()
+  assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+          fa.flash_dkv.launches) == (before[0] + 2, before[1] + 2,
+                                     before[2] + 2)
+  for a, b in ((out, out2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
+    assert torch.equal(a, b)
+  assert out.dtype == dtype and lse.dtype == torch.float32
+  assert lse.shape == (shape[0] * shape[2], 1, shape[1])
+  _assert_flash_band(out, want_out, dtype, grad=False)
+  scale = max(1.0, float(want_lse.abs().max()))
+  assert float((lse - want_lse).abs().max()) <= 2e-5 * scale
+  for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_flash_band(got, want, dtype, grad=True)
+
+
+def test_flash_autograd_launches_the_three_kernels(device):
+  q, k, v, do = _qkv((2, 128, 2, 16), torch.float32, device, seed=7)
+  q, k, v = (x.requires_grad_() for x in (q, k, v))
+  before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches)
+  out = fa.flash_attention(q, k, v, causal=True)
+  out.backward(do)
+  torch.cuda.synchronize()
+  assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+          fa.flash_dkv.launches) == (before[0] + 1, before[1] + 1,
+                                     before[2] + 1)
+  for x in (q, k, v):
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(device):
+  q, k, v, do = _qkv((1, 64, 2, 16), torch.float32, device, seed=8)
+  with pytest.raises(ValueError, match='contiguous'):
+    fa.flash_fwd(q.transpose(1, 2), k, v)
+  with pytest.raises(ValueError, match='float32 or bfloat16'):
+    fa.flash_fwd(q.half(), k.half(), v.half())
+  with pytest.raises(ValueError, match='must match'):
+    fa.flash_fwd(q, k.bfloat16(), v)
+  with pytest.raises(ValueError, match='CUDA'):
+    fa.flash_fwd(q.cpu(), k.cpu(), v.cpu())
+  _, lse = fa.flash_fwd(q, k, v)
+  delta = fa.flash_delta(q, do)
+  with pytest.raises(ValueError, match='statistics'):
+    fa.flash_dq(q, k, v, do, lse[:, :, :32].contiguous(), delta)
+  with pytest.raises(ValueError, match='head dim'):
+    shape = (1, 64, 1, 136)
+    fa.flash_fwd(*(torch.zeros(shape, device=device) for _ in range(3)))
