@@ -23,7 +23,12 @@ Run from the repository root. The phases:
    streamed-regime shapes [1, 33792, 1, 64] (bfloat16) and
    [1, 17408, 1, 64] (float32), each run twice bit for bit (bands: the JAX
    suite's, float32 out 2e-5 and gradients 5e-4, bfloat16 3e-2, times the
-   largest magnitude when above 1);
+   largest magnitude when above 1); the fused optimizer update in all 8
+   variants (Adam or SGD, EMA on or off, guard on or off) over the real
+   leaves of SNAIL long-horizon (115) and Grasping44 (59) at a constant and
+   a scheduled rate (band atol 1e-6 / rtol 1e-5, twice bit for bit, a False
+   guard bitwise untouched); the photometric pass at [32, 472, 472, 3] in
+   float32 (1e-6) and bfloat16 (one ulp), twice bit for bit;
 4. the serving path at full width: ``GraspingModelWrapper(device_type='gpu',
    kernel_policy='pool_conv')`` -> ``CheckpointPredictor`` with seeded
    random weights -> ``CEMPolicy(64 samples x 3 iterations,
@@ -64,15 +69,30 @@ Run from the repository root. The phases:
    the card through the flash kernels, on the card through the dense
    attention and on the CPU, held to each other and to a float64 CPU
    gradient of the same step (see ``phase_snail_reference``);
-10. timings with CUDA events: each kernel, its plain version, one library
+10. the fused update paths: QT-Opt training at full width and batch 32 with
+   tagged Adam under a decaying rate, the EMA, ``fused_update=True`` and
+   ``nonfinite_mode='skip_update'`` (per step: the five kernels above and
+   1 ``fused_update``), then one NaN-poisoned batch that must leave
+   parameters, moments, counts, EMA, batch statistics, step and generator
+   bitwise as they were; both SNAIL paths with ``fused_update=True`` and
+   default Adam (per step: 2/2/2 flash and 2 ``fused_update`` launches, the
+   stock ``Adam.step`` never entered), each ms/step printed beside the
+   stock run's;
+11. the fused photometric branch, ``apply_photometric_image_distortions(
+   random_brightness=True, random_contrast=True, use_fused_kernel=True)``,
+   on QT-Opt's training images at batch 32 against the stock chain on the
+   same generator (1e-6), with its launches counted;
+12. timings with CUDA events: each kernel, its plain version, one library
    call computing the same function (``F.max_pool2d(return_indices=True)``,
    ``aten.max_pool2d_with_indices_backward``, ``F.conv2d`` in
    channels-last, ``torch.nn.grad.conv2d_weight``,
    ``torch.nn.grad.conv2d_input``, ``F.scaled_dot_product_attention`` and
-   its backward), and each kernel's bound on an H100 SXM (3.35 TB/s; 989
-   TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones); ``--profile``
-   adds ``torch.profiler`` breakdowns of two actions, one QT-Opt training
-   step and one step of each SNAIL path, written to
+   its backward, ``torch.optim.Adam(fused=True)``; none for the
+   photometric pass), and each kernel's bound on an H100 SXM (3.35 TB/s;
+   989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones);
+   ``--profile`` adds ``torch.profiler`` breakdowns of two actions, a
+   stock and a fused QT-Opt training step and one stock and one fused step
+   of each SNAIL path, written to
    ``chiprun_out/chip_smoke_profile*.txt``.
 
 The last three lines of the output are the JSON ``kernels`` record, the
@@ -94,8 +114,11 @@ import torch.nn.functional as F
 
 from tensor2robot_tpu_torch.layers import snail
 from tensor2robot_tpu_torch.modes import ModeKeys
-from tensor2robot_tpu_torch.ops import _build, _dispatch, conv_s2d, pool
+from tensor2robot_tpu_torch.models import optimizers
+from tensor2robot_tpu_torch.ops import (_build, _dispatch, conv_s2d,
+                                        fused_update, photometric, pool)
 from tensor2robot_tpu_torch.ops import flash_attention as fa
+from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.policies import CEMPolicy
 from tensor2robot_tpu_torch.predictors import CheckpointPredictor
 from tensor2robot_tpu_torch.research.qtopt import GraspingModelWrapper
@@ -123,11 +146,15 @@ CONV1_PADS = ((2, 2), (2, 2))  # SAME, 6x6/s2 on 472
 NO_FLASH = {'flash_fwd': 0, 'flash_dq': 0, 'flash_dkv': 0}
 NO_QTOPT = {'pool_fwd': 0, 'pool_bwd': 0, 'conv_s2d_fwd': 0,
             'conv_s2d_dw': 0, 'conv_s2d_dx': 0}
+# The fused optimizer update and the photometric pass run only on their own
+# paths (fused_update=True, use_fused_kernel=True).
+NO_FUSED = {'fused_update': 0, 'photometric': 0}
 TRAIN_LAUNCHES = {'pool_fwd': 3, 'pool_bwd': 3, 'conv_s2d_fwd': 1,
-                  'conv_s2d_dw': 1, 'conv_s2d_dx': 0, **NO_FLASH}
+                  'conv_s2d_dw': 1, 'conv_s2d_dx': 0, **NO_FLASH, **NO_FUSED}
 # Kernel launches per SNAIL training step: two attention blocks, each one
 # forward and one backward.
-SNAIL_LAUNCHES = {**NO_QTOPT, 'flash_fwd': 2, 'flash_dq': 2, 'flash_dkv': 2}
+SNAIL_LAUNCHES = {**NO_QTOPT, 'flash_fwd': 2, 'flash_dq': 2, 'flash_dkv': 2,
+                  **NO_FUSED}
 # The SNAIL configurations at full width: the repo's gin files
 # (research/vrgripper/configs/run_train_{long_horizon,sequential}.gin).
 SNAIL_CONFIGS = (
@@ -177,6 +204,13 @@ REFERENCE_L2_FLOOR = 5e-2
 # The same step on the card through the flash kernels and through the
 # dense attention: what the kernels change, leaf by leaf (relative L2).
 SNAIL_FLASH_VS_DENSE = 1e-3
+# The fused update's variants (kind, EMA, guard) and its band against its
+# plain version, atol and rtol: the JAX package's fused-vs-optax band.
+UPDATE_VARIANTS = tuple((kind, ema, guard) for kind in ('adam', 'sgd')
+                        for ema in (False, True) for guard in (False, True))
+FUSED_BAND = (1e-6, 1e-5)
+# The photometric pass at QT-Opt's training images.
+PHOTOMETRIC_SHAPE = (TRAIN_BATCH, 472, 472, 3)
 
 
 def log(*parts):
@@ -190,7 +224,8 @@ def counters():
           'conv_s2d_dw': conv_s2d.conv_s2d_dw,
           'conv_s2d_dx': conv_s2d.conv_s2d_dx,
           'flash_fwd': fa.flash_fwd, 'flash_dq': fa.flash_dq,
-          'flash_dkv': fa.flash_dkv}
+          'flash_dkv': fa.flash_dkv, 'fused_update': fused_update.fused_update,
+          'photometric': photometric.photometric}
 
 
 def zero_counters():
@@ -339,7 +374,7 @@ def phase_main_path(seed, actions):
       raise AssertionError(f'bad action {action!r}')
   want = {'pool_fwd': 9 * actions, 'pool_bwd': 0,
           'conv_s2d_fwd': 3 * actions, 'conv_s2d_dw': 0, 'conv_s2d_dx': 0,
-          **NO_FLASH}
+          **NO_FLASH, **NO_FUSED}
   if launches != want:
     raise AssertionError(f'launches over {actions} actions: {launches}')
   ms_per_action = 1e3 * seconds / actions
@@ -596,7 +631,7 @@ def phase_dx_path(generator):
     torch.cuda.synchronize()
     launches = read_counters()
   want = {'pool_fwd': 0, 'pool_bwd': 0, 'conv_s2d_fwd': 1, 'conv_s2d_dw': 1,
-          'conv_s2d_dx': 1, **NO_FLASH}
+          'conv_s2d_dx': 1, **NO_FLASH, **NO_FUSED}
   if launches != want:
     raise AssertionError(f'dx path launches {launches}, expected {want}')
   plain = conv_s2d.plain_conv2d_dx(g, w.detach(), TRAIN_CONV1_X, (2, 2),
@@ -916,7 +951,7 @@ def phase_snail_reference(seed):
         launches = read_counters()
     finally:
       snail._flash_auto_ok = auto  # pylint: disable=protected-access
-    want = SNAIL_LAUNCHES if flash else {**NO_QTOPT, **NO_FLASH}
+    want = SNAIL_LAUNCHES if flash else {**NO_QTOPT, **NO_FLASH, **NO_FUSED}
     if launches != want:
       raise AssertionError(f'snail reference {run}: launches {launches}')
     results[run] = (scalars['loss'], {
@@ -965,6 +1000,367 @@ def phase_snail_reference(seed):
       f' flash vs dense {worst[3][0]:.2e} ({worst[3][1]}); card vs cpu max '
       f'err up to {worst_max[0]:.2e} of the leaf\'s largest magnitude '
       f'({worst_max[1]}); invariant leaves\' gradients up to {invariant:.1e}')
+
+
+def model_leaf_shapes():
+  """The parameter shapes of the two fused-update paths: SNAIL
+  long-horizon at full width and Grasping44."""
+  _, model_cls, kwargs, _ = SNAIL_CONFIGS[0]
+  model = model_cls(**kwargs)
+  model.set_mesh(None)
+  grasp = GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv')
+  return {name: [tuple(p.shape) for p in net.parameters()]
+          for name, net in (('long_horizon', model.create_module()),
+                            ('grasping44', grasp.create_module()))}
+
+
+def update_leaves(shapes, kind, with_ema, generator):
+  """Seeded float32 leaves on the card: p, g, mu, nu >= 0 and the EMA."""
+  adam = kind == 'adam'
+  leaves = []
+  for shape in shapes:
+    def make(positive=False, shape=shape):
+      x = torch.randn(shape, generator=generator, device='cuda')
+      return x.abs() * 1e-3 if positive else x
+    leaves.append(fused_update.Leaf(
+        make(), make(), make() if adam else None,
+        make(True) if adam else None, make() if with_ema else None))
+  return leaves
+
+
+def clone_leaves(leaves):
+  return [fused_update.Leaf(*(None if t is None else t.clone() for t in leaf))
+          for leaf in leaves]
+
+
+def update_scalars(lr, count=11, b1=0.9, b2=0.999):
+  """The kernel's by-value scalars at ``count`` updates (bias corrections
+  as optimizers.Adam computes them)."""
+  return dict(lr=lr, c1=float(fused_update.bias_correction(b1, count)),
+              c2=float(fused_update.bias_correction(b2, count)), b1=b1,
+              b2=b2, eps=1e-8)
+
+
+def phase_check_fused_update(generator):
+  """fused_update against plain_fused_update on the card, all 8 variants
+  (Adam or SGD, EMA on or off, guard on or off) over the real leaves of
+  SNAIL long-horizon and Grasping44, at a constant rate and at QT-Opt's
+  decaying schedule: within FUSED_BAND, each run twice bit for bit, and a
+  False guard leaves every tensor bitwise as it was."""
+  schedule = optimizers.create_exp_decaying_learning_rate_fn(
+      1e-3, decay_steps=10, staircase=True)
+  rates = (('constant', 1e-4), ('schedule', schedule(11)))
+  atol, rtol = FUSED_BAND
+  worst = 0.0
+  for model, shapes in model_leaf_shapes().items():
+    elements = sum(int(np.prod(shape)) for shape in shapes)
+    for kind, with_ema, guard in UPDATE_VARIANTS:
+      leaves = update_leaves(shapes, kind, with_ema, generator)
+      decay = 0.9999 if with_ema else None
+      ok = torch.ones(1, dtype=torch.bool, device='cuda') if guard else None
+      errs = []
+      for _, lr in rates:
+        args = update_scalars(lr)
+        got, again, want = (clone_leaves(leaves) for _ in range(3))
+        fused_update.fused_update(got, kind, decay=decay, ok=ok, **args)
+        fused_update.fused_update(again, kind, decay=decay, ok=ok, **args)
+        fused_update.plain_fused_update(want, kind, decay=decay, ok=ok,
+                                        **args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b, w in zip(got, again, want):
+          for x, y, z in zip(a, b, w):
+            if x is None:
+              continue
+            if not torch.equal(x, y):
+              raise AssertionError(f'fused_update {model} {kind} is not '
+                                   'deterministic')
+            e = (x - z).abs()
+            if not bool((e <= atol + rtol * z.abs()).all()):
+              raise AssertionError(
+                  f'fused_update {model} {kind} ema={with_ema} '
+                  f'guard={guard} lr={lr}: max abs err {float(e.max())}')
+            err = max(err, float(e.max()))
+        errs.append(err)
+        del got, again, want
+      held = ''
+      if guard:
+        kept = clone_leaves(leaves)
+        fused_update.fused_update(
+            kept, kind, decay=decay,
+            ok=torch.zeros(1, dtype=torch.bool, device='cuda'),
+            **update_scalars(1e-4))
+        torch.cuda.synchronize()
+        for a, b in zip(kept, leaves):
+          for x, y in zip(a, b):
+            if x is not None and not torch.equal(x, y):
+              raise AssertionError(f'fused_update {model} {kind}: a False '
+                                   'guard changed a tensor')
+        held = '; ok=0 leaves every tensor bitwise'
+      worst = max(worst, *errs)
+      log(f'check fused_update {model} ({len(shapes)} leaves, {elements} '
+          f'elements) {kind} ema={with_ema} guard={guard}: max abs err '
+          f'{errs[0]:.2e} (constant lr), {errs[1]:.2e} (schedule); twice '
+          f'bitwise{held}')
+      del leaves
+  return worst
+
+
+def bf16_ulp(x):
+  """One bfloat16 ulp at each element's magnitude (8 significant bits)."""
+  _, exponent = torch.frexp(x.float())
+  return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exponent - 8)
+
+
+def phase_check_photometric(generator):
+  """photometric against plain_brightness_contrast on the card at QT-Opt's
+  training shape: float32 within 1e-6, bfloat16 within one bfloat16 ulp,
+  each dtype twice bit for bit."""
+  errors = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    images = torch.rand(PHOTOMETRIC_SHAPE, generator=generator,
+                        device='cuda').to(dtype)
+    delta = (torch.rand(TRAIN_BATCH, generator=generator, device='cuda') -
+             0.5) * 0.25
+    factor = torch.rand(TRAIN_BATCH, generator=generator, device='cuda') + 0.5
+    got = photometric.photometric(images, delta, factor)
+    again = photometric.photometric(images, delta, factor)
+    want = photometric.plain_brightness_contrast(images, delta, factor)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+      raise AssertionError(f'photometric {dtype} is not deterministic')
+    err = (got.float() - want.float()).abs()
+    band = 1e-6 if dtype == torch.float32 else bf16_ulp(want)
+    if got.dtype != dtype or not bool((err <= band).all()):
+      raise AssertionError(f'photometric {dtype}: max abs err '
+                           f'{float(err.max())}')
+    errors[dtype] = float(err.max())
+    log(f'check photometric {PHOTOMETRIC_SHAPE} {str(dtype)[6:]}: max abs '
+        f'err {errors[dtype]:.2e} (band '
+        f'{"1e-6" if dtype == torch.float32 else "one bf16 ulp"}); twice '
+        'bitwise')
+    del images, got, again, want, err
+  return errors[torch.float32]
+
+
+def phase_photometric_path(seed, calls=3):
+  """The fused photometric branch a user calls:
+  ``apply_photometric_image_distortions(random_brightness=True,
+  random_contrast=True, use_fused_kernel=True)`` on QT-Opt's training
+  images (random 472x472 crops of 512x640 uint8 frames, /255) at batch 32,
+  against the stock chain on the same generator, then ``calls`` timed
+  calls with every counter zeroed just before and read just after."""
+  frames = torch.from_numpy(np.random.RandomState(seed + 8).randint(
+      0, 256, (TRAIN_BATCH, 512, 640, 3), dtype=np.uint8)).cuda()
+  generator = torch.Generator().manual_seed(seed)
+  images = image_transformations.random_crop_images(
+      frames, (472, 472), generator).to(torch.float32) / 255.0
+  options = dict(random_brightness=True, random_contrast=True)
+  with _dispatch.force_kernels(True):
+    fused = image_transformations.apply_photometric_image_distortions(
+        images, torch.Generator().manual_seed(seed + 1),
+        use_fused_kernel=True, **options)
+    stock = image_transformations.apply_photometric_image_distortions(
+        images, torch.Generator().manual_seed(seed + 1), **options)
+    torch.cuda.synchronize()
+    err = float((fused - stock).abs().max())
+    if (fused.shape != images.shape or fused.dtype != torch.float32 or
+        not bool(torch.isfinite(fused).all()) or err > 1e-6 or
+        float(fused.min()) < 0 or float(fused.max()) > 1):
+      raise AssertionError(f'photometric path: fused branch against the '
+                           f'stock chain, max abs err {err}')
+    zero_counters()
+    start = time.perf_counter()
+    for _ in range(calls):
+      image_transformations.apply_photometric_image_distortions(
+          images, generator, use_fused_kernel=True, **options)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read_counters()
+  want = {**NO_QTOPT, **NO_FLASH, **NO_FUSED, 'photometric': calls}
+  if launches != want:
+    raise AssertionError(f'photometric path launches {launches}')
+  log(f'photometric path: {calls} calls of the fused branch on '
+      f'{tuple(images.shape)} float32, {1e3 * seconds / calls:.3f} ms/call '
+      f'(host clock, synchronised), launches {launches}; against the stock '
+      f'chain on one generator: max abs err {err:.2e}')
+  return launches
+
+
+def phase_train_fused(seed, steps, stock_ms):
+  """QT-Opt training at full width, batch 32, on the fused update path:
+  tagged Adam under a decaying rate (the JAX suite's _qtopt_mock), the
+  EMA, fused_update=True and nonfinite_mode='skip_update'. Timed steps with
+  the counters zeroed just before and read just after, then one
+  NaN-poisoned batch, which must leave parameters, moments, counts, EMA,
+  batch statistics, step and generator bitwise as they were."""
+  model = GraspingModelWrapper(
+      device_type='gpu', kernel_policy='pool_conv',
+      create_optimizer_fn=lambda: optimizers.create_adam_optimizer(
+          optimizers.create_exp_decaying_learning_rate_fn(
+              1e-3, decay_steps=10, staircase=True)))
+  trainer = Trainer(model, TrainerConfig(
+      model_dir='', max_train_steps=1, log_interval_steps=0, seed=seed,
+      fused_update=True, nonfinite_mode='skip_update'))
+  batches = iter(train_batches(seed + 6, 1 + steps, TRAIN_BATCH))
+  with _dispatch.force_kernels(True):
+    trainer.train(batches, None)  # builds the state; warm-up step
+    torch.cuda.synchronize()
+    state = trainer.state
+    params = dict(state.network.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    ema_before = {k: v.clone() for k, v in state.ema.items()}
+    trainer.config.max_train_steps = 1 + steps
+    zero_counters()
+    start = time.perf_counter()
+    scalars = trainer.train(batches, None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read_counters()
+  leaves = len(params)
+  per_step = {**TRAIN_LAUNCHES,
+              'fused_update': -(-leaves // fused_update.LEAVES_PER_LAUNCH)}
+  want = {k: v * steps for k, v in per_step.items()}
+  if trainer.fused_plan is None or launches != want or (
+      trainer.step != 1 + steps):
+    raise AssertionError(f'fused training launches over {steps} steps: '
+                         f'{launches}, expected {want}')
+  if not all(np.isfinite(v) for v in scalars.values()):
+    raise AssertionError(f'fused training: non-finite summaries {scalars}')
+  for name, param in params.items():
+    if torch.equal(param.detach(), before[name]):
+      raise AssertionError(f'fused training: {name} did not move')
+    if torch.equal(state.optimizer.state[param]['mu'],
+                   torch.zeros_like(param)):
+      raise AssertionError(f'fused training: {name} has no moment')
+  if not any(not torch.equal(state.ema[k], v) for k, v in ema_before.items()):
+    raise AssertionError('fused training: the EMA did not move')
+  ms_per_step = 1e3 * seconds / steps
+  log(f'train fused: {steps} steps at batch {TRAIN_BATCH}, {ms_per_step:.2f} '
+      f'ms/step (host clock, synchronised; the stock momentum run: '
+      f'{stock_ms:.2f}), Adam with a decaying rate, EMA and the skip_update '
+      f'guard, loss {scalars["loss"]:.4f}, launches {launches} '
+      f'({leaves} leaves, {per_step["fused_update"]} fused launch per step)')
+
+  bad_features, bad_labels = train_batches(seed + 7, 1, TRAIN_BATCH)[0]
+  bad_features['action/world_vector'][0, 0] = np.nan
+  kept = {
+      'params': {k: p.detach().clone() for k, p in params.items()},
+      'moments': {(k, slot): v.clone() for k, p in params.items()
+                  for slot, v in state.optimizer.state[p].items()},
+      'ema': {k: v.clone() for k, v in state.ema.items()},
+      'buffers': {k: b.clone() for k, b in state.network.named_buffers()},
+  }
+  step, counts = trainer.step, [g['count'] for g in state.optimizer.param_groups]
+  generator_state = state.generator.get_state()
+  trainer.config.max_train_steps = step + 1
+  with _dispatch.force_kernels(True):
+    zero_counters()
+    bad = trainer.train(iter([(bad_features, bad_labels)]), None)
+    torch.cuda.synchronize()
+    bad_launches = read_counters()
+  now = {
+      'params': dict(state.network.named_parameters()),
+      'moments': {(k, slot): v for k, p in params.items()
+                  for slot, v in state.optimizer.state[p].items()},
+      'ema': state.ema,
+      'buffers': dict(state.network.named_buffers()),
+  }
+  for part, tensors in kept.items():
+    for key, value in tensors.items():
+      if not torch.equal(now[part][key].detach(), value):
+        raise AssertionError(f'NaN batch changed {part} {key}')
+  if (trainer.step != step or
+      [g['count'] for g in state.optimizer.param_groups] != counts or
+      not torch.equal(state.generator.get_state(), generator_state) or
+      trainer.nonfinite_policy.bad_steps != 1 or
+      bad_launches['fused_update'] != per_step['fused_update'] or
+      bad['nonfinite_count'] != 1):
+    raise AssertionError(f'NaN batch: step {trainer.step} (was {step}), '
+                         f'policy {trainer.nonfinite_policy.bad_steps} skips, '
+                         f'launches {bad_launches}, summaries {bad}')
+  log(f'train fused: a NaN batch left parameters, {len(kept["moments"])} '
+      f'moments, counts {counts}, {len(kept["ema"])} EMA tensors, '
+      f'{len(kept["buffers"])} batch statistics, step {step} and the '
+      'generator bitwise as they were; the policy counted 1 skip; the '
+      f'guarded kernel launched {bad_launches["fused_update"]} time(s)')
+  return ms_per_step, launches, trainer
+
+
+def phase_snail_fused(seed, steps, stock_ms):
+  """Both SNAIL training paths at full width with fused_update=True and
+  default Adam: timed steps with the counters zeroed just before and read
+  just after; the stock Adam.step is never entered. ``stock_ms`` holds
+  each path's stock ms/step. Returns {config: (ms/step, launches, trainer,
+  batches)}."""
+  stock_step = optimizers.Adam.step
+  entered = []
+
+  def counted_step(self, closure=None):
+    entered.append(1)
+    return stock_step(self, closure)
+
+  results = {}
+  for name, model_cls, kwargs, batch in SNAIL_CONFIGS:
+    model = model_cls(**kwargs)
+    trainer = Trainer(model, TrainerConfig(model_dir='', max_train_steps=1,
+                                           log_interval_steps=0, seed=seed,
+                                           fused_update=True))
+    host = snail_batches(seed + 10, 2, batch,
+                         kwargs.get('episode_length', 40))
+
+    def stream(host=host):
+      while True:
+        yield from host
+
+    batches = stream()
+    optimizers.Adam.step = counted_step
+    try:
+      with _dispatch.force_kernels(True):
+        trainer.train(batches, None)  # builds the state; warm-up step
+        torch.cuda.synchronize()
+        state = trainer.state
+        params = dict(state.network.named_parameters())
+        before = {k: p.detach().clone() for k, p in params.items()}
+        moments = {(k, slot): state.optimizer.state[p][slot].clone()
+                   for k, p in params.items() for slot in ('mu', 'nu')}
+        trainer.config.max_train_steps = 1 + steps
+        zero_counters()
+        start = time.perf_counter()
+        scalars = trainer.train(batches, None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = read_counters()
+    finally:
+      optimizers.Adam.step = stock_step
+    per_step = {**SNAIL_LAUNCHES, 'fused_update': -(
+        -len(params) // fused_update.LEAVES_PER_LAUNCH)}
+    want = {k: v * steps for k, v in per_step.items()}
+    if (trainer.fused_plan is None or entered or launches != want or
+        trainer.step != 1 + steps):
+      raise AssertionError(f'snail {name} fused: launches {launches}, '
+                           f'expected {want}; stock Adam.step entered '
+                           f'{len(entered)} times')
+    if not all(np.isfinite(v) for v in scalars.values()):
+      raise AssertionError(f'snail {name} fused: non-finite summaries '
+                           f'{scalars}')
+    for key, param in params.items():
+      if torch.equal(param.detach(), before[key]):
+        raise AssertionError(f'snail {name} fused: {key} did not move')
+      for slot in ('mu', 'nu'):
+        if torch.equal(state.optimizer.state[param][slot],
+                       moments[key, slot]):
+          raise AssertionError(f'snail {name} fused: {key} {slot} did not '
+                               'move')
+    ms_per_step = 1e3 * seconds / steps
+    log(f'snail {name} fused: {steps} steps at batch {batch}, '
+        f'{ms_per_step:.2f} ms/step (host clock, synchronised) against '
+        f'{stock_ms[name]:.2f} ms/step on the stock Adam loop; loss '
+        f'{scalars["loss"]:.4f}, launches {launches} ({len(params)} leaves, '
+        f'{per_step["fused_update"]} fused launches per step); stock '
+        'Adam.step never entered; every parameter and both moments moved')
+    results[name] = (ms_per_step, launches, trainer, batches)
+  return results
 
 
 def flash_work(shape, dtype, causal):
@@ -1027,6 +1423,104 @@ def flash_timing(record, generator):
         'kernel\'s')
     del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out, do_t
     torch.cuda.empty_cache()
+
+
+def kernel_device_ms(fn, names):
+  """Device time of one call of ``fn`` spent in kernels whose names hold
+  one of ``names`` (torch.profiler), without the host time that CUDA events
+  around a host-bound call also take in."""
+  from torch.profiler import ProfilerActivity, profile
+
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  return sum(getattr(e, 'self_device_time_total', None) or
+             getattr(e, 'self_cuda_time_total', 0)
+             for e in prof.key_averages()
+             if any(name in e.key for name in names)) / 1e3
+
+
+def update_work(leaves, kind, with_ema):
+  """(bytes, operations) of one fused update: p and g read, p written;
+  Adam adds mu and nu read and written, the EMA its tensor read and
+  written; about 14 operations per element for Adam (2 for SGD), 3 more
+  for the EMA."""
+  elements = sum(leaf.p.numel() for leaf in leaves)
+  tensors = 2 + (2 if kind == 'adam' else 0) + (1 if with_ema else 0)
+  outputs = tensors - 1
+  ops = (14 if kind == 'adam' else 2) + (3 if with_ema else 0)
+  return 4 * elements * (tensors + outputs), elements * ops
+
+
+def fused_update_timing(record, generator):
+  """One step's fused update at each path's leaves and variant (SNAIL
+  long-horizon: Adam; Grasping44 on the QT-Opt fused path: Adam, the EMA
+  and the guard): the kernel, its plain version, and
+  torch.optim.Adam(fused=True) (``torch._fused_adam_``) over the same
+  leaves, which has no EMA and no guard; the record sums the two paths."""
+  for model, shapes in model_leaf_shapes().items():
+    with_ema = guard = model == 'grasping44'
+    leaves = update_leaves(shapes, 'adam', with_ema, generator)
+    decay = 0.9999 if with_ema else None
+    ok = torch.ones(1, dtype=torch.bool, device='cuda') if guard else None
+    args = update_scalars(1e-4)
+    ms = cuda_ms(lambda: fused_update.fused_update(
+        leaves, 'adam', decay=decay, ok=ok, **args))
+    plain = cuda_ms(lambda: fused_update.plain_fused_update(
+        leaves, 'adam', decay=decay, ok=ok, **args), iters=5, warmup=1)
+    params = []
+    for leaf in leaves:
+      param = torch.nn.Parameter(leaf.p)
+      param.grad = leaf.g
+      params.append(param)
+    library = torch.optim.Adam(params, lr=1e-4, fused=True)
+    lib = cuda_ms(library.step)
+    device = kernel_device_ms(lambda: fused_update.fused_update(
+        leaves, 'adam', decay=decay, ok=ok, **args), ('fused_update_kernel',))
+    nbytes, ops = update_work(leaves, 'adam', with_ema)
+    log(f'time fused_update {model} ({len(leaves)} leaves, Adam'
+        f'{", EMA, guard" if guard else ""}): kernel {ms:.4f} ms '
+        f'({-(-len(leaves) // fused_update.LEAVES_PER_LAUNCH)} launches; '
+        f'{device:.4f} ms of it on the device, the rest the host\'s checks '
+        f'and pointer table), plain {plain:.4f} ms, '
+        f'torch.optim.Adam(fused=True) {lib:.4f} ms, '
+        f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}')
+    timing_entry(record, 'fused_update', ms, plain, lib, nbytes, ops,
+                 F32_FLOP_PER_S)
+    del leaves, params, library
+
+
+def photometric_timing(record, generator):
+  """The photometric pass at QT-Opt's training images, float32 (the path's
+  dtype, in the record) and bfloat16 (printed): kernel and plain version;
+  no single library call computes it. Bound: each image element read once
+  and written once; the kernel reads the images twice (sums, then apply)."""
+  for dtype in (torch.float32, torch.bfloat16):
+    images = torch.rand(PHOTOMETRIC_SHAPE, generator=generator,
+                        device='cuda').to(dtype)
+    delta = (torch.rand(TRAIN_BATCH, generator=generator, device='cuda') -
+             0.5) * 0.25
+    factor = torch.rand(TRAIN_BATCH, generator=generator, device='cuda') + 0.5
+    ms = cuda_ms(lambda: photometric.photometric(images, delta, factor))
+    plain = cuda_ms(lambda: photometric.plain_brightness_contrast(
+        images, delta, factor), iters=5)
+    device = kernel_device_ms(
+        lambda: photometric.photometric(images, delta, factor),
+        ('photometric_sums_kernel', 'photometric_apply_kernel'))
+    nbytes = 2 * images.numel() * dtype.itemsize + 2 * TRAIN_BATCH * 4
+    ops = 8 * images.numel()
+    log(f'time photometric {PHOTOMETRIC_SHAPE} {str(dtype)[6:]}: kernel '
+        f'{ms:.4f} ms ({device:.4f} ms in its two kernels, profiled), plain '
+        f'{plain:.4f} ms, no library call, '
+        f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}; reading the images '
+        f'twice: {1e3 * 1.5 * (nbytes - 8 * TRAIN_BATCH) / HBM_BYTES_PER_S:.4f} '
+        'ms')
+    if dtype == torch.float32:
+      timing_entry(record, 'photometric', ms, plain, None, nbytes, ops,
+                   F32_FLOP_PER_S)
+    del images
 
 
 def phase_profile_snail(name, trainer, batches):
@@ -1107,7 +1601,9 @@ def timing_entry(record, name, ms, plain, lib, nbytes, ops,
                                        bytes_ms=0.0, ops_ms=0.0))
   entry['ms'] += ms
   entry['plain_ms'] += plain
-  entry['library_ms'] += lib
+  # None: no single library call computes the function.
+  entry['library_ms'] = (None if lib is None or entry['library_ms'] is None
+                         else entry['library_ms'] + lib)
   entry['bytes_ms'] += 1e3 * nbytes / HBM_BYTES_PER_S
   entry['ops_ms'] += 1e3 * ops / ops_rate
 
@@ -1213,6 +1709,8 @@ def phase_timing(generator, errors, launches):
   del x, w, g, x_cl, g_cl, w_oihw
 
   flash_timing(record, generator)
+  fused_update_timing(record, generator)
+  photometric_timing(record, generator)
 
   kernels = []
   meta = {
@@ -1234,6 +1732,10 @@ def phase_timing(generator, errors, launches):
                    'tensor2robot_tpu/ops/flash_attention.py:537'),
       'flash_dkv': ('tensor2robot_tpu_torch/ops/csrc/flash_attention.cu',
                     'tensor2robot_tpu/ops/flash_attention.py:555'),
+      'fused_update': ('tensor2robot_tpu_torch/ops/csrc/fused_update.cu',
+                       'tensor2robot_tpu/ops/fused_update.py:269'),
+      'photometric': ('tensor2robot_tpu_torch/ops/csrc/photometric.cu',
+                      'tensor2robot_tpu/ops/photometric.py:72'),
   }
   for name, (source, replaces) in meta.items():
     entry = record[name]
@@ -1285,7 +1787,7 @@ def phase_profile(policy, frames):
     log('  ' + line)
 
 
-def phase_profile_train(trainer, seed):
+def phase_profile_train(trainer, seed, label=''):
   """Device time by kernel over one training step (torch.profiler)."""
   from torch.profiler import ProfilerActivity, profile
 
@@ -1299,16 +1801,17 @@ def phase_profile_train(trainer, seed):
   averages = prof.key_averages()
   table = averages.table(sort_by='self_cuda_time_total', row_limit=50)
   OUT_DIR.mkdir(exist_ok=True)
-  (OUT_DIR / 'chip_smoke_profile_train.txt').write_text(table)
+  name = f'chip_smoke_profile_train{"_" + label if label else ""}.txt'
+  (OUT_DIR / name).write_text(table)
   device_us = device_time_us(averages)
   upload_us = device_time_us(averages, 'Memcpy HtoD')
   kernels = sum(e.count for e in averages
                 if str(getattr(e, 'device_type', '')).endswith('CUDA') and
                 not e.key.startswith(('Memcpy', 'Memset', 'Activity')))
-  log(f'profile: {device_us / 1e3:.3f} ms of device time per training step, '
-      f'{upload_us / 1e3:.3f} ms of it the host-to-device copy of the '
-      f'batch; {kernels} kernel launches; table in '
-      'chiprun_out/chip_smoke_profile_train.txt')
+  log(f'profile{" " + label if label else ""}: {device_us / 1e3:.3f} ms of '
+      f'device time per training step, {upload_us / 1e3:.3f} ms of it the '
+      f'host-to-device copy of the batch; {kernels} kernel launches; table '
+      f'in chiprun_out/{name}')
   for line in table.splitlines()[:24]:
     log('  ' + line)
 
@@ -1334,40 +1837,61 @@ def main(argv=None):
   errors['conv_s2d_dw'], errors['conv_s2d_dx'] = phase_check_conv_grads(
       generator)
   errors.update(phase_check_flash(generator))
+  errors['fused_update'] = phase_check_fused_update(generator)
+  errors['photometric'] = phase_check_photometric(generator)
   torch.cuda.empty_cache()
   ms_per_action, serve_launches, policy, frames = phase_main_path(
       args.seed, args.actions)
   phase_reference(args.seed)
   torch.cuda.empty_cache()
   ms_per_step, train_launches, trainer = phase_train(args.seed, args.steps)
+  fused_ms, fused_launches, fused_trainer = phase_train_fused(
+      args.seed, args.steps, ms_per_step)
   dx_launches = phase_dx_path(generator)
   phase_train_reference(args.seed)
   torch.cuda.empty_cache()
   snail = phase_snail_train(args.seed, args.snail_steps)
+  snail_fused = phase_snail_fused(
+      args.seed, args.snail_steps,
+      {name: result[0] for name, result in snail.items()})
   phase_snail_reference(args.seed)
   torch.cuda.empty_cache()
+  photometric_launches = phase_photometric_path(args.seed)
   # Launches: the pool and conv forward kernels over the QT-Opt serving
-  # and training paths, their backward ones over the training path, dx
-  # over the path that needs it, the flash kernels over both SNAIL paths.
-  launches = {name: serve_launches[name] + train_launches[name] +
-              sum(result[1][name] for result in snail.values())
+  # and training paths, their backward ones over both training paths, dx
+  # over the path that needs it, the flash kernels over the three SNAIL
+  # paths, the fused update over the two fused training paths, the
+  # photometric pass over its branch.
+  paths = [serve_launches, train_launches, fused_launches,
+           *(result[1] for result in snail.values()),
+           *(result[1] for result in snail_fused.values()),
+           photometric_launches]
+  launches = {name: sum(path[name] for path in paths)
               for name in serve_launches}
   launches['conv_s2d_dx'] = dx_launches
   log(f'launches: serving {serve_launches} over {args.actions} actions; '
-      f'training {train_launches} over {args.steps} steps; dx path '
-      f'{dx_launches}; SNAIL '
-      f'{ {name: result[1] for name, result in snail.items()} } over '
-      f'{args.snail_steps} steps each')
+      f'training {train_launches} and fused training {fused_launches} over '
+      f'{args.steps} steps; dx path {dx_launches}; SNAIL '
+      f'{ {name: result[1] for name, result in snail.items()} } and fused '
+      f'{ {name: result[1] for name, result in snail_fused.items()} } over '
+      f'{args.snail_steps} steps each; photometric path '
+      f'{photometric_launches}')
   kernels = phase_timing(generator, errors, launches)
   if args.profile:
     phase_profile(policy, frames)
     phase_profile_train(trainer, args.seed)
+    phase_profile_train(fused_trainer, args.seed, 'fused')
     for name, (_, _, snail_trainer, batches) in snail.items():
       phase_profile_snail(name, snail_trainer, batches)
-  log(f'ms/action {ms_per_action:.3f}, ms/train step {ms_per_step:.3f} at '
-      f'batch {TRAIN_BATCH}; SNAIL ms/step '
-      f'{ {name: round(result[0], 3) for name, result in snail.items()} } on '
-      f'{card}')
+    for name, (_, _, snail_trainer, batches) in snail_fused.items():
+      phase_profile_snail(f'{name}_fused', snail_trainer, batches)
+  log(f'ms/action {ms_per_action:.3f}, ms/train step {ms_per_step:.3f} '
+      f'(fused Adam + EMA + guard: {fused_ms:.3f}) at batch {TRAIN_BATCH}; '
+      f'SNAIL ms/step '
+      f'{ {name: round(result[0], 3) for name, result in snail.items()} }, '
+      f'fused '
+      f'{ {name: round(result[0], 3) for name, result in snail_fused.items()} }'
+      f' on {card}')
   log(json.dumps({'kernels': kernels}))
   log(card)
   log(json.dumps({'ok': True, 'device': {

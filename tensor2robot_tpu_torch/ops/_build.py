@@ -30,7 +30,8 @@ from typing import Dict, Iterable, Mapping, Sequence
 CSRC_DIR = pathlib.Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / (
     'torch_kernels')
-SOURCES = ('pool', 'conv_s2d', 'flash_attention')
+SOURCES = ('pool', 'conv_s2d', 'flash_attention', 'fused_update',
+           'photometric')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

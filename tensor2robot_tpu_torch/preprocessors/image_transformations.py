@@ -20,6 +20,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch.ops import photometric
+
 
 def _check_crop(input_shape, target_shape) -> None:
   if len(target_shape) != 2:
@@ -182,13 +184,6 @@ def adjust_contrast(images, factor):
   return (images - mean) * factor + mean
 
 
-def _uniform(generator, shape, low, high, device) -> torch.Tensor:
-  """Uniform [low, high) draws from ``generator``, moved to ``device``."""
-  u = torch.rand(shape, generator=generator,
-                 device=generator.device if generator is not None else 'cpu')
-  return (u * (high - low) + low).to(device)
-
-
 def apply_photometric_image_distortions(
     images: torch.Tensor,
     generator: Optional[torch.Generator] = None,
@@ -214,39 +209,45 @@ def apply_photometric_image_distortions(
   in the JAX chain's order: brightness, saturation, hue, contrast, noise.
   With every distortion off (the default) only the clip runs.
 
-  ``use_fused_kernel`` asks for the fused brightness+contrast kernel
-  (``ops/photometric.py:72`` of the JAX package), which the port has not
-  ported yet: that combination raises instead of computing without it.
+  ``use_fused_kernel`` routes the brightness+contrast-only case (no
+  saturation, hue or noise) to the fused pass of ``ops/photometric.py``:
+  its CUDA kernel for images on the card, its plain version on the CPU, as
+  the images' device decides (the JAX package also requires a TPU there).
+  The fused branch draws brightness ``(B, 1, 1, 1)`` and then contrast
+  ``(B, 1, 1, 1)`` from ``generator``, as this chain does, so both branches
+  give the same images on the same generator up to float32 rounding of the
+  mean; it writes the input's dtype. The JAX package's two branches split
+  their key differently and cannot agree so.
   """
   if (use_fused_kernel and random_brightness and random_contrast and
       not random_saturation and not random_hue and not random_noise_level):
-    raise NotImplementedError(
-        'The fused brightness+contrast kernel (_fused_kernel, '
-        'tensor2robot_tpu/ops/photometric.py:72) is not ported yet; see '
-        'ROADMAP.md queue 2. Pass use_fused_kernel=False.')
+    return photometric.random_brightness_contrast(
+        images, generator, max_delta_brightness=max_delta_brightness,
+        lower_contrast=lower_contrast, upper_contrast=upper_contrast)
   batch, device = images.shape[0], images.device
+  draw = photometric.uniform
   if random_brightness:
-    delta = _uniform(generator, (batch, 1, 1, 1), -max_delta_brightness,
-                     max_delta_brightness, device)
+    delta = draw(generator, (batch, 1, 1, 1), -max_delta_brightness,
+                 max_delta_brightness, device)
     images = adjust_brightness(images, delta)
   if random_saturation:
-    factor = _uniform(generator, (batch, 1, 1), lower_saturation,
-                      upper_saturation, device)
+    factor = draw(generator, (batch, 1, 1), lower_saturation,
+                  upper_saturation, device)
     images = adjust_saturation(images, factor)
   if random_hue:
-    delta = _uniform(generator, (batch, 1, 1), -max_delta_hue, max_delta_hue,
-                     device)
+    delta = draw(generator, (batch, 1, 1), -max_delta_hue, max_delta_hue,
+                 device)
     images = adjust_hue(images, delta)
   if random_contrast:
-    factor = _uniform(generator, (batch, 1, 1, 1), lower_contrast,
-                      upper_contrast, device)
+    factor = draw(generator, (batch, 1, 1, 1), lower_contrast,
+                  upper_contrast, device)
     images = adjust_contrast(images, factor)
   if random_noise_level:
     noise = torch.randn(
         images.shape, generator=generator,
         device=generator.device if generator is not None else 'cpu'
     ).to(device) * random_noise_level
-    apply = _uniform(generator, (batch, 1, 1, 1), 0.0, 1.0,
-                     device) < random_noise_apply_probability
+    apply = draw(generator, (batch, 1, 1, 1), 0.0, 1.0,
+                 device) < random_noise_apply_probability
     images = torch.where(apply, images + noise, images)
   return torch.clamp(images, 0.0, 1.0)

@@ -10,7 +10,16 @@ generator that preprocessing draws from.
 
 ``ema`` is the JAX package's ``ema_params``: float32 copies of the
 parameters, updated after every optimizer step as ``ema * decay + p *
-(1 - decay)``, in place. It starts as a copy of the initial parameters.
+(1 - decay)``, in place. It starts as a copy of the initial parameters. On
+the fused update path (``TrainerConfig.fused_update``) the kernel writes the
+EMA, so :func:`apply_ema` does not run.
+
+The JAX state is a value, so its non-finite guard keeps the old one. Here
+the network's batch statistics are updated in place by the forward pass and
+the generator advances with every draw, so a guarded step takes a
+:func:`snapshot` of both before it starts and :func:`restore` puts them back
+when the step is skipped. The step count and the optimizer's counts are
+host integers that a skipped step does not advance.
 """
 
 from __future__ import annotations
@@ -30,6 +39,12 @@ class TrainState:
   ema: Optional[Dict[str, torch.Tensor]]
   generator: torch.Generator
 
+  def ema_by_param(self) -> Optional[Dict[torch.Tensor, torch.Tensor]]:
+    """The EMA tensors keyed by their parameter (None without averaging)."""
+    if self.ema is None:
+      return None
+    return {p: self.ema[name] for name, p in self.network.named_parameters()}
+
   def eval_state_dict(self) -> Dict[str, torch.Tensor]:
     """The network's ``state_dict`` as eval and export read it: the EMA in
     place of the parameters when averaging is on, batch statistics as
@@ -38,6 +53,30 @@ class TrainState:
     if self.ema is not None:
       state.update(self.ema)
     return state
+
+
+@dataclasses.dataclass
+class StepSnapshot:
+  """What a step changes in place before its update: the network's buffers
+  (batch statistics) and the generator's state."""
+
+  buffers: Dict[str, torch.Tensor]
+  generator_state: torch.Tensor
+
+
+def snapshot(state: TrainState) -> StepSnapshot:
+  return StepSnapshot(
+      buffers={name: b.detach().clone()
+               for name, b in state.network.named_buffers()},
+      generator_state=state.generator.get_state())
+
+
+@torch.no_grad()
+def restore(state: TrainState, snap: StepSnapshot) -> None:
+  """Puts a :func:`snapshot`'s buffers and generator state back."""
+  for name, b in state.network.named_buffers():
+    b.copy_(snap.buffers[name])
+  state.generator.set_state(snap.generator_state)
 
 
 def create_train_state(model, generator: torch.Generator,

@@ -2,7 +2,9 @@
 
 :func:`jax_variables_to_torch` maps the Grasping44 tree;
 :func:`snail_variables_to_torch` maps the SNAIL trees of the vrgripper
-meta models (see its docstring). The Grasping44 rules:
+meta models (see its docstring); :func:`optax_state_to_torch` carries an
+optax Adam/SGD state across as the port optimizer's ``state_dict``. The
+Grasping44 rules:
 
 Takes the variables tree the JAX package serves from
 (``jax.device_get(state.eval_variables)``: ``{'params': ...,
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import re
 from collections import abc as collections_abc
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -188,3 +190,55 @@ def snail_variables_to_torch(
     raise ValueError(f'Unmapped JAX variables (no SNAIL counterpart): '
                      f'{unmapped}')
   return state_dict
+
+
+# -------------------------------------------------------- optimizer state
+
+
+def optax_state_to_torch(
+    optimizer: torch.optim.Optimizer,
+    network: torch.nn.Module,
+    adam: Optional[Tuple[Any, Any, Any]] = None,
+    schedule_count: Optional[Any] = None,
+    variables_to_torch: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]
+    = jax_variables_to_torch) -> Dict[str, Any]:
+  """An optax optimizer state, as numpy, -> ``optimizer``'s ``state_dict``.
+
+  ``adam`` is an optax ``ScaleByAdamState``'s ``(count, mu, nu)``, ``mu``
+  and ``nu`` params trees of ``network``'s JAX counterpart, mapped by
+  ``variables_to_torch`` (:func:`jax_variables_to_torch` or
+  :func:`snail_variables_to_torch`); ``schedule_count`` is a
+  ``ScaleByScheduleState``'s count. The port's ``Adam`` and
+  ``GradientDescent`` keep one ``count`` per parameter group for both, so
+  the two must agree. Load the result with ``optimizer.load_state_dict``.
+  """
+  names = {id(p): name for name, p in network.named_parameters()}
+  order = [names[id(p)] for group in optimizer.param_groups
+           for p in group['params']]
+  template = optimizer.state_dict()
+  state: Dict[int, Dict[str, torch.Tensor]] = {}
+  counts = set()
+  if adam is not None:
+    count, mu, nu = adam
+    moments = [variables_to_torch({'params': tree}) for tree in (mu, nu)]
+    for tree in moments:
+      if set(tree) != set(order):
+        raise ValueError(
+            f'Adam moments map to {sorted(set(tree) ^ set(order))} '
+            'differently from the optimizer\'s parameters.')
+    state = {i: {'mu': moments[0][name], 'nu': moments[1][name]}
+             for i, name in enumerate(order)}
+    counts.add(int(np.asarray(count)))
+  if schedule_count is not None:
+    counts.add(int(np.asarray(schedule_count)))
+  if len(counts) > 1:
+    raise ValueError(f'The Adam and schedule counts differ ({counts}); the '
+                     'port keeps one count.')
+  groups = [dict(group) for group in template['param_groups']]
+  for group in groups:
+    if counts:
+      if 'count' not in group:
+        raise ValueError('The optimizer keeps no count (a constant-rate '
+                         'GradientDescent) but the optax state has one.')
+      group['count'] = next(iter(counts))
+  return {'state': state, 'param_groups': groups}

@@ -12,11 +12,14 @@ import re
 
 import pytest
 
-from tensor2robot_tpu_torch.ops import _build, conv_s2d, flash_attention, pool
+from tensor2robot_tpu_torch.ops import (_build, conv_s2d, flash_attention,
+                                        fused_update, photometric, pool)
 
 _ENTRY = re.compile(r'^int\s+(t2r_\w+)\(([^)]*)\)\s*\{', re.MULTILINE)
+# A host array (the fused update's leaf table) is passed as its address.
 _C_TYPES = {'const void*': ctypes.c_void_p, 'void*': ctypes.c_void_p,
-            'int': ctypes.c_int, 'float': ctypes.c_float}
+            'const int64_t*': ctypes.c_void_p, 'int': ctypes.c_int,
+            'float': ctypes.c_float}
 
 
 def _c_entry_points(name):
@@ -35,7 +38,9 @@ def _c_entry_points(name):
 
 @pytest.mark.parametrize('name,module', [('pool', pool),
                                          ('conv_s2d', conv_s2d),
-                                         ('flash_attention', flash_attention)])
+                                         ('flash_attention', flash_attention),
+                                         ('fused_update', fused_update),
+                                         ('photometric', photometric)])
 def test_argtypes_match_c_signature(name, module):
   entries = _c_entry_points(name)
   assert set(module._SIGNATURES) == set(entries)
@@ -57,3 +62,12 @@ def test_build_targets_hopper_and_keys_on_source():
   for path in paths:
     assert path.parent == _build.BUILD_DIR
     assert re.fullmatch(r'lib\w+-[0-9a-f]{16}\.so', path.name)
+
+
+def test_fused_update_table_fits_the_kernel():
+  """The Python side chunks leaves by the kernel's table size and never
+  builds with fast-math (the update needs IEEE division and sqrt)."""
+  source = (_build.CSRC_DIR / 'fused_update.cu').read_text()
+  match = re.search(r'constexpr int kMaxLeaves = (\d+);', source)
+  assert int(match.group(1)) == fused_update.LEAVES_PER_LAUNCH
+  assert not any('fast' in flag for flag in _build.NVCC_FLAGS)

@@ -9,8 +9,12 @@ pixel tiles), for the forward kernels and for the backward ones (pool
 routing: bitwise; conv dW and dx: the forward's bands, dW repeated bit for
 bit), the flash attention forward, dq and dk/dv kernels (the JAX suite's
 bars scaled to the largest magnitude, each kernel twice bit for bit, at
-ragged, odd-head-dim and streamed-regime shapes), and the autograd
-Functions launching them. The file imports neither JAX nor the JAX package, and the
+ragged, odd-head-dim and streamed-regime shapes), the autograd Functions
+launching them, the fused optimizer update in its 8 variants over leaves
+of every alignment and more than one launch's table (atol 1e-6 / rtol
+1e-5, a False guard bitwise untouched, twice bit for bit) and the
+photometric pass at 1 to 4 channels, aligned and not (float32 1e-6,
+bfloat16 one ulp, twice bit for bit). The file imports neither JAX nor the JAX package, and the
 repository's ``tests/conftest.py`` does, so on a machine with a card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -19,7 +23,7 @@ repository's ``tests/conftest.py`` does, so on a machine with a card run
 import pytest
 import torch
 
-from tensor2robot_tpu_torch.ops import conv_s2d, pool
+from tensor2robot_tpu_torch.ops import conv_s2d, fused_update, photometric, pool
 from tensor2robot_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -316,3 +320,144 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(device):
   with pytest.raises(ValueError, match='head dim'):
     shape = (1, 64, 1, 136)
     fa.flash_fwd(*(torch.zeros(shape, device=device) for _ in range(3)))
+
+
+# ------------------------------------------------------------ fused update
+
+# Leaf shapes: one element, ragged tails, a conv weight, one leaf past a
+# block, and enough leaves (70) for two launches of the pointer table.
+UPDATE_SHAPES = ([(1,), (3,), (127,), (129,), (64, 3, 6, 6), (5000,)] +
+                 [(17, 5)] * 64)
+
+
+def _update_leaves(kind, with_ema, device, seed, offset=0):
+  """Seeded leaves; ``offset`` > 0 cuts each tensor out of a larger buffer
+  at that element offset, so its pointer is not 16-byte aligned."""
+  generator = torch.Generator().manual_seed(seed)
+
+  def make(shape, positive=False):
+    n = 1
+    for size in shape:
+      n *= size
+    flat = torch.randn(n + offset, generator=generator)
+    flat = flat.abs() * 1e-3 if positive else flat
+    return flat.to(device)[offset:].view(shape)
+
+  leaves = []
+  for shape in UPDATE_SHAPES:
+    adam = kind == 'adam'
+    leaves.append(fused_update.Leaf(
+        make(shape), make(shape), make(shape) if adam else None,
+        make(shape, positive=True) if adam else None,
+        make(shape) if with_ema else None))
+  return leaves
+
+
+def _clone_leaves(leaves, offset=0):
+  """Copies that keep each tensor ``offset`` elements into its buffer."""
+
+  def copy(t):
+    if t is None:
+      return None
+    buffer = torch.empty(t.numel() + offset, device=t.device)
+    out = buffer[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+  return [fused_update.Leaf(*(copy(t) for t in leaf)) for leaf in leaves]
+
+
+UPDATE_ARGS = dict(lr=3e-3, c1=0.52, c2=0.0069, b1=0.9, b2=0.999, eps=1e-8)
+
+
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'unaligned'])
+@pytest.mark.parametrize('guard', [False, True], ids=['noguard', 'guard'])
+@pytest.mark.parametrize('with_ema', [False, True], ids=['noema', 'ema'])
+@pytest.mark.parametrize('kind', ['adam', 'sgd'])
+def test_fused_update_band_vs_plain(device, kind, with_ema, guard, offset):
+  leaves = _update_leaves(kind, with_ema, device, seed=1, offset=offset)
+  decay = 0.9 if with_ema else None
+  ok = torch.tensor([True], device=device) if guard else None
+  got, again, want = (_clone_leaves(leaves, offset) for _ in range(3))
+  before = fused_update.fused_update.launches
+  fused_update.fused_update(got, kind, decay=decay, ok=ok, **UPDATE_ARGS)
+  fused_update.fused_update(again, kind, decay=decay, ok=ok, **UPDATE_ARGS)
+  fused_update.plain_fused_update(want, kind, decay=decay, ok=ok,
+                                  **UPDATE_ARGS)
+  torch.cuda.synchronize()
+  assert fused_update.fused_update.launches == before + 4  # 70 leaves: 2 each
+  for a, b, w in zip(got, again, want):
+    for x, y, z in zip(a, b, w):
+      if x is None:
+        continue
+      assert torch.equal(x, y)
+      torch.testing.assert_close(x, z, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize('kind', ['adam', 'sgd'])
+def test_fused_update_false_guard_is_bitwise_untouched(device, kind):
+  leaves = _update_leaves(kind, True, device, seed=2)
+  got = _clone_leaves(leaves)
+  fused_update.fused_update(got, kind, decay=0.9,
+                            ok=torch.tensor([False], device=device),
+                            **UPDATE_ARGS)
+  torch.cuda.synchronize()
+  for a, b in zip(got, leaves):
+    for x, y in zip(a, b):
+      assert x is None or torch.equal(x, y)
+
+
+def test_fused_update_refuses_mismatched_layouts(device):
+  p = torch.zeros(8, 4, device=device)
+  leaf = fused_update.Leaf(p, torch.zeros(4, 8, device=device).t())
+  with pytest.raises(ValueError, match='strides'):
+    fused_update.fused_update([leaf], 'sgd', decay=None, **UPDATE_ARGS)
+  leaf = fused_update.Leaf(p, torch.zeros(8, 4, device=device).double())
+  with pytest.raises(ValueError, match='float32'):
+    fused_update.fused_update([leaf], 'sgd', decay=None, **UPDATE_ARGS)
+
+
+# --------------------------------------------------------------- photometric
+
+PHOTOMETRIC_CASES = [(2, 37, 29, 3), (3, 64, 48, 1), (2, 31, 17, 2),
+                     (1, 100, 90, 4), (2, 5, 7, 3)]
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('shape', PHOTOMETRIC_CASES, ids=str)
+def test_photometric_band_vs_plain(device, shape, dtype):
+  generator = torch.Generator().manual_seed(shape[1])
+  images = torch.rand(shape, generator=generator).to(device=device,
+                                                     dtype=dtype)
+  delta = (torch.rand(shape[0], generator=generator) - 0.5).to(device)
+  factor = (torch.rand(shape[0], generator=generator) + 0.5).to(device)
+  before = photometric.photometric.launches
+  got = photometric.photometric(images, delta, factor)
+  again = photometric.photometric(images, delta, factor)
+  want = photometric.plain_brightness_contrast(images, delta, factor)
+  torch.cuda.synchronize()
+  assert photometric.photometric.launches == before + 2
+  assert got.dtype == dtype and got.shape == shape
+  assert torch.equal(got, again)
+  err = (got.float() - want.float()).abs()
+  if dtype == torch.float32:
+    assert float(err.max()) <= 1e-6
+  else:
+    # One bfloat16 ulp at each value: 2**(e - 8) for want = m * 2**e.
+    ulp = torch.ldexp(torch.ones_like(err), torch.frexp(want.float())[1] - 8)
+    assert bool((err <= ulp).all())
+
+
+def test_photometric_fused_branch_launches_the_kernel(device):
+  from tensor2robot_tpu_torch.preprocessors import image_transformations
+  images = torch.rand((4, 40, 30, 3), device=device)
+  before = photometric.photometric.launches
+  out = image_transformations.apply_photometric_image_distortions(
+      images, torch.Generator().manual_seed(0), random_brightness=True,
+      random_contrast=True, use_fused_kernel=True)
+  torch.cuda.synchronize()
+  assert photometric.photometric.launches == before + 1
+  stock = image_transformations.apply_photometric_image_distortions(
+      images, torch.Generator().manual_seed(0), random_brightness=True,
+      random_contrast=True)
+  assert float((out - stock).abs().max()) <= 1e-6

@@ -137,9 +137,3 @@ def test_photometric_chain_defaults_only_clip_and_draws_are_seeded():
   for run in runs:
     assert float(run.min()) >= 0.0 and float(run.max()) <= 1.0
 
-
-def test_fused_photometric_kernel_is_not_ported_yet():
-  with pytest.raises(NotImplementedError, match='photometric.py:72'):
-    image_transformations.apply_photometric_image_distortions(
-        torch.from_numpy(_float_images()), random_brightness=True,
-        random_contrast=True, use_fused_kernel=True)

@@ -415,8 +415,6 @@ def test_trainer_refuses_what_is_not_ported_yet():
   model = GraspingModelWrapper(device_type='cpu')
   with pytest.raises(NotImplementedError, match='queue 1 item 3'):
     Trainer(model, TrainerConfig(model_dir='/nonexistent'), device='cpu')
-  with pytest.raises(NotImplementedError, match='queue 1 item 3'):
-    Trainer(model, TrainerConfig(nonfinite_mode='skip_update'), device='cpu')
   trainer = Trainer(model, TrainerConfig(), device='cpu')
   with pytest.raises(NotImplementedError, match='queue 1 item 3'):
     trainer.train(iter([]), eval_iter_fn=lambda: iter([]))
