@@ -6,7 +6,10 @@
 
 Run from the repository root. The phases:
 
-1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
+1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions and
+   both TF32 flags. The paths and timings run at torch's defaults (cuDNN
+   TF32 on, cuBLAS TF32 off); each check phase turns both off for itself
+   and restores them, and the run fails if they are not restored;
 2. build every CUDA kernel from ``tensor2robot_tpu_torch/ops/csrc``, one
    ``nvcc`` per source, all started together;
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -16,8 +19,10 @@ Run from the repository root. The phases:
    in float32; conv1 forward at [64, 472, 472, 3] and its dW and dx at
    [32, 472, 472, 3], in bfloat16 (band: 2**-7 relative, one bfloat16 ulp,
    plus 1e-5 of the largest magnitude for the gradients' reassociated
-   sums) and in float32 with TF32 off (band 1e-5); dW run twice must agree
-   bit for bit; the flash attention forward (out and lse), dq and dk/dv,
+   sums) and in float32 with TF32 off (band 1e-5); dW (bfloat16 on the
+   tensor cores, float32 on the CUDA cores, the route logged and counted)
+   run twice must agree bit for bit; the flash attention forward (out and
+   lse), dq and dk/dv,
    causal and full, at the SNAIL shapes [2, 1024, 8, 8] and [8, 80, 1, 64]
    (float32), bench.py's [2, 4096, 8, 64] (float32 and bfloat16) and the
    streamed-regime shapes [1, 33792, 1, 64] (bfloat16) and
@@ -44,8 +49,9 @@ Run from the repository root. The phases:
    .train(...)`` on seeded 512x640 uint8 frames, actions and 0/1 rewards
    at batch 32, one warm-up step and then timed steps, with every launch
    counter set to 0 just before and read just after (per step: 3
-   ``pool_fwd``, 3 ``pool_bwd``, 1 ``conv_s2d_fwd``, 1 ``conv_s2d_dw``, 0
-   ``conv_s2d_dx``); a finite loss, a finite gradient on every trainable
+   ``pool_fwd``, 3 ``pool_bwd``, 1 ``conv_s2d_fwd``, 1 ``conv_s2d_dw`` on
+   its tensor-core route, 0 ``conv_s2d_dx``); a finite loss, a finite
+   gradient on every trainable
    parameter, parameters and EMA moved; then the EMA weights and batch
    statistics served by a ``CheckpointPredictor`` on 8 pairs;
 6. dx on a path: a full-width conv1 whose input requires a gradient
@@ -89,7 +95,8 @@ Run from the repository root. The phases:
    ``torch.nn.grad.conv2d_input``, ``F.scaled_dot_product_attention`` and
    its backward, ``torch.optim.Adam(fused=True)``; none for the
    photometric pass), and each kernel's bound on an H100 SXM (3.35 TB/s;
-   989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones);
+   989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones); the float32
+   dW too, against cuDNN with TF32 on and off (logged only);
    ``--profile`` adds ``torch.profiler`` breakdowns of two actions, a
    stock and a fused QT-Opt training step and one stock and one fused step
    of each SNAIL path, written to
@@ -102,6 +109,7 @@ Any failure exits non-zero before them, and nothing falls back to the CPU.
 """
 
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -145,12 +153,14 @@ CONV1_PADS = ((2, 2), (2, 2))  # SAME, 6x6/s2 on 472
 # Kernel launches per training step on the main path.
 NO_FLASH = {'flash_fwd': 0, 'flash_dq': 0, 'flash_dkv': 0}
 NO_QTOPT = {'pool_fwd': 0, 'pool_bwd': 0, 'conv_s2d_fwd': 0,
-            'conv_s2d_dw': 0, 'conv_s2d_dx': 0}
+            'conv_s2d_dw': 0, 'conv_s2d_dw_tensor_core': 0, 'conv_s2d_dx': 0}
 # The fused optimizer update and the photometric pass run only on their own
 # paths (fused_update=True, use_fused_kernel=True).
 NO_FUSED = {'fused_update': 0, 'photometric': 0}
+# conv1's dW is bfloat16 there, so it runs the tensor-core kernel.
 TRAIN_LAUNCHES = {'pool_fwd': 3, 'pool_bwd': 3, 'conv_s2d_fwd': 1,
-                  'conv_s2d_dw': 1, 'conv_s2d_dx': 0, **NO_FLASH, **NO_FUSED}
+                  'conv_s2d_dw': 1, 'conv_s2d_dw_tensor_core': 1,
+                  'conv_s2d_dx': 0, **NO_FLASH, **NO_FUSED}
 # Kernel launches per SNAIL training step: two attention blocks, each one
 # forward and one backward.
 SNAIL_LAUNCHES = {**NO_QTOPT, 'flash_fwd': 2, 'flash_dq': 2, 'flash_dkv': 2,
@@ -218,23 +228,49 @@ def log(*parts):
 
 
 def counters():
-  """Every kernel wrapper's launch count, by kernel name."""
-  return {'pool_fwd': pool.pool_fwd, 'pool_bwd': pool.pool_bwd,
-          'conv_s2d_fwd': conv_s2d.conv_s2d_fwd,
-          'conv_s2d_dw': conv_s2d.conv_s2d_dw,
-          'conv_s2d_dx': conv_s2d.conv_s2d_dx,
-          'flash_fwd': fa.flash_fwd, 'flash_dq': fa.flash_dq,
-          'flash_dkv': fa.flash_dkv, 'fused_update': fused_update.fused_update,
-          'photometric': photometric.photometric}
+  """Every kernel wrapper's launch counts, by kernel name: (wrapper,
+  attribute). conv_s2d_dw's tensor-core route has a count of its own."""
+  wrappers = {'pool_fwd': pool.pool_fwd, 'pool_bwd': pool.pool_bwd,
+              'conv_s2d_fwd': conv_s2d.conv_s2d_fwd,
+              'conv_s2d_dw': conv_s2d.conv_s2d_dw,
+              'conv_s2d_dx': conv_s2d.conv_s2d_dx,
+              'flash_fwd': fa.flash_fwd, 'flash_dq': fa.flash_dq,
+              'flash_dkv': fa.flash_dkv,
+              'fused_update': fused_update.fused_update,
+              'photometric': photometric.photometric}
+  found = {name: (fn, 'launches') for name, fn in wrappers.items()}
+  found['conv_s2d_dw_tensor_core'] = (conv_s2d.conv_s2d_dw,
+                                      'tensor_core_launches')
+  return found
 
 
 def zero_counters():
-  for fn in counters().values():
-    fn.launches = 0
+  for fn, attr in counters().values():
+    setattr(fn, attr, 0)
 
 
 def read_counters():
-  return {name: fn.launches for name, fn in counters().items()}
+  return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
+
+
+def tf32_flags():
+  return (torch.backends.cuda.matmul.allow_tf32,
+          torch.backends.cudnn.allow_tf32)
+
+
+@contextlib.contextmanager
+def tf32_off():
+  """TF32 off for cuBLAS and cuDNN within the context (a check holds
+  float32 to float32), both flags restored after it. As a decorator, for
+  the whole of a check phase."""
+  saved = tf32_flags()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    yield
+  finally:
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
 
 
 def within(got, want, rel, of_max):
@@ -279,8 +315,12 @@ def phase_card():
       capture_output=True, text=True, check=True, timeout=60).stdout.strip()
   card = smi.splitlines()[0].strip()
   log(card)
+  matmul, cudnn = tf32_flags()
   log(f'card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, '
-      f'python {sys.version.split()[0]}')
+      f'python {sys.version.split()[0]}; TF32: '
+      f'torch.backends.cuda.matmul.allow_tf32={matmul}, '
+      f'torch.backends.cudnn.allow_tf32={cudnn} (the paths and timings run '
+      'so; each check phase turns both off and restores them)')
   return card
 
 
@@ -324,10 +364,9 @@ def phase_check_pool(generator):
   return max_err
 
 
+@tf32_off()
 def phase_check_conv(generator):
   pads = conv_s2d.resolve_padding('SAME', CONV1_W[:2], (2, 2), CONV1_X[1:3])
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
   errors = {}
   for dtype, band in ((torch.bfloat16, 2.0**-7), (torch.float32, 1e-5)):
     x = torch.rand(CONV1_X, generator=generator, device='cuda').to(dtype)
@@ -373,7 +412,8 @@ def phase_main_path(seed, actions):
     if action.shape != (5,) or not np.isfinite(action).all():
       raise AssertionError(f'bad action {action!r}')
   want = {'pool_fwd': 9 * actions, 'pool_bwd': 0,
-          'conv_s2d_fwd': 3 * actions, 'conv_s2d_dw': 0, 'conv_s2d_dx': 0,
+          'conv_s2d_fwd': 3 * actions, 'conv_s2d_dw': 0,
+          'conv_s2d_dw_tensor_core': 0, 'conv_s2d_dx': 0,
           **NO_FLASH, **NO_FUSED}
   if launches != want:
     raise AssertionError(f'launches over {actions} actions: {launches}')
@@ -414,6 +454,7 @@ def spread_weights(network, generator):
   return state
 
 
+@tf32_off()
 def phase_reference(seed):
   """The whole float32 network on the card (kernels) against the CPU
   (plain versions) on 2 full-width pairs, TF32 off."""
@@ -495,11 +536,11 @@ def phase_check_pool_bwd(generator):
   return 0.0
 
 
+@tf32_off()
 def phase_check_conv_grads(generator):
   """conv_s2d_dw and conv_s2d_dx against their plain versions at the
-  training conv1 shape, bfloat16 and float32 (TF32 off); dW twice."""
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
+  training conv1 shape, bfloat16 (dW on the tensor cores) and float32 (dW
+  on the CUDA cores; TF32 off for the plain versions); dW twice."""
   wshape, strides, pads = CONV1_W, (2, 2), CONV1_PADS
   gshape = (TRAIN_BATCH, 236, 236, CONV1_W[3])
   errors = {}
@@ -510,8 +551,20 @@ def phase_check_conv_grads(generator):
     w = (0.1 * torch.randn(wshape, generator=generator, device='cuda')).to(
         dtype)
     g = torch.randn(gshape, generator=generator, device='cuda').to(dtype)
+    plan = conv_s2d.dw_plan(TRAIN_CONV1_X, wshape, strides, pads, dtype)
+    tensor_core = conv_s2d.conv_s2d_dw.tensor_core_launches
     dw = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
     dw_again = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
+    tensor_core = conv_s2d.conv_s2d_dw.tensor_core_launches - tensor_core
+    if tensor_core != (2 if plan['route'] == conv_s2d.ROUTE_TENSOR_CORE
+                       else 0):
+      raise AssertionError(f'conv_s2d_dw {dtype}: route {plan["route"]} '
+                           f'but {tensor_core} tensor-core launches')
+    log(f'check conv_s2d_dw {str(dtype)[6:]}: route {plan["route"]}, '
+        f'{plan["chunks"]} runs of {plan["tiles_per_chunk"]} 64-pixel '
+        f'tiles, {plan["smem"]} bytes of shared memory a block' +
+        (f', output tile {plan["tile_taps"]} taps x 64 channels'
+         if 'tile_taps' in plan else ''))
     dx = conv_s2d.conv_s2d_dx(g, w, TRAIN_CONV1_X, strides, pads)
     want_dw = conv_s2d.plain_conv2d_dw(x, g, wshape, strides, pads)
     want_dx = conv_s2d.plain_conv2d_dx(g, w, TRAIN_CONV1_X, strides, pads)
@@ -631,6 +684,7 @@ def phase_dx_path(generator):
     torch.cuda.synchronize()
     launches = read_counters()
   want = {'pool_fwd': 0, 'pool_bwd': 0, 'conv_s2d_fwd': 1, 'conv_s2d_dw': 1,
+          'conv_s2d_dw_tensor_core': 1,
           'conv_s2d_dx': 1, **NO_FLASH, **NO_FUSED}
   if launches != want:
     raise AssertionError(f'dx path launches {launches}, expected {want}')
@@ -669,6 +723,7 @@ def float64_gradients(state, batch, seed):
   return float(loss.detach()), {k: p.grad for k, p in network.named_parameters()}
 
 
+@tf32_off()
 def phase_train_reference(seed):
   """One float32 training step on the card (kernels) against the same
   step on the CPU (plain versions), full width, batch 2, TF32 off.
@@ -679,8 +734,6 @@ def phase_train_reference(seed):
   card's gradient must lie no further from it, in relative L2, than
   REFERENCE_L2_RATIO times the CPU float32 gradient's worst leaf, and
   within REFERENCE_MAX_BAND of the leaf's largest magnitude of the CPU's."""
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
   state = spread_weights(
       GraspingModelWrapper(device_type='cpu').create_module(),
       torch.Generator().manual_seed(seed))
@@ -747,12 +800,11 @@ def flash_inputs(shape, dtype, generator):
                for _ in range(4))
 
 
+@tf32_off()
 def phase_check_flash(generator):
   """flash_fwd (out and lse), flash_dq and flash_dkv against their plain
   versions, causal and full, at FLASH_SHAPES; each kernel twice, bit for
   bit. Returns each kernel's largest error at the SNAIL shapes."""
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
   errors = dict(NO_FLASH)
   for name, shape, dtype in FLASH_SHAPES:
     f32 = dtype == torch.float32
@@ -908,6 +960,7 @@ def snail_float64_step(model, state, batch, seed):
                                 for k, p in network.named_parameters()}
 
 
+@tf32_off()
 def phase_snail_reference(seed):
   """One float32 long-horizon SNAIL step (episode 64, batch 1, 8 heads of
   8), TF32 off, three times: on the card through the flash kernels, on the
@@ -924,8 +977,6 @@ def phase_snail_reference(seed):
     largest magnitude of the CPU's, element by element.
 
   INVARIANT_LEAVES are reported only."""
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
   kwargs = dict(episode_length=64, num_attention_heads=8,
                 attention_head_size=8)
   init = VRGripperEnvLongHorizonModel(**kwargs)
@@ -1615,6 +1666,35 @@ def bound_text(nbytes, ops, ops_rate=BF16_FLOP_PER_S):
           f'{ops_rate / 1e12:g} TFLOP/s)')
 
 
+def dw_float32_timing(generator, ops):
+  """The float32 dW (CUDA-core kernel) at the training conv1 shape, logged
+  beside cuDNN's at torch's default (TF32 on) and with TF32 off; the
+  kernels line keeps the bfloat16 main path's row."""
+  x = torch.rand(TRAIN_CONV1_X, generator=generator, device='cuda')
+  g = torch.randn((TRAIN_BATCH, 236, 236, 64), generator=generator,
+                  device='cuda')
+  x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+  oihw = (CONV1_W[3], CONV1_W[2]) + CONV1_W[:2]
+
+  def library():
+    return torch.nn.grad.conv2d_weight(x_cl, oihw, g_cl, stride=2,
+                                       padding=2)
+
+  ms = cuda_ms(lambda: conv_s2d.conv_s2d_dw(x, g, CONV1_W, (2, 2),
+                                            CONV1_PADS))
+  plain = cuda_ms(lambda: conv_s2d.plain_conv2d_dw(x, g, CONV1_W, (2, 2),
+                                                   CONV1_PADS), iters=5)
+  lib = cuda_ms(library)
+  with tf32_off():
+    lib_exact = cuda_ms(library)
+  nbytes = 4 * (np.prod(TRAIN_CONV1_X) + np.prod(CONV1_W) + g.numel())
+  log(f'time conv_s2d_dw {TRAIN_CONV1_X} float32 (CUDA cores): kernel '
+      f'{ms:.4f} ms, plain {plain:.4f} ms, torch.nn.grad.conv2d_weight '
+      f'{lib:.4f} ms (TF32 {torch.backends.cudnn.allow_tf32}), '
+      f'{lib_exact:.4f} ms (TF32 off), '
+      f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}')
+
+
 def phase_timing(generator, errors, launches):
   record = {}
   for name, shape, window, strides in POOLS:
@@ -1707,6 +1787,7 @@ def phase_timing(generator, errors, launches):
         f'{plain:.4f} ms, {lib_name} {lib:.4f} ms, {bound_text(nbytes, ops)}')
     timing_entry(record, name, ms, plain, lib, nbytes, ops)
   del x, w, g, x_cl, g_cl, w_oihw
+  dw_float32_timing(generator, ops)
 
   flash_timing(record, generator)
   fused_update_timing(record, generator)
@@ -1828,6 +1909,7 @@ def main(argv=None):
     print('chip_smoke: no CUDA card is visible; nothing was run.',
           file=sys.stderr)
     return 2
+  defaults = tf32_flags()
   card = phase_card()
   phase_build()
   generator = torch.Generator(device='cuda').manual_seed(args.seed)
@@ -1839,6 +1921,11 @@ def main(argv=None):
   errors.update(phase_check_flash(generator))
   errors['fused_update'] = phase_check_fused_update(generator)
   errors['photometric'] = phase_check_photometric(generator)
+  if tf32_flags() != defaults:
+    raise AssertionError(f'TF32 flags {tf32_flags()} after the checks, '
+                         f'{defaults} before')
+  log(f'TF32 flags after the check phases: {tf32_flags()} (matmul, cudnn), '
+      'as before them')
   torch.cuda.empty_cache()
   ms_per_action, serve_launches, policy, frames = phase_main_path(
       args.seed, args.actions)
@@ -1876,6 +1963,9 @@ def main(argv=None):
       f'{ {name: result[1] for name, result in snail_fused.items()} } over '
       f'{args.snail_steps} steps each; photometric path '
       f'{photometric_launches}')
+  if tf32_flags() != defaults:
+    raise AssertionError(f'TF32 flags {tf32_flags()} before the timings, '
+                         f'{defaults} at the start')
   kernels = phase_timing(generator, errors, launches)
   if args.profile:
     phase_profile(policy, frames)

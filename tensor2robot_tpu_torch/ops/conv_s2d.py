@@ -15,8 +15,10 @@ does. :func:`conv2d` goes through the autograd Function
 :func:`conv_s2d_fwd`, :func:`conv_s2d_dw` and :func:`conv_s2d_dx` (the
 kernels in ``csrc/conv_s2d.cu``); a CPU tensor runs :func:`plain_conv2d`,
 :func:`plain_conv2d_dw` and :func:`plain_conv2d_dx`. The backward computes
-dx only when the input needs a gradient. Results are banded, not bitwise,
-against a stock convolution (reassociated sums): 1e-5 in float32.
+dx only when the input needs a gradient. :func:`conv_s2d_dw` takes its
+route from the dtype (:func:`dw_plan`): bfloat16 on the tensor cores,
+float32 on the CUDA cores. Results are banded, not bitwise, against a
+stock convolution (reassociated sums): 1e-5 in float32.
 
 :class:`SpaceToDepthConv` is the module form. Its parameter tree is that
 of flax's ``nn.Conv``: a ``kernel`` of shape (kh, kw, cin, cout) and an
@@ -42,6 +44,8 @@ _SIGNATURES = {
                         [ctypes.c_void_p],
     't2r_conv_s2d_dw': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 +
                        [ctypes.c_void_p],
+    't2r_conv_s2d_dw_mma': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 +
+                           [ctypes.c_void_p],
     't2r_conv_s2d_dx': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 +
                        [ctypes.c_void_p],
 }
@@ -49,16 +53,54 @@ _SIGNATURES = {
 # matmul-shaped and belongs to the stock convolution.
 _MAX_CIN = 8
 _MAX_PATCH_DEPTH = 512
-# Dynamic shared memory per block on an H100, and the kernel's tile of
-# output pixels (kPixels in csrc/conv_s2d.cu): the block stages the float32
-# weight matrix and one [patch, pixels] patch matrix.
+# Dynamic shared memory per block on an H100, and the kernels' tile of
+# output pixels (kPixels in csrc/conv_s2d.cu).
 _MAX_SMEM_BYTES = 232448
 _TILE_PIXELS = 64
-# dW's first pass splits the output pixels into this many fixed runs, one
-# block each, and its second pass adds the runs' float32 partials in order:
-# three blocks per SM of an H100 at conv1's shared-memory footprint. The
-# split depends on the shapes alone, so dW repeats bit for bit.
+# dW's first pass splits the output pixels into fixed runs of whole tiles,
+# one block each, and its second pass adds the runs' float32 partials in
+# order. The split depends on the shapes alone, never on the card, so dW
+# repeats bit for bit. The most runs fill one wave of an H100's 132 SMs:
+# float32 (CUDA cores, 74 KB of shared memory at conv1) fits three blocks
+# on an SM, bfloat16 (tensor cores, 50 KB) four. :func:`dw_plan` makes the
+# split for both kernels, and each C entry point checks it.
 _DW_CHUNKS = 396
+_DW_MMA_CHUNKS = 528
+# The bfloat16 dW block (kMma* in csrc/conv_s2d.cu): an output tile of up
+# to 128 taps x 64 channels; per stage a [64, taps + 8] patch tile and a
+# [64, 64 + 8] cotangent tile in bfloat16 (rows padded by 16 bytes), two
+# stages, then a 16-byte tap table entry per tap.
+_MMA_MAX_TAPS = 128
+_MMA_CHANNELS = 64
+_MMA_STAGES = 2
+_MMA_ROW_PAD = 8
+ROUTE_TENSOR_CORE = 'tensor_core'
+ROUTE_CUDA_CORE = 'cuda_core'
+
+
+def _cdiv(a: int, b: int) -> int:
+  return -(-a // b)
+
+
+def _dw_mma_tiles(patch: int, cout: int) -> Tuple[int, int, int]:
+  """The bfloat16 dW kernel's output tiles: (taps per tile, tap tiles,
+  channel tiles). The taps, padded to 16, split into equal tiles of at most
+  128; the channels into tiles of 64."""
+  m16 = _cdiv(patch, 16)
+  tap_tiles = _cdiv(m16, _MMA_MAX_TAPS // 16)
+  return 16 * _cdiv(m16, tap_tiles), tap_tiles, _cdiv(cout, _MMA_CHANNELS)
+
+
+def _dw_smem(patch: int, cout: int, dtype: torch.dtype) -> int:
+  """Shared memory of a dW first-pass block."""
+  if dtype == torch.bfloat16:
+    taps = _dw_mma_tiles(patch, cout)[0]
+    return 2 * _MMA_STAGES * _TILE_PIXELS * (
+        taps + _MMA_ROW_PAD + _MMA_CHANNELS + _MMA_ROW_PAD) + 16 * taps
+  # float32: the accumulator and the staging tiles, rows padded to 4, then
+  # the pixel and tap tables.
+  kp, cp = _cdiv(patch, 4) * 4, _cdiv(cout, 4) * 4
+  return 4 * (kp * cp + _TILE_PIXELS * (kp + cp)) + 16 * _TILE_PIXELS + 12 * kp
 
 
 def _plan(xshape, wshape, strides, pads, x_dtype, w_dtype) -> Optional[dict]:
@@ -81,13 +123,10 @@ def _plan(xshape, wshape, strides, pads, x_dtype, w_dtype) -> Optional[dict]:
   ow = (w + plw + phw - kw) // sw + 1
   if oh < 1 or ow < 1:
     return None
-  # Shared memory of the forward (weights + patch tile) and of dW's first
-  # pass (accumulator + patch and cotangent tiles, rows padded to 4, then
-  # its pixel and tap tables); dx stages the weights alone.
-  kp, cp = -(-patch // 4) * 4, -(-cout // 4) * 4
+  # Shared memory of the forward (float32 weights + patch tile) and of
+  # dW's first pass for this dtype; dx stages the weights alone.
   smem = max(4 * ((patch * cout + 3) // 4 * 4 + patch * _TILE_PIXELS),
-             4 * (kp * cp + _TILE_PIXELS * (kp + cp)) + 16 * _TILE_PIXELS +
-             12 * kp)
+             _dw_smem(patch, cout, x_dtype))
   if smem > _MAX_SMEM_BYTES:
     return None
   return dict(h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw, sh=sh, sw=sw,
@@ -106,6 +145,44 @@ def is_supported(xshape: Sequence[int], wshape: Sequence[int],
                          xshape[1:3])
   return _plan(xshape, tuple(wshape), tuple(strides), pads, dtype,
                dtype) is not None
+
+
+def dw_plan(xshape: Sequence[int], wshape: Sequence[int],
+            strides: Tuple[int, int], pads: Pads, dtype: torch.dtype) -> dict:
+  """How :func:`conv_s2d_dw` splits a problem, from the shapes and dtype
+  alone: the route (bfloat16 -> the tensor-core kernel, float32 -> the
+  CUDA-core kernel), the pixels, their 64-pixel tiles, the runs (``chunks``
+  blocks of ``tiles_per_chunk`` tiles, the last one ragged) and, on the
+  tensor-core route, the output tiles (``tap_tiles`` of ``tile_taps`` taps
+  x ``channel_tiles`` of 64 channels, with the taps padded to ``k_pad`` and
+  the channels' MMA tiles to ``cout_pad``). ``smem`` is a block's shared
+  memory in bytes. Raises for a problem the kernels do not take."""
+  p = _plan(tuple(xshape), tuple(wshape), tuple(strides), pads, dtype, dtype)
+  if p is None:
+    raise ValueError(
+        f'conv_s2d dW unsupported for x {tuple(xshape)}, w {tuple(wshape)}, '
+        f'dtype {dtype}, strides {strides}, pads {pads}.')
+  return _dw_split(p, int(xshape[0]), dtype)
+
+
+def _dw_split(p: dict, batch: int, dtype: torch.dtype) -> dict:
+  """:func:`dw_plan` of a problem that ``_plan`` has taken."""
+  tensor_core = dtype == torch.bfloat16
+  num_pixels = batch * p['oh'] * p['ow']
+  num_tiles = _cdiv(num_pixels, _TILE_PIXELS)
+  tiles_per_chunk = _cdiv(num_tiles,
+                          _DW_MMA_CHUNKS if tensor_core else _DW_CHUNKS)
+  plan = dict(route=ROUTE_TENSOR_CORE if tensor_core else ROUTE_CUDA_CORE,
+              num_pixels=num_pixels, tile_pixels=_TILE_PIXELS,
+              num_tiles=num_tiles, tiles_per_chunk=tiles_per_chunk,
+              chunks=_cdiv(num_tiles, tiles_per_chunk),
+              smem=_dw_smem(p['patch'], p['cout'], dtype))
+  if tensor_core:
+    tile_taps, tap_tiles, channel_tiles = _dw_mma_tiles(p['patch'], p['cout'])
+    plan.update(tile_taps=tile_taps, tap_tiles=tap_tiles,
+                channel_tiles=channel_tiles, k_pad=_cdiv(p['patch'], 16) * 16,
+                cout_pad=_cdiv(p['cout'], 8) * 8)
+  return plan
 
 
 def _require_plan(x, w, strides, pads) -> dict:
@@ -201,28 +278,42 @@ def conv_s2d_dw(x: torch.Tensor, g: torch.Tensor, w_shape: Sequence[int],
   ``x``: contiguous NHWC input, ``g``: contiguous NHWC cotangent of the
   output, both float32 or both bfloat16 on one CUDA device. Returns dW of
   shape ``w_shape`` (HWIO) in their dtype: the float32 sum rounded once.
-  Raises on any other input, and when a launch reports an error.
+  The dtype picks the first pass (:func:`dw_plan`): bfloat16 runs on the
+  tensor cores (counted in ``tensor_core_launches`` too), float32 on the
+  CUDA cores. Raises on any other input, and when a launch reports an
+  error.
   """
   _cuda_operands('conv_s2d_dw', x, g)
   p = _require_grad_plan('conv_s2d_dw', x.shape, w_shape, g.shape, strides,
                          pads, x.dtype, g.dtype)
-  partial = torch.empty((_DW_CHUNKS, p['patch'], p['cout']),
+  plan = _dw_split(p, x.shape[0], x.dtype)
+  partial = torch.empty((plan['chunks'], p['patch'], p['cout']),
                         dtype=torch.float32, device=x.device)
   dw = torch.empty(tuple(w_shape), dtype=x.dtype, device=x.device)
+  geometry = (x.shape[0], p['h'], p['w'], p['cin'], p['kh'], p['kw'],
+              p['sh'], p['sw'], p['plh'], p['plw'], p['oh'], p['ow'],
+              p['cout'])
+  tensor_core = plan['route'] == ROUTE_TENSOR_CORE
   lib = _build.load('conv_s2d', _SIGNATURES)
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = lib.t2r_conv_s2d_dw(
-        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-        _DTYPE_CODES[x.dtype], x.shape[0], p['h'], p['w'], p['cin'],
-        p['kh'], p['kw'], p['sh'], p['sw'], p['plh'], p['plw'], p['oh'],
-        p['ow'], p['cout'], _DW_CHUNKS, stream)
+    operands = (x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                dw.data_ptr(), *geometry, plan['tiles_per_chunk'],
+                plan['chunks'])
+    if tensor_core:
+      status = lib.t2r_conv_s2d_dw_mma(
+          *operands, plan['tile_taps'], plan['tap_tiles'],
+          plan['channel_tiles'], stream)
+    else:
+      status = lib.t2r_conv_s2d_dw(*operands, stream)
   _build.check(lib, status, 'conv_s2d_dw')
   conv_s2d_dw.launches += 1
+  conv_s2d_dw.tensor_core_launches += tensor_core
   return dw
 
 
 conv_s2d_dw.launches = 0
+conv_s2d_dw.tensor_core_launches = 0
 
 
 def conv_s2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],

@@ -71,3 +71,28 @@ def test_fused_update_table_fits_the_kernel():
   match = re.search(r'constexpr int kMaxLeaves = (\d+);', source)
   assert int(match.group(1)) == fused_update.LEAVES_PER_LAUNCH
   assert not any('fast' in flag for flag in _build.NVCC_FLAGS)
+
+
+def _constants(name):
+  """{name: value} of the ``constexpr int`` constants of ``csrc/<name>.cu``,
+  each expression evaluated over the constants before it."""
+  source = (_build.CSRC_DIR / f'{name}.cu').read_text()
+  values = {}
+  for key, expr in re.findall(r'constexpr int (\w+) = ([^;]+);', source):
+    values[key] = eval(expr, {}, dict(values))  # pylint: disable=eval-used
+  return values
+
+
+def test_dw_planner_mirrors_the_tensor_core_kernel():
+  """The host planner's tile, block and padding numbers are the bfloat16
+  dW kernel's, and its fixed run count is one wave of that kernel's
+  minimum blocks per SM on an H100's 132 SMs."""
+  c = _constants('conv_s2d')
+  assert c['kPixels'] == conv_s2d._TILE_PIXELS
+  assert c['kMmaMaxTaps'] == conv_s2d._MMA_MAX_TAPS
+  assert c['kMmaChannels'] == conv_s2d._MMA_CHANNELS
+  assert c['kMmaStages'] == conv_s2d._MMA_STAGES
+  assert c['kMmaRowPad'] == conv_s2d._MMA_ROW_PAD
+  assert c['kMmaBStride'] == c['kMmaChannels'] + conv_s2d._MMA_ROW_PAD
+  assert c['kMmaThreads'] == 4 * 32 and c['kMmaChannels'] == 4 * 16
+  assert conv_s2d._DW_MMA_CHUNKS == 132 * c['kMmaBlocksPerSm']

@@ -43,6 +43,12 @@ CONV_CASES = [
     ('explicit_pads', (1, 20, 20, 3), (7, 7, 3, 8), (2, 2), ((2, 3), (2, 3))),
     ('stride1_cin2', (1, 17, 17, 2), (3, 3, 2, 8), (1, 1), 'SAME'),
     ('valid_cin1', (2, 15, 11, 1), (5, 3, 1, 8), (3, 2), 'VALID'),
+    # 35,340 pixels: a ragged last 64-pixel tile, and more tiles than dW
+    # has runs, so runs of 2 tiles with a ragged last run of 1.
+    ('ragged_runs', (4, 186, 190, 3), (6, 6, 3, 64), (2, 2), 'SAME'),
+    # Cout not a multiple of 8 and an odd Cin*W: bf16 dW stages both the
+    # cotangent and the patch element by element.
+    ('cout5', (2, 13, 11, 3), (4, 4, 3, 5), (2, 2), 'SAME'),
 ]
 DTYPES = [torch.float32, torch.bfloat16]
 FLASH_CASES = [  # name, [B, T, H, D]
@@ -56,11 +62,19 @@ FLASH_CASES = [  # name, [B, T, H, D]
 
 @pytest.fixture(name='device')
 def _device():
+  """The card, with TF32 off for the test and both flags restored after
+  it."""
   if not torch.cuda.is_available():
     pytest.skip('needs a CUDA card: the kernels build and run only there')
+  saved = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  return torch.device('cuda')
+  try:
+    yield torch.device('cuda')
+  finally:
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
 
 
 def _tied(shape, dtype, device, seed=0):
@@ -137,7 +151,8 @@ def test_pool_bwd_kernel_bitwise_vs_plain(device, name, shape, window,
 def test_conv_grad_kernels_band_vs_plain(device, name, xshape, wshape,
                                          strides, padding, dtype):
   """dW and dx in the forward's bands, relative to each gradient's largest
-  magnitude; dW twice, bit for bit."""
+  magnitude; dW twice, bit for bit. bfloat16 dW runs the tensor-core
+  kernel, float32 dW the CUDA-core one."""
   del name
   generator = torch.Generator().manual_seed(2)
   x = torch.randn(xshape, generator=generator).to(device=device, dtype=dtype)
@@ -148,6 +163,7 @@ def test_conv_grad_kernels_band_vs_plain(device, name, xshape, wshape,
   g = torch.randn(out_shape, generator=generator).to(device=device,
                                                      dtype=dtype)
   before = (conv_s2d.conv_s2d_dw.launches, conv_s2d.conv_s2d_dx.launches)
+  tensor_core = conv_s2d.conv_s2d_dw.tensor_core_launches
   dw = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
   dw_again = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
   dx = conv_s2d.conv_s2d_dx(g, w, xshape, strides, pads)
@@ -156,6 +172,8 @@ def test_conv_grad_kernels_band_vs_plain(device, name, xshape, wshape,
   torch.cuda.synchronize()
   assert (conv_s2d.conv_s2d_dw.launches,
           conv_s2d.conv_s2d_dx.launches) == (before[0] + 2, before[1] + 1)
+  assert conv_s2d.conv_s2d_dw.tensor_core_launches == tensor_core + (
+      2 if dtype == torch.bfloat16 else 0)
   assert torch.equal(dw, dw_again)
   band = 1e-5 if dtype == torch.float32 else 2.0**-7
   for got, want in ((dw, want_dw), (dx, want_dx)):
