@@ -16,14 +16,15 @@ Run from the repository root. The phases:
    main paths' shapes: the pool forward and backward bitwise (values, slots
    and routed gradients) at the three QT-Opt pools in bfloat16 (B=64 for
    serving, B=32 for training) plus odd, overlapping and planted-tie cases
-   in float32; conv1 forward at [64, 472, 472, 3] and its dW and dx at
+   in float32; conv1 forward at [64, 472, 472, 3] (and in bfloat16 also
+   at the training shape [32, 472, 472, 3]) and its dW and dx at
    [32, 472, 472, 3], in bfloat16 (band: 2**-7 relative, one bfloat16 ulp,
-   plus 1e-5 of the largest magnitude for the gradients' reassociated
-   sums) and in float32 with TF32 off (band 1e-5); dW (bfloat16 on the
-   tensor cores, float32 on the CUDA cores, the route logged and counted)
-   run twice must agree bit for bit; the flash attention forward (out and
-   lse), dq and dk/dv,
-   causal and full, at the SNAIL shapes [2, 1024, 8, 8] and [8, 80, 1, 64]
+   plus 1e-6 for the forward and 1e-5 of the largest magnitude for the
+   gradients' reassociated sums) and in float32 with TF32 off (band
+   1e-5); the forward and dW (bfloat16 on the tensor cores, float32 on the
+   CUDA cores, the route logged and counted) run twice must agree bit for
+   bit; the flash attention forward (out and lse), dq and dk/dv, causal
+   and full, at the SNAIL shapes [2, 1024, 8, 8] and [8, 80, 1, 64]
    (float32), bench.py's [2, 4096, 8, 64] (float32 and bfloat16) and the
    streamed-regime shapes [1, 33792, 1, 64] (bfloat16) and
    [1, 17408, 1, 64] (float32), each run twice bit for bit (bands: the JAX
@@ -39,7 +40,8 @@ Run from the repository root. The phases:
    random weights -> ``CEMPolicy(64 samples x 3 iterations,
    device_resident=True)`` on 512x640 uint8 frames, one warm-up action and
    then timed actions, with every launch counter set to 0 just before and
-   read just after (3 conv1 and 9 pool launches per action); then
+   read just after (3 conv1 forwards, on the tensor cores, and 9 pool
+   launches per action); then
    ``predict`` on 8 frame/action pairs, and a float32 check of the full
    network on the card against the same network on the CPU (plain
    versions) on 2 pairs: q, and the end points ``pool2``, ``final_conv``
@@ -49,11 +51,11 @@ Run from the repository root. The phases:
    .train(...)`` on seeded 512x640 uint8 frames, actions and 0/1 rewards
    at batch 32, one warm-up step and then timed steps, with every launch
    counter set to 0 just before and read just after (per step: 3
-   ``pool_fwd``, 3 ``pool_bwd``, 1 ``conv_s2d_fwd``, 1 ``conv_s2d_dw`` on
-   its tensor-core route, 0 ``conv_s2d_dx``); a finite loss, a finite
-   gradient on every trainable
-   parameter, parameters and EMA moved; then the EMA weights and batch
-   statistics served by a ``CheckpointPredictor`` on 8 pairs;
+   ``pool_fwd``, 3 ``pool_bwd``, 1 ``conv_s2d_fwd`` and 1 ``conv_s2d_dw``,
+   both on their tensor-core routes, 0 ``conv_s2d_dx``); a finite loss, a
+   finite gradient on every trainable parameter, parameters and EMA moved;
+   then the EMA weights and batch statistics served by a
+   ``CheckpointPredictor`` on 8 pairs;
 6. dx on a path: a full-width conv1 whose input requires a gradient
    launches ``conv_s2d_dx`` once, and its dx matches the plain version;
 7. a float32 training step on the card (kernels) against the same step on
@@ -96,7 +98,8 @@ Run from the repository root. The phases:
    its backward, ``torch.optim.Adam(fused=True)``; none for the
    photometric pass), and each kernel's bound on an H100 SXM (3.35 TB/s;
    989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones); the float32
-   dW too, against cuDNN with TF32 on and off (logged only);
+   forward and dW and the bfloat16 forward at the training shape too,
+   the float32 kernels against cuDNN with TF32 on and off (logged only);
    ``--profile`` adds ``torch.profiler`` breakdowns of two actions, a
    stock and a fused QT-Opt training step and one stock and one fused step
    of each SNAIL path, written to
@@ -153,14 +156,17 @@ CONV1_PADS = ((2, 2), (2, 2))  # SAME, 6x6/s2 on 472
 # Kernel launches per training step on the main path.
 NO_FLASH = {'flash_fwd': 0, 'flash_dq': 0, 'flash_dkv': 0}
 NO_QTOPT = {'pool_fwd': 0, 'pool_bwd': 0, 'conv_s2d_fwd': 0,
-            'conv_s2d_dw': 0, 'conv_s2d_dw_tensor_core': 0, 'conv_s2d_dx': 0}
+            'conv_s2d_fwd_tensor_core': 0, 'conv_s2d_dw': 0,
+            'conv_s2d_dw_tensor_core': 0, 'conv_s2d_dx': 0}
 # The fused optimizer update and the photometric pass run only on their own
 # paths (fused_update=True, use_fused_kernel=True).
 NO_FUSED = {'fused_update': 0, 'photometric': 0}
-# conv1's dW is bfloat16 there, so it runs the tensor-core kernel.
+# conv1 is bfloat16 there, so its forward and dW run the tensor-core
+# kernels.
 TRAIN_LAUNCHES = {'pool_fwd': 3, 'pool_bwd': 3, 'conv_s2d_fwd': 1,
-                  'conv_s2d_dw': 1, 'conv_s2d_dw_tensor_core': 1,
-                  'conv_s2d_dx': 0, **NO_FLASH, **NO_FUSED}
+                  'conv_s2d_fwd_tensor_core': 1, 'conv_s2d_dw': 1,
+                  'conv_s2d_dw_tensor_core': 1, 'conv_s2d_dx': 0,
+                  **NO_FLASH, **NO_FUSED}
 # Kernel launches per SNAIL training step: two attention blocks, each one
 # forward and one backward.
 SNAIL_LAUNCHES = {**NO_QTOPT, 'flash_fwd': 2, 'flash_dq': 2, 'flash_dkv': 2,
@@ -229,7 +235,8 @@ def log(*parts):
 
 def counters():
   """Every kernel wrapper's launch counts, by kernel name: (wrapper,
-  attribute). conv_s2d_dw's tensor-core route has a count of its own."""
+  attribute). The tensor-core routes of conv_s2d_fwd and conv_s2d_dw have
+  counts of their own."""
   wrappers = {'pool_fwd': pool.pool_fwd, 'pool_bwd': pool.pool_bwd,
               'conv_s2d_fwd': conv_s2d.conv_s2d_fwd,
               'conv_s2d_dw': conv_s2d.conv_s2d_dw,
@@ -239,6 +246,8 @@ def counters():
               'fused_update': fused_update.fused_update,
               'photometric': photometric.photometric}
   found = {name: (fn, 'launches') for name, fn in wrappers.items()}
+  found['conv_s2d_fwd_tensor_core'] = (conv_s2d.conv_s2d_fwd,
+                                       'tensor_core_launches')
   found['conv_s2d_dw_tensor_core'] = (conv_s2d.conv_s2d_dw,
                                       'tensor_core_launches')
   return found
@@ -366,26 +375,46 @@ def phase_check_pool(generator):
 
 @tf32_off()
 def phase_check_conv(generator):
+  """conv1's forward against its plain version, twice bit for bit: bfloat16
+  on the tensor cores at the serving and the training shape (their plans
+  differ), float32 on the CUDA cores at the serving shape."""
   pads = conv_s2d.resolve_padding('SAME', CONV1_W[:2], (2, 2), CONV1_X[1:3])
   errors = {}
-  for dtype, band in ((torch.bfloat16, 2.0**-7), (torch.float32, 1e-5)):
-    x = torch.rand(CONV1_X, generator=generator, device='cuda').to(dtype)
+  for shape, dtype, band in ((CONV1_X, torch.bfloat16, 2.0**-7),
+                             (TRAIN_CONV1_X, torch.bfloat16, 2.0**-7),
+                             (CONV1_X, torch.float32, 1e-5)):
+    x = torch.rand(shape, generator=generator, device='cuda').to(dtype)
     w = (0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')).to(
         dtype)
-    got = conv_s2d.conv_s2d_fwd(x, w, (2, 2), pads).float()
+    plan = conv_s2d.fwd_plan(shape, CONV1_W, (2, 2), pads, dtype)
+    tensor_core = conv_s2d.conv_s2d_fwd.tensor_core_launches
+    got = conv_s2d.conv_s2d_fwd(x, w, (2, 2), pads)
+    again = conv_s2d.conv_s2d_fwd(x, w, (2, 2), pads)
+    tensor_core = conv_s2d.conv_s2d_fwd.tensor_core_launches - tensor_core
     want = conv_s2d.plain_conv2d(x, w, (2, 2), pads).float()
     torch.cuda.synchronize()
-    err = (got - want).abs()
+    if tensor_core != (2 if plan['route'] == conv_s2d.ROUTE_TENSOR_CORE
+                       else 0):
+      raise AssertionError(f'conv_s2d_fwd {shape} {dtype}: route '
+                           f'{plan["route"]} but {tensor_core} tensor-core '
+                           'launches')
+    if not torch.equal(got, again):
+      raise AssertionError(
+          f'conv_s2d_fwd {shape} {dtype} is not deterministic')
+    err = (got.float() - want).abs()
     limit = band * want.abs() + (1e-6 if dtype == torch.bfloat16 else band)
     if not bool((err <= limit).all()):
       raise AssertionError(
-          f'conv_s2d_fwd {dtype} outside its band: max err '
+          f'conv_s2d_fwd {shape} {dtype} outside its band: max err '
           f'{float(err.max())}')
-    errors[dtype] = float(err.max())
-    log(f'check conv_s2d_fwd {CONV1_X} {str(dtype)[6:]}: max abs err '
-        f'{errors[dtype]:.3e} (band {band:.1e} relative)')
-    del x, w, got, want, err, limit
-  return errors[torch.bfloat16]
+    errors[shape, dtype] = float(err.max())
+    log(f'check conv_s2d_fwd {shape} {str(dtype)[6:]}: plan {plan}, max '
+        f'abs err {errors[shape, dtype]:.3e} (band {band:.1e} relative), '
+        f'at most {float((err / limit).max()):.3f} of the band; twice: '
+        'bitwise equal')
+    del x, w, got, again, want, err, limit
+  return max(errors[CONV1_X, torch.bfloat16],
+             errors[TRAIN_CONV1_X, torch.bfloat16])
 
 
 def phase_main_path(seed, actions):
@@ -411,10 +440,9 @@ def phase_main_path(seed, actions):
   for action in chosen:
     if action.shape != (5,) or not np.isfinite(action).all():
       raise AssertionError(f'bad action {action!r}')
-  want = {'pool_fwd': 9 * actions, 'pool_bwd': 0,
-          'conv_s2d_fwd': 3 * actions, 'conv_s2d_dw': 0,
-          'conv_s2d_dw_tensor_core': 0, 'conv_s2d_dx': 0,
-          **NO_FLASH, **NO_FUSED}
+  want = {**NO_QTOPT, 'pool_fwd': 9 * actions,
+          'conv_s2d_fwd': 3 * actions,
+          'conv_s2d_fwd_tensor_core': 3 * actions, **NO_FLASH, **NO_FUSED}
   if launches != want:
     raise AssertionError(f'launches over {actions} actions: {launches}')
   ms_per_action = 1e3 * seconds / actions
@@ -683,9 +711,10 @@ def phase_dx_path(generator):
     conv_s2d.conv2d(x, w, (2, 2), 'SAME').backward(g)
     torch.cuda.synchronize()
     launches = read_counters()
-  want = {'pool_fwd': 0, 'pool_bwd': 0, 'conv_s2d_fwd': 1, 'conv_s2d_dw': 1,
-          'conv_s2d_dw_tensor_core': 1,
-          'conv_s2d_dx': 1, **NO_FLASH, **NO_FUSED}
+  want = {'pool_fwd': 0, 'pool_bwd': 0, 'conv_s2d_fwd': 1,
+          'conv_s2d_fwd_tensor_core': 1, 'conv_s2d_dw': 1,
+          'conv_s2d_dw_tensor_core': 1, 'conv_s2d_dx': 1, **NO_FLASH,
+          **NO_FUSED}
   if launches != want:
     raise AssertionError(f'dx path launches {launches}, expected {want}')
   plain = conv_s2d.plain_conv2d_dx(g, w.detach(), TRAIN_CONV1_X, (2, 2),
@@ -1695,6 +1724,41 @@ def dw_float32_timing(generator, ops):
       f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}')
 
 
+def fwd_logged_timing(generator, patch):
+  """conv1's forward beside its row of the kernels line, logged only: the
+  bfloat16 tensor-core kernel at the training shape against F.conv2d, and
+  the float32 CUDA-core kernel at the serving shape against F.conv2d at
+  torch's default (TF32 on) and with TF32 off."""
+  for shape, dtype in ((TRAIN_CONV1_X, torch.bfloat16),
+                       (CONV1_X, torch.float32)):
+    x = torch.rand(shape, generator=generator, device='cuda').to(dtype)
+    w = (0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')).to(
+        dtype)
+    x_cl = x.permute(0, 3, 1, 2)
+    w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def library(x_cl=x_cl, w_cl=w_cl):
+      return F.conv2d(x_cl, w_cl, stride=2, padding=CONV1_PADS[0][0])
+
+    ms = cuda_ms(lambda x=x, w=w: conv_s2d.conv_s2d_fwd(x, w, (2, 2),
+                                                        CONV1_PADS))
+    lib = cuda_ms(library)
+    with tf32_off():
+      lib_exact = cuda_ms(library)
+    pixels = shape[0] * 236 * 236
+    size = x.element_size()
+    nbytes = size * (np.prod(shape) + np.prod(CONV1_W) + pixels * CONV1_W[3])
+    ops = 2 * pixels * patch * CONV1_W[3]
+    route = conv_s2d.fwd_plan(shape, CONV1_W, (2, 2), CONV1_PADS,
+                              dtype)['route']
+    log(f'time conv_s2d_fwd {shape} {str(dtype)[6:]} ({route}): kernel '
+        f'{ms:.4f} ms, F.conv2d {lib:.4f} ms (TF32 '
+        f'{torch.backends.cudnn.allow_tf32}), {lib_exact:.4f} ms (TF32 off), '
+        + bound_text(nbytes, ops, BF16_FLOP_PER_S if dtype == torch.bfloat16
+                     else F32_FLOP_PER_S))
+    del x, w, x_cl, w_cl
+
+
 def phase_timing(generator, errors, launches):
   record = {}
   for name, shape, window, strides in POOLS:
@@ -1754,6 +1818,7 @@ def phase_timing(generator, errors, launches):
       f'{plain:.4f} ms, F.conv2d {lib:.4f} ms, {bound_text(nbytes, ops)}')
   timing_entry(record, 'conv_s2d_fwd', ms, plain, lib, nbytes, ops)
   del x, w, x_cl, w_cl
+  fwd_logged_timing(generator, patch)
 
   x = torch.rand(TRAIN_CONV1_X, generator=generator, device='cuda').to(
       torch.bfloat16)
@@ -1818,12 +1883,14 @@ def phase_timing(generator, errors, launches):
       'photometric': ('tensor2robot_tpu_torch/ops/csrc/photometric.cu',
                       'tensor2robot_tpu/ops/photometric.py:72'),
   }
+  # conv1's forward row is its tensor-core kernel: its own count.
+  counted = {'conv_s2d_fwd': 'conv_s2d_fwd_tensor_core'}
   for name, (source, replaces) in meta.items():
     entry = record[name]
     bytes_ms, ops_ms = entry['bytes_ms'], entry['ops_ms']
     kernels.append({
         'name': name, 'route': 'cuda', 'source': source,
-        'replaces': replaces, 'launches': launches[name],
+        'replaces': replaces, 'launches': launches[counted.get(name, name)],
         'max_abs_err': errors[name], 'ms': entry['ms'],
         'plain_ms': entry['plain_ms'], 'bound_ms': max(bytes_ms, ops_ms),
         'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',

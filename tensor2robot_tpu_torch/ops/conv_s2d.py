@@ -15,10 +15,11 @@ does. :func:`conv2d` goes through the autograd Function
 :func:`conv_s2d_fwd`, :func:`conv_s2d_dw` and :func:`conv_s2d_dx` (the
 kernels in ``csrc/conv_s2d.cu``); a CPU tensor runs :func:`plain_conv2d`,
 :func:`plain_conv2d_dw` and :func:`plain_conv2d_dx`. The backward computes
-dx only when the input needs a gradient. :func:`conv_s2d_dw` takes its
-route from the dtype (:func:`dw_plan`): bfloat16 on the tensor cores,
-float32 on the CUDA cores. Results are banded, not bitwise, against a
-stock convolution (reassociated sums): 1e-5 in float32.
+dx only when the input needs a gradient. :func:`conv_s2d_fwd` and
+:func:`conv_s2d_dw` take their route from the dtype (:func:`fwd_plan`,
+:func:`dw_plan`): bfloat16 on the tensor cores, float32 on the CUDA cores.
+Results are banded, not bitwise, against a stock convolution
+(reassociated sums): 1e-5 in float32.
 
 :class:`SpaceToDepthConv` is the module form. Its parameter tree is that
 of flax's ``nn.Conv``: a ``kernel`` of shape (kh, kw, cin, cout) and an
@@ -40,8 +41,10 @@ from tensor2robot_tpu_torch.ops.pool import Pads, resolve_padding
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    't2r_conv_s2d_fwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 +
+    't2r_conv_s2d_fwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 +
                         [ctypes.c_void_p],
+    't2r_conv_s2d_fwd_mma': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 +
+                            [ctypes.c_void_p],
     't2r_conv_s2d_dw': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 +
                        [ctypes.c_void_p],
     't2r_conv_s2d_dw_mma': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 +
@@ -74,6 +77,16 @@ _MMA_MAX_TAPS = 128
 _MMA_CHANNELS = 64
 _MMA_STAGES = 2
 _MMA_ROW_PAD = 8
+# The bfloat16 forward (kFwd* in csrc/conv_s2d.cu): block (j, n) owns run j
+# of 64-pixel tiles and channel tile n of 64 channels, with the taps padded
+# to 16 (at most _MAX_PATCH_DEPTH); a [64, 64] output tile, then per stage
+# a [64, k_pad] patch tile and once the [64, k_pad] weights, all bfloat16,
+# and a 16-byte tap table entry per tap. Four blocks fit an SM at conv1
+# (53 KB each), so the runs fill at most one wave of them. Every output
+# element has one writer, so the split only balances the load.
+_FWD_CHANNELS = 64
+_FWD_STAGES = 2
+_FWD_MMA_CHUNKS = 528
 ROUTE_TENSOR_CORE = 'tensor_core'
 ROUTE_CUDA_CORE = 'cuda_core'
 
@@ -103,6 +116,16 @@ def _dw_smem(patch: int, cout: int, dtype: torch.dtype) -> int:
   return 4 * (kp * cp + _TILE_PIXELS * (kp + cp)) + 16 * _TILE_PIXELS + 12 * kp
 
 
+def _fwd_smem(patch: int, cout: int, dtype: torch.dtype) -> int:
+  """Shared memory of a forward block."""
+  if dtype == torch.bfloat16:
+    k_pad = _cdiv(patch, 16) * 16
+    return 2 * (_TILE_PIXELS * _FWD_CHANNELS + (
+        _FWD_STAGES * _TILE_PIXELS + _FWD_CHANNELS) * k_pad) + 16 * k_pad
+  # float32: the weights (padded to 4 floats) and a [K, 64] patch tile.
+  return 4 * (_cdiv(patch * cout, 4) * 4 + patch * _TILE_PIXELS)
+
+
 def _plan(xshape, wshape, strides, pads, x_dtype, w_dtype) -> Optional[dict]:
   if len(xshape) != 4 or len(wshape) != 4:
     return None
@@ -123,10 +146,10 @@ def _plan(xshape, wshape, strides, pads, x_dtype, w_dtype) -> Optional[dict]:
   ow = (w + plw + phw - kw) // sw + 1
   if oh < 1 or ow < 1:
     return None
-  # Shared memory of the forward (float32 weights + patch tile) and of
-  # dW's first pass for this dtype; dx stages the weights alone.
-  smem = max(4 * ((patch * cout + 3) // 4 * 4 + patch * _TILE_PIXELS),
-             _dw_smem(patch, cout, x_dtype))
+  # Shared memory of the forward and of dW's first pass for this dtype,
+  # and of dx (the weights alone, as float32).
+  smem = max(_fwd_smem(patch, cout, x_dtype), _dw_smem(patch, cout, x_dtype),
+             4 * patch * cout)
   if smem > _MAX_SMEM_BYTES:
     return None
   return dict(h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw, sh=sh, sw=sw,
@@ -145,6 +168,42 @@ def is_supported(xshape: Sequence[int], wshape: Sequence[int],
                          xshape[1:3])
   return _plan(xshape, tuple(wshape), tuple(strides), pads, dtype,
                dtype) is not None
+
+
+def fwd_plan(xshape: Sequence[int], wshape: Sequence[int],
+             strides: Tuple[int, int], pads: Pads, dtype: torch.dtype) -> dict:
+  """How :func:`conv_s2d_fwd` runs a problem, from the shapes and dtype
+  alone: the route (bfloat16 -> the tensor-core kernel, float32 -> the
+  CUDA-core kernel), the pixels and their 64-pixel tiles and ``smem``, a
+  block's shared memory in bytes; on the tensor-core route also the runs
+  (``chunks`` blocks of ``tiles_per_chunk`` tiles, the last one ragged),
+  the taps padded to ``k_pad`` and the ``channel_tiles`` of 64 channels.
+  The CUDA-core kernel sizes its own grid of persistent blocks. Raises for
+  a problem the kernels do not take."""
+  p = _plan(tuple(xshape), tuple(wshape), tuple(strides), pads, dtype, dtype)
+  if p is None:
+    raise ValueError(
+        f'conv_s2d forward unsupported for x {tuple(xshape)}, w '
+        f'{tuple(wshape)}, dtype {dtype}, strides {strides}, pads {pads}.')
+  return _fwd_split(p, int(xshape[0]), dtype)
+
+
+def _fwd_split(p: dict, batch: int, dtype: torch.dtype) -> dict:
+  """:func:`fwd_plan` of a problem that ``_plan`` has taken."""
+  tensor_core = dtype == torch.bfloat16
+  num_pixels = batch * p['oh'] * p['ow']
+  num_tiles = _cdiv(num_pixels, _TILE_PIXELS)
+  plan = dict(route=ROUTE_TENSOR_CORE if tensor_core else ROUTE_CUDA_CORE,
+              num_pixels=num_pixels, tile_pixels=_TILE_PIXELS,
+              num_tiles=num_tiles, smem=_fwd_smem(p['patch'], p['cout'],
+                                                  dtype))
+  if tensor_core:
+    tiles_per_chunk = _cdiv(num_tiles, _FWD_MMA_CHUNKS)
+    plan.update(tiles_per_chunk=tiles_per_chunk,
+                chunks=_cdiv(num_tiles, tiles_per_chunk),
+                k_pad=_cdiv(p['patch'], 16) * 16,
+                channel_tiles=_cdiv(p['cout'], _FWD_CHANNELS))
+  return plan
 
 
 def dw_plan(xshape: Sequence[int], wshape: Sequence[int],
@@ -197,35 +256,42 @@ def _require_plan(x, w, strides, pads) -> dict:
 
 def conv_s2d_fwd(x: torch.Tensor, w: torch.Tensor, strides: Tuple[int, int],
                  pads: Pads) -> torch.Tensor:
-  """Launches the CUDA kernel (``csrc/conv_s2d.cu``) on the current stream.
+  """Launches the forward kernel (``csrc/conv_s2d.cu``) on the current
+  stream.
 
   ``x``: contiguous NHWC, ``w``: contiguous HWIO, both float32 or both
-  bfloat16 on one CUDA device. Returns NHWC in the input dtype. Raises on
-  any other input, and when the launch reports an error.
+  bfloat16 on one CUDA device. Returns NHWC in the input dtype. The dtype
+  picks the kernel (:func:`fwd_plan`): bfloat16 runs on the tensor cores
+  (counted in ``tensor_core_launches`` too), float32 on the CUDA cores.
+  Raises on any other input, and when the launch reports an error.
   """
-  if x.device.type != 'cuda' or w.device != x.device:
-    raise ValueError(
-        f'conv_s2d_fwd takes CUDA tensors on one device, got {x.device} and '
-        f'{w.device}.')
-  if not (x.is_contiguous() and w.is_contiguous()):
-    raise ValueError('conv_s2d_fwd takes contiguous NHWC x and HWIO w.')
+  _cuda_operands('conv_s2d_fwd', x, w)
   p = _require_plan(x, w, strides, pads)
   b = x.shape[0]
+  plan = _fwd_split(p, b, x.dtype)
   out = torch.empty((b, p['oh'], p['ow'], p['cout']), dtype=x.dtype,
                     device=x.device)
+  tensor_core = plan['route'] == ROUTE_TENSOR_CORE
   lib = _build.load('conv_s2d', _SIGNATURES)
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = lib.t2r_conv_s2d_fwd(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], b,
-        p['h'], p['w'], p['cin'], p['kh'], p['kw'], p['sh'], p['sw'],
-        p['plh'], p['plw'], p['oh'], p['ow'], p['cout'], stream)
+    operands = (x.data_ptr(), w.data_ptr(), out.data_ptr(), b, p['h'],
+                p['w'], p['cin'], p['kh'], p['kw'], p['sh'], p['sw'],
+                p['plh'], p['plw'], p['oh'], p['ow'], p['cout'])
+    if tensor_core:
+      status = lib.t2r_conv_s2d_fwd_mma(
+          *operands, plan['tiles_per_chunk'], plan['chunks'], plan['k_pad'],
+          plan['channel_tiles'], stream)
+    else:
+      status = lib.t2r_conv_s2d_fwd(*operands, stream)
   _build.check(lib, status, 'conv_s2d_fwd')
   conv_s2d_fwd.launches += 1
+  conv_s2d_fwd.tensor_core_launches += tensor_core
   return out
 
 
 conv_s2d_fwd.launches = 0
+conv_s2d_fwd.tensor_core_launches = 0
 
 
 def _patches(x: torch.Tensor, p: dict) -> torch.Tensor:

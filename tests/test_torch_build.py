@@ -96,3 +96,24 @@ def test_dw_planner_mirrors_the_tensor_core_kernel():
   assert c['kMmaBStride'] == c['kMmaChannels'] + conv_s2d._MMA_ROW_PAD
   assert c['kMmaThreads'] == 4 * 32 and c['kMmaChannels'] == 4 * 16
   assert conv_s2d._DW_MMA_CHUNKS == 132 * c['kMmaBlocksPerSm']
+
+
+def test_fwd_planner_mirrors_the_tensor_core_kernel():
+  """The host planner's tile, block and padding numbers are the bfloat16
+  forward kernel's: one warpgroup's wgmma over a 64 x 64 output tile of
+  8 x 8 core matrices, the patch at most 512 taps deep, and a run count of
+  one wave of the kernel's minimum blocks per SM on an H100's 132 SMs; the
+  C entry point it calls is bound to its signature."""
+  c = _constants('conv_s2d')
+  assert c['kFwdChannels'] == conv_s2d._FWD_CHANNELS == 2 * 32
+  assert c['kPixels'] == conv_s2d._TILE_PIXELS == 2 * 32
+  assert c['kMmaThreads'] == 4 * 32
+  assert c['kFwdMaxTaps'] == conv_s2d._MAX_PATCH_DEPTH
+  assert c['kFwdStages'] == conv_s2d._FWD_STAGES
+  assert c['kCoreRows'] * 8 == c['kPixels'] == c['kFwdChannels']
+  assert conv_s2d._FWD_MMA_CHUNKS == 132 * c['kFwdBlocksPerSm']
+  entries = _c_entry_points('conv_s2d')
+  assert conv_s2d._SIGNATURES['t2r_conv_s2d_fwd_mma'] == entries[
+      't2r_conv_s2d_fwd_mma']
+  assert conv_s2d._SIGNATURES['t2r_conv_s2d_fwd'] == entries[
+      't2r_conv_s2d_fwd']

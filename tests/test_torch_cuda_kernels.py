@@ -4,20 +4,22 @@ Marked ``cuda``: each test skips with a reason where no CUDA card is
 visible. ``chip_smoke.py`` holds the kernels at the main path's shapes;
 these tests cover the other geometries the wrappers accept (odd sizes,
 VALID and explicit pads, overlapping windows, Cout that is not a multiple
-of the kernel's 64-channel block, one and two input channels, partial
-pixel tiles), for the forward kernels and for the backward ones (pool
-routing: bitwise; conv dW and dx: the forward's bands, dW repeated bit for
-bit), the flash attention forward, dq and dk/dv kernels (the JAX suite's
-bars scaled to the largest magnitude, each kernel twice bit for bit, at
-ragged, odd-head-dim and streamed-regime shapes), the autograd Functions
-launching them, the fused optimizer update in its 8 variants over leaves
-of every alignment and more than one launch's table (atol 1e-6 / rtol
-1e-5, a False guard bitwise untouched, twice bit for bit) and the
-photometric pass at 1 to 4 channels, aligned and not (float32 1e-6,
-bfloat16 one ulp, twice bit for bit). The file imports neither JAX nor the JAX package, and the
-repository's ``tests/conftest.py`` does, so on a machine with a card run
+of the kernel's 64-channel block, one, two and eight input channels, the
+deepest patch of 512 taps, partial pixel tiles), for the forward kernels
+and for the backward ones (pool routing: bitwise; conv dW and dx: the
+forward's bands; the conv forward and dW repeated bit for bit, bfloat16
+on the tensor cores), the flash attention forward, dq and dk/dv kernels
+(the JAX suite's bars scaled to the largest magnitude, each kernel twice
+bit for bit, at ragged, odd-head-dim and streamed-regime shapes), the
+autograd Functions launching them, the fused optimizer update in its 8
+variants over leaves of every alignment and more than one launch's table
+(atol 1e-6 / rtol 1e-5, a False guard bitwise untouched, twice bit for
+bit) and the photometric pass at 1 to 4 channels, aligned and not
+(float32 1e-6, bfloat16 one ulp, twice bit for bit). The file imports
+neither JAX nor the JAX package, and the repository's
+``tests/conftest.py`` does, so on a machine with a card run
 
-    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_*.py
 """
 
 import pytest
@@ -49,6 +51,9 @@ CONV_CASES = [
     # Cout not a multiple of 8 and an odd Cin*W: bf16 dW stages both the
     # cotangent and the patch element by element.
     ('cout5', (2, 13, 11, 3), (4, 4, 3, 5), (2, 2), 'SAME'),
+    # The deepest patch the kernels take: K = 8*8*8 = 512, 32 k16 steps of
+    # the tensor-core forward, Cout 24 (16-byte stores, a partial n8 set).
+    ('k512', (1, 19, 21, 8), (8, 8, 8, 24), (2, 2), 'SAME'),
 ]
 DTYPES = [torch.float32, torch.bfloat16]
 FLASH_CASES = [  # name, [B, T, H, D]
@@ -108,18 +113,25 @@ def test_pool_kernel_bitwise_vs_plain(device, name, shape, window, strides,
 def test_conv_kernel_band_vs_plain(device, name, xshape, wshape, strides,
                                    padding, dtype):
   """float32: 1e-5, the JAX kernel's bar; bfloat16: one bfloat16 ulp
-  (2**-7 relative), where the two float32 sums round to neighbours."""
+  (2**-7 relative), where the two float32 sums round to neighbours. Each
+  call runs twice, bit for bit; bfloat16 runs the tensor-core kernel,
+  float32 the CUDA-core one."""
   del name
   generator = torch.Generator().manual_seed(1)
   x = torch.randn(xshape, generator=generator).to(device=device, dtype=dtype)
   w = (0.1 * torch.randn(wshape, generator=generator)).to(device=device,
                                                           dtype=dtype)
   pads = conv_s2d.resolve_padding(padding, wshape[:2], strides, xshape[1:3])
-  before = conv_s2d.conv_s2d_fwd.launches
+  before = (conv_s2d.conv_s2d_fwd.launches,
+            conv_s2d.conv_s2d_fwd.tensor_core_launches)
   got = conv_s2d.conv_s2d_fwd(x, w, strides, pads)
+  again = conv_s2d.conv_s2d_fwd(x, w, strides, pads)
   want = conv_s2d.plain_conv2d(x, w, strides, pads)
   torch.cuda.synchronize()
-  assert conv_s2d.conv_s2d_fwd.launches == before + 1
+  assert (conv_s2d.conv_s2d_fwd.launches,
+          conv_s2d.conv_s2d_fwd.tensor_core_launches) == (
+              before[0] + 2, before[1] + (2 if dtype == torch.bfloat16 else 0))
+  assert torch.equal(got, again)
   assert got.dtype == dtype and got.shape == want.shape
   band = 1e-5 if dtype == torch.float32 else 2.0**-7
   torch.testing.assert_close(got.float(), want.float(), rtol=band,
