@@ -11,13 +11,18 @@ Run from the repository root. The phases:
    TF32 on, cuBLAS TF32 off); each check phase turns both off for itself
    and restores them, and the run fails if they are not restored;
 2. build every CUDA kernel from ``tensor2robot_tpu_torch/ops/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; ptxas's stack-frame line of
+   each ``fused_update_kernel`` instantiation is printed and must read 0
+   bytes (its table is a ``__grid_constant__`` parameter);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes: the pool forward and backward bitwise (values, slots
-   and routed gradients) at the three QT-Opt pools in bfloat16 (B=64 for
-   serving, B=32 for training) plus odd, overlapping and planted-tie cases
-   in float32; conv1 forward at [64, 472, 472, 3] (and in bfloat16 also
-   at the training shape [32, 472, 472, 3]) and its dW and dx at
+   main paths' shapes: the pool forward bitwise (values and slots) at the
+   three QT-Opt pools in bfloat16 at B=64 and B=32, pool1 in float32, a
+   C=3 and a storage-offset case (the one-channel instantiation), an
+   overlapping 3x3/s2 window, a planted tie and NaN, -0.0 and +0.0 at slot
+   0; the pool backward bitwise (routed gradients) at the three pools in
+   bfloat16 (B=32) plus odd and overlapping cases in float32; conv1
+   forward at [64, 472, 472, 3] (and in bfloat16 also at the training
+   shape [32, 472, 472, 3]) and its dW and dx at
    [32, 472, 472, 3], in bfloat16 (band: 2**-7 relative, one bfloat16 ulp,
    plus 1e-6 for the forward and 1e-5 of the largest magnitude for the
    gradients' reassociated sums) and in float32 with TF32 off (band
@@ -63,7 +68,10 @@ Run from the repository root. The phases:
    to a float64 CPU gradient of the same step: the losses within 1e-4;
    every leaf of the card's gradient no further from float64 (relative
    L2) than 6x the CPU float32 gradient's worst leaf, and within 0.1 of the
-   leaf's largest magnitude of the CPU's (see ``REFERENCE_L2_RATIO``);
+   leaf's largest magnitude of the CPU's (see ``REFERENCE_L2_RATIO``); two
+   controls printed leaf by leaf against the same float64 gradient, cuDNN
+   deterministic without autotuning and the pools and conv1 left to the
+   library, with the cuDNN flags and the card step's kernels by name;
 8. the SNAIL training paths at full width, each a ``Trainer`` with default
    Adam on seeded 220x300 uint8 episodes: ``VRGripperEnvLongHorizonModel(
    episode_length=512, 8 heads of 8)`` at batch 2 and
@@ -83,7 +91,7 @@ Run from the repository root. The phases:
    1 ``fused_update``), then one NaN-poisoned batch that must leave
    parameters, moments, counts, EMA, batch statistics, step and generator
    bitwise as they were; both SNAIL paths with ``fused_update=True`` and
-   default Adam (per step: 2/2/2 flash and 2 ``fused_update`` launches, the
+   default Adam (per step: 2/2/2 flash and 1 ``fused_update`` launch, the
    stock ``Adam.step`` never entered), each ms/step printed beside the
    stock run's;
 11. the fused photometric branch, ``apply_photometric_image_distortions(
@@ -96,14 +104,19 @@ Run from the repository root. The phases:
    channels-last, ``torch.nn.grad.conv2d_weight``,
    ``torch.nn.grad.conv2d_input``, ``F.scaled_dot_product_attention`` and
    its backward, ``torch.optim.Adam(fused=True)``; none for the
-   photometric pass), and each kernel's bound on an H100 SXM (3.35 TB/s;
+   photometric pass; the fused update's row is the trainer's per-step
+   call through its packed table and the library's step, both on the host
+   clock, since the host bounds them), and each kernel's bound on an H100
+   SXM (3.35 TB/s;
    989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones); the float32
    forward and dW and the bfloat16 forward at the training shape too,
    the float32 kernels against cuDNN with TF32 on and off (logged only);
    ``--profile`` adds ``torch.profiler`` breakdowns of two actions, a
    stock and a fused QT-Opt training step and one stock and one fused step
    of each SNAIL path, written to
-   ``chiprun_out/chip_smoke_profile*.txt``.
+   ``chiprun_out/chip_smoke_profile*.txt``, each with the profiler's
+   'Activity Buffer Request' row printed beside the device time that
+   leaves it out.
 
 The last three lines of the output are the JSON ``kernels`` record, the
 card's name and power limit (as ``nvidia-smi --query-gpu=name,power.limit
@@ -333,7 +346,25 @@ def phase_card():
   return card
 
 
+def stack_frames(report, kernel):
+  """{mangled name: ptxas's stack-frame line} of every instantiation of
+  ``kernel`` in a ``ptxas -v`` report ('Function properties for <name>',
+  then the line with its stack frame and spills)."""
+  frames, name = {}, None
+  for line in report.splitlines():
+    if 'Function properties for' in line:
+      name = line.split('Function properties for')[-1].strip()
+    elif name is not None and 'stack frame' in line:
+      if kernel in name:
+        frames[name] = line.strip()
+      name = None
+  return frames
+
+
 def phase_build():
+  """Builds every kernel; the fused update's table parameter must leave
+  every instantiation of its kernel a 0-byte stack frame (a table copied
+  into local memory would show there)."""
   start = time.perf_counter()
   reports = _build.build()
   seconds = time.perf_counter() - start
@@ -342,25 +373,72 @@ def phase_build():
     for line in report.splitlines():
       if 'registers' in line or 'spill' in line:
         log(f'  ptxas {name}: {line.strip()}')
+  frames = stack_frames(_build.report('fused_update'), 'fused_update_kernel')
+  for kernel, line in sorted(frames.items()):
+    log(f'ptxas fused_update_kernel {kernel}: {line}')
+  if len(frames) != 8 or not all(
+      line.startswith('0 bytes stack frame') for line in frames.values()):
+    raise AssertionError(f'fused_update_kernel stack frames: {frames}')
+  log('ptxas: all 8 fused_update_kernel instantiations have a 0-byte stack '
+      'frame')
+
+
+def same_bits(a, b):
+  """Bitwise equality (NaN payloads included) of two tensors."""
+  int_type = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+  return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+      a.view(int_type.get(a.dtype, a.dtype)),
+      b.view(int_type.get(b.dtype, b.dtype)))
 
 
 def phase_check_pool(generator):
-  cases = [(name, shape, window, strides, torch.bfloat16)
-           for name, shape, window, strides in POOLS]
-  cases += [('odd_f32', (2, 11, 13, 16), (3, 2), (1, 2), torch.float32),
-            ('overlap_f32', (4, 23, 23, 64), (3, 3), (2, 2), torch.float32)]
-  max_err = 0.0
-  for name, shape, window, strides, dtype in cases:
+  """pool_fwd against plain_max_pool_argmax, values (bit for bit) and
+  slots: the three QT-Opt pools at B=64 and B=32 in bf16, pool1 in
+  float32, a C=3 and a storage-offset (unaligned) case, which take the
+  one-channel instantiation, a C=16 odd window (3x2/s(1,2)), which takes
+  the 8-channel one with the window at run time, an overlapping 3x3/s2
+  window, a planted tie, and NaN, -0.0 and +0.0 planted at slot 0. Each
+  case logs its launch choice (ops/pool.fwd_launch, which the C entry
+  refuses to differ from)."""
+  cases = [(f'{name}_b{shape[0]}', shape, window, strides, torch.bfloat16, 0)
+           for pools in (POOLS, TRAIN_POOLS)
+           for name, shape, window, strides in pools]
+  cases += [('pool1_f32', POOLS[0][1], (3, 3), (3, 3), torch.float32, 0),
+            ('c3_f32', (2, 11, 13, 3), (3, 2), (1, 2), torch.float32, 0),
+            ('odd_f32', (2, 11, 13, 16), (3, 2), (1, 2), torch.float32, 0),
+            ('c3_bf16', (4, 79, 79, 3), (3, 3), (3, 3), torch.bfloat16, 0),
+            ('unaligned_bf16', (8, 79, 79, 64), (3, 3), (3, 3),
+             torch.bfloat16, 1),
+            ('overlap_f32', (4, 23, 23, 64), (3, 3), (2, 2), torch.float32,
+             0),
+            ('overlap_bf16', (8, 79, 79, 64), (3, 3), (2, 2), torch.bfloat16,
+             0)]
+  max_err, routes = 0.0, set()
+  for name, shape, window, strides, dtype, offset in cases:
     x = tied_normal(shape, dtype, generator, 'cuda')
+    if offset:
+      buffer = torch.empty(x.numel() + offset, dtype=dtype, device='cuda')
+      buffer[offset:].copy_(x.flatten())
+      x = buffer[offset:].view(shape)
     pads = pool.resolve_padding('SAME', window, strides, shape[1:3])
     got = pool.pool_fwd(x, window, strides, pads)
     want = pool.plain_max_pool_argmax(x, window, strides, pads)
     torch.cuda.synchronize()
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+    if not (same_bits(got[0], want[0]) and torch.equal(got[1], want[1])):
       raise AssertionError(f'pool_fwd {name} differs from its plain version')
+    launch = pool.fwd_launch(shape, window, strides, pads,
+                             aligned=x.data_ptr() % 16 == 0)
+    routes.add((launch['vec'], launch['templated']))
     max_err = max(max_err, float((got[0].float() - want[0].float()).abs()
                                  .max()))
-    log(f'check pool_fwd {name} {shape} {str(dtype)[6:]}: bitwise')
+    log(f'check pool_fwd {name} {shape} {str(dtype)[6:]} window {window} '
+        f'strides {strides}: bitwise (launch: {launch["vec"]} channel(s) a '
+        f'thread, {64 if launch["wide"] else 32}-bit offsets, '
+        f'{"templated" if launch["templated"] else "runtime"} window)')
+    del x, got, want
+  vec = pool.fwd_launch((1, 4, 4, 8), (2, 2), (2, 2), ((0, 0), (0, 0)))['vec']
+  if not {(1, True), (vec, True), (vec, False)} <= routes:
+    raise AssertionError(f'pool_fwd checks took only {routes}')
   tie = torch.zeros((1, 4, 4, 8), device='cuda')
   tie[0, 2, 2] = tie[0, 3, 3] = 9.0
   out, slot = pool.pool_fwd(tie, (2, 2), (2, 2), ((0, 0), (0, 0)))
@@ -370,6 +448,26 @@ def phase_check_pool(generator):
   if float(out[0, 1, 1].min()) != 9.0:
     raise AssertionError('pool_fwd tie value')
   log('check pool_fwd planted tie: first slot wins')
+  for dtype in (torch.bfloat16, torch.float32):
+    x = torch.ones((2, 6, 6, 16), dtype=dtype, device='cuda') * -1.0
+    x[0, 0, 0, :8] = float('nan')      # NaN at slot 0 sticks
+    x[0, 0, 1, :8] = 5.0
+    x[0, 0, 2, 8:] = -0.0              # -0.0 at slot 0 against +0.0
+    x[0, 1, 3, 8:] = 0.0
+    x[1, 0, 0] = 0.0                   # +0.0 at slot 0 against -0.0
+    x[1, 1, 1] = -0.0
+    got = pool.pool_fwd(x, (2, 2), (2, 2), ((0, 0), (0, 0)))
+    want = pool.plain_max_pool_argmax(x, (2, 2), (2, 2), ((0, 0), (0, 0)))
+    torch.cuda.synchronize()
+    if not (same_bits(got[0], want[0]) and torch.equal(got[1], want[1])):
+      raise AssertionError(f'pool_fwd NaN/signed-zero case {dtype} differs')
+    if not (bool(got[0][0, 0, 0, :8].isnan().all()) and
+            int(got[1][0, 0, 0, :8].max()) == 0 and
+            bool(torch.signbit(got[0][0, 0, 1, 8:]).all()) and
+            not bool(torch.signbit(got[0][1, 0, 0]).any())):
+      raise AssertionError(f'pool_fwd NaN/signed-zero semantics {dtype}')
+  log('check pool_fwd NaN, -0.0 and +0.0 at slot 0: the first slot keeps '
+      'them, bit for bit with the plain version')
   return max_err
 
 
@@ -752,6 +850,67 @@ def float64_gradients(state, batch, seed):
   return float(loss.detach()), {k: p.grad for k, p in network.named_parameters()}
 
 
+@contextlib.contextmanager
+def cudnn_settings(**flags):
+  """``torch.backends.cudnn`` flags set within the context, restored after
+  it."""
+  cudnn = torch.backends.cudnn
+  saved = {name: getattr(cudnn, name) for name in flags}
+  for name, value in flags.items():
+    setattr(cudnn, name, value)
+  try:
+    yield
+  finally:
+    for name, value in saved.items():
+      setattr(cudnn, name, value)
+
+
+def cudnn_flags():
+  cudnn = torch.backends.cudnn
+  return (f'cuDNN {cudnn.version()}: enabled={cudnn.enabled}, '
+          f'deterministic={cudnn.deterministic}, benchmark={cudnn.benchmark}, '
+          f'allow_tf32={cudnn.allow_tf32}; cuBLAS allow_tf32='
+          f'{torch.backends.cuda.matmul.allow_tf32}')
+
+
+def reference_gradients(state, batch, seed, device, kernel_policy):
+  """(loss, {leaf: float64 CPU copy of the gradient}) of one float32
+  training step of Grasping44 from ``state`` on ``device`` under
+  ``kernel_policy``. A CUDA step under 'none' leaves pools and conv1 to
+  the library: a port kernel entry reached there raises."""
+  model = GraspingModelWrapper(
+      device_type='cpu', kernel_policy=kernel_policy,
+      init_from_checkpoint_fn=lambda network: network.load_state_dict(state))
+  trainer = Trainer(model, TrainerConfig(max_train_steps=1,
+                                         log_interval_steps=0, seed=seed),
+                    device=device)
+  with _dispatch.force_kernels(device == 'cuda' and kernel_policy != 'none'):
+    scalars = trainer.train(iter(batch), None)
+    if device == 'cuda':
+      torch.cuda.synchronize()
+  return scalars['loss'], {
+      k: p.grad.detach().cpu().double()
+      for k, p in trainer.state.network.named_parameters()}
+
+
+def reference_state(seed):
+  """The reference step's weights (std 1/sqrt(fan_in)) and its batch."""
+  state = spread_weights(
+      GraspingModelWrapper(device_type='cpu').create_module(),
+      torch.Generator().manual_seed(seed))
+  return state, train_batches(seed + 4, 1, 2, shuffle_rewards=False)
+
+
+def relative_l2(grads, exact):
+  return {name: float((grads[name] - want).norm()) / float(want.norm())
+          for name, want in exact.items()}
+
+
+def worst_leaves(l2, count=4):
+  return ', '.join(f'{name} {value:.2e}' for name, value in
+                   sorted(l2.items(), key=lambda kv: -kv[1])[:count])
+
+
 @tf32_off()
 def phase_train_reference(seed):
   """One float32 training step on the card (kernels) against the same
@@ -762,50 +921,54 @@ def phase_train_reference(seed):
   are also held to a float64 gradient of the same step: every leaf of the
   card's gradient must lie no further from it, in relative L2, than
   REFERENCE_L2_RATIO times the CPU float32 gradient's worst leaf, and
-  within REFERENCE_MAX_BAND of the leaf's largest magnitude of the CPU's."""
-  state = spread_weights(
-      GraspingModelWrapper(device_type='cpu').create_module(),
-      torch.Generator().manual_seed(seed))
-  batch = train_batches(seed + 4, 1, 2, shuffle_rewards=False)
-  results = {}
-  for device in ('cuda', 'cpu'):
-    model = GraspingModelWrapper(
-        device_type='cpu', kernel_policy='pool_conv',
-        init_from_checkpoint_fn=lambda network: network.load_state_dict(
-            state))
-    trainer = Trainer(model, TrainerConfig(max_train_steps=1,
-                                           log_interval_steps=0, seed=seed),
-                      device=device)
-    with _dispatch.force_kernels(device == 'cuda'):
-      scalars = trainer.train(iter(batch), None)
-    results[device] = (scalars['loss'], {
-        k: p.grad.detach().cpu().double()
-        for k, p in trainer.state.network.named_parameters()})
+  within REFERENCE_MAX_BAND of the leaf's largest magnitude of the CPU's.
+
+  Three controls of the card's step, each printed leaf by leaf against the
+  same float64 gradient: cuDNN restricted to deterministic algorithms
+  without autotuning; the pools and conv1 left to the library
+  (kernel_policy 'none'); and cuDNN disabled, so PyTorch's own CUDA
+  convolutions and batch norms run. ``--profile`` names the card step's
+  kernels (``phase_profile_reference``)."""
+  state, batch = reference_state(seed)
+  log(f'reference: {cudnn_flags()}')
+  card_loss, card = reference_gradients(state, batch, seed, 'cuda',
+                                        'pool_conv')
+  with cudnn_settings(deterministic=True, benchmark=False):
+    log(f'reference control: {cudnn_flags()}')
+    det_loss, det = reference_gradients(state, batch, seed, 'cuda',
+                                        'pool_conv')
+  lib_loss, lib = reference_gradients(state, batch, seed, 'cuda', 'none')
+  with cudnn_settings(enabled=False):
+    log(f'reference control: {cudnn_flags()}')
+    off_loss, off = reference_gradients(state, batch, seed, 'cuda',
+                                        'pool_conv')
+  cpu_loss, cpu = reference_gradients(state, batch, seed, 'cpu', 'pool_conv')
   exact_loss, exact = float64_gradients(state, batch[0], seed)
-  (card_loss, card), (cpu_loss, cpu) = results['cuda'], results['cpu']
   if not (np.isfinite(card_loss) and abs(card_loss - cpu_loss) <= 1e-4 and
           abs(cpu_loss - exact_loss) <= 1e-4):
     raise AssertionError(f'reference step: loss card {card_loss}, cpu '
                          f'{cpu_loss}, float64 {exact_loss}')
-  l2 = {}
-  for name, want in exact.items():
-    norm = float(want.norm())
-    l2[name] = (float((card[name] - want).norm()) / norm,
-                float((cpu[name] - want).norm()) / norm)
-  cpu_worst = max(cpu_l2 for _, cpu_l2 in l2.values())
-  card_worst = max((card_l2, name) for name, (card_l2, _) in l2.items())
-  log('reference: relative L2 from float64, worst leaves (card, cpu): ' +
-      ', '.join(f'{name} {card_l2:.2e} {cpu_l2:.2e}' for name, (
-          card_l2, cpu_l2) in sorted(l2.items(), key=lambda kv: -kv[1][0])[:4]))
+  l2 = {name: relative_l2(grads, exact) for name, grads in (
+      ('card', card), ('card, cuDNN deterministic', det),
+      ('card, library pools and conv1', lib), ('card, cuDNN off', off),
+      ('cpu', cpu))}
+  for name, leaves in l2.items():
+    log(f'reference: relative L2 from float64, worst leaves, {name}: '
+        f'{worst_leaves(leaves)}')
+  log(f'reference: losses card {card_loss:.7f}, cuDNN deterministic '
+      f'{det_loss:.7f}, library pools and conv1 {lib_loss:.7f}, cuDNN off '
+      f'{off_loss:.7f}, cpu {cpu_loss:.7f}, float64 {exact_loss:.7f}')
+  cpu_worst = max(l2['cpu'].values())
+  card_worst = max((value, name) for name, value in l2['card'].items())
   worst_max = (0.0, '')
-  for name, (card_l2, cpu_l2) in l2.items():
+  for name, card_l2 in l2['card'].items():
     max_err = float((card[name] - cpu[name]).abs().max())
     scale = float(cpu[name].abs().max())
     if not (card_l2 <= REFERENCE_L2_RATIO * cpu_worst and
             max_err <= REFERENCE_MAX_BAND * scale):
       raise AssertionError(
           f'reference step: gradient of {name}: card {card_l2:.3e} and cpu '
-          f'{cpu_l2:.3e} relative L2 from float64 (cpu worst '
+          f'{l2["cpu"][name]:.3e} relative L2 from float64 (cpu worst '
           f'{cpu_worst:.3e}); card vs cpu max err {max_err:.3e} at scale '
           f'{scale:.3e}')
     worst_max = max(worst_max, (max_err / max(scale, 1e-30), name))
@@ -1121,12 +1284,94 @@ def update_scalars(lr, count=11, b1=0.9, b2=0.999):
               b2=b2, eps=1e-8)
 
 
+def check_apply_update(model, shapes, generator, steps=4):
+  """The trainer's entry, apply_update, on the card over ``steps`` steps
+  with new gradients each step, at one path's real leaves and variant
+  (SNAIL long-horizon: Adam at a constant rate; Grasping44: Adam, the EMA
+  and the guard at a rate that decays every step, the guard False at the
+  second step). After every step the parameters, both moments and the EMA
+  are held within FUSED_BAND against plain_fused_update run on clones with
+  the same gradients and the scalars of the reference's own count; a
+  False step leaves every tensor bitwise as it was. The leaves are
+  validated once (the same PreparedUpdate at every step) and each step is
+  1 launch. Returns the largest error."""
+  atol, rtol = FUSED_BAND
+  qtopt = model == 'grasping44'
+  rate = (optimizers.create_exp_decaying_learning_rate_fn(
+      1e-3, decay_steps=1, staircase=True) if qtopt else 1e-4)
+  params = [torch.nn.Parameter(torch.randn(shape, generator=generator,
+                                           device='cuda'))
+            for shape in shapes]
+  optimizer = optimizers.create_adam_optimizer(rate)(params)
+  decay = 0.9999 if qtopt else None
+  ema = ({p: torch.randn(p.shape, generator=generator, device='cuda')
+          for p in params} if qtopt else None)
+  plan = fused_update.plan_for(optimizer, ema_decay=decay)
+  reference = [fused_update.Leaf(
+      p.detach().clone(), None, torch.zeros_like(p), torch.zeros_like(p),
+      ema[p].clone() if qtopt else None) for p in params]
+  count, worst, kept = 0, 0.0, set()
+  for step in range(steps):
+    grads = [torch.randn(shape, generator=generator, device='cuda')
+             for shape in shapes]
+    for p, g in zip(params, grads):
+      p.grad = g
+    applied = not (qtopt and step == 1)
+    ok = (torch.tensor([applied], device='cuda') if qtopt else None)
+    lr = rate(count) if callable(rate) else rate
+    before = [(p.detach().clone(), ema[p].clone()) for p in params] if (
+        not applied) else None
+    launches = fused_update.fused_update.launches
+    if fused_update.apply_update(plan, optimizer,
+                                 dict(ema) if qtopt else None, ok) != applied:
+      raise AssertionError(f'apply_update {model} step {step}: applied '
+                           f'is not {applied}')
+    if fused_update.fused_update.launches - launches != 1:
+      raise AssertionError(f'apply_update {model} step {step}: '
+                           f'{fused_update.fused_update.launches - launches}'
+                           ' launches, not 1')
+    kept.add(id(plan.prepared[0]))
+    fused_update.plain_fused_update(
+        [leaf._replace(g=g) for leaf, g in zip(reference, grads)], 'adam',
+        lr=lr, c1=float(fused_update.bias_correction(0.9, count + 1)),
+        c2=float(fused_update.bias_correction(0.999, count + 1)), b1=0.9,
+        b2=0.999, eps=1e-8, decay=decay, ok=ok)
+    count += applied
+    torch.cuda.synchronize()
+    for i, (p, leaf) in enumerate(zip(params, reference)):
+      state = optimizer.state[p]
+      got = (p.detach(), state['mu'], state['nu']) + (
+          (ema[p],) if qtopt else ())
+      for name, x, z in zip(('p', 'mu', 'nu', 'ema'), got,
+                            (leaf.p, leaf.mu, leaf.nu, leaf.ema)):
+        e = (x - z).abs()
+        if not bool((e <= atol + rtol * z.abs()).all()):
+          raise AssertionError(
+              f'apply_update {model} step {step} leaf {i} {name} '
+              f'{tuple(x.shape)}: max abs err {float(e.max())}')
+        worst = max(worst, float(e.max()) if e.numel() else 0.0)
+      if before is not None and not (torch.equal(p, before[i][0]) and
+                                     torch.equal(ema[p], before[i][1])):
+        raise AssertionError(f'apply_update {model} step {step}: a False '
+                             f'guard changed leaf {i}')
+  if len(kept) != 1 or optimizer.param_groups[0]['count'] != count:
+    raise AssertionError(f'apply_update {model}: validated {len(kept)} '
+                         f'times, count {optimizer.param_groups[0]["count"]}'
+                         f' against {count}')
+  log(f'check apply_update {model} ({len(shapes)} leaves) Adam'
+      f'{", EMA, guard (False at step 1), a decaying rate" if qtopt else ""}: '
+      f'{steps} steps with new gradients through one validation, 1 launch '
+      f'a step, max abs err {worst:.2e} against the plain version on clones')
+  return worst
+
+
 def phase_check_fused_update(generator):
   """fused_update against plain_fused_update on the card, all 8 variants
   (Adam or SGD, EMA on or off, guard on or off) over the real leaves of
   SNAIL long-horizon and Grasping44, at a constant rate and at QT-Opt's
   decaying schedule: within FUSED_BAND, each run twice bit for bit, and a
-  False guard leaves every tensor bitwise as it was."""
+  False guard leaves every tensor bitwise as it was. Then the trainer's
+  entry over several steps at each path's variant (check_apply_update)."""
   schedule = optimizers.create_exp_decaying_learning_rate_fn(
       1e-3, decay_steps=10, staircase=True)
   rates = (('constant', 1e-4), ('schedule', schedule(11)))
@@ -1183,6 +1428,7 @@ def phase_check_fused_update(generator):
           f'{errs[0]:.2e} (constant lr), {errs[1]:.2e} (schedule); twice '
           f'bitwise{held}')
       del leaves
+    worst = max(worst, check_apply_update(model, shapes, generator))
   return worst
 
 
@@ -1302,7 +1548,7 @@ def phase_train_fused(seed, steps, stock_ms):
               'fused_update': -(-leaves // fused_update.LEAVES_PER_LAUNCH)}
   want = {k: v * steps for k, v in per_step.items()}
   if trainer.fused_plan is None or launches != want or (
-      trainer.step != 1 + steps):
+      trainer.step != 1 + steps) or per_step['fused_update'] != 1:
     raise AssertionError(f'fused training launches over {steps} steps: '
                          f'{launches}, expected {want}')
   if not all(np.isfinite(v) for v in scalars.values()):
@@ -1417,7 +1663,7 @@ def phase_snail_fused(seed, steps, stock_ms):
         -len(params) // fused_update.LEAVES_PER_LAUNCH)}
     want = {k: v * steps for k, v in per_step.items()}
     if (trainer.fused_plan is None or entered or launches != want or
-        trainer.step != 1 + steps):
+        trainer.step != 1 + steps or per_step['fused_update'] != 1):
       raise AssertionError(f'snail {name} fused: launches {launches}, '
                            f'expected {want}; stock Adam.step entered '
                            f'{len(entered)} times')
@@ -1437,7 +1683,7 @@ def phase_snail_fused(seed, steps, stock_ms):
         f'{ms_per_step:.2f} ms/step (host clock, synchronised) against '
         f'{stock_ms[name]:.2f} ms/step on the stock Adam loop; loss '
         f'{scalars["loss"]:.4f}, launches {launches} ({len(params)} leaves, '
-        f'{per_step["fused_update"]} fused launches per step); stock '
+        f'{per_step["fused_update"]} fused launch per step); stock '
         'Adam.step never entered; every parameter and both moments moved')
     results[name] = (ms_per_step, launches, trainer, batches)
   return results
@@ -1508,7 +1754,8 @@ def flash_timing(record, generator):
 def kernel_device_ms(fn, names):
   """Device time of one call of ``fn`` spent in kernels whose names hold
   one of ``names`` (torch.profiler), without the host time that CUDA events
-  around a host-bound call also take in."""
+  around a host-bound call also take in; None when the profiler recorded
+  no such kernel."""
   from torch.profiler import ProfilerActivity, profile
 
   fn()
@@ -1516,10 +1763,17 @@ def kernel_device_ms(fn, names):
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
     fn()
     torch.cuda.synchronize()
+  rows = [e for e in prof.key_averages()
+          if any(name in e.key for name in names)]
+  if not rows:
+    return None
   return sum(getattr(e, 'self_device_time_total', None) or
-             getattr(e, 'self_cuda_time_total', 0)
-             for e in prof.key_averages()
-             if any(name in e.key for name in names)) / 1e3
+             getattr(e, 'self_cuda_time_total', 0) for e in rows) / 1e3
+
+
+def device_text(ms):
+  return 'not measured (no such kernel in the profile)' if ms is None else (
+      f'{ms:.4f} ms')
 
 
 def update_work(leaves, kind, with_ema):
@@ -1534,42 +1788,86 @@ def update_work(leaves, kind, with_ema):
   return 4 * elements * (tensors + outputs), elements * ops
 
 
+def host_ms(fn, iters=50, warmup=5):
+  """Host-clock time of one call of ``fn`` over back-to-back calls, the
+  card synchronised before and after: what a step pays for a call that
+  its host, not the card, bounds."""
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  for _ in range(iters):
+    fn()
+  torch.cuda.synchronize()
+  return 1e3 * (time.perf_counter() - start) / iters
+
+
 def fused_update_timing(record, generator):
   """One step's fused update at each path's leaves and variant (SNAIL
   long-horizon: Adam; Grasping44 on the QT-Opt fused path: Adam, the EMA
-  and the guard): the kernel, its plain version, and
-  torch.optim.Adam(fused=True) (``torch._fused_adam_``) over the same
-  leaves, which has no EMA and no guard; the record sums the two paths."""
+  and the guard). The record's kernel time is the trainer's per-step call,
+  ``apply_update`` under the validation made at its first call (host
+  clock, one launch); beside it the one-shot ``fused_update(leaves, ...)``
+  (host clock), the kernel's device time (profiler), its plain version,
+  and torch.optim.Adam(fused=True).step over the same leaves (host clock;
+  no EMA, no guard). The record sums the two paths."""
+  iters, warmup = 50, 5
   for model, shapes in model_leaf_shapes().items():
     with_ema = guard = model == 'grasping44'
     leaves = update_leaves(shapes, 'adam', with_ema, generator)
     decay = 0.9999 if with_ema else None
     ok = torch.ones(1, dtype=torch.bool, device='cuda') if guard else None
     args = update_scalars(1e-4)
-    ms = cuda_ms(lambda: fused_update.fused_update(
-        leaves, 'adam', decay=decay, ok=ok, **args))
+
+    def parameters():
+      params = [torch.nn.Parameter(leaf.p.clone()) for leaf in leaves]
+      for param, leaf in zip(params, leaves):
+        param.grad = leaf.g
+      return params
+
+    params = parameters()
+    optimizer = optimizers.create_adam_optimizer(1e-4)(params)
+    ema = ({param: leaf.ema.clone() for param, leaf in zip(params, leaves)}
+           if with_ema else None)
+    plan = fused_update.plan_for(optimizer, ema_decay=decay)
+
+    def step():
+      fused_update.apply_update(plan, optimizer, ema, ok)
+
+    step()  # packs the table
+    prepared = fused_update.prepare(plan, optimizer, ema)[0]
+    before = fused_update.fused_update.launches
+    ms = host_ms(step, iters, warmup)
+    launches = fused_update.fused_update.launches - before
+    if (launches != iters + warmup or
+        fused_update.prepare(plan, optimizer, ema)[0] is not prepared):
+      raise AssertionError(f'fused_update {model}: {launches} launches over '
+                           f'{iters + warmup} steps, or the leaves validated '
+                           'anew')
+    events_ms = cuda_ms(step)
+    one_shot = host_ms(lambda: fused_update.fused_update(
+        leaves, 'adam', decay=decay, ok=ok, **args), iters, warmup)
     plain = cuda_ms(lambda: fused_update.plain_fused_update(
         leaves, 'adam', decay=decay, ok=ok, **args), iters=5, warmup=1)
-    params = []
-    for leaf in leaves:
-      param = torch.nn.Parameter(leaf.p)
-      param.grad = leaf.g
-      params.append(param)
-    library = torch.optim.Adam(params, lr=1e-4, fused=True)
-    lib = cuda_ms(library.step)
-    device = kernel_device_ms(lambda: fused_update.fused_update(
-        leaves, 'adam', decay=decay, ok=ok, **args), ('fused_update_kernel',))
+    library = torch.optim.Adam(parameters(), lr=1e-4, fused=True)
+    lib = host_ms(library.step, iters, warmup)
+    lib_events = cuda_ms(library.step)
+    device = kernel_device_ms(step, ('fused_update_kernel',))
     nbytes, ops = update_work(leaves, 'adam', with_ema)
     log(f'time fused_update {model} ({len(leaves)} leaves, Adam'
-        f'{", EMA, guard" if guard else ""}): kernel {ms:.4f} ms '
-        f'({-(-len(leaves) // fused_update.LEAVES_PER_LAUNCH)} launches; '
-        f'{device:.4f} ms of it on the device, the rest the host\'s checks '
-        f'and pointer table), plain {plain:.4f} ms, '
-        f'torch.optim.Adam(fused=True) {lib:.4f} ms, '
+        f'{", EMA, guard" if guard else ""}): the trainer\'s per-step call '
+        f'{ms:.4f} ms (host clock, back to back; 1 launch, the leaves '
+        f'validated once), one-shot fused_update {one_shot:.4f} ms (host '
+        f'clock), '
+        f'{device_text(device)} on the device (profiler), plain '
+        f'{plain:.4f} ms, '
+        f'torch.optim.Adam(fused=True).step {lib:.4f} ms (host clock); '
+        f'CUDA events after an L2 flush, as the other rows are timed: per-step '
+        f'call {events_ms:.4f} ms, Adam(fused=True) {lib_events:.4f} ms; '
         f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}')
     timing_entry(record, 'fused_update', ms, plain, lib, nbytes, ops,
                  F32_FLOP_PER_S)
-    del leaves, params, library
+    del leaves, params, optimizer, ema, library
 
 
 def photometric_timing(record, generator):
@@ -1592,8 +1890,8 @@ def photometric_timing(record, generator):
     nbytes = 2 * images.numel() * dtype.itemsize + 2 * TRAIN_BATCH * 4
     ops = 8 * images.numel()
     log(f'time photometric {PHOTOMETRIC_SHAPE} {str(dtype)[6:]}: kernel '
-        f'{ms:.4f} ms ({device:.4f} ms in its two kernels, profiled), plain '
-        f'{plain:.4f} ms, no library call, '
+        f'{ms:.4f} ms ({device_text(device)} in its two kernels, profiled), '
+        f'plain {plain:.4f} ms, no library call, '
         f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}; reading the images '
         f'twice: {1e3 * 1.5 * (nbytes - 8 * TRAIN_BATCH) / HBM_BYTES_PER_S:.4f} '
         'ms')
@@ -1639,6 +1937,7 @@ def phase_profile_snail(name, trainer, batches):
       f'{upload_us / 1e3:.3f} ms of it the host-to-device copy, '
       f'{flash_us / 1e3:.3f} ms the flash kernels; {launches} kernel '
       f'launches; table in {path.relative_to(OUT_DIR.parent)}')
+  log_activity_row(f' snail {name}', averages)
   for line in table.splitlines()[:24]:
     log('  ' + line)
 
@@ -1914,6 +2213,20 @@ def device_time_us(averages, prefix=''):
       not e.key.startswith('Optimizer.') and e.key.startswith(prefix))
 
 
+def activity_buffer_us(averages):
+  """The device time of the profiler's own 'Activity Buffer Request' row,
+  which device_time_us leaves out; printed beside it."""
+  return sum(getattr(e, 'self_device_time_total', None) or
+             getattr(e, 'self_cuda_time_total', 0) for e in averages
+             if e.key == 'Activity Buffer Request')
+
+
+def log_activity_row(label, averages, count=1):
+  log(f'profile{label}: the \'Activity Buffer Request\' row, left out of '
+      f'the device time above: {activity_buffer_us(averages) / count / 1e3:.3f}'
+      f' ms{" per action" if count > 1 else ""}')
+
+
 def phase_profile(policy, frames):
   """Device time by kernel over two actions (torch.profiler)."""
   from torch.profiler import ProfilerActivity, profile
@@ -1931,8 +2244,31 @@ def phase_profile(policy, frames):
   device_us = device_time_us(averages)
   log(f'profile: {device_us / 2e3:.3f} ms of device kernel time per action '
       f'(2 actions); table in chiprun_out/chip_smoke_profile.txt')
+  log_activity_row('', averages, count=2)
   for line in table.splitlines()[:16]:
     log('  ' + line)
+
+
+@tf32_off()
+def phase_profile_reference(seed):
+  """The device kernels of phase_train_reference's float32 card step, by
+  device time: the names of cuDNN's and cuBLAS's algorithms."""
+  from torch.profiler import ProfilerActivity, profile
+
+  state, batch = reference_state(seed)
+  reference_gradients(state, batch, seed, 'cuda', 'pool_conv')  # warm-up
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    reference_gradients(state, batch, seed, 'cuda', 'pool_conv')
+  rows = sorted((e for e in prof.key_averages()
+                 if str(getattr(e, 'device_type', '')).endswith('CUDA')),
+                key=lambda e: -(getattr(e, 'self_device_time_total', None) or
+                                getattr(e, 'self_cuda_time_total', 0)))
+  log('profile reference: the float32 card step\'s device kernels by time '
+      f'({cudnn_flags()}):')
+  for e in rows[:14]:
+    us = (getattr(e, 'self_device_time_total', None) or
+          getattr(e, 'self_cuda_time_total', 0))
+    log(f'  {us / 1e3:8.3f} ms x{e.count:<4d} {e.key[:160]}')
 
 
 def phase_profile_train(trainer, seed, label=''):
@@ -1960,6 +2296,7 @@ def phase_profile_train(trainer, seed, label=''):
       f'device time per training step, {upload_us / 1e3:.3f} ms of it the '
       f'host-to-device copy of the batch; {kernels} kernel launches; table '
       f'in chiprun_out/{name}')
+  log_activity_row(f' {label}' if label else '', averages)
   for line in table.splitlines()[:24]:
     log('  ' + line)
 
@@ -2035,6 +2372,7 @@ def main(argv=None):
                          f'{defaults} at the start')
   kernels = phase_timing(generator, errors, launches)
   if args.profile:
+    phase_profile_reference(args.seed)
     phase_profile(policy, frames)
     phase_profile_train(trainer, args.seed)
     phase_profile_train(fused_trainer, args.seed, 'fused')

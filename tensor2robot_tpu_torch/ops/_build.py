@@ -8,9 +8,11 @@ plain C interface, loaded through ``ctypes``. The command is
 
 with ``<hash>`` taken over the source and the flags, so an edited source
 builds anew and an unchanged one is loaded from ``build/torch_kernels/``
-beside the package (listed in ``.gitignore``). :func:`build` starts one
-``nvcc`` per missing library, all at once, and waits for them together. A
-failed build raises with nvcc's stderr; nothing falls back.
+beside the package (listed in ``.gitignore``). nvcc's register,
+stack-frame and spill report stays beside each library (:func:`report`).
+:func:`build` starts one ``nvcc`` per missing library, all at once, and
+waits for them together. A failed build raises with nvcc's stderr;
+nothing falls back.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch, and
 :func:`check` raises when that is not ``cudaSuccess``.
@@ -59,6 +61,18 @@ def library_path(name: str) -> pathlib.Path:
   return BUILD_DIR / f'lib{name}-{digest[:16]}.so'
 
 
+def report_path(name: str) -> pathlib.Path:
+  """Where the build of ``csrc/<name>.cu`` keeps its compiler output,
+  beside the library."""
+  return library_path(name).with_suffix('.ptxas.txt')
+
+
+def report(name: str) -> str:
+  """The compiler output (``ptxas -v``) of the built library of
+  ``csrc/<name>.cu``, also when it was built by an earlier process."""
+  return report_path(name).read_text()
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
   """Compiles every missing library, one ``nvcc`` per source, all started
   together. Returns each built library's compiler output (``ptxas``
@@ -81,8 +95,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     if proc.returncode != 0:
       errors.append(f'{name}.cu: nvcc exited {proc.returncode}\n{stderr}')
       continue
-    os.replace(tmp, out)
     reports[name] = (stdout + stderr).strip()
+    report_path(name).write_text(reports[name] + '\n')
+    os.replace(tmp, out)
   if errors:
     raise RuntimeError('CUDA kernel build failed:\n' + '\n'.join(errors))
   return reports

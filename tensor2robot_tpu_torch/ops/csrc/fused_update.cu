@@ -26,10 +26,16 @@
 // parameters of Grasping44 need 44.6 MB, 0.013 ms at 3.35 TB/s.
 //
 // Design. The TPU kernel ran one pallas_call per leaf over (1024, 128)
-// blocks. Here one launch covers up to kMaxLeaves leaves: the host entry
-// packs a table of the leaves' pointers and sizes into the kernel's
-// by-value arguments (under 4 KB), with the prefix of each leaf's block
-// count, and a block finds its leaf by a binary search over that prefix.
+// blocks. Here one launch covers up to kMaxLeaves leaves, every path's
+// parameters in one launch a step: the host entry packs a table of the
+// leaves' pointers and sizes into the kernel's by-value arguments, with
+// the prefix of each leaf's block count, and a block finds its leaf by a
+// binary search over that prefix. The table is sized to Hopper's 32,764
+// bytes of kernel parameters (CUDA 12.1 and later; 52 bytes a leaf). It is a
+// __grid_constant__ parameter: the search and the pointer reads index it
+// with a runtime leaf number, which, without the qualifier, may make
+// nvcc copy the whole table into each thread's local memory (the build's
+// ptxas report shows a 0-byte stack frame).
 // Each thread moves four neighbouring elements, with 16-byte accesses
 // where all of the leaf's pointers are 16-byte aligned. The scalars (lr,
 // the bias corrections, the betas, eps and the decay) are passed by value:
@@ -42,7 +48,7 @@
 
 namespace {
 
-constexpr int kMaxLeaves = 64;
+constexpr int kMaxLeaves = 512;
 constexpr int kThreads = 256;
 constexpr int kVec = 4;
 constexpr int kPerBlock = kThreads * kVec;
@@ -63,8 +69,8 @@ struct Scalars {
       one_minus_decay;
 };
 
-static_assert(sizeof(Table) + sizeof(Scalars) + sizeof(void*) <= 4096,
-              "kernel arguments must stay under 4 KB");
+static_assert(sizeof(Table) + sizeof(Scalars) + sizeof(void*) <= 32764,
+              "kernel arguments must stay within Hopper's 32,764 bytes");
 
 template <bool kAdam, bool kEma>
 __device__ __forceinline__ void update_one(const Scalars& s, float& p,
@@ -86,7 +92,7 @@ __device__ __forceinline__ void update_one(const Scalars& s, float& p,
 
 template <bool kAdam, bool kEma, bool kGuard>
 __global__ void __launch_bounds__(kThreads)
-    fused_update_kernel(const Table t, const Scalars s,
+    fused_update_kernel(__grid_constant__ const Table t, const Scalars s,
                         const unsigned char* ok) {
   if constexpr (kGuard) {
     if (*ok == 0) return;
@@ -179,7 +185,7 @@ int launch_guard(bool guard, const Table& t, int blocks, const Scalars& s,
 
 extern "C" {
 
-// One launch over n_leaves (1..64) leaves. leaves: a HOST array of
+// One launch over n_leaves (1..512) leaves. leaves: a HOST array of
 // n_leaves rows of six int64 values: the device addresses of p, g, mu, nu
 // and ema (0 where the variant does not read it) and the element count.
 // Every tensor is float32 and dense, with one layout per leaf. adam, ema and

@@ -13,15 +13,38 @@
 // does one compare per input, so the pool is far below the card's
 // operations-per-byte ridge. At the QT-Opt pool1 shape ([64,236,236,64]
 // bf16, 3x3/s3) it reads 456 MB and writes 51 MB of values and 102 MB of
-// slots: about 0.18 ms at 3.35 TB/s.
+// slots: about 0.18 ms at 3.35 TB/s (0.206 ms over the three pools of
+// one CEM iteration at B = 64).
 //
-// Design: one thread per output element, C innermost, so the 32 threads
-// of a warp read 32 neighbouring channels of the same input pixel (one
-// coalesced segment per window tap) and write neighbouring outputs. With
-// non-overlapping windows every input byte is read exactly once. There is
-// no channel blocking and no staging in shared memory: the TPU kernel
-// staged a whole [H, W, cb] block in VMEM because its grid runs in order
-// on one core, while here the card's many warps in flight hide the
+// Design, for the H100's memory system (the backward's, below, applied to
+// the forward):
+// - 8 channels a thread in 16-byte accesses: one uint4 load per tap in
+//   bf16, two float4 in float32; 8 pooled values (16 or 32 bytes) and 8
+//   int32 slots (two int4) stored per thread. At C = 64, 8 threads cover a
+//   pixel and a warp 4 output pixels, so each window row a warp reads is
+//   one contiguous run of input (1.5 KB at pool1's 3x3/s3).
+// - No 64-bit division. A 2-D grid: y walks the B*OH output rows (striding
+//   past 65535), x the row's (ow, channel group) pairs, so a thread decodes
+//   its position with two 32-bit divisions. Offsets are 32-bit when every
+//   one fits in 2**31 elements; a 64-bit instantiation serves the rest.
+// - All taps in flight. The windows the QT-Opt paths run (3x3 and 2x2) are
+//   template parameters: a thread issues all of a window's loads, then
+//   compares. A tap in the padding loads a clamped address inside the
+//   image and reads as -inf, so no load waits on a branch. Any other
+//   window takes the same kernel with a runtime loop.
+// - Default caching. With non-overlapping windows every input byte is read
+//   once, but streaming hints (ld/st.global.cs) measured slower in
+//   chip_smoke.py's pool timing.
+// - Channel counts that are not a multiple of 8, or tensors that are not
+//   16-byte aligned, take the same kernel one channel per thread.
+// - The compare is a strictly-greater select per lane in row-major tap
+//   order, never a max instruction (whose NaN and signed-zero choices
+//   differ and which gives no slot): slot 0 seeds the maximum, a NaN there
+//   sticks, ties and -0.0 against +0.0 keep the first slot. Values are
+//   written back as the winning input's bits.
+//
+// The TPU kernel staged a whole [H, W, cb] block in VMEM because its grid
+// runs in order on one core; here the card's many warps in flight hide the
 // latency of direct loads.
 //
 // Backward. Replaces: tensor2robot_tpu/ops/pool.py, _pool_bwd_kernel
@@ -59,16 +82,6 @@
 
 namespace {
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  // Exact: v is one of the bf16 inputs (or -inf) or a sum already rounded
-  // to bf16.
-  *p = __float2bfloat16_rn(v);
-}
 // Rounds a float to T and back: the sum of two T values in T's precision.
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
@@ -132,44 +145,195 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
   }
 }
 
-template <typename T>
-__global__ void pool_fwd_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                int32_t* __restrict__ slot, int H, int W,
-                                int C, int kh, int kw, int sh, int sw,
-                                int plh, int plw, int OH, int OW,
-                                int64_t total) {
-  for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-       idx < total; idx += (int64_t)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % C);
-    int64_t t = idx / C;
-    const int ow = (int)(t % OW);
-    t /= OW;
-    const int oh = (int)(t % OH);
-    const int64_t b = t / OH;
-    const int h0 = oh * sh - plh;
-    const int w0 = ow * sw - plw;
-    const T* xb = x + b * H * (int64_t)W * C + c;
-    float best = -CUDART_INF_F;
-    int best_slot = 0;
-    for (int dy = 0; dy < kh; ++dy) {
-      const int ih = h0 + dy;
-      const bool row_ok = ih >= 0 && ih < H;
-      for (int dx = 0; dx < kw; ++dx) {
-        const int iw = w0 + dx;
-        const float v = (row_ok && iw >= 0 && iw < W)
-                            ? to_float(xb[((int64_t)ih * W + iw) * C])
-                            : -CUDART_INF_F;
-        const int s = dy * kw + dx;
-        if (s == 0) {
-          best = v;
-        } else if (v > best) {
-          best = v;
-          best_slot = s;
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// ---------------------------------------------------------------- forward
+
+// Threads of a forward block, along one output row's (ow, channel group)
+// pairs. Grid y covers the B*OH output rows, at most kFwdMaxGridY blocks
+// that stride over the rest.
+constexpr int kFwdThreads = 128;
+constexpr int kFwdMaxGridY = 65535;
+// Channels a thread pools in the vector instantiation (16 bytes of bf16).
+constexpr int kFwdVec = 8;
+// Offsets are 32-bit when every one is below 2**kNarrowIndexBits.
+constexpr int kNarrowIndexBits = 31;
+
+// The windows with an instantiation of their own, all taps in flight;
+// every other window takes the runtime loop.
+__host__ __device__ constexpr bool fixed_window(int kh, int kw) {
+  return (kh == 3 && kw == 3) || (kh == 2 && kw == 2);
+}
+
+// One tap of kVec channels as loaded, with its lanes read as floats
+// (exactly: a bf16 is the high half of its float).
+template <typename T, int kVec>
+struct Tap;
+
+template <>
+struct Tap<__nv_bfloat16, 8> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void pad() {
+    const unsigned neg_inf = 0xff80ff80u;  // two bf16 -inf
+    u = make_uint4(neg_inf, neg_inf, neg_inf, neg_inf);
+  }
+  __device__ __forceinline__ float lane(int i) const {
+    const unsigned w = i < 2 ? u.x : i < 4 ? u.y : i < 6 ? u.z : u.w;
+    return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+template <>
+struct Tap<float, 8> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = reinterpret_cast<const float4*>(p)[0];
+    b = reinterpret_cast<const float4*>(p)[1];
+  }
+  __device__ __forceinline__ void pad() {
+    a = b = make_float4(-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
+                        -CUDART_INF_F);
+  }
+  __device__ __forceinline__ float lane(int i) const {
+    const float4& q = i < 4 ? a : b;
+    const int j = i & 3;
+    return j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+  }
+};
+
+template <>
+struct Tap<__nv_bfloat16, 1> {
+  unsigned short h;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    h = *reinterpret_cast<const unsigned short*>(p);
+  }
+  __device__ __forceinline__ void pad() { h = 0xff80; }
+  __device__ __forceinline__ float lane(int) const {
+    return __uint_as_float((unsigned)h << 16);
+  }
+};
+
+template <>
+struct Tap<float, 1> {
+  float f;
+  __device__ __forceinline__ void load(const float* p) { f = *p; }
+  __device__ __forceinline__ void pad() { f = -CUDART_INF_F; }
+  __device__ __forceinline__ float lane(int) const { return f; }
+};
+
+// Loads tap (ih, iw) of image `image` (its first row index, b * H). A tap
+// in the padding loads the nearest pixel inside the image, so the load
+// issues without a branch, and reads as -inf.
+template <typename T, typename Index, int kVec>
+__device__ __forceinline__ void load_tap(Tap<T, kVec>& tap, const T* x,
+                                         Index image, int ih, int iw, int H,
+                                         int W, int C, int c) {
+  const bool inside = ih >= 0 && ih < H && iw >= 0 && iw < W;
+  const int ch = min(max(ih, 0), H - 1);
+  const int cw = min(max(iw, 0), W - 1);
+  tap.load(x + ((image + ch) * W + cw) * C + c);
+  if (!inside) tap.pad();
+}
+
+// The running maximum moves only on a strictly greater value, per lane.
+template <typename T, int kVec>
+__device__ __forceinline__ void take(const Tap<T, kVec>& tap, int s,
+                                     float* best, int* best_slot) {
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const float v = tap.lane(i);
+    if (s == 0 || v > best[i]) {
+      best[i] = v;
+      best_slot[i] = s;
+    }
+  }
+}
+
+// The pooled values, as the winning inputs' bits (bf16: the float's high
+// half), and the slots.
+template <int kVec>
+__device__ __forceinline__ void store_pooled(__nv_bfloat16* p,
+                                             const float* v) {
+  if constexpr (kVec == 8) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = (__float_as_uint(v[2 * i]) >> 16) |
+             (__float_as_uint(v[2 * i + 1]) & 0xffff0000u);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    *reinterpret_cast<unsigned short*>(p) =
+        (unsigned short)(__float_as_uint(v[0]) >> 16);
+  }
+}
+template <int kVec>
+__device__ __forceinline__ void store_pooled(float* p, const float* v) {
+  if constexpr (kVec == 8) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    *p = v[0];
+  }
+}
+template <int kVec>
+__device__ __forceinline__ void store_slots(int32_t* p, const int* s) {
+  if constexpr (kVec == 8) {
+    reinterpret_cast<int4*>(p)[0] = make_int4(s[0], s[1], s[2], s[3]);
+    reinterpret_cast<int4*>(p)[1] = make_int4(s[4], s[5], s[6], s[7]);
+  } else {
+    *p = s[0];
+  }
+}
+
+// KH = KW = 0: the window is (kh, kw) at run time.
+template <typename T, typename Index, int kVec, int KH, int KW>
+__global__ void __launch_bounds__(kFwdThreads)
+    pool_fwd_kernel(const T* __restrict__ x, T* __restrict__ out,
+                    int32_t* __restrict__ slot, int H, int W, int C, int kh,
+                    int kw, int sh, int sw, int plh, int plw, int OH, int OW,
+                    int rows) {
+  const int groups = C / kVec;
+  const int col = blockIdx.x * kFwdThreads + threadIdx.x;
+  if (col >= OW * groups) return;
+  const int ow = col / groups;
+  const int c = (col - ow * groups) * kVec;
+  const int w0 = ow * sw - plw;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const int b = row / OH;
+    const int h0 = (row - b * OH) * sh - plh;
+    const Index image = (Index)b * H;
+    float best[kVec];
+    int best_slot[kVec];
+    if constexpr (KH > 0) {
+      Tap<T, kVec> taps[KH * KW];
+#pragma unroll
+      for (int dy = 0; dy < KH; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < KW; ++dx) {
+          load_tap(taps[dy * KW + dx], x, image, h0 + dy, w0 + dx, H, W, C,
+                   c);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < KH * KW; ++s) take(taps[s], s, best, best_slot);
+    } else {
+      for (int dy = 0; dy < kh; ++dy) {
+        for (int dx = 0; dx < kw; ++dx) {
+          Tap<T, kVec> tap;
+          load_tap(tap, x, image, h0 + dy, w0 + dx, H, W, C, c);
+          take(tap, dy * kw + dx, best, best_slot);
         }
       }
     }
-    store(out + idx, best);
-    slot[idx] = best_slot;
+    const Index o = ((Index)row * OW + ow) * C + c;
+    store_pooled<kVec>(out + o, best);
+    store_slots<kVec>(slot + o, best_slot);
   }
 }
 
@@ -247,10 +411,6 @@ int launch_bwd_as(const void* g, const void* slot, void* dx, int B, int H,
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 template <typename T>
 int launch_bwd(const void* g, const void* slot, void* dx, int B, int H,
                int W, int C, int kh, int kw, int sh, int sw, int plh,
@@ -258,7 +418,7 @@ int launch_bwd(const void* g, const void* slot, void* dx, int B, int H,
   const bool vec = C % 8 == 0 && aligned16(g) && aligned16(slot) &&
                    aligned16(dx);
   // 32-bit indices when every offset into dx and into g fits.
-  const int64_t limit = (int64_t)1 << 31;
+  const int64_t limit = (int64_t)1 << kNarrowIndexBits;
   const bool small =
       (int64_t)B * H * W * C < limit && (int64_t)B * OH * OW * C < limit;
   if (vec && small) {
@@ -277,37 +437,94 @@ int launch_bwd(const void* g, const void* slot, void* dx, int B, int H,
                                       sw, plh, plw, OH, OW, stream);
 }
 
-template <typename T>
-int launch(const void* x, void* out, void* slot, int B, int H, int W, int C,
-           int kh, int kw, int sh, int sw, int plh, int plw, int OH, int OW,
-           cudaStream_t stream) {
-  const int64_t total = (int64_t)B * OH * OW * C;
-  const int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > (int64_t)1 << 30) blocks = (int64_t)1 << 30;
-  pool_fwd_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+template <typename T, typename Index, int kVec, int KH, int KW>
+int launch_fwd_as(const void* x, void* out, void* slot, int B, int H, int W,
+                  int C, int kh, int kw, int sh, int sw, int plh, int plw,
+                  int OH, int OW, cudaStream_t stream) {
+  const int rows = B * OH;
+  const int cols = OW * (C / kVec);
+  const dim3 grid((cols + kFwdThreads - 1) / kFwdThreads,
+                  rows < kFwdMaxGridY ? rows : kFwdMaxGridY);
+  pool_fwd_kernel<T, Index, kVec, KH, KW><<<grid, kFwdThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out),
       static_cast<int32_t*>(slot), H, W, C, kh, kw, sh, sw, plh, plw, OH, OW,
-      total);
+      rows);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename Index, int kVec>
+int launch_fwd_window(const void* x, void* out, void* slot, int B, int H,
+                      int W, int C, int kh, int kw, int sh, int sw, int plh,
+                      int plw, int OH, int OW, cudaStream_t stream) {
+  if (kh == 3 && kw == 3) {
+    return launch_fwd_as<T, Index, kVec, 3, 3>(x, out, slot, B, H, W, C, kh,
+                                               kw, sh, sw, plh, plw, OH, OW,
+                                               stream);
+  }
+  if (kh == 2 && kw == 2) {
+    return launch_fwd_as<T, Index, kVec, 2, 2>(x, out, slot, B, H, W, C, kh,
+                                               kw, sh, sw, plh, plw, OH, OW,
+                                               stream);
+  }
+  return launch_fwd_as<T, Index, kVec, 0, 0>(x, out, slot, B, H, W, C, kh,
+                                             kw, sh, sw, plh, plw, OH, OW,
+                                             stream);
+}
+
+// vec, wide and templated are the caller's launch choice (ops/pool.py
+// fwd_launch); it must be the one this function makes.
+template <typename T>
+int launch_fwd(const void* x, void* out, void* slot, int B, int H, int W,
+               int C, int kh, int kw, int sh, int sw, int plh, int plw,
+               int OH, int OW, int vec, int wide, int templated,
+               cudaStream_t stream) {
+  const int64_t limit = (int64_t)1 << kNarrowIndexBits;
+  const bool vector = C % kFwdVec == 0 && aligned16(x) && aligned16(out) &&
+                      aligned16(slot);
+  const bool narrow =
+      (int64_t)B * H * W * C < limit && (int64_t)B * OH * OW * C < limit;
+  if (vec != (vector ? kFwdVec : 1) || wide != (narrow ? 0 : 1) ||
+      templated != (fixed_window(kh, kw) ? 1 : 0) ||
+      (int64_t)B * OH >= limit || (int64_t)OW * C >= limit) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (vector && narrow) {
+    return launch_fwd_window<T, int32_t, kFwdVec>(
+        x, out, slot, B, H, W, C, kh, kw, sh, sw, plh, plw, OH, OW, stream);
+  }
+  if (vector) {
+    return launch_fwd_window<T, int64_t, kFwdVec>(
+        x, out, slot, B, H, W, C, kh, kw, sh, sw, plh, plw, OH, OW, stream);
+  }
+  if (narrow) {
+    return launch_fwd_window<T, int32_t, 1>(x, out, slot, B, H, W, C, kh, kw,
+                                            sh, sw, plh, plw, OH, OW, stream);
+  }
+  return launch_fwd_window<T, int64_t, 1>(x, out, slot, B, H, W, C, kh, kw,
+                                          sh, sw, plh, plw, OH, OW, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16. vec (8 or 1 channels a thread), wide
+// (64-bit offsets) and templated (a window with its own instantiation) are
+// the launch choice, which must be launch_fwd's. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another choice.
 int t2r_pool_fwd(const void* x, void* out, void* slot, int dtype, int B,
                  int H, int W, int C, int kh, int kw, int sh, int sw, int plh,
-                 int plw, int OH, int OW, void* stream) {
+                 int plw, int OH, int OW, int vec, int wide, int templated,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(x, out, slot, B, H, W, C, kh, kw, sh, sw, plh, plw,
-                         OH, OW, s);
+    return launch_fwd<float>(x, out, slot, B, H, W, C, kh, kw, sh, sw, plh,
+                             plw, OH, OW, vec, wide, templated, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, out, slot, B, H, W, C, kh, kw, sh, sw,
-                                 plh, plw, OH, OW, s);
+    return launch_fwd<__nv_bfloat16>(x, out, slot, B, H, W, C, kh, kw, sh, sw,
+                                     plh, plw, OH, OW, vec, wide, templated,
+                                     s);
   }
   return (int)cudaErrorInvalidValue;
 }

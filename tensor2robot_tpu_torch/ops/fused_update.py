@@ -18,27 +18,36 @@ element is read once and written once.
   optimizer state it does not recognise (:func:`supports_state`), and logs
   why. It never looks at where the program runs.
 * **The gate is the tensor's device** (``ops/_dispatch.py``):
-  :func:`update_leaves` launches :func:`fused_update` (``csrc/
-  fused_update.cu``) for CUDA tensors and runs :func:`plain_fused_update`
-  for CPU tensors. Nothing else switches the path.
+  :func:`apply_update` launches the kernel (``csrc/fused_update.cu``) for
+  CUDA tensors and runs :func:`plain_fused_update` for CPU tensors.
+  Nothing else switches the path.
 * :func:`apply_update` is the trainer's entry: the fused replacement of
   ``optimizer.step()`` + the EMA update + the guard's select, in place. It
   keeps the stock optimizer's ``state_dict`` exactly (``mu``, ``nu`` per
   parameter, ``count`` in the parameter groups), so a fused run and a stock
   run are interchangeable.
 
-The kernel launches once per :data:`LEAVES_PER_LAUNCH` parameters, reading
-their pointers from a table passed by value; the learning rate and the bias
-corrections are host floats passed by value, and the guard's flag is the
-one value read on the device.
+The kernel reads its leaves' pointers from a table passed by value, one
+launch for up to :data:`LEAVES_PER_LAUNCH` parameters (every path's in one
+launch a step); the learning rate and the bias corrections are host floats
+passed by value, and the guard's flag is the one value read on the device.
+:func:`fused_update` is the one-shot entry: it validates its leaves and
+packs their table at every call. The trainer's :func:`apply_update` packs
+the table from each step's addresses too, but validates the leaves once (a
+:class:`PreparedUpdate`), and each step only checks by identity and
+address that the tensors are those it validated, and the new gradients'
+layouts.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 import logging
-from typing import (Callable, Mapping, NamedTuple, Optional, Sequence,
+import math
+import operator
+from typing import (Callable, List, Mapping, NamedTuple, Optional, Sequence,
                     Union)
 
 import numpy as np
@@ -48,9 +57,15 @@ from tensor2robot_tpu_torch.ops import _build
 from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 
 # Leaves per launch: the kernel's by-value pointer table (kMaxLeaves in
-# csrc/fused_update.cu) stays under the 4 KB of kernel arguments.
-LEAVES_PER_LAUNCH = 64
+# csrc/fused_update.cu), sized to Hopper's 32,764 bytes of kernel
+# parameters. Every path's parameters fit one launch.
+LEAVES_PER_LAUNCH = 512
 KINDS = ('adam', 'sgd')
+# A packed leaf is one row of the table the C entry reads: the device
+# addresses of p, g, mu, nu and ema (0 where the variant does not read
+# it), then the element count.
+_ROW = 6
+_G_COLUMN = 1
 
 _SIGNATURES = {
     't2r_fused_update': [ctypes.c_void_p] + [ctypes.c_int] * 4 +
@@ -84,10 +99,14 @@ def spec_of(optimizer) -> Optional[FusedSpec]:
 
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
-  """A decision to run the fused pass (see :func:`plan_for`)."""
+  """A decision to run the fused pass (see :func:`plan_for`). ``prepared``
+  keeps one slot: the last step's :class:`PreparedUpdate` (see
+  :func:`prepare`)."""
 
   spec: FusedSpec
   ema_decay: Optional[float] = None
+  prepared: list = dataclasses.field(default_factory=lambda: [None],
+                                     compare=False, repr=False)
 
 
 class Leaf(NamedTuple):
@@ -104,6 +123,17 @@ class Leaf(NamedTuple):
 def bias_correction(decay: float, count: int) -> torch.Tensor:
   """1 - decay ** count in float32, as optax computes it (on the CPU)."""
   return 1 - torch.tensor(decay, dtype=torch.float32)**count
+
+
+def host_bias_correction(decay: float, count: int) -> float:
+  """:func:`bias_correction` as a Python float, bit for bit, without a
+  tensor: torch raises a float32 scalar to an integer power in double
+  precision and rounds once, except the cube, which it multiplies out in
+  float32."""
+  base = np.float32(decay)
+  power = (base * base * base if count == 3 else
+           np.float32(math.pow(float(base), count)))
+  return float(np.float32(1.0) - power)
 
 
 def supports_state(spec: FusedSpec, optimizer) -> bool:
@@ -207,13 +237,56 @@ def _check_leaves(leaves: Sequence[Leaf], adam: bool, has_ema: bool,
       raise ValueError(f'fused_update leaf {i}: not dense (strides {stride}).')
 
 
+def _pack(columns: Sequence[Optional[Sequence[torch.Tensor]]]) -> np.ndarray:
+  """The table the C entry reads from the leaves as columns (p, g, mu, nu,
+  ema): one row of :data:`_ROW` int64 values a non-empty leaf, the
+  addresses of its five tensors (0 for a column that is None), then its
+  element count."""
+  table = np.zeros((len(columns[0]), _ROW), np.int64)
+  for column, tensors in enumerate(columns):
+    if tensors is not None:
+      table[:, column] = list(map(torch.Tensor.data_ptr, tensors))
+  table[:, _ROW - 1] = list(map(torch.Tensor.numel, columns[0]))
+  return table[table[:, _ROW - 1] > 0]
+
+
+def _check_ok(ok: torch.Tensor, device: torch.device) -> None:
+  if ok.device != device or ok.dtype != torch.bool or ok.numel() != 1:
+    raise ValueError('fused_update: ok must be one bool element on the '
+                     "parameters' device.")
+
+
+def _launch(table: np.ndarray, device: torch.device, kind: str, lr: float,
+            c1: float, c2: float, b1: float, b2: float, eps: float,
+            decay: Optional[float], ok: Optional[torch.Tensor]) -> None:
+  """Launches the kernel over a packed ``table`` on the current stream:
+  one launch per :data:`LEAVES_PER_LAUNCH` rows."""
+  adam, has_ema, guard = kind == 'adam', decay is not None, ok is not None
+  decay = 0.0 if decay is None else float(decay)
+  table = np.ascontiguousarray(table, np.int64)
+  address = table.ctypes.data
+  lib = _build.load('fused_update', _SIGNATURES)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for start in range(0, len(table), LEAVES_PER_LAUNCH):
+      count = min(LEAVES_PER_LAUNCH, len(table) - start)
+      status = lib.t2r_fused_update(
+          address + start * table.strides[0], count, int(adam), int(has_ema),
+          int(guard), ok.data_ptr() if guard else None, lr, c1, c2, b1, b2,
+          1.0 - b1, 1.0 - b2, eps, decay, 1.0 - decay, stream)
+      _build.check(lib, status, 'fused_update')
+      fused_update.launches += 1
+
+
 def fused_update(leaves: Sequence[Leaf], kind: str, lr: float, c1: float,
                  c2: float, b1: float, b2: float, eps: float,
                  decay: Optional[float],
                  ok: Optional[torch.Tensor] = None) -> None:
   """Launches the CUDA kernel (``csrc/fused_update.cu``) over ``leaves`` on
   the current stream, in place: one launch per
-  :data:`LEAVES_PER_LAUNCH` leaves.
+  :data:`LEAVES_PER_LAUNCH` leaves. The one-shot entry: it validates the
+  leaves and packs their table at every call (the trainer's
+  :func:`apply_update` packs once, see :class:`PreparedUpdate`).
 
   ``kind`` is 'adam' or 'sgd'; ``decay`` None leaves the EMA off; ``ok``
   (a one-element CUDA bool tensor) turns the guard on: where it holds
@@ -228,29 +301,14 @@ def fused_update(leaves: Sequence[Leaf], kind: str, lr: float, c1: float,
   device = leaves[0].p.device
   if device.type != 'cuda':
     raise ValueError(f'fused_update takes CUDA tensors, got {device}.')
-  adam, has_ema, guard = kind == 'adam', decay is not None, ok is not None
+  adam, has_ema = kind == 'adam', decay is not None
   _check_leaves(leaves, adam, has_ema, device)
-  if guard and (ok.device != device or ok.dtype != torch.bool or
-                ok.numel() != 1):
-    raise ValueError('fused_update: ok must be one bool element on the '
-                     "parameters' device.")
-  decay = 0.0 if decay is None else float(decay)
-  table = np.array(
-      [(leaf.p.data_ptr(), leaf.g.data_ptr(),
-        leaf.mu.data_ptr() if adam else 0, leaf.nu.data_ptr() if adam else 0,
-        leaf.ema.data_ptr() if has_ema else 0, leaf.p.numel())
-       for leaf in leaves], np.int64)
-  lib = _build.load('fused_update', _SIGNATURES)
-  with torch.cuda.device(device):
-    stream = torch.cuda.current_stream(device).cuda_stream
-    for start in range(0, len(leaves), LEAVES_PER_LAUNCH):
-      chunk = np.ascontiguousarray(table[start:start + LEAVES_PER_LAUNCH])
-      status = lib.t2r_fused_update(
-          chunk.ctypes.data, len(chunk), int(adam), int(has_ema), int(guard),
-          ok.data_ptr() if guard else None, lr, c1, c2, b1, b2, 1.0 - b1,
-          1.0 - b2, eps, decay, 1.0 - decay, stream)
-      _build.check(lib, status, 'fused_update')
-      fused_update.launches += 1
+  if ok is not None:
+    _check_ok(ok, device)
+  columns = [list(column) for column in zip(*leaves)]
+  for column, used in ((2, adam), (3, adam), (4, has_ema)):
+    columns[column] = columns[column] if used else None
+  _launch(_pack(columns), device, kind, lr, c1, c2, b1, b2, eps, decay, ok)
 
 
 fused_update.launches = 0
@@ -292,20 +350,141 @@ def plain_fused_update(leaves: Sequence[Leaf], kind: str, lr: float,
       old.copy_(new)
 
 
-def update_leaves(leaves: Sequence[Leaf], kind: str, lr: float, c1: float,
-                  c2: float, b1: float, b2: float, eps: float,
-                  decay: Optional[float],
-                  ok: Optional[torch.Tensor] = None) -> None:
-  """The fused update over ``leaves``: the kernel for CUDA tensors, the
-  plain version for CPU tensors."""
-  if not leaves:
-    return
-  fn = (fused_update if dispatch.kernels_enabled(leaves[0].p) else
-        plain_fused_update)
-  fn(leaves, kind, lr, c1, c2, b1, b2, eps, decay, ok)
-
-
 # ------------------------------------------------------------------ apply
+
+
+# Per-element accessors for the per-step checks, which map them over every
+# parameter in C rather than loop in Python.
+_GRAD = operator.attrgetter('grad')
+_DTYPE = operator.attrgetter('dtype')
+_SHAPE = operator.attrgetter('shape')
+_MU = operator.itemgetter('mu')
+_NU = operator.itemgetter('nu')
+_DATA_PTR = torch.Tensor.data_ptr
+_STRIDE = torch.Tensor.stride
+
+
+def _same(a: Sequence, b: Sequence) -> bool:
+  """Whether ``a`` and ``b`` hold the same objects in the same order."""
+  return len(a) == len(b) and all(map(operator.is_, a, b))
+
+
+class Operands(NamedTuple):
+  """One step's operands of :func:`apply_update`, read afresh from the
+  optimizer and the EMA mapping. ``columns`` are the leaves as the table's
+  first five columns (p, g, mu, nu, ema; the parameters with a gradient,
+  in group order), None where the variant does not read one; ``idle`` the
+  parameters without a gradient and their EMA tensors, which still take
+  the EMA blend."""
+
+  has_grad: List[bool]
+  columns: List[Optional[List[torch.Tensor]]]
+  idle: List[List[torch.Tensor]]
+
+  def fixed(self) -> List[torch.Tensor]:
+    """Every tensor but the gradients."""
+    p, _, *state = self.columns
+    return list(itertools.chain(p, *filter(None, state), *self.idle))
+
+  def leaves(self) -> List[Leaf]:
+    p, *rest = self.columns
+    none = [None] * len(p)
+    return list(map(Leaf, map(torch.Tensor.detach, p),
+                    *(none if c is None else c for c in rest)))
+
+
+def _operands(plan: FusedPlan, optimizer,
+              ema: Optional[Mapping[torch.Tensor, torch.Tensor]]) -> Operands:
+  """This step's :class:`Operands`. Adam's moments of a parameter without
+  state are created as zeros, as the stock ``Adam`` creates them at its
+  first step."""
+  everything = [p for group in optimizer.param_groups for p in group['params']]
+  grads = list(map(_GRAD, everything))
+  has_grad = list(map(operator.is_not, grads, itertools.repeat(None)))
+  params = list(itertools.compress(everything, has_grad))
+  columns = [params, list(itertools.compress(grads, has_grad)), None, None,
+             None]
+  idle = []
+  if plan.spec.kind == 'adam':
+    slots = list(map(optimizer.state.__getitem__, params))
+    for p, slot in zip(params, slots) if not all(slots) else ():
+      if not slot:
+        slot['mu'] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        slot['nu'] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    columns[2:4] = list(map(_MU, slots)), list(map(_NU, slots))
+  if ema is not None and plan.ema_decay is not None:
+    columns[4] = list(map(ema.get, params))
+    idle = [p for p, has in zip(everything, has_grad) if not has and p in ema]
+    idle = [idle, list(map(ema.__getitem__, idle))]
+  return Operands(has_grad, columns, idle)
+
+
+class PreparedUpdate:
+  """The validated leaves of one optimizer's fused update, kept for the
+  steps that follow.
+
+  Built from a step's :class:`Operands`, it validates every non-empty leaf
+  as :func:`fused_update` does. :meth:`holds` tells, at a later step,
+  whether that validation still stands: the same parameters have
+  gradients, the parameters, moments and EMA tensors are the same objects
+  (it keeps them, so none is freed while it is compared) at the same
+  addresses (``Module.to`` moves a parameter's storage under the same
+  object), and each new gradient has its predecessor's dtype and layout.
+  The trainer sets the gradients to None every step, so they are the one
+  thing new. Where it holds, the table's other columns are those packed
+  at validation, so :meth:`pack` writes only the gradients' addresses.
+  """
+
+  def __init__(self, operands: Operands):
+    leaves = [leaf for leaf in operands.leaves() if leaf.p.numel()]
+    if leaves:
+      _check_leaves(leaves, operands.columns[2] is not None,
+                    operands.columns[4] is not None, leaves[0].p.device)
+    self.has_grad = operands.has_grad
+    self.fixed = operands.fixed()
+    if any(t is None for t in self.fixed):
+      raise ValueError('fused_update: a parameter has no EMA tensor.')
+    self.addresses = list(map(_DATA_PTR, self.fixed))
+    grads = operands.columns[_G_COLUMN]
+    self.grad_layouts = list(map(_STRIDE, grads)), list(map(_SHAPE, grads))
+    self.rows = [bool(p.numel()) for p in operands.columns[0]]
+    # The table without the gradients' column.
+    self.base = _pack([None if column == _G_COLUMN else tensors
+                       for column, tensors in enumerate(operands.columns)])
+
+  def holds(self, operands: Operands) -> bool:
+    """Whether this validation stands for ``operands`` (see the class
+    doc)."""
+    grads = operands.columns[_G_COLUMN]
+    return (operands.has_grad == self.has_grad and
+            _same(operands.fixed(), self.fixed) and
+            list(map(_DATA_PTR, self.fixed)) == self.addresses and
+            all(map(operator.is_, map(_DTYPE, grads),
+                    itertools.repeat(torch.float32))) and
+            (list(map(_STRIDE, grads)), list(map(_SHAPE, grads))) ==
+            self.grad_layouts)
+
+  def pack(self, operands: Operands) -> np.ndarray:
+    """The kernel's table for ``operands``, for which it holds."""
+    table = self.base.copy()
+    table[:, _G_COLUMN] = list(map(
+        _DATA_PTR, itertools.compress(operands.columns[_G_COLUMN], self.rows)))
+    return table
+
+
+def prepare(plan: FusedPlan, optimizer,
+            ema: Optional[Mapping[torch.Tensor, torch.Tensor]] = None):
+  """(a :class:`PreparedUpdate` that holds for this step, this step's
+  :class:`Operands`): the plan's kept one when it holds, else one
+  validated anew and kept in its place. Keyed on nothing: the trainer
+  builds a new EMA mapping every step, and whether it holds is decided by
+  the tensors themselves."""
+  operands = _operands(plan, optimizer, ema)
+  prepared = plan.prepared[0]
+  if prepared is None or not prepared.holds(operands):
+    prepared = PreparedUpdate(operands)
+    plan.prepared[0] = prepared
+  return prepared, operands
 
 
 @torch.no_grad()
@@ -314,7 +493,9 @@ def apply_update(plan: FusedPlan, optimizer,
                  ok: Optional[torch.Tensor] = None) -> bool:
   """The fused replacement of ``optimizer.step()`` + the EMA update + the
   guard's select, in place on the parameters, the optimizer's state and
-  ``ema`` (float32 EMA tensors keyed by their parameter).
+  ``ema`` (float32 EMA tensors keyed by their parameter): the kernel for
+  CUDA tensors, one launch over the table packed this step (see
+  :func:`prepare`), the plain version for CPU tensors.
 
   ``ok`` is the guard's one-element bool tensor on the parameters' device
   (None: no guard). Where it holds False, the kernel writes nothing and the
@@ -328,43 +509,37 @@ def apply_update(plan: FusedPlan, optimizer,
   creates them, before the guard is read.
   """
   spec = plan.spec
-  adam = spec.kind == 'adam'
   groups = optimizer.param_groups
   count = groups[0].get('count', 0)
   # The rate at the pre-increment count, as optax's scale_by_schedule.
   rate = spec.learning_rate
   lr = float(rate(count) if callable(rate) else rate)
   c1 = c2 = 1.0
-  if adam:
-    c1 = float(bias_correction(spec.b1, count + 1))
-    c2 = float(bias_correction(spec.b2, count + 1))
-  decay = plan.ema_decay if ema is not None else None
-  leaves, idle_emas, idle_params = [], [], []
-  for group in groups:
-    for p in group['params']:
-      p_ema = ema.get(p) if decay is not None else None
-      if p.grad is None:
-        if p_ema is not None:
-          idle_emas.append(p_ema)
-          idle_params.append(p.detach())
-        continue
-      mu = nu = None
-      if adam:
-        state = optimizer.state[p]
-        if not state:
-          state['mu'] = torch.zeros_like(p, memory_format=torch.preserve_format)
-          state['nu'] = torch.zeros_like(p, memory_format=torch.preserve_format)
-        mu, nu = state['mu'], state['nu']
-      leaves.append(Leaf(p.detach(), p.grad, mu, nu, p_ema))
-  update_leaves(leaves, spec.kind, lr, c1, c2, spec.b1, spec.b2, spec.eps,
-                decay, ok)
+  if spec.kind == 'adam':
+    c1 = host_bias_correction(spec.b1, count + 1)
+    c2 = host_bias_correction(spec.b2, count + 1)
+  prepared, operands = prepare(plan, optimizer, ema)
+  decay = plan.ema_decay if operands.columns[4] is not None else None
+  params = operands.columns[0]
+  if params:
+    if dispatch.kernels_enabled(params[0]):
+      table = prepared.pack(operands)
+      if len(table):
+        if ok is not None:
+          _check_ok(ok, params[0].device)
+        _launch(table, params[0].device, spec.kind, lr, c1, c2, spec.b1,
+                spec.b2, spec.eps, decay, ok)
+    else:
+      plain_fused_update(operands.leaves(), spec.kind, lr, c1, c2, spec.b1,
+                         spec.b2, spec.eps, decay, ok)
   applied = True if ok is None else bool(ok)
   if applied:
-    if idle_emas:
+    if operands.idle and operands.idle[0]:
+      idle_params, idle_emas = operands.idle
       torch._foreach_mul_(idle_emas, decay)  # pylint: disable=protected-access
-      torch._foreach_add_(idle_emas, idle_params, alpha=1.0 - decay)  # pylint: disable=protected-access
+      torch._foreach_add_(idle_emas, idle_params,  # pylint: disable=protected-access
+                          alpha=1.0 - decay)
     for group in groups:
       if 'count' in group:
         group['count'] += 1
   return applied
-

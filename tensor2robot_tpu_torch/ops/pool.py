@@ -37,9 +37,18 @@ from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
+# The forward kernel's launch constants (kFwdThreads, kFwdMaxGridY, kFwdVec
+# and kNarrowIndexBits in csrc/pool.cu) and the windows it instantiates
+# with all taps in flight (fixed_window there).
+_FWD_THREADS = 128
+_FWD_MAX_GRID_Y = 65535
+_FWD_VEC = 8
+_NARROW_INDEX_BITS = 31
+_FWD_WINDOWS = ((3, 3), (2, 2))
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    't2r_pool_fwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 +
+    't2r_pool_fwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 +
                     [ctypes.c_void_p],
     't2r_pool_bwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 +
                     [ctypes.c_void_p],
@@ -106,31 +115,80 @@ def _require_plan(x: torch.Tensor, window, strides, pads) -> dict:
   return plan
 
 
+def fwd_launch(shape: Sequence[int], window: Tuple[int, int],
+               strides: Tuple[int, int], pads: Pads,
+               aligned: bool = True) -> dict:
+  """The forward kernel's launch choice, as ``launch_fwd`` in
+  ``csrc/pool.cu`` makes it (the C entry refuses any other).
+
+  ``aligned``: whether the input, pooled and slot pointers are all 16-byte
+  aligned. Returns ``vec`` (8 channels a thread in 16-byte accesses, or 1),
+  ``wide`` (64-bit offsets, for tensors of 2**31 elements or more),
+  ``templated`` (a window with its own instantiation, all taps in flight;
+  else the runtime loop), the block's ``threads`` and the ``grid``
+  (x over a row's (ow, channel group) pairs, y over the B*OH rows, striding
+  past the cap). Raises where the pool is undefined.
+  """
+  b, h, w, c = (int(d) for d in shape)
+  # The geometry is the same for both dtypes the kernel takes.
+  plan = _plan((b, h, w, c), tuple(window), tuple(strides), pads,
+               torch.float32)
+  if plan is None:
+    raise ValueError(f'max_pool unsupported for shape {tuple(shape)} window '
+                     f'{window} strides {strides} pads {pads}.')
+  oh, ow = plan['oh'], plan['ow']
+  limit = 2**_NARROW_INDEX_BITS
+  if b * oh >= limit or ow * c >= limit:
+    raise ValueError(f'max_pool output rows {b * oh} or row width {ow * c} '
+                     'past the kernel\'s 32-bit grid.')
+  vec = _FWD_VEC if aligned and c % _FWD_VEC == 0 else 1
+  cols = ow * (c // vec)
+  return dict(
+      vec=vec,
+      wide=int(b * h * w * c >= limit or b * oh * ow * c >= limit),
+      templated=int(tuple(window) in _FWD_WINDOWS),
+      threads=_FWD_THREADS,
+      grid=(-(-cols // _FWD_THREADS), min(b * oh, _FWD_MAX_GRID_Y)))
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+  return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _cuda_input(x: torch.Tensor) -> None:
+  """Raises unless ``x`` is a contiguous tensor on a CUDA device."""
+  if x.device.type != 'cuda':
+    raise ValueError(f'pool_fwd takes a CUDA tensor, got {x.device}.')
+  if not x.is_contiguous():
+    raise ValueError('pool_fwd takes a contiguous NHWC tensor.')
+
+
 def pool_fwd(x: torch.Tensor, window: Tuple[int, int],
              strides: Tuple[int, int],
              pads: Pads) -> Tuple[torch.Tensor, torch.Tensor]:
   """Launches the CUDA kernel (``csrc/pool.cu``) on the current stream.
 
   ``x``: contiguous NHWC float32 or bfloat16 on a CUDA device. Returns
-  (pooled in x's dtype, int32 slot), both [B, OH, OW, C]. Raises on any
-  other input, and when the launch reports an error.
+  (pooled in x's dtype, int32 slot), both [B, OH, OW, C]. The launch
+  choice is :func:`fwd_launch`'s. Raises on any other input, and when the
+  launch reports an error.
   """
-  if x.device.type != 'cuda':
-    raise ValueError(f'pool_fwd takes a CUDA tensor, got {x.device}.')
-  if not x.is_contiguous():
-    raise ValueError('pool_fwd takes a contiguous NHWC tensor.')
+  _cuda_input(x)
   p = _require_plan(x, window, strides, pads)
   b = x.shape[0]
   out = torch.empty((b, p['oh'], p['ow'], p['c']), dtype=x.dtype,
                     device=x.device)
   slot = torch.empty(out.shape, dtype=torch.int32, device=x.device)
+  launch = fwd_launch(x.shape, window, strides, pads,
+                      aligned=_aligned(x, out, slot))
   lib = _build.load('pool', _SIGNATURES)
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = lib.t2r_pool_fwd(
         x.data_ptr(), out.data_ptr(), slot.data_ptr(), _DTYPE_CODES[x.dtype],
         b, p['h'], p['w'], p['c'], p['kh'], p['kw'], p['sh'], p['sw'],
-        p['plh'], p['plw'], p['oh'], p['ow'], stream)
+        p['plh'], p['plw'], p['oh'], p['ow'], launch['vec'], launch['wide'],
+        launch['templated'], stream)
   _build.check(lib, status, 'pool_fwd')
   pool_fwd.launches += 1
   return out, slot

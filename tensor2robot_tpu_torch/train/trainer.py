@@ -10,9 +10,9 @@ loss, backward, then the update, on one of two arms:
 
 * stock: ``optimizer.step()``, then the EMA;
 * fused (``fused_update=True`` and a tagged optimizer, see
-  ``ops/fused_update.py``): one kernel pass per
-  ``fused_update.LEAVES_PER_LAUNCH`` parameters runs the optimizer, the EMA
-  and the guard's select.
+  ``ops/fused_update.py``): one kernel pass a step runs the optimizer, the
+  EMA and the guard's select, from a pointer table packed once per
+  optimizer in which only the gradients' addresses change.
 
 With ``nonfinite_mode`` ``'skip_update'`` or ``'raise'``, the step computes
 :func:`all_finite` over the loss and the gradients on the device. The fused

@@ -65,12 +65,30 @@ def test_build_targets_hopper_and_keys_on_source():
 
 
 def test_fused_update_table_fits_the_kernel():
-  """The Python side chunks leaves by the kernel's table size and never
-  builds with fast-math (the update needs IEEE division and sqrt)."""
+  """The Python side chunks leaves by the kernel's table size, which fits
+  Hopper's 32,764 bytes of kernel parameters beside the scalars and the
+  guard's pointer (52 bytes a leaf: five pointers, a count, a block
+  start); the table is a __grid_constant__ parameter; the build never uses
+  fast-math (the update needs IEEE division and sqrt)."""
   source = (_build.CSRC_DIR / 'fused_update.cu').read_text()
   match = re.search(r'constexpr int kMaxLeaves = (\d+);', source)
-  assert int(match.group(1)) == fused_update.LEAVES_PER_LAUNCH
+  leaves = int(match.group(1))
+  assert leaves == fused_update.LEAVES_PER_LAUNCH == 512
+  table = 5 * 8 * leaves + 8 * leaves + 4 * (leaves + 1) + 4
+  scalars = 10 * 4
+  assert table + scalars + 8 <= 32764
+  assert 'sizeof(Table) + sizeof(Scalars) + sizeof(void*) <= 32764' in source
+  assert re.search(r'fused_update_kernel\(__grid_constant__ const Table t,',
+                   source)
   assert not any('fast' in flag for flag in _build.NVCC_FLAGS)
+
+
+def test_build_keeps_each_compiler_report_beside_its_library():
+  for name in _build.SOURCES:
+    report = _build.report_path(name)
+    library = _build.library_path(name)
+    assert report.parent == library.parent
+    assert report.name == library.name[:-len('.so')] + '.ptxas.txt'
 
 
 def _constants(name):
@@ -117,3 +135,28 @@ def test_fwd_planner_mirrors_the_tensor_core_kernel():
       't2r_conv_s2d_fwd_mma']
   assert conv_s2d._SIGNATURES['t2r_conv_s2d_fwd'] == entries[
       't2r_conv_s2d_fwd']
+
+
+def test_stack_frame_lines_are_read_per_instantiation():
+  """chip_smoke.py reads each fused_update_kernel instantiation's stack
+  frame from ptxas -v's report, whose 'Function properties for' line
+  names the kernel and whose next line gives its frame."""
+  import chip_smoke  # pylint: disable=import-outside-toplevel
+
+  report = '\n'.join([
+      "ptxas info    : Compiling entry function "
+      "'_ZN12_GLOBAL__N_119fused_update_kernelILb1ELb1ELb1EEEvNS_5TableE' "
+      "for 'sm_90a'",
+      'ptxas info    : Function properties for '
+      '_ZN12_GLOBAL__N_119fused_update_kernelILb1ELb1ELb1EEEvNS_5TableE',
+      '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+      'ptxas info    : Used 40 registers, 26680 bytes cmem[0]',
+      'ptxas info    : Function properties for _ZN4misc6kernelEv',
+      '    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+      'ptxas info    : Function properties for '
+      '_ZN12_GLOBAL__N_119fused_update_kernelILb0ELb0ELb0EEEvNS_5TableE',
+      '    26632 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+  ])
+  frames = chip_smoke.stack_frames(report, 'fused_update_kernel')
+  assert sorted(line.split()[0] for line in frames.values()) == ['0', '26632']
+  assert all('fused_update_kernel' in name for name in frames)

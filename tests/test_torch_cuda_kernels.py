@@ -8,19 +8,26 @@ of the kernel's 64-channel block, one, two and eight input channels, the
 deepest patch of 512 taps, partial pixel tiles), for the forward kernels
 and for the backward ones (pool routing: bitwise; conv dW and dx: the
 forward's bands; the conv forward and dW repeated bit for bit, bfloat16
-on the tensor cores), the flash attention forward, dq and dk/dv kernels
+on the tensor cores), the pool forward's vector and one-channel
+instantiations with templated and runtime windows, its 64-bit offsets
+past 2**31 elements and NaN and signed zeros at slot 0 (bitwise, NaN
+payloads included), the flash attention forward, dq and dk/dv kernels
 (the JAX suite's bars scaled to the largest magnitude, each kernel twice
 bit for bit, at ragged, odd-head-dim and streamed-regime shapes), the
 autograd Functions launching them, the fused optimizer update in its 8
-variants over leaves of every alignment and more than one launch's table
-(atol 1e-6 / rtol 1e-5, a False guard bitwise untouched, twice bit for
-bit) and the photometric pass at 1 to 4 channels, aligned and not
-(float32 1e-6, bfloat16 one ulp, twice bit for bit). The file imports
+variants over leaves of every alignment, in one launch for 115 leaves and
+two past the table's 512 (atol 1e-6 / rtol 1e-5, a False guard bitwise
+untouched, twice bit for bit), the trainer's ``apply_update`` through its
+packed table against the CPU over three steps, and the photometric pass
+at 1 to 4 channels, aligned and not (float32 1e-6, bfloat16 one ulp,
+twice bit for bit). The file imports
 neither JAX nor the JAX package, and the repository's
 ``tests/conftest.py`` does, so on a machine with a card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_*.py
 """
+
+import copy
 
 import pytest
 import torch
@@ -105,6 +112,82 @@ def test_pool_kernel_bitwise_vs_plain(device, name, shape, window, strides,
   assert got[0].dtype == dtype and got[1].dtype == torch.int32
   assert torch.equal(got[0], want[0])
   assert torch.equal(got[1], want[1])
+
+
+def _same_bits(a, b):
+  """Bitwise equality, NaN payloads included."""
+  as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+  return a.dtype == b.dtype and torch.equal(a.view(as_int[a.dtype]),
+                                            b.view(as_int[b.dtype]))
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('name,shape,window,strides,offset', [
+    ('pool1_vector', (2, 236, 236, 64), (3, 3), (3, 3), 0),
+    ('pool3_vector', (3, 27, 27, 16), (2, 2), (2, 2), 0),
+    ('generic_vector', (2, 23, 23, 8), (3, 2), (2, 1), 0),
+    ('pool1_unaligned', (2, 236, 236, 64), (3, 3), (3, 3), 1),
+    ('pool3_c3', (3, 27, 27, 3), (2, 2), (2, 2), 0),
+    ('generic_c5', (2, 23, 23, 5), (3, 2), (2, 1), 0),
+], ids=str)
+def test_pool_fwd_both_instantiations_bitwise(device, name, shape, window,
+                                              strides, offset, dtype):
+  """The vector (8 channels a thread) and scalar instantiations, with a
+  templated and a runtime window, bitwise against the plain version; a
+  storage offset that breaks 16-byte alignment takes the scalar one."""
+  x = _tied(shape, dtype, device)
+  if offset:
+    buffer = torch.empty(x.numel() + offset, dtype=dtype, device=device)
+    buffer[offset:].copy_(x.flatten())
+    x = buffer[offset:].view(shape)
+  pads = pool.resolve_padding('SAME', window, strides, shape[1:3])
+  launch = pool.fwd_launch(shape, window, strides, pads,
+                           aligned=x.data_ptr() % 16 == 0)
+  assert launch['vec'] == (8 if 'vector' in name else 1)
+  assert launch['templated'] == (not name.startswith('generic'))
+  got = pool.pool_fwd(x, window, strides, pads)
+  want = pool.plain_max_pool_argmax(x, window, strides, pads)
+  torch.cuda.synchronize()
+  assert _same_bits(got[0], want[0])
+  assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+def test_pool_fwd_nan_and_signed_zeros_at_slot_0(device, dtype):
+  """A NaN at slot 0 sticks; -0.0 at slot 0 beats +0.0 later and +0.0 at
+  slot 0 beats -0.0 later (no max instruction decides), slot 0 each, in
+  both instantiations."""
+  for channels in (16, 3):
+    x = torch.full((2, 6, 6, channels), -1.0, dtype=dtype, device=device)
+    x[0, 0, 0] = float('nan')
+    x[0, 0, 1] = 5.0
+    x[0, 0, 2] = -0.0
+    x[0, 1, 3] = 0.0
+    x[1, 0, 0] = 0.0
+    x[1, 1, 1] = -0.0
+    got = pool.pool_fwd(x, (2, 2), (2, 2), ((0, 0), (0, 0)))
+    want = pool.plain_max_pool_argmax(x, (2, 2), (2, 2), ((0, 0), (0, 0)))
+    torch.cuda.synchronize()
+    assert _same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(got[0][0, 0, 0].isnan().all())
+    assert bool(torch.signbit(got[0][0, 0, 1]).all())
+    assert not bool(torch.signbit(got[0][1, 0, 0]).any())
+    assert int(got[1][:, 0, :2].abs().max()) == 0
+
+
+def test_pool_fwd_past_2_31_elements(device):
+  """[1, 8200, 8200, 32] bf16 (2.15e9 elements, 4.3 GB) takes the 64-bit
+  instantiation and stays bitwise."""
+  shape, window = (1, 8200, 8200, 32), (3, 3)
+  generator = torch.Generator(device=device).manual_seed(3)
+  x = torch.randn(shape, generator=generator, device=device,
+                  dtype=torch.bfloat16)
+  pads = pool.resolve_padding('SAME', window, window, shape[1:3])
+  assert pool.fwd_launch(shape, window, window, pads)['wide'] == 1
+  got = pool.pool_fwd(x, window, window, pads)
+  want = pool.plain_max_pool_argmax(x, window, window, pads)
+  torch.cuda.synchronize()
+  assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize('dtype', DTYPES, ids=str)
@@ -355,12 +438,13 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(device):
 # ------------------------------------------------------------ fused update
 
 # Leaf shapes: one element, ragged tails, a conv weight, one leaf past a
-# block, and enough leaves (70) for two launches of the pointer table.
+# block, and 70 leaves in all (one launch of the pointer table).
 UPDATE_SHAPES = ([(1,), (3,), (127,), (129,), (64, 3, 6, 6), (5000,)] +
                  [(17, 5)] * 64)
 
 
-def _update_leaves(kind, with_ema, device, seed, offset=0):
+def _update_leaves(kind, with_ema, device, seed, offset=0,
+                   shapes=UPDATE_SHAPES):
   """Seeded leaves; ``offset`` > 0 cuts each tensor out of a larger buffer
   at that element offset, so its pointer is not 16-byte aligned."""
   generator = torch.Generator().manual_seed(seed)
@@ -374,7 +458,7 @@ def _update_leaves(kind, with_ema, device, seed, offset=0):
     return flat.to(device)[offset:].view(shape)
 
   leaves = []
-  for shape in UPDATE_SHAPES:
+  for shape in shapes:
     adam = kind == 'adam'
     leaves.append(fused_update.Leaf(
         make(shape), make(shape), make(shape) if adam else None,
@@ -415,7 +499,7 @@ def test_fused_update_band_vs_plain(device, kind, with_ema, guard, offset):
   fused_update.plain_fused_update(want, kind, decay=decay, ok=ok,
                                   **UPDATE_ARGS)
   torch.cuda.synchronize()
-  assert fused_update.fused_update.launches == before + 4  # 70 leaves: 2 each
+  assert fused_update.fused_update.launches == before + 2  # 70 leaves: 1 each
   for a, b, w in zip(got, again, want):
     for x, y, z in zip(a, b, w):
       if x is None:
@@ -435,6 +519,72 @@ def test_fused_update_false_guard_is_bitwise_untouched(device, kind):
   for a, b in zip(got, leaves):
     for x, y in zip(a, b):
       assert x is None or torch.equal(x, y)
+
+
+@pytest.mark.parametrize('leaves,launches', [(115, 1), (600, 2)])
+def test_fused_update_launches_per_table(device, leaves, launches):
+  """115 leaves (SNAIL long-horizon's count) take one launch; past
+  LEAVES_PER_LAUNCH the table is cut into launches; both in the band."""
+  shapes = [(64, 3, 6, 6), (129,)] + [(17, 5)] * (leaves - 2)
+  start = _update_leaves('adam', True, device, seed=4, shapes=shapes)
+  got, want = _clone_leaves(start), _clone_leaves(start)
+  before = fused_update.fused_update.launches
+  fused_update.fused_update(got, 'adam', decay=0.9, **UPDATE_ARGS)
+  fused_update.plain_fused_update(want, 'adam', decay=0.9, **UPDATE_ARGS)
+  torch.cuda.synchronize()
+  assert fused_update.fused_update.launches == before + launches
+  for a, w in zip(got, want):
+    for x, z in zip(a, w):
+      torch.testing.assert_close(x, z, atol=1e-6, rtol=1e-5)
+
+
+def test_apply_update_through_the_packed_table(device):
+  """The trainer's entry on the card: three Adam steps with the EMA under
+  one validation (new gradients each step, one launch a step) against the
+  same steps on the CPU's plain version; then moment tensors replaced as
+  load_state_dict replaces them are validated and packed anew."""
+  from tensor2robot_tpu_torch.models import optimizers
+
+  generator = torch.Generator().manual_seed(5)
+  shapes = [(64, 3, 6, 6), (129,), (1,)] + [(17, 5)] * 112
+  values = [torch.randn(shape, generator=generator) for shape in shapes]
+  grads = [[torch.randn(shape, generator=generator) for shape in shapes]
+           for _ in range(3)]
+  runs = []
+  for where in ('cpu', device):
+    params = [torch.nn.Parameter(v.to(where, copy=True)) for v in values]
+    optimizer = optimizers.create_adam_optimizer(3e-3)(params)
+    ema = {p: p.detach().clone() for p in params}
+    plan = fused_update.plan_for(optimizer, ema_decay=0.9)
+    before = fused_update.fused_update.launches
+    kept = set()
+    for step in grads:
+      for p, g in zip(params, step):
+        p.grad = g.to(where)
+      assert fused_update.apply_update(plan, optimizer, dict(ema))
+      kept.add(id(plan.prepared[0]))
+    launches = fused_update.fused_update.launches - before
+    runs.append((params, optimizer, ema, launches))
+    if where != 'cpu':
+      assert len(kept) == 1  # validated at the first step only
+      prepared, operands = fused_update.prepare(plan, optimizer, ema)
+      table = prepared.pack(operands)
+      optimizer.load_state_dict(copy.deepcopy(optimizer.state_dict()))
+      again, operands = fused_update.prepare(plan, optimizer, ema)
+      assert again is not prepared
+      repacked = again.pack(operands)
+      assert repacked[0, 2] == optimizer.state[params[0]]['mu'].data_ptr()
+      assert repacked[0, 2] != table[0, 2]
+  (cpu, cpu_opt, cpu_ema, _), (card, card_opt, card_ema, launches) = runs
+  assert launches == 3
+  torch.cuda.synchronize()
+  for a, b in zip(card, cpu):
+    torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-6,
+                               rtol=1e-5)
+    torch.testing.assert_close(card_opt.state[a]['mu'].cpu(),
+                               cpu_opt.state[b]['mu'], atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(card_ema[a].cpu(), cpu_ema[b], atol=1e-6,
+                               rtol=1e-5)
 
 
 def test_fused_update_refuses_mismatched_layouts(device):
