@@ -13,7 +13,9 @@ Run from the repository root. The phases:
 2. build every CUDA kernel from ``tensor2robot_tpu_torch/ops/csrc``, one
    ``nvcc`` per source, all started together; ptxas's stack-frame line of
    each ``fused_update_kernel`` instantiation is printed and must read 0
-   bytes (its table is a ``__grid_constant__`` parameter);
+   bytes (its table is a ``__grid_constant__`` parameter); ptxas's
+   registers, stack frame and spills of every ``flash_fwd_mma_kernel`` and
+   ``flash_fwd_kernel`` instantiation are printed;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the pool forward bitwise (values and slots) at the
    three QT-Opt pools in bfloat16 at B=64 and B=32, pool1 in float32, a
@@ -30,11 +32,17 @@ Run from the repository root. The phases:
    CUDA cores, the route logged and counted) run twice must agree bit for
    bit; the flash attention forward (out and lse), dq and dk/dv, causal
    and full, at the SNAIL shapes [2, 1024, 8, 8] and [8, 80, 1, 64]
-   (float32), bench.py's [2, 4096, 8, 64] (float32 and bfloat16) and the
+   (float32), bench.py's [2, 4096, 8, 64] (float32 and bfloat16), the
    streamed-regime shapes [1, 33792, 1, 64] (bfloat16) and
-   [1, 17408, 1, 64] (float32), each run twice bit for bit (bands: the JAX
-   suite's, float32 out 2e-5 and gradients 5e-4, bfloat16 3e-2, times the
-   largest magnitude when above 1); the fused optimizer update in all 8
+   [1, 17408, 1, 64] (float32), and the bfloat16 forward's route edges
+   (a ragged T = 1000, D = 16 and 128 on the tensor cores, D = 8 on the
+   CUDA cores), each run twice bit for bit, the forward's route and plan
+   logged (bands: the JAX suite's, float32 out 2e-5 and gradients 5e-4,
+   bfloat16 3e-2, lse 2e-5, times the largest magnitude when above 1; and
+   out's relative L2 error within FLASH_OUT_REL_L2, which two controls
+   must fail: the plain output rounded to a narrower type, and the plain
+   function with V taken one 64-row tile early);
+   the fused optimizer update in all 8
    variants (Adam or SGD, EMA on or off, guard on or off) over the real
    leaves of SNAIL long-horizon (115) and Grasping44 (59) at a constant and
    a scheduled rate (band atol 1e-6 / rtol 1e-5, twice bit for bit, a False
@@ -98,7 +106,9 @@ Run from the repository root. The phases:
    random_brightness=True, random_contrast=True, use_fused_kernel=True)``,
    on QT-Opt's training images at batch 32 against the stock chain on the
    same generator (1e-6), with its launches counted;
-12. timings with CUDA events: each kernel, its plain version, one library
+12. timings with CUDA events (each call after an L2 flush and a spin
+   kernel that keeps the card busy while the host enqueues it): each
+   kernel, its plain version, one library
    call computing the same function (``F.max_pool2d(return_indices=True)``,
    ``aten.max_pool2d_with_indices_backward``, ``F.conv2d`` in
    channels-last, ``torch.nn.grad.conv2d_weight``,
@@ -111,6 +121,8 @@ Run from the repository root. The phases:
    989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones); the float32
    forward and dW and the bfloat16 forward at the training shape too,
    the float32 kernels against cuDNN with TF32 on and off (logged only);
+   flash_fwd at each SNAIL shape and at bench.py's and the streamed bf16
+   shapes with its route, listed under ``per_shape`` in its record;
    ``--profile`` adds ``torch.profiler`` breakdowns of two actions, a
    stock and a fused QT-Opt training step and one stock and one fused step
    of each SNAIL path, written to
@@ -126,6 +138,7 @@ Any failure exits non-zero before them, and nothing falls back to the CPU.
 
 import argparse
 import contextlib
+import functools
 import json
 import pathlib
 import subprocess
@@ -194,8 +207,11 @@ SNAIL_CONFIGS = (
      dict(num_mixture_components=1, condition_gripper_pose=False), 8),
 )
 # Flash kernel checks: name, [B, T, H, D], dtype. The first two are the
-# SNAIL attention shapes, then bench.py's staged shape and two shapes that
-# _use_streamed classifies as streamed (2·T·D·itemsize > 8 MB).
+# SNAIL attention shapes, then bench.py's staged shape, two shapes that
+# _use_streamed classifies as streamed (2·T·D·itemsize > 8 MB), and the
+# edges of the forward's tensor-core route in bfloat16: a ragged last q and
+# K/V tile (T = 1000), the narrowest and widest head dims it takes (16, 128)
+# and D = 8, which takes the CUDA-core route.
 FLASH_SHAPES = (
     ('long_horizon', (2, 1024, 8, 8), torch.float32),
     ('sequential', (8, 80, 1, 64), torch.float32),
@@ -203,6 +219,32 @@ FLASH_SHAPES = (
     ('bench', (2, 4096, 8, 64), torch.bfloat16),
     ('streamed', (1, 33792, 1, 64), torch.bfloat16),
     ('streamed', (1, 17408, 1, 64), torch.float32),
+    ('ragged', (2, 1000, 4, 64), torch.bfloat16),
+    ('d16', (2, 1024, 4, 16), torch.bfloat16),
+    ('d128', (1, 2048, 2, 128), torch.bfloat16),
+    ('d8', (2, 1024, 8, 8), torch.bfloat16),
+)
+# The flash forward's out must also lie within this relative L2 error
+# ||got - want|| / ||want|| of the plain version. flash_band's bar scales
+# with the largest |out|, which under the causal mask is a row that sees
+# one key (4-5 with randn inputs), while a row deep in T averages hundreds
+# of keys to |out| ~0.01-0.05: a fault that moves those rows by their own
+# size can pass the bar. An H100 read at FLASH_SHAPES (PERF.md): bfloat16
+# kernels 2.0e-3 to 2.5e-3 (the tensor-core route's bf16 P and the two
+# bf16 roundings of out) and the plain output rounded through
+# float8_e4m3fn 2.7e-2 and more, so the limit lies about 3x from each;
+# float32 kernels up to 2.5e-6 and the output rounded through bfloat16
+# 1.6e-3. Both controls must fail the limit at every shape.
+FLASH_OUT_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+FLASH_CONTROL_DTYPE = {torch.float32: torch.bfloat16,
+                       torch.bfloat16: torch.float8_e4m3fn}
+# Flash timings, causal: name, [B, T, H, D], dtype, and whether the shape is
+# on a main path (the SNAIL paths; the kernels line sums those).
+FLASH_TIMED = (
+    ('long_horizon', (2, 1024, 8, 8), torch.float32, True),
+    ('sequential', (8, 80, 1, 64), torch.float32, True),
+    ('bench', (2, 4096, 8, 64), torch.bfloat16, False),
+    ('streamed', (1, 33792, 1, 64), torch.bfloat16, False),
 )
 # Leaves whose gradient is 0 but for rounding: the attention key biases
 # (softmax is invariant to a constant added to a query's logits) and the
@@ -304,16 +346,41 @@ def within(got, want, rel, of_max):
   return float(err.max()), bool((err <= limit).all())
 
 
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms():
+  """Cycles of ``torch.cuda._sleep`` that take one millisecond on this
+  card, measured once."""
+  torch.cuda._sleep(10**6)  # pylint: disable=protected-access
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  torch.cuda._sleep(10**7)  # pylint: disable=protected-access
+  end.record()
+  torch.cuda.synchronize()
+  return 10**7 / start.elapsed_time(end)
+
+
 def cuda_ms(fn, iters=20, warmup=3):
   """Mean device time of one call of ``fn``: each call is timed alone with
   CUDA events, after a 256 MB write has flushed the 50 MB L2 cache, so its
-  inputs come from device memory as the bytes bound assumes."""
+  inputs come from device memory as the bytes bound assumes. A spin kernel
+  after the flush keeps the card busy while the host enqueues ``fn`` (for
+  twice the longest host time of a warm-up call, 0.2 to 20 ms), so the
+  start event fires with ``fn``'s launches already queued and the time is
+  the device's, not the host's launch latency."""
   flush = torch.empty(256 * 2**20, dtype=torch.uint8, device='cuda')
+  host = []
   for _ in range(warmup):
+    begin = time.perf_counter()
     fn()
+    host.append(time.perf_counter() - begin)
+  torch.cuda.synchronize()
+  host_ms = 1e3 * max(host[1:] or host)
+  spin = int(spin_cycles_per_ms() * min(20.0, max(0.2, 2 * host_ms)))
   events = []
   for _ in range(iters):
     flush.zero_()
+    torch.cuda._sleep(spin)  # pylint: disable=protected-access
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -349,14 +416,17 @@ def phase_card():
 def stack_frames(report, kernel):
   """{mangled name: ptxas's stack-frame line} of every instantiation of
   ``kernel`` in a ``ptxas -v`` report ('Function properties for <name>',
-  then the line with its stack frame and spills)."""
+  then the line with its stack frame and spills), with '; N registers'
+  added where the report's next 'Used N registers' line follows."""
   frames, name = {}, None
   for line in report.splitlines():
     if 'Function properties for' in line:
       name = line.split('Function properties for')[-1].strip()
+      name = name if kernel in name else None
     elif name is not None and 'stack frame' in line:
-      if kernel in name:
-        frames[name] = line.strip()
+      frames[name] = line.strip()
+    elif name is not None and 'registers' in line:
+      frames[name] += '; ' + line.split('Used')[-1].split(',')[0].strip()
       name = None
   return frames
 
@@ -364,15 +434,28 @@ def stack_frames(report, kernel):
 def phase_build():
   """Builds every kernel; the fused update's table parameter must leave
   every instantiation of its kernel a 0-byte stack frame (a table copied
-  into local memory would show there)."""
+  into local memory would show there). ptxas's registers, stack frame and
+  spills of every flash_fwd instantiation are printed."""
   start = time.perf_counter()
   reports = _build.build()
   seconds = time.perf_counter() - start
   log(f'build: {seconds:.1f} s for {list(reports) or "cached libraries"}')
   for name, report in reports.items():
+    if name == 'flash_attention':
+      continue
     for line in report.splitlines():
       if 'registers' in line or 'spill' in line:
         log(f'  ptxas {name}: {line.strip()}')
+  flash = _build.report('flash_attention')
+  for kernel in ('flash_fwd_mma_kernel', 'flash_fwd_kernel'):
+    frames = {name.split(kernel, 1)[1].split('EEv')[0] + 'E': line
+              for name, line in stack_frames(flash, kernel).items()}
+    for args, line in sorted(frames.items()):
+      log(f'ptxas {kernel}{args}: {line}')
+    spilled = [args for args, line in frames.items()
+               if '0 bytes spill stores, 0 bytes spill loads' not in line]
+    log(f'ptxas: {len(frames)} {kernel} instantiations, '
+        f'{len(spilled)} with spills {spilled}')
   frames = stack_frames(_build.report('fused_update'), 'fused_update_kernel')
   for kernel, line in sorted(frames.items()):
     log(f'ptxas fused_update_kernel {kernel}: {line}')
@@ -987,34 +1070,64 @@ def flash_band(got, want, band):
   return err, err <= band * max(1.0, float(want.float().abs().max()))
 
 
+def rel_l2(got, want):
+  """||got - want|| / ||want||, in float32."""
+  want = want.float()
+  return float((got.float() - want).norm() / want.norm())
+
+
 def flash_inputs(shape, dtype, generator):
   return tuple(torch.randn(shape, generator=generator, device='cuda').to(dtype)
                for _ in range(4))
+
+
+def plain_blocks(shape, dtype):
+  """Blocks for the plain versions: their defaults where ``_check`` takes
+  them, else (a ragged T for the kernels' 64-row tiles) the largest
+  multiple of 8 up to 256 that divides T."""
+  _, t, _, d = shape
+  if fa.is_supported(t, d, itemsize=dtype.itemsize):
+    return None, None
+  block = max(b for b in range(8, 257, 8) if t % b == 0)
+  return block, block
+
+
+def route_text(plan):
+  return (f'route {plan["route"]}, {plan["rows"]}-row q tiles, '
+          f'{plan["warps"]} warps, {plan["grid"][0]} blocks, '
+          f'{plan["smem"]} bytes of shared memory, {plan["order"]}')
 
 
 @tf32_off()
 def phase_check_flash(generator):
   """flash_fwd (out and lse), flash_dq and flash_dkv against their plain
   versions, causal and full, at FLASH_SHAPES; each kernel twice, bit for
-  bit. Returns each kernel's largest error at the SNAIL shapes."""
+  bit; out also within FLASH_OUT_REL_L2, which both controls must fail.
+  Returns each kernel's largest error at the SNAIL shapes."""
   errors = dict(NO_FLASH)
+  sound = {dtype: 0.0 for dtype in FLASH_OUT_REL_L2}
+  controls = {(dtype, control): float('inf')
+              for dtype in FLASH_OUT_REL_L2 for control in ('narrow', 'shift')}
   for name, shape, dtype in FLASH_SHAPES:
     f32 = dtype == torch.float32
     out_band, grad_band = (2e-5, 5e-4) if f32 else (3e-2, 3e-2)
     streamed = fa._use_streamed(shape[1], shape[3], dtype.itemsize)  # pylint: disable=protected-access
+    blocks = plain_blocks(shape, dtype)
     for causal in (True, False):
       q, k, v, do = flash_inputs(shape, dtype, generator)
+      plan = fa.fwd_plan(shape, dtype, causal)
       out, lse = fa.flash_fwd(q, k, v, causal)
       again = fa.flash_fwd(q, k, v, causal)
-      want_out, want_lse = fa.plain_flash_fwd(q, k, v, causal)
+      want_out, want_lse = fa.plain_flash_fwd(q, k, v, causal, *blocks)
       delta = fa.flash_delta(want_out, do)
       dq = fa.flash_dq(q, k, v, do, want_lse, delta, causal)
       dq_again = fa.flash_dq(q, k, v, do, want_lse, delta, causal)
       dk, dv = fa.flash_dkv(q, k, v, do, want_lse, delta, causal)
       dkv_again = fa.flash_dkv(q, k, v, do, want_lse, delta, causal)
-      want_dq = fa.plain_flash_dq(q, k, v, do, want_lse, delta, causal)
+      want_dq = fa.plain_flash_dq(q, k, v, do, want_lse, delta, causal,
+                                  *blocks)
       want_dk, want_dv = fa.plain_flash_dkv(q, k, v, do, want_lse, delta,
-                                            causal)
+                                            causal, *blocks)
       torch.cuda.synchronize()
       for kernel, a, b in (('flash_fwd', out, again[0]),
                            ('flash_fwd', lse, again[1]),
@@ -1039,12 +1152,39 @@ def phase_check_flash(generator):
         if name in ('long_horizon', 'sequential'):
           errors[kernel] = max(errors[kernel], err)
         results.append(f'{label} {err:.2e}')
+      limit = FLASH_OUT_REL_L2[dtype]
+      shifted, _ = fa.plain_flash_fwd(q, k, torch.roll(v, fa._KEY_ROWS, 1),  # pylint: disable=protected-access
+                                      causal, *blocks)
+      readings = dict(
+          kernel=rel_l2(out, want_out),
+          narrow=rel_l2(want_out.to(FLASH_CONTROL_DTYPE[dtype]), want_out),
+          shift=rel_l2(shifted, want_out))
+      where = (f'flash_fwd out {name} {shape} {dtype} causal={causal}: '
+               f'relative L2 {readings} (limit {limit})')
+      if readings['kernel'] > limit:
+        raise AssertionError(where)
+      if min(readings['narrow'], readings['shift']) <= limit:
+        raise AssertionError(f'a control passes the limit: {where}')
+      sound[dtype] = max(sound[dtype], readings['kernel'])
+      for control in ('narrow', 'shift'):
+        controls[dtype, control] = min(controls[dtype, control],
+                                       readings[control])
       log(f'check flash {name} {shape} {str(dtype)[6:]} '
           f'{"causal" if causal else "full"}'
           f'{" (streamed regime)" if streamed else ""}: max abs err '
-          f'{", ".join(results)}; each kernel twice: bitwise')
+          f'{", ".join(results)}; out relative L2 {readings["kernel"]:.2e} '
+          f'(controls: {str(FLASH_CONTROL_DTYPE[dtype])[6:]} '
+          f'{readings["narrow"]:.2e}, V a tile early {readings["shift"]:.2e}; '
+          f'limit {limit:g}); each kernel twice: bitwise; flash_fwd '
+          f'{route_text(plan)}')
       del q, k, v, do, out, lse, again, want_out, want_lse, delta, dq
-      del dq_again, dk, dv, dkv_again, want_dq, want_dk, want_dv
+      del dq_again, dk, dv, dkv_again, want_dq, want_dk, want_dv, shifted
+  for dtype, limit in FLASH_OUT_REL_L2.items():
+    log(f'check flash {str(dtype)[6:]}: out relative L2 up to '
+        f'{sound[dtype]:.3e} against the limit {limit:g}; the controls from '
+        f'{controls[dtype, "narrow"]:.3e} (rounded through '
+        f'{str(FLASH_CONTROL_DTYPE[dtype])[6:]}) and '
+        f'{controls[dtype, "shift"]:.3e} (V a tile early)')
   torch.cuda.empty_cache()
   return errors
 
@@ -1702,15 +1842,41 @@ def flash_work(shape, dtype, causal):
           'flash_dkv': (6 * tensor + 2 * stat, 4 * pair)}
 
 
+def flash_fwd_full_timing(record, name, shape, dtype, q, k, v):
+  """flash_fwd without the mask beside SDPA at one FLASH_TIMED shape,
+  listed under the record's ``per_shape``."""
+  rate = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+  plan = fa.fwd_plan(shape, dtype, False)
+  ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, False),
+               iters=5 if name == 'streamed' else 20)
+  plain = cuda_ms(lambda: fa.plain_flash_fwd(q, k, v, False), iters=2,
+                  warmup=1)
+  qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+  lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+  nbytes, ops = flash_work(shape, dtype, False)['flash_fwd']
+  log(f'time flash_fwd {name} {shape} {str(dtype)[6:]} full '
+      f'({route_text(plan)}): kernel {ms:.4f} ms, plain {plain:.4f} ms, '
+      f'F.scaled_dot_product_attention {lib:.4f} ms, '
+      f'{bound_text(nbytes, ops, rate)}')
+  fwd_shape_entry(record, f'{name} {list(shape)} {str(dtype)[6:]} full',
+                  plan, ms, plain, lib, nbytes, ops, rate)
+
+
+def fwd_shape_entry(record, label, plan, ms, plain, lib, nbytes, ops, rate):
+  bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / rate
+  record.setdefault('flash_fwd_per_shape', []).append(dict(
+      shape=label, route=plan['route'], rows=plan['rows'], ms=ms,
+      plain_ms=plain, library_ms=lib, bound_ms=max(bytes_ms, ops_ms),
+      bound_by='bytes' if bytes_ms >= ops_ms else 'operations'))
+
+
 def flash_timing(record, generator):
-  """Each flash kernel, its plain version and the library call at the two
-  SNAIL shapes (the JSON record sums those, one launch of each), then at
-  bench.py's and the streamed shapes (printed only), causal."""
-  shapes = (('long_horizon', (2, 1024, 8, 8), torch.float32, True),
-            ('sequential', (8, 80, 1, 64), torch.float32, True),
-            ('bench', (2, 4096, 8, 64), torch.bfloat16, False),
-            ('streamed', (1, 33792, 1, 64), torch.bfloat16, False))
-  for name, shape, dtype, in_record in shapes:
+  """Each flash kernel, its plain version and the library call at the
+  FLASH_TIMED shapes, causal, and flash_fwd without the mask: the JSON
+  record sums the two causal SNAIL shapes (one launch of each) and lists
+  flash_fwd at every shape and mask with its route and bound under
+  ``per_shape``."""
+  for name, shape, dtype, in_record in FLASH_TIMED:
     rate = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
     q, k, v, do = flash_inputs(shape, dtype, generator)
     out, lse = fa.flash_fwd(q, k, v, True)
@@ -1734,19 +1900,26 @@ def flash_timing(record, generator):
         ('flash_dkv', lambda: fa.flash_dkv(q, k, v, do, lse, delta, True),
          lambda: fa.plain_flash_dkv(q, k, v, do, lse, delta, True), lib_bwd))
     work = flash_work(shape, dtype, True)
+    plan = fa.fwd_plan(shape, dtype, True)
     for kernel, kernel_fn, plain_fn, lib in kernels:
       ms = cuda_ms(kernel_fn, iters=5 if name == 'streamed' else 20)
       plain = cuda_ms(plain_fn, iters=plain_iters, warmup=1)
       nbytes, ops = work[kernel]
       lib_name = ('F.scaled_dot_product_attention' if kernel == 'flash_fwd'
                   else 'its backward (dq, dk and dv together)')
-      log(f'time {kernel} {name} {shape} {str(dtype)[6:]} causal: kernel '
-          f'{ms:.4f} ms, plain {plain:.4f} ms, {lib_name} {lib:.4f} ms, '
-          f'{bound_text(nbytes, ops, rate)}')
+      route = f' ({route_text(plan)})' if kernel == 'flash_fwd' else ''
+      log(f'time {kernel} {name} {shape} {str(dtype)[6:]} causal{route}: '
+          f'kernel {ms:.4f} ms, plain {plain:.4f} ms, {lib_name} {lib:.4f} '
+          f'ms, {bound_text(nbytes, ops, rate)}')
       if in_record:
         timing_entry(record, kernel, ms, plain, lib, nbytes, ops, rate)
+      if kernel == 'flash_fwd':
+        fwd_shape_entry(record,
+                        f'{name} {list(shape)} {str(dtype)[6:]} causal',
+                        plan, ms, plain, lib, nbytes, ops, rate)
     log(f'time flash {name}: SDPA output within {lib_err:.2e} of the '
         'kernel\'s')
+    flash_fwd_full_timing(record, name, shape, dtype, q, k, v)
     del q, k, v, do, out, lse, delta, qt, kt, vt, lib_out, do_t
     torch.cuda.empty_cache()
 
@@ -2195,6 +2368,8 @@ def phase_timing(generator, errors, launches):
         'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
         'library_ms': entry['library_ms'],
     })
+    if name == 'flash_fwd':
+      kernels[-1]['per_shape'] = record['flash_fwd_per_shape']
   return kernels
 
 

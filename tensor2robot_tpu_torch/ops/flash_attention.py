@@ -11,6 +11,11 @@ the FlashAttention-2 backward (dq in a q-tile grid, dk/dv in a k-tile grid,
   :func:`flash_fwd` (``csrc/flash_attention.cu``), a CPU tensor runs
   :func:`plain_flash_fwd`. Its backward does the same with
   :func:`flash_dq` / :func:`flash_dkv` and their plain versions.
+* :func:`fwd_plan` chooses the forward's route and launch from the shape,
+  dtype and mask alone, as the C entry does (it refuses any other plan):
+  bfloat16 with a head dim that is a multiple of 16 runs on the tensor
+  cores (``mma.sync``), float32 and the other bfloat16 head dims on the
+  CUDA cores, with q tiles of 16 to 64 rows planned to fill the card.
 * The plain versions transcribe the JAX package's staged kernels
   (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) block by block, with
   the blocks :func:`_resolve_blocks` picks and the same clamps. The
@@ -43,7 +48,7 @@ _NEG_INF = -1e30  # large-negative instead of -inf, as in the JAX kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     't2r_flash_fwd': [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
-                     [ctypes.c_float, ctypes.c_void_p],
+                     [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     't2r_flash_dq': [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
                     [ctypes.c_float, ctypes.c_void_p],
     't2r_flash_dkv': [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
@@ -115,6 +120,71 @@ def _check(q: torch.Tensor, block_q, block_k) -> Tuple[int, int]:
 
 def _scale(d: int) -> float:
   return 1.0 / math.sqrt(d)
+
+
+# ------------------------------------------------------ the forward's plan
+
+ROUTE_MMA = 'mma'
+ROUTE_CUDA_CORES = 'cuda_cores'
+_ROUTE_CODES = {ROUTE_CUDA_CORES: 0, ROUTE_MMA: 1}
+# csrc/flash_attention.cu's constants: K/V tiles of 64 rows in a ring of 2
+# stages; a grid aims at 2 blocks on each of an H100's 132 SMs; 4 warps (64
+# q rows) a block on the tensor cores; shared rows padded by 16 bytes (8
+# bf16 on the tensor-core route, 4 floats on the CUDA-core route, whose P
+# rows hold 64 + 2 floats); 256 threads a block on the CUDA cores.
+_KEY_ROWS = 64
+_STAGES = 2
+_SMS = 132
+_BLOCKS_PER_SM = 2
+_MMA_WARPS = 4
+_MMA_PAD = 8
+_CORE_PAD = 4
+_P_STRIDE = _KEY_ROWS + 2
+_CORE_THREADS = 256
+
+
+def _cdiv(a: int, b: int) -> int:
+  return -(-a // b)
+
+
+def fwd_plan(shape, dtype: torch.dtype, causal: bool,
+             aligned: bool = True) -> dict:
+  """How :func:`flash_fwd` runs a [B, T, H, D] problem, from the shape, the
+  dtype, the mask and whether q, k, v and out are 16-byte aligned: the
+  choice ``fwd_route`` and ``fwd_rows`` make in ``csrc/flash_attention.cu``
+  (the C entry refuses any other).
+
+  Returns the ``route`` (``'mma'``: bfloat16 with D % 16 == 0 and aligned
+  operands on the tensor cores; ``'cuda_cores'``: everything else), the
+  q-tile ``rows`` (mma: 64, 4 warps of 16 rows; CUDA cores: the tallest
+  of 64 and 32 rows that gives two blocks an SM, else 16), the ``warps``
+  of a block, the ``stages`` of 64-row K/V tiles, a block's shared memory
+  ``smem`` in bytes, the one-dimensional ``grid`` (q tiles times B*H,
+  tile-major), the ``q_tiles`` and the tile ``order``
+  (``'heaviest_first'`` under the causal mask: block i runs q tile
+  ``q_tiles - 1 - i // (B*H)``; else ``'ascending'``, q tile
+  ``i // (B*H)``). Raises for a problem the kernels do not take.
+  """
+  b, t, h, d = (int(x) for x in shape)
+  if dtype not in _DTYPE_CODES or not (8 <= d <= 128 and d % 8 == 0):
+    raise ValueError(f'flash_fwd takes float32 or bfloat16 with a head dim '
+                     f'in 8..128, a multiple of 8; got {dtype}, D={d}.')
+  bh = b * h
+  want = _BLOCKS_PER_SM * _SMS
+  if dtype == torch.bfloat16 and d % 16 == 0 and aligned:
+    rows = 16 * _MMA_WARPS
+    plan = dict(route=ROUTE_MMA, warps=_MMA_WARPS,
+                smem=2 * (rows + 2 * _STAGES * _KEY_ROWS) * (d + _MMA_PAD))
+  else:
+    rows = next((r for r in (64, 32) if bh * _cdiv(t, r) >= want), 16)
+    plan = dict(route=ROUTE_CUDA_CORES, warps=_CORE_THREADS // 32,
+                smem=4 * ((rows + 2 * _STAGES * _KEY_ROWS) * (d + _CORE_PAD) +
+                          rows * _P_STRIDE))
+  q_tiles = _cdiv(t, rows)
+  plan.update(rows=rows, stages=_STAGES, q_tiles=q_tiles,
+              grid=(q_tiles * bh, 1, 1),
+              order='heaviest_first' if causal else 'ascending')
+  return plan
 
 
 # ----------------------------------------------------- plain versions
@@ -303,28 +373,33 @@ def _require_stats(what: str, q, *stats) -> None:
 
 
 def _launch(fn_name: str, what: str, q: torch.Tensor, causal: bool,
-            *pointers) -> None:
+            pointers, plan=()) -> None:
   b, t, h, d = q.shape
   lib = _build.load('flash_attention', _SIGNATURES)
   with torch.cuda.device(q.device):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = getattr(lib, fn_name)(
         *(x.data_ptr() for x in pointers), _DTYPE_CODES[q.dtype], b, t, h, d,
-        int(bool(causal)), _scale(d), stream)
+        int(bool(causal)), _scale(d), *plan, stream)
   _build.check(lib, status, what)
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
   """Launches the forward kernel (``csrc/flash_attention.cu``) on the
-  current stream. q, k, v: contiguous [B, T, H, D] float32 or bfloat16 on
-  one CUDA device. Returns (out in q's dtype, lse float32 [B*H, 1, T]).
-  Raises on any other input, and when the launch reports an error."""
+  current stream, on the route :func:`fwd_plan` chooses: bfloat16 with a
+  head dim that is a multiple of 16 on the tensor cores, the rest on the
+  CUDA cores. q, k, v: contiguous [B, T, H, D] float32 or bfloat16 on one
+  CUDA device. Returns (out in q's dtype, lse float32 [B*H, 1, T]). Raises
+  on any other input, and when the launch reports an error."""
   _require_qkv('flash_fwd', q, k, v)
   b, t, h, _ = q.shape
   out = torch.empty_like(q)
   lse = torch.empty((b * h, 1, t), dtype=torch.float32, device=q.device)
-  _launch('t2r_flash_fwd', 'flash_fwd', q, causal, q, k, v, out, lse)
+  plan = fwd_plan(q.shape, q.dtype, causal,
+                  aligned=all(x.data_ptr() % 16 == 0 for x in (q, k, v, out)))
+  _launch('t2r_flash_fwd', 'flash_fwd', q, causal, (q, k, v, out, lse),
+          (_ROUTE_CODES[plan['route']], plan['rows']))
   flash_fwd.launches += 1
   return out, lse
 
@@ -339,7 +414,8 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool = False) -> torch.Tensor:
   _require_qkv('flash_dq', q, k, v, do)
   _require_stats('flash_dq', q, lse, delta)
   dq = torch.empty_like(q)
-  _launch('t2r_flash_dq', 'flash_dq', q, causal, q, k, v, do, lse, delta, dq)
+  _launch('t2r_flash_dq', 'flash_dq', q, causal,
+          (q, k, v, do, lse, delta, dq))
   flash_dq.launches += 1
   return dq
 
@@ -355,8 +431,8 @@ def flash_dkv(q, k, v, do, lse, delta,
   _require_stats('flash_dkv', q, lse, delta)
   dk = torch.empty_like(k)
   dv = torch.empty_like(v)
-  _launch('t2r_flash_dkv', 'flash_dkv', q, causal, q, k, v, do, lse, delta,
-          dk, dv)
+  _launch('t2r_flash_dkv', 'flash_dkv', q, causal,
+          (q, k, v, do, lse, delta, dk, dv))
   flash_dkv.launches += 1
   return dk, dv
 

@@ -137,6 +137,17 @@ def test_fwd_planner_mirrors_the_tensor_core_kernel():
       't2r_conv_s2d_fwd']
 
 
+def test_flash_fwd_entry_takes_the_plan():
+  """t2r_flash_fwd takes the host planner's route code and q-tile rows
+  just before the stream, which its ctypes binding passes as ints. (That
+  it refuses a plan that differs from its own choice is held on the card,
+  in tests/test_torch_cuda_kernels.py.)"""
+  params = _c_entry_points('flash_attention')['t2r_flash_fwd']
+  assert params[-3:] == [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+  assert flash_attention._SIGNATURES['t2r_flash_fwd'] == params  # pylint: disable=protected-access
+  assert len(params) == 15
+
+
 def test_stack_frame_lines_are_read_per_instantiation():
   """chip_smoke.py reads each fused_update_kernel instantiation's stack
   frame from ptxas -v's report, whose 'Function properties for' line

@@ -12,8 +12,12 @@ on the tensor cores), the pool forward's vector and one-channel
 instantiations with templated and runtime windows, its 64-bit offsets
 past 2**31 elements and NaN and signed zeros at slot 0 (bitwise, NaN
 payloads included), the flash attention forward, dq and dk/dv kernels
-(the JAX suite's bars scaled to the largest magnitude, each kernel twice
-bit for bit, at ragged, odd-head-dim and streamed-regime shapes), the
+(the JAX suite's bars scaled to the largest magnitude, and the forward's
+out within a relative L2 error, each kernel twice bit for bit, at ragged,
+odd-head-dim and streamed-regime shapes, every head dim of the bfloat16
+forward's tensor-core route, and unaligned operands, which take the
+CUDA-core route; the forward's C entry refuses a plan other than
+``fwd_plan``'s), the
 autograd Functions launching them, the fused optimizer update in its 8
 variants over leaves of every alignment, in one launch for 115 leaves and
 two past the table's 512 (atol 1e-6 / rtol 1e-5, a False guard bitwise
@@ -32,7 +36,8 @@ import copy
 import pytest
 import torch
 
-from tensor2robot_tpu_torch.ops import conv_s2d, fused_update, photometric, pool
+from tensor2robot_tpu_torch.ops import (_build, conv_s2d, fused_update,
+                                        photometric, pool)
 from tensor2robot_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -69,6 +74,16 @@ FLASH_CASES = [  # name, [B, T, H, D]
     ('d32', (1, 256, 2, 32)),
     ('ragged_d128', (1, 200, 1, 128)),
     ('d24', (1, 96, 3, 24)),
+    # The forward's tensor-core route in bfloat16, every instantiation
+    # (D = 16 to 128 in steps of 16; d32 above) and a ragged last q and K/V
+    # tile.
+    ('ragged_1000', (2, 1000, 4, 64)),
+    ('d16', (2, 256, 4, 16)),
+    ('d48', (1, 512, 3, 48)),
+    ('d128', (1, 512, 2, 128)),
+    ('ragged_d80', (1, 328, 2, 80)),
+    ('d96', (1, 384, 2, 96)),
+    ('ragged_d112', (2, 136, 1, 112)),
 ]
 
 
@@ -349,13 +364,35 @@ def _qkv(shape, dtype, device, seed):
                for _ in range(4))
 
 
+def _plain_blocks(shape, dtype):
+  """The plain versions' default blocks where ``_check`` takes them, else
+  (T not a multiple of them) the largest multiple of 8 up to 256 that
+  divides T."""
+  t, d = shape[1], shape[3]
+  if fa.is_supported(t, d, itemsize=dtype.itemsize):
+    return None, None
+  block = max(b for b in range(8, 257, 8) if t % b == 0)
+  return block, block
+
+
+# The forward's out, relative L2 error: chip_smoke.py's FLASH_OUT_REL_L2
+# (a fault that moves the rows deep in T, whose |out| is far below the
+# largest, by their own size passes the scaled bar).
+FLASH_OUT_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
 def _assert_flash_band(got, want, dtype, grad):
   """The JAX suite's bars (float32: out 2e-5, gradients 5e-4; bfloat16:
-  3e-2), scaled to the largest magnitude when it exceeds 1."""
+  3e-2), scaled to the largest magnitude when it exceeds 1; the forward's
+  out also within FLASH_OUT_REL_L2."""
   band = (5e-4 if grad else 2e-5) if dtype == torch.float32 else 3e-2
-  scale = max(1.0, float(want.float().abs().max()))
-  err = float((got.float() - want.float()).abs().max())
+  want = want.float()
+  scale = max(1.0, float(want.abs().max()))
+  err = float((got.float() - want).abs().max())
   assert err <= band * scale, (err, band, scale)
+  if not grad:
+    rel = float((got.float() - want).norm() / want.norm())
+    assert rel <= FLASH_OUT_REL_L2[dtype], (rel, FLASH_OUT_REL_L2[dtype])
 
 
 @pytest.mark.parametrize('streamed', [False, True], ids=['staged', 'streamed'])
@@ -367,24 +404,27 @@ def test_flash_kernels_band_vs_plain(device, monkeypatch, name, shape, dtype,
                                      causal, streamed):
   """Forward (out and lse), dq and dk/dv against the plain versions; the
   streamed cases resolve the plain versions' blocks as the JAX package's
-  streamed kernels do (the kernels tile the same way in both regimes).
-  Each kernel run twice agrees bit for bit."""
+  streamed kernels do (the kernels tile the same way in both regimes), and
+  a T that the default blocks do not divide takes blocks that do. Each
+  kernel run twice agrees bit for bit."""
   del name
   if streamed:
     monkeypatch.setattr(fa, '_MAX_STAGED_KV_BYTES', 1)
+  blocks = _plain_blocks(shape, dtype)
   q, k, v, do = _qkv(shape, dtype, device, seed=shape[1])
   before = (fa.flash_fwd.launches, fa.flash_dq.launches,
             fa.flash_dkv.launches)
   out, lse = fa.flash_fwd(q, k, v, causal)
   out2, lse2 = fa.flash_fwd(q, k, v, causal)
-  want_out, want_lse = fa.plain_flash_fwd(q, k, v, causal)
+  want_out, want_lse = fa.plain_flash_fwd(q, k, v, causal, *blocks)
   delta = fa.flash_delta(want_out, do)
   dq = fa.flash_dq(q, k, v, do, want_lse, delta, causal)
   dq2 = fa.flash_dq(q, k, v, do, want_lse, delta, causal)
   dk, dv = fa.flash_dkv(q, k, v, do, want_lse, delta, causal)
   dk2, dv2 = fa.flash_dkv(q, k, v, do, want_lse, delta, causal)
-  want_dq = fa.plain_flash_dq(q, k, v, do, want_lse, delta, causal)
-  want_dk, want_dv = fa.plain_flash_dkv(q, k, v, do, want_lse, delta, causal)
+  want_dq = fa.plain_flash_dq(q, k, v, do, want_lse, delta, causal, *blocks)
+  want_dk, want_dv = fa.plain_flash_dkv(q, k, v, do, want_lse, delta, causal,
+                                        *blocks)
   torch.cuda.synchronize()
   assert (fa.flash_fwd.launches, fa.flash_dq.launches,
           fa.flash_dkv.launches) == (before[0] + 2, before[1] + 2,
@@ -399,6 +439,51 @@ def test_flash_kernels_band_vs_plain(device, monkeypatch, name, shape, dtype,
   for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
     assert got.dtype == dtype and got.shape == want.shape
     _assert_flash_band(got, want, dtype, grad=True)
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+def test_flash_fwd_unaligned_operands_take_the_cuda_core_route(device, dtype):
+  """q, k and v one element past a 16-byte boundary: the plan and the C
+  entry both take the CUDA-core route with element loads, held to the
+  plain version in the same band and bit for bit over two runs."""
+  shape = (2, 96, 3, 64)
+  n = 2 * 96 * 3 * 64
+  q, k, v = (torch.randn(n + 1, generator=torch.Generator().manual_seed(s))
+             .to(device=device, dtype=dtype)[1:].view(shape)
+             for s in range(3))
+  assert q.data_ptr() % 16 != 0
+  plan = fa.fwd_plan(shape, dtype, True, aligned=False)
+  assert plan['route'] == fa.ROUTE_CUDA_CORES
+  out, lse = fa.flash_fwd(q, k, v, True)
+  out2, lse2 = fa.flash_fwd(q, k, v, True)
+  want_out, want_lse = fa.plain_flash_fwd(q, k, v, True)
+  torch.cuda.synchronize()
+  assert torch.equal(out, out2) and torch.equal(lse, lse2)
+  _assert_flash_band(out, want_out, dtype, grad=False)
+  scale = max(1.0, float(want_lse.abs().max()))
+  assert float((lse - want_lse).abs().max()) <= 2e-5 * scale
+
+
+def test_flash_fwd_entry_refuses_another_plan(device):
+  """t2r_flash_fwd launches only the plan fwd_plan makes: the other route,
+  or other q-tile rows, return cudaErrorInvalidValue and write nothing."""
+  lib = _build.load('flash_attention', fa._SIGNATURES)  # pylint: disable=protected-access
+  shape = (1, 256, 2, 64)
+  stream = torch.cuda.current_stream(device).cuda_stream
+  for dtype in DTYPES:
+    q, k, v = _qkv(shape, dtype, device, seed=3)[:3]
+    out = torch.full_like(q, 7.0)
+    lse = torch.full((2, 1, 256), 7.0, device=device)
+    plan = fa.fwd_plan(shape, dtype, True)
+    route = fa._ROUTE_CODES[plan['route']]  # pylint: disable=protected-access
+    for bad in ((1 - route, plan['rows']),
+                (route, 16 if plan['rows'] != 16 else 32)):
+      status = lib.t2r_flash_fwd(
+          *(x.data_ptr() for x in (q, k, v, out, lse)),
+          fa._DTYPE_CODES[dtype], *shape, 1, fa._scale(64), *bad, stream)  # pylint: disable=protected-access
+      assert status == 1, (dtype, bad, status)  # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and bool((lse == 7.0).all())
 
 
 def test_flash_autograd_launches_the_three_kernels(device):
