@@ -14,8 +14,10 @@ Run from the repository root. The phases:
    ``nvcc`` per source, all started together; ptxas's stack-frame line of
    each ``fused_update_kernel`` instantiation is printed and must read 0
    bytes (its table is a ``__grid_constant__`` parameter); ptxas's
-   registers, stack frame and spills of every ``flash_fwd_mma_kernel`` and
-   ``flash_fwd_kernel`` instantiation are printed;
+   registers, stack frame and spills of every instantiation of the flash
+   kernels (``flash_fwd_mma_kernel``, ``flash_fwd_kernel``,
+   ``flash_dq_mma_kernel``, ``flash_dq_kernel``, ``flash_dkv_mma_kernel``,
+   ``flash_dkv_kernel``) are printed;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the pool forward bitwise (values and slots) at the
    three QT-Opt pools in bfloat16 at B=64 and B=32, pool1 in float32, a
@@ -36,12 +38,13 @@ Run from the repository root. The phases:
    streamed-regime shapes [1, 33792, 1, 64] (bfloat16) and
    [1, 17408, 1, 64] (float32), and the bfloat16 forward's route edges
    (a ragged T = 1000, D = 16 and 128 on the tensor cores, D = 8 on the
-   CUDA cores), each run twice bit for bit, the forward's route and plan
-   logged (bands: the JAX suite's, float32 out 2e-5 and gradients 5e-4,
-   bfloat16 3e-2, lse 2e-5, times the largest magnitude when above 1; and
-   out's relative L2 error within FLASH_OUT_REL_L2, which two controls
-   must fail: the plain output rounded to a narrower type, and the plain
-   function with V taken one 64-row tile early);
+   CUDA cores), each run twice bit for bit, the forward's, dq's and dk/dv's
+   routes and plans logged (bands: the JAX suite's, float32 out 2e-5 and
+   gradients 5e-4, bfloat16 3e-2, lse 2e-5, times the largest magnitude
+   when above 1; out's relative L2 error within FLASH_OUT_REL_L2 and dq's,
+   dk's and dv's within FLASH_GRAD_REL_L2, which two controls must fail:
+   the plain result rounded to a narrower type, and the plain function
+   with V, or for the gradients dO, taken one 64-row tile early);
    the fused optimizer update in all 8
    variants (Adam or SGD, EMA on or off, guard on or off) over the real
    leaves of SNAIL long-horizon (115) and Grasping44 (59) at a constant and
@@ -121,8 +124,9 @@ Run from the repository root. The phases:
    989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones); the float32
    forward and dW and the bfloat16 forward at the training shape too,
    the float32 kernels against cuDNN with TF32 on and off (logged only);
-   flash_fwd at each SNAIL shape and at bench.py's and the streamed bf16
-   shapes with its route, listed under ``per_shape`` in its record;
+   flash_fwd, flash_dq and flash_dkv at each SNAIL shape and at bench.py's
+   and the streamed bf16 shapes with their routes, listed under
+   ``per_shape`` in their records;
    ``--profile`` adds ``torch.profiler`` breakdowns of two actions, a
    stock and a fused QT-Opt training step and one stock and one fused step
    of each SNAIL path, written to
@@ -236,6 +240,14 @@ FLASH_SHAPES = (
 # float32 kernels up to 2.5e-6 and the output rounded through bfloat16
 # 1.6e-3. Both controls must fail the limit at every shape.
 FLASH_OUT_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# dq, dk and dv likewise. The tensor-core routes round dS (and for dk/dv
+# P^T) to bfloat16 where the JAX kernels keep float32: on the CPU the
+# emulated route lands 2.5e-3 to 2.8e-3 from the JAX kernels
+# (tests/test_torch_flash_bwd_plan.py). An H100 read at FLASH_SHAPES
+# (PERF.md): bfloat16 kernels up to 2.8e-3 and the float8_e4m3fn control
+# from 2.6e-2, so 8e-3 lies about 3x from each; float32 kernels up to
+# 3.1e-6 and the bfloat16 control from 1.6e-3.
+FLASH_GRAD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 FLASH_CONTROL_DTYPE = {torch.float32: torch.bfloat16,
                        torch.bfloat16: torch.float8_e4m3fn}
 # Flash timings, causal: name, [B, T, H, D], dtype, and whether the shape is
@@ -431,23 +443,29 @@ def stack_frames(report, kernel):
   return frames
 
 
+FLASH_KERNELS = ('flash_fwd_mma_kernel', 'flash_fwd_kernel',
+                 'flash_dq_mma_kernel', 'flash_dq_kernel',
+                 'flash_dkv_mma_kernel', 'flash_dkv_kernel')
+
+
 def phase_build():
   """Builds every kernel; the fused update's table parameter must leave
   every instantiation of its kernel a 0-byte stack frame (a table copied
   into local memory would show there). ptxas's registers, stack frame and
-  spills of every flash_fwd instantiation are printed."""
+  spills of every flash kernel's instantiations are printed."""
   start = time.perf_counter()
   reports = _build.build()
   seconds = time.perf_counter() - start
   log(f'build: {seconds:.1f} s for {list(reports) or "cached libraries"}')
   for name, report in reports.items():
-    if name == 'flash_attention':
+    if name.startswith('flash_attention'):
       continue
     for line in report.splitlines():
       if 'registers' in line or 'spill' in line:
         log(f'  ptxas {name}: {line.strip()}')
-  flash = _build.report('flash_attention')
-  for kernel in ('flash_fwd_mma_kernel', 'flash_fwd_kernel'):
+  flash = (_build.report('flash_attention') +
+           _build.report('flash_attention_bwd'))
+  for kernel in FLASH_KERNELS:
     frames = {name.split(kernel, 1)[1].split('EEv')[0] + 'E': line
               for name, line in stack_frames(flash, kernel).items()}
     for args, line in sorted(frames.items()):
@@ -1093,29 +1111,54 @@ def plain_blocks(shape, dtype):
 
 
 def route_text(plan):
-  return (f'route {plan["route"]}, {plan["rows"]}-row q tiles, '
+  return (f'route {plan["route"]}, {plan["rows"]}-row tiles, '
           f'{plan["warps"]} warps, {plan["grid"][0]} blocks, '
           f'{plan["smem"]} bytes of shared memory, {plan["order"]}')
+
+
+def bwd_routes_text(shape, dtype, causal):
+  return '; '.join(
+      f'flash_{kernel} '
+      f'{route_text(fa.bwd_plan(kernel, shape, dtype, causal))}'
+      for kernel in fa.BWD_KERNELS)
+
+
+def expected_route(shape, dtype):
+  """The route every flash kernel must report: the tensor cores for
+  bfloat16 with D % 16 == 0 (FLASH_SHAPES' tensors are aligned), else the
+  CUDA cores."""
+  mma = dtype == torch.bfloat16 and shape[3] % 16 == 0
+  return fa.ROUTE_MMA if mma else fa.ROUTE_CUDA_CORES
 
 
 @tf32_off()
 def phase_check_flash(generator):
   """flash_fwd (out and lse), flash_dq and flash_dkv against their plain
   versions, causal and full, at FLASH_SHAPES; each kernel twice, bit for
-  bit; out also within FLASH_OUT_REL_L2, which both controls must fail.
-  Returns each kernel's largest error at the SNAIL shapes."""
+  bit; out within FLASH_OUT_REL_L2 and dq, dk, dv within FLASH_GRAD_REL_L2,
+  which both controls must fail; every kernel on the route its dtype and
+  head dim call for. Returns each kernel's largest error at the SNAIL
+  shapes."""
   errors = dict(NO_FLASH)
-  sound = {dtype: 0.0 for dtype in FLASH_OUT_REL_L2}
-  controls = {(dtype, control): float('inf')
-              for dtype in FLASH_OUT_REL_L2 for control in ('narrow', 'shift')}
+  labels = ('out', 'dq', 'dk', 'dv')
+  sound = {(dtype, label): 0.0 for dtype in FLASH_OUT_REL_L2
+           for label in labels}
+  controls = {(dtype, label, control): float('inf')
+              for dtype in FLASH_OUT_REL_L2 for label in labels
+              for control in ('narrow', 'shift')}
   for name, shape, dtype in FLASH_SHAPES:
     f32 = dtype == torch.float32
     out_band, grad_band = (2e-5, 5e-4) if f32 else (3e-2, 3e-2)
     streamed = fa._use_streamed(shape[1], shape[3], dtype.itemsize)  # pylint: disable=protected-access
     blocks = plain_blocks(shape, dtype)
     for causal in (True, False):
+      plans = {'fwd': fa.fwd_plan(shape, dtype, causal)}
+      plans.update((kernel, fa.bwd_plan(kernel, shape, dtype, causal))
+                   for kernel in fa.BWD_KERNELS)
+      routes = {kernel: plan['route'] for kernel, plan in plans.items()}
+      if set(routes.values()) != {expected_route(shape, dtype)}:
+        raise AssertionError(f'flash {name} {shape} {dtype}: routes {routes}')
       q, k, v, do = flash_inputs(shape, dtype, generator)
-      plan = fa.fwd_plan(shape, dtype, causal)
       out, lse = fa.flash_fwd(q, k, v, causal)
       again = fa.flash_fwd(q, k, v, causal)
       want_out, want_lse = fa.plain_flash_fwd(q, k, v, causal, *blocks)
@@ -1152,39 +1195,62 @@ def phase_check_flash(generator):
         if name in ('long_horizon', 'sequential'):
           errors[kernel] = max(errors[kernel], err)
         results.append(f'{label} {err:.2e}')
-      limit = FLASH_OUT_REL_L2[dtype]
-      shifted, _ = fa.plain_flash_fwd(q, k, torch.roll(v, fa._KEY_ROWS, 1),  # pylint: disable=protected-access
-                                      causal, *blocks)
-      readings = dict(
-          kernel=rel_l2(out, want_out),
-          narrow=rel_l2(want_out.to(FLASH_CONTROL_DTYPE[dtype]), want_out),
-          shift=rel_l2(shifted, want_out))
-      where = (f'flash_fwd out {name} {shape} {dtype} causal={causal}: '
-               f'relative L2 {readings} (limit {limit})')
-      if readings['kernel'] > limit:
-        raise AssertionError(where)
-      if min(readings['narrow'], readings['shift']) <= limit:
-        raise AssertionError(f'a control passes the limit: {where}')
-      sound[dtype] = max(sound[dtype], readings['kernel'])
-      for control in ('narrow', 'shift'):
-        controls[dtype, control] = min(controls[dtype, control],
-                                       readings[control])
+      # The controls: the plain results rounded to a narrower type, and
+      # the plain functions with V (out) or dO (the gradients) one 64-row
+      # tile early, as a ring stage read out of turn would give.
+      early = fa._KEY_ROWS  # pylint: disable=protected-access
+      shifted, _ = fa.plain_flash_fwd(q, k, torch.roll(v, early, 1), causal,
+                                      *blocks)
+      do_early = torch.roll(do, early, 1)
+      shifted_dq = fa.plain_flash_dq(q, k, v, do_early, want_lse, delta,
+                                     causal, *blocks)
+      shifted_dk, shifted_dv = fa.plain_flash_dkv(q, k, v, do_early, want_lse,
+                                                  delta, causal, *blocks)
+      readings = {}
+      for label, got, want, shift in (
+          ('out', out, want_out, shifted), ('dq', dq, want_dq, shifted_dq),
+          ('dk', dk, want_dk, shifted_dk), ('dv', dv, want_dv, shifted_dv)):
+        limit = (FLASH_OUT_REL_L2 if label == 'out' else
+                 FLASH_GRAD_REL_L2)[dtype]
+        reading = dict(
+            kernel=rel_l2(got, want),
+            narrow=rel_l2(want.to(FLASH_CONTROL_DTYPE[dtype]), want),
+            shift=rel_l2(shift, want))
+        where = (f'flash {label} {name} {shape} {dtype} causal={causal}: '
+                 f'relative L2 {reading} (limit {limit})')
+        if reading['kernel'] > limit:
+          raise AssertionError(where)
+        if min(reading['narrow'], reading['shift']) <= limit:
+          raise AssertionError(f'a control passes the limit: {where}')
+        sound[dtype, label] = max(sound[dtype, label], reading['kernel'])
+        for control in ('narrow', 'shift'):
+          controls[dtype, label, control] = min(
+              controls[dtype, label, control], reading[control])
+        readings[label] = reading
+      narrow = str(FLASH_CONTROL_DTYPE[dtype])[6:]
       log(f'check flash {name} {shape} {str(dtype)[6:]} '
           f'{"causal" if causal else "full"}'
           f'{" (streamed regime)" if streamed else ""}: max abs err '
-          f'{", ".join(results)}; out relative L2 {readings["kernel"]:.2e} '
-          f'(controls: {str(FLASH_CONTROL_DTYPE[dtype])[6:]} '
-          f'{readings["narrow"]:.2e}, V a tile early {readings["shift"]:.2e}; '
-          f'limit {limit:g}); each kernel twice: bitwise; flash_fwd '
-          f'{route_text(plan)}')
+          f'{", ".join(results)}; relative L2 ' + ', '.join(
+              f'{label} {r["kernel"]:.2e} (controls: {narrow} '
+              f'{r["narrow"]:.2e}, a tile early {r["shift"]:.2e})'
+              for label, r in readings.items()) +
+          f'; limits out {FLASH_OUT_REL_L2[dtype]:g}, gradients '
+          f'{FLASH_GRAD_REL_L2[dtype]:g}; each kernel twice: bitwise; '
+          f'flash_fwd {route_text(plans["fwd"])}; '
+          f'{bwd_routes_text(shape, dtype, causal)}')
       del q, k, v, do, out, lse, again, want_out, want_lse, delta, dq
       del dq_again, dk, dv, dkv_again, want_dq, want_dk, want_dv, shifted
-  for dtype, limit in FLASH_OUT_REL_L2.items():
-    log(f'check flash {str(dtype)[6:]}: out relative L2 up to '
-        f'{sound[dtype]:.3e} against the limit {limit:g}; the controls from '
-        f'{controls[dtype, "narrow"]:.3e} (rounded through '
-        f'{str(FLASH_CONTROL_DTYPE[dtype])[6:]}) and '
-        f'{controls[dtype, "shift"]:.3e} (V a tile early)')
+      del do_early, shifted_dq, shifted_dk, shifted_dv
+  for dtype in FLASH_OUT_REL_L2:
+    for label in labels:
+      limit = (FLASH_OUT_REL_L2 if label == 'out' else
+               FLASH_GRAD_REL_L2)[dtype]
+      log(f'check flash {str(dtype)[6:]}: {label} relative L2 up to '
+          f'{sound[dtype, label]:.3e} against the limit {limit:g}; the '
+          f'controls from {controls[dtype, label, "narrow"]:.3e} (rounded '
+          f'through {str(FLASH_CONTROL_DTYPE[dtype])[6:]}) and '
+          f'{controls[dtype, label, "shift"]:.3e} (a tile early)')
   torch.cuda.empty_cache()
   return errors
 
@@ -1858,24 +1924,34 @@ def flash_fwd_full_timing(record, name, shape, dtype, q, k, v):
       f'({route_text(plan)}): kernel {ms:.4f} ms, plain {plain:.4f} ms, '
       f'F.scaled_dot_product_attention {lib:.4f} ms, '
       f'{bound_text(nbytes, ops, rate)}')
-  fwd_shape_entry(record, f'{name} {list(shape)} {str(dtype)[6:]} full',
-                  plan, ms, plain, lib, nbytes, ops, rate)
+  flash_shape_entry(record, f'{name} {list(shape)} {str(dtype)[6:]} full',
+                    plan, ms, plain, lib, nbytes, ops, rate)
 
 
-def fwd_shape_entry(record, label, plan, ms, plain, lib, nbytes, ops, rate):
+def flash_shape_entry(record, label, plan, ms, plain, lib, nbytes, ops, rate,
+                      kernel='flash_fwd'):
+  """One shape of a flash kernel's ``per_shape`` list: under
+  ``flash_fwd_per_shape`` for the forward, ``flash_bwd_per_shape`` (with
+  the kernel's name; ``library_ms`` is SDPA's backward) for dq and
+  dk/dv."""
   bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / rate
-  record.setdefault('flash_fwd_per_shape', []).append(dict(
+  entry = dict(
       shape=label, route=plan['route'], rows=plan['rows'], ms=ms,
       plain_ms=plain, library_ms=lib, bound_ms=max(bytes_ms, ops_ms),
-      bound_by='bytes' if bytes_ms >= ops_ms else 'operations'))
+      bound_by='bytes' if bytes_ms >= ops_ms else 'operations')
+  if kernel == 'flash_fwd':
+    record.setdefault('flash_fwd_per_shape', []).append(entry)
+  else:
+    record.setdefault('flash_bwd_per_shape', []).append(
+        dict(kernel=kernel, **entry))
 
 
 def flash_timing(record, generator):
   """Each flash kernel, its plain version and the library call at the
   FLASH_TIMED shapes, causal, and flash_fwd without the mask: the JSON
   record sums the two causal SNAIL shapes (one launch of each) and lists
-  flash_fwd at every shape and mask with its route and bound under
-  ``per_shape``."""
+  each kernel at every timed shape (flash_fwd also without the mask) with
+  its route and bound under ``per_shape``."""
   for name, shape, dtype, in_record in FLASH_TIMED:
     rate = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
     q, k, v, do = flash_inputs(shape, dtype, generator)
@@ -1900,23 +1976,30 @@ def flash_timing(record, generator):
         ('flash_dkv', lambda: fa.flash_dkv(q, k, v, do, lse, delta, True),
          lambda: fa.plain_flash_dkv(q, k, v, do, lse, delta, True), lib_bwd))
     work = flash_work(shape, dtype, True)
-    plan = fa.fwd_plan(shape, dtype, True)
+    plans = {'flash_fwd': fa.fwd_plan(shape, dtype, True)}
+    plans.update((f'flash_{kernel}', fa.bwd_plan(kernel, shape, dtype, True))
+                 for kernel in fa.BWD_KERNELS)
+    bwd_ms = 0.0
     for kernel, kernel_fn, plain_fn, lib in kernels:
       ms = cuda_ms(kernel_fn, iters=5 if name == 'streamed' else 20)
       plain = cuda_ms(plain_fn, iters=plain_iters, warmup=1)
       nbytes, ops = work[kernel]
       lib_name = ('F.scaled_dot_product_attention' if kernel == 'flash_fwd'
                   else 'its backward (dq, dk and dv together)')
-      route = f' ({route_text(plan)})' if kernel == 'flash_fwd' else ''
-      log(f'time {kernel} {name} {shape} {str(dtype)[6:]} causal{route}: '
-          f'kernel {ms:.4f} ms, plain {plain:.4f} ms, {lib_name} {lib:.4f} '
-          f'ms, {bound_text(nbytes, ops, rate)}')
+      log(f'time {kernel} {name} {shape} {str(dtype)[6:]} causal '
+          f'({route_text(plans[kernel])}): kernel {ms:.4f} ms, plain '
+          f'{plain:.4f} ms, {lib_name} {lib:.4f} ms, '
+          f'{bound_text(nbytes, ops, rate)}')
       if in_record:
         timing_entry(record, kernel, ms, plain, lib, nbytes, ops, rate)
-      if kernel == 'flash_fwd':
-        fwd_shape_entry(record,
+      flash_shape_entry(record,
                         f'{name} {list(shape)} {str(dtype)[6:]} causal',
-                        plan, ms, plain, lib, nbytes, ops, rate)
+                        plans[kernel], ms, plain, lib, nbytes, ops, rate,
+                        kernel)
+      bwd_ms += ms if kernel != 'flash_fwd' else 0.0
+    log(f'time flash {name} {shape} {str(dtype)[6:]} causal: dq + dk/dv '
+        f'{bwd_ms:.4f} ms against the SDPA backward\'s {lib_bwd:.4f} ms '
+        f'({bwd_ms / lib_bwd:.2f}x)')
     log(f'time flash {name}: SDPA output within {lib_err:.2e} of the '
         'kernel\'s')
     flash_fwd_full_timing(record, name, shape, dtype, q, k, v)
@@ -2370,6 +2453,10 @@ def phase_timing(generator, errors, launches):
     })
     if name == 'flash_fwd':
       kernels[-1]['per_shape'] = record['flash_fwd_per_shape']
+    elif name in ('flash_dq', 'flash_dkv'):
+      kernels[-1]['per_shape'] = [
+          entry for entry in record['flash_bwd_per_shape']
+          if entry['kernel'] == name]
   return kernels
 
 

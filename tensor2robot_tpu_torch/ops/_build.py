@@ -6,8 +6,9 @@ plain C interface, loaded through ``ctypes``. The command is
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
-with ``<hash>`` taken over the source and the flags, so an edited source
-builds anew and an unchanged one is loaded from ``build/torch_kernels/``
+with ``<hash>`` taken over the source, the headers of ``csrc`` (``*.cuh``,
+which sources include) and the flags, so an edited source or header builds
+anew and an unchanged one is loaded from ``build/torch_kernels/``
 beside the package (listed in ``.gitignore``). nvcc's register,
 stack-frame and spill report stays beside each library (:func:`report`).
 :func:`build` starts one ``nvcc`` per missing library, all at once, and
@@ -32,8 +33,8 @@ from typing import Dict, Iterable, Mapping, Sequence
 CSRC_DIR = pathlib.Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / (
     'torch_kernels')
-SOURCES = ('pool', 'conv_s2d', 'flash_attention', 'fused_update',
-           'photometric')
+SOURCES = ('pool', 'conv_s2d', 'flash_attention', 'flash_attention_bwd',
+           'fused_update', 'photometric')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -57,7 +58,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> pathlib.Path:
   source = (CSRC_DIR / f'{name}.cu').read_bytes()
-  digest = hashlib.sha256(source + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+  headers = b''.join(p.read_bytes() for p in sorted(CSRC_DIR.glob('*.cuh')))
+  digest = hashlib.sha256(source + headers +
+                          ' '.join(NVCC_FLAGS).encode()).hexdigest()
   return BUILD_DIR / f'lib{name}-{digest[:16]}.so'
 
 

@@ -11,11 +11,12 @@ the FlashAttention-2 backward (dq in a q-tile grid, dk/dv in a k-tile grid,
   :func:`flash_fwd` (``csrc/flash_attention.cu``), a CPU tensor runs
   :func:`plain_flash_fwd`. Its backward does the same with
   :func:`flash_dq` / :func:`flash_dkv` and their plain versions.
-* :func:`fwd_plan` chooses the forward's route and launch from the shape,
-  dtype and mask alone, as the C entry does (it refuses any other plan):
-  bfloat16 with a head dim that is a multiple of 16 runs on the tensor
-  cores (``mma.sync``), float32 and the other bfloat16 head dims on the
-  CUDA cores, with q tiles of 16 to 64 rows planned to fill the card.
+* :func:`fwd_plan` and :func:`bwd_plan` choose the forward's and the
+  backward kernels' route and launch from the shape, dtype and mask alone,
+  as the C entries do (they refuse any other plan): bfloat16 with a head
+  dim that is a multiple of 16 runs on the tensor cores (``mma.sync``),
+  float32 and the other bfloat16 head dims on the CUDA cores, with tiles
+  of 16 to 64 rows planned to fill the card.
 * The plain versions transcribe the JAX package's staged kernels
   (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) block by block, with
   the blocks :func:`_resolve_blocks` picks and the same clamps. The
@@ -46,13 +47,19 @@ from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 _NEG_INF = -1e30  # large-negative instead of -inf, as in the JAX kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The forward's library (csrc/flash_attention.cu) and the backward's
+# (csrc/flash_attention_bwd.cu): pointers, dtype, B, T, H, D, causal, the
+# scale, the plan's route code and rows, the stream.
 _SIGNATURES = {
     't2r_flash_fwd': [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
                      [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+}
+_BWD_SIGNATURES = {
     't2r_flash_dq': [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
-                    [ctypes.c_float, ctypes.c_void_p],
+                    [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     't2r_flash_dkv': [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
-                     [ctypes.c_float, ctypes.c_void_p],
+                     [ctypes.c_float] + [ctypes.c_int] * 2 +
+                     [ctypes.c_void_p],
 }
 
 DEFAULT_BLOCK_Q = 256
@@ -127,7 +134,7 @@ def _scale(d: int) -> float:
 ROUTE_MMA = 'mma'
 ROUTE_CUDA_CORES = 'cuda_cores'
 _ROUTE_CODES = {ROUTE_CUDA_CORES: 0, ROUTE_MMA: 1}
-# csrc/flash_attention.cu's constants: K/V tiles of 64 rows in a ring of 2
+# csrc/flash_attention.cuh's constants: K/V tiles of 64 rows in a ring of 2
 # stages; a grid aims at 2 blocks on each of an H100's 132 SMs; 4 warps (64
 # q rows) a block on the tensor cores; shared rows padded by 16 bytes (8
 # bf16 on the tensor-core route, 4 floats on the CUDA-core route, whose P
@@ -141,6 +148,11 @@ _MMA_PAD = 8
 _CORE_PAD = 4
 _P_STRIDE = _KEY_ROWS + 2
 _CORE_THREADS = 256
+# csrc/flash_attention_bwd.cu's kTwoBlockSmem: the backward's CUDA-core
+# tiles of 32 or 64 rows need two blocks (each with its 1 KB reserve) to fit
+# an H100 SM's 228 KB of shared memory.
+_TWO_BLOCK_SMEM = 113 * 1024
+BWD_KERNELS = ('dq', 'dkv')
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -151,8 +163,8 @@ def fwd_plan(shape, dtype: torch.dtype, causal: bool,
              aligned: bool = True) -> dict:
   """How :func:`flash_fwd` runs a [B, T, H, D] problem, from the shape, the
   dtype, the mask and whether q, k, v and out are 16-byte aligned: the
-  choice ``fwd_route`` and ``fwd_rows`` make in ``csrc/flash_attention.cu``
-  (the C entry refuses any other).
+  choice ``fwd_route`` (``csrc/flash_attention.cuh``) and ``fwd_rows``
+  (``csrc/flash_attention.cu``) make (the C entry refuses any other).
 
   Returns the ``route`` (``'mma'``: bfloat16 with D % 16 == 0 and aligned
   operands on the tensor cores; ``'cuda_cores'``: everything else), the
@@ -185,6 +197,65 @@ def fwd_plan(shape, dtype: torch.dtype, causal: bool,
               grid=(q_tiles * bh, 1, 1),
               order='heaviest_first' if causal else 'ascending')
   return plan
+
+
+def _bwd_smem(kernel: str, route: str, d: int, rows: int) -> int:
+  """``bwd_smem`` of ``csrc/flash_attention_bwd.cu``: a block's two
+  operands (Q and dO for dq, K and V for dk/dv) and the two-stage ring of
+  the streamed pair; in bf16 on the tensor cores, with the ring's lse and
+  delta for dk/dv; in float32 on the CUDA cores, with dS (dq) or Pᵀ and
+  dSᵀ (dk/dv) rows of 64 + 2 floats and the statistics."""
+  dkv = kernel == 'dkv'
+  operands = 2 * rows + 2 * _STAGES * _KEY_ROWS
+  if route == ROUTE_MMA:
+    return 2 * operands * (d + _MMA_PAD) + (
+        4 * 2 * _STAGES * _KEY_ROWS if dkv else 0)
+  stats = 2 * _STAGES * _KEY_ROWS if dkv else 2 * rows
+  return 4 * (operands * (d + _CORE_PAD) + (2 if dkv else 1) * rows *
+              _P_STRIDE + stats)
+
+
+def bwd_plan(kernel: str, shape, dtype: torch.dtype, causal: bool,
+             aligned: bool = True) -> dict:
+  """How :func:`flash_dq` (``kernel='dq'``) or :func:`flash_dkv`
+  (``'dkv'``) runs a [B, T, H, D] problem: the choice ``fwd_route`` and
+  ``bwd_rows`` make in ``csrc/flash_attention_bwd.cu`` (the C entries
+  refuse any other). ``aligned``: q, k, v, the cotangent and the outputs
+  are 16-byte aligned.
+
+  Returns the ``route`` (the forward's rule: ``'mma'`` for bfloat16 with
+  D % 16 == 0 and aligned operands, else ``'cuda_cores'``), the tile
+  ``rows`` (q rows for dq, key rows for dk/dv; mma: 64, 4 warps of 16
+  rows; CUDA cores: the tallest of 64 and 32 rows that gives two blocks an
+  SM and whose shared memory lets two blocks share one, else 16), the
+  ``warps`` of a block, the ``stages`` of streamed 64-row tiles, a block's
+  shared memory ``smem`` in bytes, the one-dimensional ``grid`` (tiles
+  times B*H, tile-major), the ``tiles`` and their ``order``: without the
+  mask ``'ascending'`` (block i runs tile ``i // (B*H)``); under it
+  ``'heaviest_first'``, which for dq is the last q tile first (tile
+  ``tiles - 1 - i // (B*H)``) and for dk/dv key tile 0 first, the one every
+  q tile sees (tile ``i // (B*H)``). Raises for a problem the kernels do
+  not take.
+  """
+  if kernel not in BWD_KERNELS:
+    raise ValueError(f'bwd_plan plans {BWD_KERNELS}, got {kernel!r}.')
+  b, t, h, d = (int(x) for x in shape)
+  if dtype not in _DTYPE_CODES or not (8 <= d <= 128 and d % 8 == 0):
+    raise ValueError(f'flash_{kernel} takes float32 or bfloat16 with a head '
+                     f'dim in 8..128, a multiple of 8; got {dtype}, D={d}.')
+  bh = b * h
+  want = _BLOCKS_PER_SM * _SMS
+  if dtype == torch.bfloat16 and d % 16 == 0 and aligned:
+    route, rows, warps = ROUTE_MMA, 16 * _MMA_WARPS, _MMA_WARPS
+  else:
+    route, warps = ROUTE_CUDA_CORES, _CORE_THREADS // 32
+    rows = next((r for r in (64, 32) if bh * _cdiv(t, r) >= want and
+                 _bwd_smem(kernel, route, d, r) <= _TWO_BLOCK_SMEM), 16)
+  tiles = _cdiv(t, rows)
+  return dict(route=route, rows=rows, warps=warps, stages=_STAGES,
+              smem=_bwd_smem(kernel, route, d, rows), tiles=tiles,
+              grid=(tiles * bh, 1, 1),
+              order='heaviest_first' if causal else 'ascending')
 
 
 # ----------------------------------------------------- plain versions
@@ -372,10 +443,10 @@ def _require_stats(what: str, q, *stats) -> None:
           f'{x.device}.')
 
 
-def _launch(fn_name: str, what: str, q: torch.Tensor, causal: bool,
-            pointers, plan=()) -> None:
+def _launch(library: str, signatures, fn_name: str, what: str,
+            q: torch.Tensor, causal: bool, pointers, plan) -> None:
   b, t, h, d = q.shape
-  lib = _build.load('flash_attention', _SIGNATURES)
+  lib = _build.load(library, signatures)
   with torch.cuda.device(q.device):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = getattr(lib, fn_name)(
@@ -398,7 +469,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   lse = torch.empty((b * h, 1, t), dtype=torch.float32, device=q.device)
   plan = fwd_plan(q.shape, q.dtype, causal,
                   aligned=all(x.data_ptr() % 16 == 0 for x in (q, k, v, out)))
-  _launch('t2r_flash_fwd', 'flash_fwd', q, causal, (q, k, v, out, lse),
+  _launch('flash_attention', _SIGNATURES, 't2r_flash_fwd', 'flash_fwd', q,
+          causal, (q, k, v, out, lse),
           (_ROUTE_CODES[plan['route']], plan['rows']))
   flash_fwd.launches += 1
   return out, lse
@@ -407,15 +479,23 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
+def _bwd_launch(kernel: str, q, causal: bool, inputs, outputs) -> None:
+  plan = bwd_plan(kernel, q.shape, q.dtype, causal, aligned=all(
+      x.data_ptr() % 16 == 0 for x in inputs[:4] + outputs))
+  _launch('flash_attention_bwd', _BWD_SIGNATURES, f't2r_flash_{kernel}',
+          f'flash_{kernel}', q, causal, inputs + outputs,
+          (_ROUTE_CODES[plan['route']], plan['rows']))
+
+
 def flash_dq(q, k, v, do, lse, delta, causal: bool = False) -> torch.Tensor:
-  """Launches the dq kernel on the current stream: q, k, v, do as for
-  :func:`flash_fwd`, ``lse`` the forward's, ``delta`` from
-  :func:`flash_delta`. Returns dq in q's dtype."""
+  """Launches the dq kernel on the current stream, on the route
+  :func:`bwd_plan` chooses: q, k, v, do as for :func:`flash_fwd`, ``lse``
+  the forward's, ``delta`` from :func:`flash_delta`. Returns dq in q's
+  dtype."""
   _require_qkv('flash_dq', q, k, v, do)
   _require_stats('flash_dq', q, lse, delta)
   dq = torch.empty_like(q)
-  _launch('t2r_flash_dq', 'flash_dq', q, causal,
-          (q, k, v, do, lse, delta, dq))
+  _bwd_launch('dq', q, causal, (q, k, v, do, lse, delta), (dq,))
   flash_dq.launches += 1
   return dq
 
@@ -425,14 +505,14 @@ flash_dq.launches = 0
 
 def flash_dkv(q, k, v, do, lse, delta,
               causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Launches the dk/dv kernel on the current stream (arguments as
-  :func:`flash_dq`). Returns (dk, dv) in the inputs' dtype."""
+  """Launches the dk/dv kernel on the current stream, on the route
+  :func:`bwd_plan` chooses (arguments as :func:`flash_dq`). Returns (dk,
+  dv) in the inputs' dtype."""
   _require_qkv('flash_dkv', q, k, v, do)
   _require_stats('flash_dkv', q, lse, delta)
   dk = torch.empty_like(k)
   dv = torch.empty_like(v)
-  _launch('t2r_flash_dkv', 'flash_dkv', q, causal,
-          (q, k, v, do, lse, delta, dk, dv))
+  _bwd_launch('dkv', q, causal, (q, k, v, do, lse, delta), (dk, dv))
   flash_dkv.launches += 1
   return dk, dv
 
@@ -488,6 +568,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   :class:`FlashAttention`. Same contract as
   ``parallel.sequence_parallel.reference_attention``. ``block_q`` /
   ``block_k`` default per regime (see :func:`_resolve_blocks`); they set
-  the plain versions' blocks, while the kernels tile by 64 in every
-  regime."""
+  the plain versions' blocks, while the kernels tile as :func:`fwd_plan`
+  and :func:`bwd_plan` say in every regime."""
   return FlashAttention.apply(q, k, v, causal, block_q, block_k)

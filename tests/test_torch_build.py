@@ -9,6 +9,7 @@ check the build command and its cache key without compiling anything.
 
 import ctypes
 import re
+import types
 
 import pytest
 
@@ -36,11 +37,12 @@ def _c_entry_points(name):
   return entries
 
 
-@pytest.mark.parametrize('name,module', [('pool', pool),
-                                         ('conv_s2d', conv_s2d),
-                                         ('flash_attention', flash_attention),
-                                         ('fused_update', fused_update),
-                                         ('photometric', photometric)])
+@pytest.mark.parametrize('name,module', [
+    ('pool', pool), ('conv_s2d', conv_s2d),
+    ('flash_attention', flash_attention), ('fused_update', fused_update),
+    ('photometric', photometric),
+    ('flash_attention_bwd', types.SimpleNamespace(
+        _SIGNATURES=flash_attention._BWD_SIGNATURES))])  # pylint: disable=protected-access
 def test_argtypes_match_c_signature(name, module):
   entries = _c_entry_points(name)
   assert set(module._SIGNATURES) == set(entries)

@@ -15,9 +15,9 @@ payloads included), the flash attention forward, dq and dk/dv kernels
 (the JAX suite's bars scaled to the largest magnitude, and the forward's
 out within a relative L2 error, each kernel twice bit for bit, at ragged,
 odd-head-dim and streamed-regime shapes, every head dim of the bfloat16
-forward's tensor-core route, and unaligned operands, which take the
-CUDA-core route; the forward's C entry refuses a plan other than
-``fwd_plan``'s), the
+tensor-core routes, and unaligned operands, which take the CUDA-core
+route; the gradients also within a relative L2 error; the C entries refuse
+a plan other than ``fwd_plan``'s and ``bwd_plan``'s), the
 autograd Functions launching them, the fused optimizer update in its 8
 variants over leaves of every alignment, in one launch for 115 leaves and
 two past the table's 512 (atol 1e-6 / rtol 1e-5, a False guard bitwise
@@ -74,9 +74,8 @@ FLASH_CASES = [  # name, [B, T, H, D]
     ('d32', (1, 256, 2, 32)),
     ('ragged_d128', (1, 200, 1, 128)),
     ('d24', (1, 96, 3, 24)),
-    # The forward's tensor-core route in bfloat16, every instantiation
-    # (D = 16 to 128 in steps of 16; d32 above) and a ragged last q and K/V
-    # tile.
+    # The tensor-core routes in bfloat16, every instantiation (D = 16 to 128
+    # in steps of 16; d32 above) and a ragged last q and K/V tile.
     ('ragged_1000', (2, 1000, 4, 64)),
     ('d16', (2, 256, 4, 16)),
     ('d48', (1, 512, 3, 48)),
@@ -375,24 +374,26 @@ def _plain_blocks(shape, dtype):
   return block, block
 
 
-# The forward's out, relative L2 error: chip_smoke.py's FLASH_OUT_REL_L2
-# (a fault that moves the rows deep in T, whose |out| is far below the
-# largest, by their own size passes the scaled bar).
+# The forward's out and the gradients, relative L2 error: chip_smoke.py's
+# FLASH_OUT_REL_L2 and FLASH_GRAD_REL_L2 (a fault that moves the rows deep
+# in T, whose magnitude is far below the largest, by their own size passes
+# the scaled bar).
 FLASH_OUT_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+FLASH_GRAD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 
 
 def _assert_flash_band(got, want, dtype, grad):
   """The JAX suite's bars (float32: out 2e-5, gradients 5e-4; bfloat16:
-  3e-2), scaled to the largest magnitude when it exceeds 1; the forward's
-  out also within FLASH_OUT_REL_L2."""
+  3e-2), scaled to the largest magnitude when it exceeds 1; out also
+  within FLASH_OUT_REL_L2, a gradient within FLASH_GRAD_REL_L2."""
   band = (5e-4 if grad else 2e-5) if dtype == torch.float32 else 3e-2
   want = want.float()
   scale = max(1.0, float(want.abs().max()))
   err = float((got.float() - want).abs().max())
   assert err <= band * scale, (err, band, scale)
-  if not grad:
-    rel = float((got.float() - want).norm() / want.norm())
-    assert rel <= FLASH_OUT_REL_L2[dtype], (rel, FLASH_OUT_REL_L2[dtype])
+  limit = (FLASH_GRAD_REL_L2 if grad else FLASH_OUT_REL_L2)[dtype]
+  rel = float((got.float() - want).norm() / want.norm())
+  assert rel <= limit, (rel, limit)
 
 
 @pytest.mark.parametrize('streamed', [False, True], ids=['staged', 'streamed'])
@@ -484,6 +485,61 @@ def test_flash_fwd_entry_refuses_another_plan(device):
       assert status == 1, (dtype, bad, status)  # cudaErrorInvalidValue
     torch.cuda.synchronize()
     assert bool((out == 7.0).all()) and bool((lse == 7.0).all())
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+def test_flash_bwd_unaligned_operands_take_the_cuda_core_route(device, dtype):
+  """q, k, v and dO one element past a 16-byte boundary: dq and dk/dv take
+  the CUDA-core route with element loads (bfloat16 at D = 64 included,
+  which aligned takes the tensor cores), held to the plain versions in the
+  same band and bit for bit over two runs."""
+  shape = (2, 96, 3, 64)
+  n = 2 * 96 * 3 * 64
+  q, k, v, do = (torch.randn(n + 1,
+                             generator=torch.Generator().manual_seed(s))
+                 .to(device=device, dtype=dtype)[1:].view(shape)
+                 for s in range(4))
+  assert q.data_ptr() % 16 != 0
+  for kernel in fa.BWD_KERNELS:
+    plan = fa.bwd_plan(kernel, shape, dtype, True, aligned=False)
+    assert plan['route'] == fa.ROUTE_CUDA_CORES
+  want_out, lse = fa.plain_flash_fwd(q, k, v, True)
+  delta = fa.flash_delta(want_out, do)
+  got = (fa.flash_dq(q, k, v, do, lse, delta, True),
+         *fa.flash_dkv(q, k, v, do, lse, delta, True))
+  again = (fa.flash_dq(q, k, v, do, lse, delta, True),
+           *fa.flash_dkv(q, k, v, do, lse, delta, True))
+  want = (fa.plain_flash_dq(q, k, v, do, lse, delta, True),
+          *fa.plain_flash_dkv(q, k, v, do, lse, delta, True))
+  torch.cuda.synchronize()
+  for g, a, w in zip(got, again, want):
+    assert torch.equal(g, a)
+    _assert_flash_band(g, w, dtype, grad=True)
+
+
+def test_flash_bwd_entries_refuse_another_plan(device):
+  """t2r_flash_dq and t2r_flash_dkv launch only the plan bwd_plan makes:
+  the other route, or other tile rows, return cudaErrorInvalidValue and
+  write nothing."""
+  lib = _build.load('flash_attention_bwd', fa._BWD_SIGNATURES)  # pylint: disable=protected-access
+  shape = (1, 256, 2, 64)
+  stream = torch.cuda.current_stream(device).cuda_stream
+  for dtype in DTYPES:
+    q, k, v, do = _qkv(shape, dtype, device, seed=4)
+    stats = [torch.zeros((2, 1, 256), device=device) for _ in range(2)]
+    for kernel in fa.BWD_KERNELS:
+      outs = [torch.full_like(q, 7.0)
+              for _ in range(1 if kernel == 'dq' else 2)]
+      plan = fa.bwd_plan(kernel, shape, dtype, True)
+      route = fa._ROUTE_CODES[plan['route']]  # pylint: disable=protected-access
+      for bad in ((1 - route, plan['rows']),
+                  (route, 16 if plan['rows'] != 16 else 32)):
+        status = getattr(lib, f't2r_flash_{kernel}')(
+            *(x.data_ptr() for x in [q, k, v, do] + stats + outs),
+            fa._DTYPE_CODES[dtype], *shape, 1, fa._scale(64), *bad, stream)  # pylint: disable=protected-access
+        assert status == 1, (kernel, dtype, bad, status)  # InvalidValue
+      torch.cuda.synchronize()
+      assert all(bool((x == 7.0).all()) for x in outs)
 
 
 def test_flash_autograd_launches_the_three_kernels(device):

@@ -204,8 +204,10 @@ def test_wrapper_passes_the_plan_to_the_entry_point(monkeypatch, dtype,
 
 
 def test_plan_mirrors_the_kernel_constants():
-  """The planner's tile, stage, padding and SM numbers are the kernel's."""
-  source = (_build.CSRC_DIR / 'flash_attention.cu').read_text()
+  """The planner's tile, stage, padding and SM numbers are the kernel's
+  (in the header the forward and the backward share)."""
+  source = ''.join((_build.CSRC_DIR / name).read_text() for name in (
+      'flash_attention.cuh', 'flash_attention.cu'))
   values = {}
   for key, expr in re.findall(r'^constexpr int (\w+) = ([^;]+);', source,
                               re.MULTILINE):
