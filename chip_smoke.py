@@ -17,23 +17,28 @@ Run from the repository root. The phases:
    registers, stack frame and spills of every instantiation of the flash
    kernels (``flash_fwd_mma_kernel``, ``flash_fwd_kernel``,
    ``flash_dq_mma_kernel``, ``flash_dq_kernel``, ``flash_dkv_mma_kernel``,
-   ``flash_dkv_kernel``) are printed;
+   ``flash_dkv_kernel``), of the pool backward's ``pool_bwd_scatter_kernel``
+   and of conv1's ``conv_dx_mma_kernel`` are printed;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the pool forward bitwise (values and slots) at the
    three QT-Opt pools in bfloat16 at B=64 and B=32, pool1 in float32, a
    C=3 and a storage-offset case (the one-channel instantiation), an
    overlapping 3x3/s2 window, a planted tie and NaN, -0.0 and +0.0 at slot
-   0; the pool backward bitwise (routed gradients) at the three pools in
-   bfloat16 (B=32) plus odd and overlapping cases in float32; conv1
-   forward at [64, 472, 472, 3] (and in bfloat16 also at the training
-   shape [32, 472, 472, 3]) and its dW and dx at
-   [32, 472, 472, 3], in bfloat16 (band: 2**-7 relative, one bfloat16 ulp,
-   plus 1e-6 for the forward and 1e-5 of the largest magnitude for the
-   gradients' reassociated sums) and in float32 with TF32 off (band
-   1e-5); the forward and dW (bfloat16 on the tensor cores, float32 on the
-   CUDA cores, the route logged and counted) run twice must agree bit for
-   bit; the flash attention forward (out and lse), dq and dk/dv, causal
-   and full, at the SNAIL shapes [2, 1024, 8, 8] and [8, 80, 1, 64]
+   0; the pool backward bit for bit (routed gradients, NaN, -0.0 and
+   infinite cotangents planted) at the three pools in bfloat16 at B=32 and
+   B=64 and pool1 in float32, a VALID case with uncovered tails, C=3, an
+   unaligned cotangent and a runtime window on the scatter route, odd and
+   overlapping cases on the gather route (the route and launch choice
+   logged and counted), and a planted tie; conv1 forward at
+   [64, 472, 472, 3] (and in bfloat16 also at the training shape
+   [32, 472, 472, 3]) and its dW and dx at [32, 472, 472, 3] and at an odd
+   geometry ([4, 101, 97, 2], 5x5/s3, Cout 48), in bfloat16 (band: 2**-7
+   relative, one bfloat16 ulp, plus 1e-6 for the forward and 1e-5 of the
+   largest magnitude for the gradients' reassociated sums) and in float32
+   with TF32 off (band 1e-5); the forward, dW and dx (bfloat16 on the
+   tensor cores, float32 on the CUDA cores, the route and plan logged and
+   counted) run twice must agree bit for bit; the flash attention forward
+   (out and lse), dq and dk/dv, causal and full, at the SNAIL shapes [2, 1024, 8, 8] and [8, 80, 1, 64]
    (float32), bench.py's [2, 4096, 8, 64] (float32 and bfloat16), the
    streamed-regime shapes [1, 33792, 1, 64] (bfloat16) and
    [1, 17408, 1, 64] (float32), and the bfloat16 forward's route edges
@@ -50,7 +55,10 @@ Run from the repository root. The phases:
    leaves of SNAIL long-horizon (115) and Grasping44 (59) at a constant and
    a scheduled rate (band atol 1e-6 / rtol 1e-5, twice bit for bit, a False
    guard bitwise untouched); the photometric pass at [32, 472, 472, 3] in
-   float32 (1e-6) and bfloat16 (one ulp), twice bit for bit;
+   float32 (1e-6) and bfloat16 (bit for bit the rounding of the float32
+   pass, which lies within a band derived from its float32 roundings and
+   the two means' difference, and within one ulp wherever that band is
+   under half an ulp), twice bit for bit;
 4. the serving path at full width: ``GraspingModelWrapper(device_type='gpu',
    kernel_policy='pool_conv')`` -> ``CheckpointPredictor`` with seeded
    random weights -> ``CEMPolicy(64 samples x 3 iterations,
@@ -67,13 +75,15 @@ Run from the repository root. The phases:
    .train(...)`` on seeded 512x640 uint8 frames, actions and 0/1 rewards
    at batch 32, one warm-up step and then timed steps, with every launch
    counter set to 0 just before and read just after (per step: 3
-   ``pool_fwd``, 3 ``pool_bwd``, 1 ``conv_s2d_fwd`` and 1 ``conv_s2d_dw``,
-   both on their tensor-core routes, 0 ``conv_s2d_dx``); a finite loss, a
+   ``pool_fwd``, 3 ``pool_bwd`` on the scatter route, 1 ``conv_s2d_fwd``
+   and 1 ``conv_s2d_dw``, both on their tensor-core routes, 0
+   ``conv_s2d_dx``); a finite loss, a
    finite gradient on every trainable parameter, parameters and EMA moved;
    then the EMA weights and batch statistics served by a
    ``CheckpointPredictor`` on 8 pairs;
-6. dx on a path: a full-width conv1 whose input requires a gradient
-   launches ``conv_s2d_dx`` once, and its dx matches the plain version;
+6. dx on a path: a full-width conv1, and the odd geometry, whose input
+   requires a gradient launch ``conv_s2d_dx`` once each, on the tensor
+   cores, and dx matches the plain version and repeats bit for bit;
 7. a float32 training step on the card (kernels) against the same step on
    the CPU (plain versions) at full width and batch 2, TF32 off, both held
    to a float64 CPU gradient of the same step: the losses within 1e-4;
@@ -122,8 +132,9 @@ Run from the repository root. The phases:
    clock, since the host bounds them), and each kernel's bound on an H100
    SXM (3.35 TB/s;
    989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones); the float32
-   forward and dW and the bfloat16 forward at the training shape too,
+   forward, dW and dx and the bfloat16 forward at the training shape too,
    the float32 kernels against cuDNN with TF32 on and off (logged only);
+   each pool's ``pool_bwd`` with its route;
    flash_fwd, flash_dq and flash_dkv at each SNAIL shape and at bench.py's
    and the streamed bf16 shapes with their routes, listed under
    ``per_shape`` in their records;
@@ -185,17 +196,20 @@ TRAIN_CONV1_X = (TRAIN_BATCH,) + CONV1_X[1:]
 CONV1_PADS = ((2, 2), (2, 2))  # SAME, 6x6/s2 on 472
 # Kernel launches per training step on the main path.
 NO_FLASH = {'flash_fwd': 0, 'flash_dq': 0, 'flash_dkv': 0}
-NO_QTOPT = {'pool_fwd': 0, 'pool_bwd': 0, 'conv_s2d_fwd': 0,
-            'conv_s2d_fwd_tensor_core': 0, 'conv_s2d_dw': 0,
-            'conv_s2d_dw_tensor_core': 0, 'conv_s2d_dx': 0}
+NO_QTOPT = {'pool_fwd': 0, 'pool_bwd': 0, 'pool_bwd_scatter': 0,
+            'conv_s2d_fwd': 0, 'conv_s2d_fwd_tensor_core': 0,
+            'conv_s2d_dw': 0, 'conv_s2d_dw_tensor_core': 0,
+            'conv_s2d_dx': 0, 'conv_s2d_dx_tensor_core': 0}
 # The fused optimizer update and the photometric pass run only on their own
 # paths (fused_update=True, use_fused_kernel=True).
 NO_FUSED = {'fused_update': 0, 'photometric': 0}
 # conv1 is bfloat16 there, so its forward and dW run the tensor-core
-# kernels.
-TRAIN_LAUNCHES = {'pool_fwd': 3, 'pool_bwd': 3, 'conv_s2d_fwd': 1,
-                  'conv_s2d_fwd_tensor_core': 1, 'conv_s2d_dw': 1,
-                  'conv_s2d_dw_tensor_core': 1, 'conv_s2d_dx': 0,
+# kernels; the three pools do not overlap, so their backward runs the
+# scatter route.
+TRAIN_LAUNCHES = {'pool_fwd': 3, 'pool_bwd': 3, 'pool_bwd_scatter': 3,
+                  'conv_s2d_fwd': 1, 'conv_s2d_fwd_tensor_core': 1,
+                  'conv_s2d_dw': 1, 'conv_s2d_dw_tensor_core': 1,
+                  'conv_s2d_dx': 0, 'conv_s2d_dx_tensor_core': 0,
                   **NO_FLASH, **NO_FUSED}
 # Kernel launches per SNAIL training step: two attention blocks, each one
 # forward and one backward.
@@ -292,8 +306,10 @@ SNAIL_FLASH_VS_DENSE = 1e-3
 UPDATE_VARIANTS = tuple((kind, ema, guard) for kind in ('adam', 'sgd')
                         for ema in (False, True) for guard in (False, True))
 FUSED_BAND = (1e-6, 1e-5)
-# The photometric pass at QT-Opt's training images.
+# The photometric pass at QT-Opt's training images, and its float32 band.
+# The bfloat16 bars are photometric_bf16_check's.
 PHOTOMETRIC_SHAPE = (TRAIN_BATCH, 472, 472, 3)
+PHOTOMETRIC_F32_BAND = 1e-6
 
 
 def log(*parts):
@@ -302,8 +318,9 @@ def log(*parts):
 
 def counters():
   """Every kernel wrapper's launch counts, by kernel name: (wrapper,
-  attribute). The tensor-core routes of conv_s2d_fwd and conv_s2d_dw have
-  counts of their own."""
+  attribute). The tensor-core routes of conv_s2d_fwd, conv_s2d_dw and
+  conv_s2d_dx and the scatter route of pool_bwd have counts of their
+  own."""
   wrappers = {'pool_fwd': pool.pool_fwd, 'pool_bwd': pool.pool_bwd,
               'conv_s2d_fwd': conv_s2d.conv_s2d_fwd,
               'conv_s2d_dw': conv_s2d.conv_s2d_dw,
@@ -317,6 +334,9 @@ def counters():
                                        'tensor_core_launches')
   found['conv_s2d_dw_tensor_core'] = (conv_s2d.conv_s2d_dw,
                                       'tensor_core_launches')
+  found['conv_s2d_dx_tensor_core'] = (conv_s2d.conv_s2d_dx,
+                                      'tensor_core_launches')
+  found['pool_bwd_scatter'] = (pool.pool_bwd, 'scatter_launches')
   return found
 
 
@@ -446,6 +466,9 @@ def stack_frames(report, kernel):
 FLASH_KERNELS = ('flash_fwd_mma_kernel', 'flash_fwd_kernel',
                  'flash_dq_mma_kernel', 'flash_dq_kernel',
                  'flash_dkv_mma_kernel', 'flash_dkv_kernel')
+# The pool backward's scatter route and conv1's tensor-core dx, by source.
+BWD_KERNELS = (('pool', 'pool_bwd_scatter_kernel'),
+               ('conv_s2d', 'conv_dx_mma_kernel'))
 
 
 def phase_build():
@@ -463,6 +486,14 @@ def phase_build():
     for line in report.splitlines():
       if 'registers' in line or 'spill' in line:
         log(f'  ptxas {name}: {line.strip()}')
+  for source, kernel in BWD_KERNELS:
+    frames = stack_frames(_build.report(source), kernel)
+    for mangled, line in sorted(frames.items()):
+      rest = mangled.split(kernel, 1)[1]
+      args = rest.split('EEv')[0] + 'E' if rest.startswith('I') else ''
+      log(f'ptxas {kernel}{args}: {line}')
+    if not frames:
+      raise AssertionError(f'no {kernel} in the ptxas report of {source}')
   flash = (_build.report('flash_attention') +
            _build.report('flash_attention_bwd'))
   for kernel in FLASH_KERNELS:
@@ -732,87 +763,162 @@ def phase_reference(seed):
 
 
 def phase_check_pool_bwd(generator):
-  """pool_bwd against plain_max_pool_bwd, bitwise: the three training
-  pools in bfloat16, an odd and an overlapping case in float32, and a
-  planted tie whose cotangent must go to the first slot."""
-  cases = [(name, shape, window, strides, torch.bfloat16)
-           for name, shape, window, strides in TRAIN_POOLS]
-  cases += [('odd_f32', (2, 11, 13, 16), (3, 2), (1, 2), torch.float32),
-            ('overlap_f32', (4, 23, 23, 64), (3, 3), (2, 2), torch.float32)]
-  for name, shape, window, strides, dtype in cases:
+  """pool_bwd against plain_max_pool_bwd, bit for bit (NaN payloads and
+  signed zeros included): the three pools in bfloat16 at the training
+  (B=32) and serving (B=64) shapes and pool1 in float32, a VALID case
+  whose tail rows and columns no window covers, C=3 and a storage-offset
+  (unaligned) case (one channel a thread), a runtime window (3x2 with
+  stride 3x2), all on the scatter route; an odd and two overlapping cases
+  on the gather route; NaN, -0.0 and infinite cotangents; a planted tie
+  whose cotangent must go to the first slot. Each case logs its launch
+  choice (ops/pool.bwd_launch, which the C entry refuses to differ from)
+  and the scatter count must move exactly on the scatter cases."""
+  cases = [(f'{name}_b{shape[0]}', shape, window, strides, 'SAME',
+            torch.bfloat16, 0)
+           for pools in (TRAIN_POOLS, POOLS)
+           for name, shape, window, strides in pools]
+  cases += [('pool1_f32', TRAIN_POOLS[0][1], (3, 3), (3, 3), 'SAME',
+             torch.float32, 0),
+            ('valid_tails_bf16', (4, 80, 82, 64), (3, 3), (3, 3), 'VALID',
+             torch.bfloat16, 0),
+            ('c3_bf16', (4, 79, 79, 3), (3, 3), (3, 3), 'SAME',
+             torch.bfloat16, 0),
+            ('unaligned_bf16', (8, 79, 79, 64), (3, 3), (3, 3), 'SAME',
+             torch.bfloat16, 1),
+            ('runtime_window_f32', (2, 29, 31, 16), (3, 2), (3, 2), 'SAME',
+             torch.float32, 0),
+            ('odd_f32', (2, 11, 13, 16), (3, 2), (1, 2), 'SAME',
+             torch.float32, 0),
+            ('overlap_f32', (4, 23, 23, 64), (3, 3), (2, 2), 'SAME',
+             torch.float32, 0),
+            ('overlap_bf16', (8, 79, 79, 64), (3, 3), (2, 2), 'SAME',
+             torch.bfloat16, 0)]
+  routes = set()
+  for name, shape, window, strides, padding, dtype, offset in cases:
     x = tied_normal(shape, dtype, generator, 'cuda')
-    pads = pool.resolve_padding('SAME', window, strides, shape[1:3])
+    pads = pool.resolve_padding(padding, window, strides, shape[1:3])
     _, slot = pool.pool_fwd(x, window, strides, pads)
     g = tied_normal(tuple(slot.shape), dtype, generator, 'cuda')
+    g.view(-1)[::97] = float('nan')
+    g.view(-1)[5::101] = -0.0
+    g.view(-1)[7::103] = float('-inf')
+    if offset:
+      buffer = torch.empty(g.numel() + offset, dtype=dtype, device='cuda')
+      buffer[offset:].copy_(g.flatten())
+      g = buffer[offset:].view(g.shape)
+    launch = pool.bwd_launch(shape, window, strides, pads,
+                             aligned=g.data_ptr() % 16 == 0)
+    scatter = pool.pool_bwd.scatter_launches
     got = pool.pool_bwd(g, slot, shape, window, strides, pads)
+    scatter = pool.pool_bwd.scatter_launches - scatter
     want = pool.plain_max_pool_bwd(g, slot, shape, window, strides, pads)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
+    if not same_bits(got, want):
       raise AssertionError(f'pool_bwd {name} differs from its plain version')
-    log(f'check pool_bwd {name} {shape} {str(dtype)[6:]}: bitwise')
+    if scatter != (launch['route'] == pool.ROUTE_SCATTER):
+      raise AssertionError(f'pool_bwd {name}: route {launch["route"]}, '
+                           f'{scatter} scatter launches')
+    routes.add((launch['route'], launch['vec'], launch['templated']))
+    log(f'check pool_bwd {name} {shape} {str(dtype)[6:]} window {window} '
+        f'strides {strides} {padding}: bit for bit (route '
+        f'{launch["route"]}, {launch["vec"]} channel(s) a thread, '
+        f'{64 if launch["wide"] else 32}-bit offsets'
+        + (f', {"templated" if launch["templated"] else "runtime"} window'
+           if launch['route'] == pool.ROUTE_SCATTER else '') + ')')
     del x, slot, g, got, want
-  tie = torch.zeros((1, 4, 4, 8), device='cuda')
-  tie[0, 2, 2] = tie[0, 3, 3] = 9.0
-  _, slot = pool.pool_fwd(tie, (2, 2), (2, 2), ((0, 0), (0, 0)))
-  g = torch.full((1, 2, 2, 8), 3.0, device='cuda')
-  dx = pool.pool_bwd(g, slot, tie.shape, (2, 2), (2, 2), ((0, 0), (0, 0)))
-  torch.cuda.synchronize()
-  if float(dx[0, 2, 2].min()) != 3.0 or float(dx[0, 3, 3].abs().max()) != 0:
-    raise AssertionError('pool_bwd tie did not route to the first slot')
+  if not {(pool.ROUTE_SCATTER, 8, 1), (pool.ROUTE_SCATTER, 1, 1),
+          (pool.ROUTE_SCATTER, 8, 0), (pool.ROUTE_GATHER, 8, 0)} <= routes:
+    raise AssertionError(f'pool_bwd checks took only {routes}')
+  for dtype in (torch.bfloat16, torch.float32):
+    tie = torch.zeros((1, 4, 4, 8), dtype=dtype, device='cuda')
+    tie[0, 2, 2] = tie[0, 3, 3] = 9.0
+    _, slot = pool.pool_fwd(tie, (2, 2), (2, 2), ((0, 0), (0, 0)))
+    g = torch.full((1, 2, 2, 8), 3.0, dtype=dtype, device='cuda')
+    dx = pool.pool_bwd(g, slot, tie.shape, (2, 2), (2, 2), ((0, 0), (0, 0)))
+    torch.cuda.synchronize()
+    if float(dx[0, 2, 2].min()) != 3.0 or float(dx[0, 3, 3].abs().max()) != 0:
+      raise AssertionError('pool_bwd tie did not route to the first slot')
   log('check pool_bwd planted tie: the cotangent goes to the first slot')
   return 0.0
+
+
+# conv1's odd geometry for the gradient checks: stride 3, Cin 2, Cout 48,
+# odd sizes (the tensor-core dx packs its 9 phases four to an n8 tile).
+ODD_CONV_X = (4, 101, 97, 2)
+ODD_CONV_W = (5, 5, 2, 48)
+ODD_CONV_STRIDES = (3, 3)
+
+
+def conv_out_shape(xshape, wshape, strides, pads):
+  """[B, OH, OW, Cout] of a conv of NHWC ``xshape`` and HWIO ``wshape``."""
+  (plh, phh), (plw, phw) = pads
+  return (xshape[0], (xshape[1] + plh + phh - wshape[0]) // strides[0] + 1,
+          (xshape[2] + plw + phw - wshape[1]) // strides[1] + 1, wshape[3])
 
 
 @tf32_off()
 def phase_check_conv_grads(generator):
   """conv_s2d_dw and conv_s2d_dx against their plain versions at the
-  training conv1 shape, bfloat16 (dW on the tensor cores) and float32 (dW
-  on the CUDA cores; TF32 off for the plain versions); dW twice."""
-  wshape, strides, pads = CONV1_W, (2, 2), CONV1_PADS
-  gshape = (TRAIN_BATCH, 236, 236, CONV1_W[3])
+  training conv1 shape and at an odd geometry (ODD_CONV_*), bfloat16 (dW
+  and dx on the tensor cores) and float32 (both on the CUDA cores; TF32
+  off for the plain versions); each kernel twice, bit for bit, its route
+  logged and counted."""
   errors = {}
-  for dtype, rel, of_max in ((torch.bfloat16, 2.0**-7, 1e-5),
-                             (torch.float32, 0.0, 1e-5)):
-    x = torch.rand(TRAIN_CONV1_X, generator=generator, device='cuda').to(
-        dtype)
-    w = (0.1 * torch.randn(wshape, generator=generator, device='cuda')).to(
-        dtype)
-    g = torch.randn(gshape, generator=generator, device='cuda').to(dtype)
-    plan = conv_s2d.dw_plan(TRAIN_CONV1_X, wshape, strides, pads, dtype)
-    tensor_core = conv_s2d.conv_s2d_dw.tensor_core_launches
-    dw = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
-    dw_again = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
-    tensor_core = conv_s2d.conv_s2d_dw.tensor_core_launches - tensor_core
-    if tensor_core != (2 if plan['route'] == conv_s2d.ROUTE_TENSOR_CORE
-                       else 0):
-      raise AssertionError(f'conv_s2d_dw {dtype}: route {plan["route"]} '
-                           f'but {tensor_core} tensor-core launches')
-    log(f'check conv_s2d_dw {str(dtype)[6:]}: route {plan["route"]}, '
-        f'{plan["chunks"]} runs of {plan["tiles_per_chunk"]} 64-pixel '
-        f'tiles, {plan["smem"]} bytes of shared memory a block' +
-        (f', output tile {plan["tile_taps"]} taps x 64 channels'
-         if 'tile_taps' in plan else ''))
-    dx = conv_s2d.conv_s2d_dx(g, w, TRAIN_CONV1_X, strides, pads)
-    want_dw = conv_s2d.plain_conv2d_dw(x, g, wshape, strides, pads)
-    want_dx = conv_s2d.plain_conv2d_dx(g, w, TRAIN_CONV1_X, strides, pads)
-    torch.cuda.synchronize()
-    if not torch.equal(dw, dw_again):
-      raise AssertionError(f'conv_s2d_dw {dtype} is not deterministic')
-    for name, got, want in (('conv_s2d_dw', dw, want_dw),
-                            ('conv_s2d_dx', dx, want_dx)):
-      err, ok = within(got, want, rel, of_max)
-      if not ok:
-        raise AssertionError(
-            f'{name} {dtype} outside its band: max abs err {err} at max '
-            f'magnitude {float(want.float().abs().max())}')
-      errors[(name, dtype)] = err
-      log(f'check {name} {TRAIN_CONV1_X} {str(dtype)[6:]}: max abs err '
-          f'{err:.3e} at max magnitude {float(want.float().abs().max()):.3e}'
-          f' (band {rel:.1e} relative + {of_max:.0e} of the max)')
-    log(f'check conv_s2d_dw {str(dtype)[6:]} twice: bitwise equal')
-    del x, w, g, dw, dw_again, dx, want_dw, want_dx
-  return (errors[('conv_s2d_dw', torch.bfloat16)],
-          errors[('conv_s2d_dx', torch.bfloat16)])
+  for label, xshape, wshape, strides in (
+      ('conv1', TRAIN_CONV1_X, CONV1_W, (2, 2)),
+      ('odd', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES)):
+    pads = conv_s2d.resolve_padding('SAME', wshape[:2], strides, xshape[1:3])
+    for dtype, rel, of_max in ((torch.bfloat16, 2.0**-7, 1e-5),
+                               (torch.float32, 0.0, 1e-5)):
+      x = torch.rand(xshape, generator=generator, device='cuda').to(dtype)
+      w = (0.1 * torch.randn(wshape, generator=generator, device='cuda')).to(
+          dtype)
+      g = torch.randn(conv_out_shape(xshape, wshape, strides, pads),
+                      generator=generator, device='cuda').to(dtype)
+      plans = {'conv_s2d_dw': conv_s2d.dw_plan(xshape, wshape, strides, pads,
+                                               dtype),
+               'conv_s2d_dx': conv_s2d.dx_plan(xshape, wshape, strides, pads,
+                                               dtype)}
+      before = {name: getattr(conv_s2d, name).tensor_core_launches
+                for name in plans}
+      got = {'conv_s2d_dw': [conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
+                             for _ in range(2)],
+             'conv_s2d_dx': [conv_s2d.conv_s2d_dx(g, w, xshape, strides, pads)
+                             for _ in range(2)]}
+      want = {'conv_s2d_dw': conv_s2d.plain_conv2d_dw(x, g, wshape, strides,
+                                                      pads),
+              'conv_s2d_dx': conv_s2d.plain_conv2d_dx(g, w, xshape, strides,
+                                                      pads)}
+      torch.cuda.synchronize()
+      for name, plan in plans.items():
+        tensor_core = getattr(conv_s2d, name).tensor_core_launches - before[
+            name]
+        if tensor_core != (2 if plan['route'] == conv_s2d.ROUTE_TENSOR_CORE
+                           else 0):
+          raise AssertionError(f'{name} {label} {dtype}: route '
+                               f'{plan["route"]} but {tensor_core} '
+                               'tensor-core launches')
+        first, again = got[name]
+        if not torch.equal(first, again):
+          raise AssertionError(f'{name} {label} {dtype} is not deterministic')
+        err, ok = within(first, want[name], rel, of_max)
+        if not ok:
+          raise AssertionError(
+              f'{name} {label} {dtype} outside its band: max abs err {err} '
+              f'at max magnitude {float(want[name].float().abs().max())}')
+        errors[(name, label, dtype)] = err
+        detail = {key: plan[key] for key in (
+            'route', 'chunks', 'tiles_per_chunk', 'tile_taps', 'num_tiles',
+            'grid', 'halo', 'phases', 'cin_pad', 'n8_tiles', 'passes',
+            'smem') if key in plan}
+        log(f'check {name} {label} {xshape} {str(dtype)[6:]}: max abs err '
+            f'{err:.3e} at max magnitude '
+            f'{float(want[name].float().abs().max()):.3e} (band {rel:.1e} '
+            f'relative + {of_max:.0e} of the max); twice: bitwise equal; '
+            f'plan {detail}')
+      del x, w, g, got, want
+  return (errors[('conv_s2d_dw', 'conv1', torch.bfloat16)],
+          errors[('conv_s2d_dx', 'conv1', torch.bfloat16)])
 
 
 def train_batches(seed, count, batch, shuffle_rewards=True):
@@ -898,33 +1004,50 @@ def phase_train(seed, steps):
 
 
 def phase_dx_path(generator):
-  """A full-width conv1 whose input requires a gradient launches dx."""
-  x = torch.rand(TRAIN_CONV1_X, generator=generator, device='cuda').to(
-      torch.bfloat16).requires_grad_()
-  w = (0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')).to(
-      torch.bfloat16).requires_grad_()
-  g = torch.randn((TRAIN_BATCH, 236, 236, 64), generator=generator,
-                  device='cuda').to(torch.bfloat16)
-  with _dispatch.force_kernels(True):
-    zero_counters()
-    conv_s2d.conv2d(x, w, (2, 2), 'SAME').backward(g)
-    torch.cuda.synchronize()
-    launches = read_counters()
-  want = {'pool_fwd': 0, 'pool_bwd': 0, 'conv_s2d_fwd': 1,
-          'conv_s2d_fwd_tensor_core': 1, 'conv_s2d_dw': 1,
-          'conv_s2d_dw_tensor_core': 1, 'conv_s2d_dx': 1, **NO_FLASH,
-          **NO_FUSED}
-  if launches != want:
-    raise AssertionError(f'dx path launches {launches}, expected {want}')
-  plain = conv_s2d.plain_conv2d_dx(g, w.detach(), TRAIN_CONV1_X, (2, 2),
-                                   CONV1_PADS)
-  err, ok = within(x.grad, plain, 2.0**-7, 1e-5)
-  if not ok:
-    raise AssertionError(f'dx path: dx outside its band, max abs err {err}')
-  log(f'dx path: conv1 {TRAIN_CONV1_X} bf16 with an input that needs a '
-      f'gradient: launches {launches}; dx max abs err {err:.3e} against '
-      'the plain version')
-  return launches['conv_s2d_dx']
+  """Full-width conv1 and the odd geometry (ODD_CONV_*) in bfloat16 with
+  an input that requires a gradient: each backward launches dx once, on
+  the tensor cores, within its band of the plain version, and a second
+  backward gives the same dx bit for bit. Returns the launch counts of
+  conv1's first backward, the main path's."""
+  launches = None
+  for label, xshape, wshape, strides in (
+      ('conv1', TRAIN_CONV1_X, CONV1_W, (2, 2)),
+      ('odd', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES)):
+    x = torch.rand(xshape, generator=generator, device='cuda').to(
+        torch.bfloat16).requires_grad_()
+    w = (0.1 * torch.randn(wshape, generator=generator, device='cuda')).to(
+        torch.bfloat16).requires_grad_()
+    pads = conv_s2d.resolve_padding('SAME', wshape[:2], strides, xshape[1:3])
+    g = torch.randn(conv_out_shape(xshape, wshape, strides, pads),
+                    generator=generator, device='cuda').to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+      x.grad = w.grad = None
+      with _dispatch.force_kernels(True):
+        zero_counters()
+        conv_s2d.conv2d(x, w, strides, 'SAME').backward(g)
+        torch.cuda.synchronize()
+        counts = read_counters()
+      grads.append(x.grad)
+    want = {**NO_QTOPT, 'conv_s2d_fwd': 1, 'conv_s2d_fwd_tensor_core': 1,
+            'conv_s2d_dw': 1, 'conv_s2d_dw_tensor_core': 1, 'conv_s2d_dx': 1,
+            'conv_s2d_dx_tensor_core': 1, **NO_FLASH, **NO_FUSED}
+    if counts != want:
+      raise AssertionError(f'dx path {label} launches {counts}, expected '
+                           f'{want}')
+    if not torch.equal(grads[0], grads[1]):
+      raise AssertionError(f'dx path {label}: dx differs between two runs')
+    plain = conv_s2d.plain_conv2d_dx(g, w.detach(), xshape, strides, pads)
+    err, ok = within(grads[0], plain, 2.0**-7, 1e-5)
+    if not ok:
+      raise AssertionError(f'dx path {label}: dx outside its band, max abs '
+                           f'err {err}')
+    log(f'dx path: {label} {xshape} bf16 with an input that needs a '
+        f'gradient: launches {counts}; dx max abs err {err:.3e} against '
+        'the plain version; twice: bitwise equal')
+    launches = launches or counts
+    del x, w, g, grads, plain
+  return launches
 
 
 def float64_gradients(state, batch, seed):
@@ -1644,10 +1767,71 @@ def bf16_ulp(x):
   return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exponent - 8)
 
 
+def photometric_float32_band(images, delta, factor, kernel_mean):
+  """Per element of [B, H, W, C] ``images``, in float64: the most by which
+  two float32 evaluations of clip((x - m) * factor + m) can differ, where
+  x = image + delta is the same float32 in both and m is the plain
+  version's mean (computed here as it computes it) in one and
+  ``kernel_mean`` ([B, 1, 1, C]) in the other. With dm = |kernel_mean - m|
+  and u = 2**-24: |1 - factor| * dm from the means, and u times
+  7 (|x - m| + dm) * factor + 3 (|m| + dm) for the roundings of the
+  subtraction, the product and the addition in each (fused or not, at most
+  6 and 2), with room for the terms in u**2. Clipping to [0, 1] shrinks a
+  difference, never widens it."""
+  shape = (images.shape[0], 1, 1, 1)
+  x = images.float() + delta.float().reshape(shape)
+  mean = x.mean(dim=(1, 2), keepdim=True)
+  dm = (kernel_mean.double() - mean.double()).abs()
+  f = factor.double().reshape(shape)
+  a = ((x.double() - mean.double()).abs() + dm) * f
+  return (1 - f).abs() * dm + 2.0**-24 * (7 * a + 3 * (mean.double().abs() +
+                                                        dm))
+
+
+def photometric_bf16_check(got, images, delta, factor):
+  """The bars of a bfloat16 photometric output ``got`` on the card, each
+  raising AssertionError: (1) got is the bfloat16 rounding, bit for bit,
+  of the float32 pass over the same images upcast (the same sums in the
+  same order); (2) that float32 pass lies within photometric_float32_band
+  of the plain version's float32, with the kernel's own means read back
+  from the pass at factor 0 (fma(x - m, 0, m) = m); (3) got lies within
+  one bfloat16 ulp of the plain version's bfloat16 output wherever that
+  band is under half a bfloat16 ulp, as (1) and (2) imply. Where
+  (x - m) * factor + m cancels near 0, a bfloat16 ulp is smaller than the
+  float32 roundings, and one ulp cannot hold. Returns (max abs err, the
+  elements past one ulp, the largest |plain| among them)."""
+  wide = images.float()
+  fused = photometric.photometric(wide, delta, factor)
+  if not same_bits(got, fused.to(torch.bfloat16)):
+    raise AssertionError('photometric bfloat16 is not the rounding of its '
+                         'float32 pass')
+  kernel_mean = photometric.photometric(
+      wide, delta, torch.zeros_like(factor))[:, :1, :1, :]
+  if not bool(((kernel_mean > 0) & (kernel_mean < 1)).all()):
+    raise AssertionError('photometric means outside (0, 1): the pass at '
+                         'factor 0 clipped them')
+  plain = photometric.plain_brightness_contrast(wide, delta, factor)
+  band = photometric_float32_band(wide, delta, factor, kernel_mean)
+  off = (fused.double() - plain.double()).abs() - band
+  if not bool((off <= 0).all()):
+    raise AssertionError(f'photometric float32 pass outside its derived '
+                         f'band by up to {float(off.max())}')
+  want = plain.to(torch.bfloat16).float()
+  err = (got.float() - want).abs()
+  ulp = bf16_ulp(want)
+  tight = band < ulp / 2
+  if not bool((err <= ulp)[tight].all()):
+    raise AssertionError('photometric bfloat16 past one ulp where its band '
+                         'is under half an ulp')
+  past = err > ulp
+  largest = float(want[past].abs().max()) if bool(past.any()) else 0.0
+  return float(err.max()), int(past.sum()), largest
+
+
 def phase_check_photometric(generator):
   """photometric against plain_brightness_contrast on the card at QT-Opt's
-  training shape: float32 within 1e-6, bfloat16 within one bfloat16 ulp,
-  each dtype twice bit for bit."""
+  training shape: float32 within PHOTOMETRIC_F32_BAND, bfloat16 to
+  photometric_bf16_check's bars, each dtype twice bit for bit."""
   errors = {}
   for dtype in (torch.float32, torch.bfloat16):
     images = torch.rand(PHOTOMETRIC_SHAPE, generator=generator,
@@ -1657,21 +1841,26 @@ def phase_check_photometric(generator):
     factor = torch.rand(TRAIN_BATCH, generator=generator, device='cuda') + 0.5
     got = photometric.photometric(images, delta, factor)
     again = photometric.photometric(images, delta, factor)
-    want = photometric.plain_brightness_contrast(images, delta, factor)
     torch.cuda.synchronize()
-    if not torch.equal(got, again):
+    if got.dtype != dtype or not torch.equal(got, again):
       raise AssertionError(f'photometric {dtype} is not deterministic')
-    err = (got.float() - want.float()).abs()
-    band = 1e-6 if dtype == torch.float32 else bf16_ulp(want)
-    if got.dtype != dtype or not bool((err <= band).all()):
-      raise AssertionError(f'photometric {dtype}: max abs err '
-                           f'{float(err.max())}')
-    errors[dtype] = float(err.max())
+    if dtype == torch.float32:
+      want = photometric.plain_brightness_contrast(images, delta, factor)
+      errors[dtype] = float((got - want).abs().max())
+      if not errors[dtype] <= PHOTOMETRIC_F32_BAND:
+        raise AssertionError(f'photometric {dtype}: max abs err '
+                             f'{errors[dtype]}')
+      detail = 'band 1e-6'
+    else:
+      errors[dtype], past, largest = photometric_bf16_check(
+          got, images, delta, factor)
+      detail = (f'the rounding of its float32 pass, bitwise; that pass '
+                f'within its derived float32 band; one bf16 ulp where the '
+                f'band is under half an ulp; {past} elements past one ulp, '
+                f'all with |plain| <= {largest:.3e}')
     log(f'check photometric {PHOTOMETRIC_SHAPE} {str(dtype)[6:]}: max abs '
-        f'err {errors[dtype]:.2e} (band '
-        f'{"1e-6" if dtype == torch.float32 else "one bf16 ulp"}); twice '
-        'bitwise')
-    del images, got, again, want, err
+        f'err {errors[dtype]:.2e} ({detail}); twice bitwise')
+    del images, got, again
   return errors[torch.float32]
 
 
@@ -2279,6 +2468,39 @@ def dw_float32_timing(generator, ops):
       f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}')
 
 
+def dx_float32_timing(generator, ops):
+  """The float32 dx (CUDA-core kernel) at the training conv1 shape, logged
+  beside cuDNN's (torch.nn.grad.conv2d_input) at torch's default (TF32 on)
+  and with TF32 off; the kernels line keeps the bfloat16 row."""
+  w = 0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')
+  g = torch.randn((TRAIN_BATCH, 236, 236, 64), generator=generator,
+                  device='cuda')
+  g_cl = g.permute(0, 3, 1, 2)
+  w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+  x_nchw = (TRAIN_BATCH, CONV1_X[3], CONV1_X[1], CONV1_X[2])
+
+  def library():
+    return torch.nn.grad.conv2d_input(x_nchw, w_oihw, g_cl, stride=2,
+                                      padding=2)
+
+  route = conv_s2d.dx_plan(TRAIN_CONV1_X, CONV1_W, (2, 2), CONV1_PADS,
+                           torch.float32)['route']
+  ms = cuda_ms(lambda: conv_s2d.conv_s2d_dx(g, w, TRAIN_CONV1_X, (2, 2),
+                                            CONV1_PADS))
+  plain = cuda_ms(lambda: conv_s2d.plain_conv2d_dx(g, w, TRAIN_CONV1_X,
+                                                   (2, 2), CONV1_PADS),
+                  iters=5)
+  lib = cuda_ms(library)
+  with tf32_off():
+    lib_exact = cuda_ms(library)
+  nbytes = 4 * (np.prod(TRAIN_CONV1_X) + np.prod(CONV1_W) + g.numel())
+  log(f'time conv_s2d_dx {TRAIN_CONV1_X} float32 ({route}): kernel '
+      f'{ms:.4f} ms, plain {plain:.4f} ms, torch.nn.grad.conv2d_input '
+      f'{lib:.4f} ms (TF32 {torch.backends.cudnn.allow_tf32}), '
+      f'{lib_exact:.4f} ms (TF32 off), '
+      f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}')
+
+
 def fwd_logged_timing(generator, patch):
   """conv1's forward beside its row of the kernels line, logged only: the
   bfloat16 tensor-core kernel at the training shape against F.conv2d, and
@@ -2349,9 +2571,10 @@ def phase_timing(generator, errors, launches):
         lambda: library_pool_bwd(g, x, indices, window, strides, pads))
     nbytes = slot.numel() * (2 + 4) + x.numel() * 2
     ops = x.numel()  # one slot compare per covering window
-    log(f'time pool_bwd {name} {shape} bf16: kernel {ms:.4f} ms, plain '
-        f'{plain:.4f} ms, max_pool2d_with_indices_backward {lib:.4f} ms '
-        f'(equal to the kernel: {same}), {bound_text(nbytes, ops)}')
+    route = pool.bwd_launch(shape, window, strides, pads)['route']
+    log(f'time pool_bwd {name} {shape} bf16 ({route}): kernel {ms:.4f} ms, '
+        f'plain {plain:.4f} ms, max_pool2d_with_indices_backward {lib:.4f} '
+        f'ms (equal to the kernel: {same}), {bound_text(nbytes, ops)}')
     timing_entry(record, 'pool_bwd', ms, plain, lib, nbytes, ops)
     del x, slot, g, indices, dx, lib_dx
 
@@ -2403,11 +2626,15 @@ def phase_timing(generator, errors, launches):
     ms = cuda_ms(kernel_fn)
     plain = cuda_ms(plain_fn, iters=5)
     lib = cuda_ms(lib_fn)
-    log(f'time {name} {TRAIN_CONV1_X} bf16: kernel {ms:.4f} ms, plain '
-        f'{plain:.4f} ms, {lib_name} {lib:.4f} ms, {bound_text(nbytes, ops)}')
+    route = getattr(conv_s2d, name.replace('conv_s2d_', '') + '_plan')(
+        TRAIN_CONV1_X, CONV1_W, (2, 2), pads, torch.bfloat16)['route']
+    log(f'time {name} {TRAIN_CONV1_X} bf16 ({route}): kernel {ms:.4f} ms, '
+        f'plain {plain:.4f} ms, {lib_name} {lib:.4f} ms, '
+        f'{bound_text(nbytes, ops)}')
     timing_entry(record, name, ms, plain, lib, nbytes, ops)
   del x, w, g, x_cl, g_cl, w_oihw
   dw_float32_timing(generator, ops)
+  dx_float32_timing(generator, ops)
 
   flash_timing(record, generator)
   fused_update_timing(record, generator)
@@ -2438,8 +2665,11 @@ def phase_timing(generator, errors, launches):
       'photometric': ('tensor2robot_tpu_torch/ops/csrc/photometric.cu',
                       'tensor2robot_tpu/ops/photometric.py:72'),
   }
-  # conv1's forward row is its tensor-core kernel: its own count.
-  counted = {'conv_s2d_fwd': 'conv_s2d_fwd_tensor_core'}
+  # conv1's forward and dx rows are their tensor-core kernels, pool_bwd's
+  # its scatter route: their own counts.
+  counted = {'conv_s2d_fwd': 'conv_s2d_fwd_tensor_core',
+             'conv_s2d_dx': 'conv_s2d_dx_tensor_core',
+             'pool_bwd': 'pool_bwd_scatter'}
   for name, (source, replaces) in meta.items():
     entry = record[name]
     bytes_ms, ops_ms = entry['bytes_ms'], entry['ops_ms']
@@ -2621,7 +2851,8 @@ def main(argv=None):
            photometric_launches]
   launches = {name: sum(path[name] for path in paths)
               for name in serve_launches}
-  launches['conv_s2d_dx'] = dx_launches
+  for name in ('conv_s2d_dx', 'conv_s2d_dx_tensor_core'):
+    launches[name] = dx_launches[name]
   log(f'launches: serving {serve_launches} over {args.actions} actions; '
       f'training {train_launches} and fused training {fused_launches} over '
       f'{args.steps} steps; dx path {dx_launches}; SNAIL '

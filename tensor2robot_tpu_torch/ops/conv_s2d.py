@@ -17,7 +17,10 @@ kernels in ``csrc/conv_s2d.cu``); a CPU tensor runs :func:`plain_conv2d`,
 :func:`plain_conv2d_dw` and :func:`plain_conv2d_dx`. The backward computes
 dx only when the input needs a gradient. :func:`conv_s2d_fwd` and
 :func:`conv_s2d_dw` take their route from the dtype (:func:`fwd_plan`,
-:func:`dw_plan`): bfloat16 on the tensor cores, float32 on the CUDA cores.
+:func:`dw_plan`): bfloat16 on the tensor cores, float32 on the CUDA cores;
+:func:`conv_s2d_dx` from :func:`dx_plan`: bfloat16 with Cout % 16 == 0 and
+aligned operands on the tensor cores (a phase GEMM), the rest on the CUDA
+cores.
 Results are banded, not bitwise, against a stock convolution
 (reassociated sums): 1e-5 in float32.
 
@@ -51,6 +54,8 @@ _SIGNATURES = {
                            [ctypes.c_void_p],
     't2r_conv_s2d_dx': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 +
                        [ctypes.c_void_p],
+    't2r_conv_s2d_dx_mma': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 +
+                           [ctypes.c_void_p],
 }
 # The patch depth kh*kw*Cin this form is for: a deep-Cin conv is already
 # matmul-shaped and belongs to the stock convolution.
@@ -87,6 +92,21 @@ _MMA_ROW_PAD = 8
 _FWD_CHANNELS = 64
 _FWD_STAGES = 2
 _FWD_MMA_CHUNKS = 528
+# The bfloat16 dx (kDx* in csrc/conv_s2d.cu): persistent blocks of 4 warps
+# walk tiles of 8 x 16 phase pixels (all sh*sw phases at once), each with
+# two stages of its cotangent rows plus a halo, the packed weights and the
+# tile's dx rows in shared memory; at most three blocks an SM of an H100
+# (132 SMs, 233,472 bytes of shared memory, 1,024 reserved a block), at
+# most 16 phases, two n8 tiles a pass.
+_DX_ROWS = 8
+_DX_COLS = 16
+_DX_STAGES = 2
+_DX_BLOCKS_PER_SM = 3
+_DX_MAX_PHASES = 16
+_DX_N8 = 2
+_SMS = 132
+_SM_SHARED_BYTES = 233472
+_BLOCK_RESERVED_BYTES = 1024
 ROUTE_TENSOR_CORE = 'tensor_core'
 ROUTE_CUDA_CORE = 'cuda_core'
 
@@ -244,6 +264,76 @@ def _dw_split(p: dict, batch: int, dtype: torch.dtype) -> dict:
   return plan
 
 
+def dx_plan(xshape: Sequence[int], wshape: Sequence[int],
+            strides: Tuple[int, int], pads: Pads, dtype: torch.dtype,
+            aligned: bool = True) -> dict:
+  """How :func:`conv_s2d_dx` runs a problem, from the shapes, the dtype
+  and whether g and dx are 16-byte aligned (``aligned``), as
+  ``dx_mma_plan`` in ``csrc/conv_s2d.cu`` decides it (the C entries refuse
+  any other).
+
+  The ``route``: the tensor cores for bfloat16 with Cout % 16 == 0,
+  aligned operands, at most 16 phases (sh*sw) and a block that fits
+  shared memory; else the CUDA cores (float32 always, whose TF32 would
+  leave the 1e-5 band). On the tensor-core route also: the tile of
+  ``tile_rows`` x ``tile_cols`` phase pixels and its ``halo`` of cotangent
+  rows and columns, the ``taps`` a phase reads, the ``phases``, ``cin_pad``
+  (Cin rounded up to a power of two), ``phases_per_n8`` (phases packed in
+  one n8 MMA tile), ``n8_tiles`` and ``passes`` (of two n8 tiles), the phase grid's first row and column (``m_lo``,
+  ``n_lo``) and its ``row_tiles`` x ``col_tiles`` tiles an image,
+  ``num_tiles``, the persistent ``grid``, ``o_stride`` (a dx row of the
+  tile in shared memory) and ``smem``, a block's shared memory in bytes.
+  On the CUDA-core route ``smem`` is the float32 weights'; that kernel
+  sizes its own grid. Raises for a problem the kernels do not take.
+  """
+  p = _plan(tuple(xshape), tuple(wshape), tuple(strides), pads, dtype, dtype)
+  if p is None:
+    raise ValueError(
+        f'conv_s2d dx unsupported for x {tuple(xshape)}, w {tuple(wshape)}, '
+        f'dtype {dtype}, strides {strides}, pads {pads}.')
+  return _dx_split(p, int(xshape[0]), dtype, aligned)
+
+
+def _dx_split(p: dict, batch: int, dtype: torch.dtype, aligned: bool) -> dict:
+  """:func:`dx_plan` of a problem that ``_plan`` has taken."""
+  cuda_core = dict(route=ROUTE_CUDA_CORE, smem=4 * p['patch'] * p['cout'])
+  sh, sw, cin, cout = p['sh'], p['sw'], p['cin'], p['cout']
+  phases = sh * sw
+  if (dtype != torch.bfloat16 or not aligned or cout % 16 != 0 or
+      phases > _DX_MAX_PHASES):
+    return cuda_core
+  halo = (_cdiv(p['kh'], sh) - 1, _cdiv(p['kw'], sw) - 1)
+  taps = (halo[0] + 1) * (halo[1] + 1)
+  cin_pad = 1 << (cin - 1).bit_length()
+  per_n8 = 8 // cin_pad
+  n8_tiles = _cdiv(phases, per_n8)
+  passes = _cdiv(n8_tiles, _DX_N8)
+  o_stride = _cdiv(_DX_COLS * sw * cin + 7, 8) * 8
+  row_elems = cout + _MMA_ROW_PAD
+  n8_alloc = passes * _DX_N8
+  smem = 2 * (_DX_STAGES * (_DX_ROWS + halo[0]) * (_DX_COLS + halo[1]) *
+              row_elems + taps * n8_alloc * 8 * row_elems +
+              _DX_ROWS * sh * o_stride) + 4 * n8_alloc * 8
+  if smem > _MAX_SMEM_BYTES:
+    return cuda_core
+  m_lo, n_lo = p['plh'] // sh, p['plw'] // sw
+  rows = (p['plh'] + p['h'] - 1) // sh - m_lo + 1
+  cols = (p['plw'] + p['w'] - 1) // sw - n_lo + 1
+  row_tiles, col_tiles = _cdiv(rows, _DX_ROWS), _cdiv(cols, _DX_COLS)
+  num_tiles = batch * row_tiles * col_tiles
+  if num_tiles >= 2**31:
+    return cuda_core
+  per_sm = min(_DX_BLOCKS_PER_SM,
+               _SM_SHARED_BYTES // (smem + _BLOCK_RESERVED_BYTES))
+  return dict(route=ROUTE_TENSOR_CORE, tile_rows=_DX_ROWS,
+              tile_cols=_DX_COLS, halo=halo, taps=taps, phases=phases,
+              cin_pad=cin_pad, phases_per_n8=per_n8, n8_tiles=n8_tiles,
+              passes=passes, m_lo=m_lo, n_lo=n_lo,
+              row_tiles=row_tiles, col_tiles=col_tiles, num_tiles=num_tiles,
+              grid=min(num_tiles, _SMS * per_sm), o_stride=o_stride,
+              smem=smem)
+
+
 def _require_plan(x, w, strides, pads) -> dict:
   plan = _plan(tuple(x.shape), tuple(w.shape), tuple(strides), pads, x.dtype,
                w.dtype)
@@ -388,26 +478,40 @@ def conv_s2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],
 
   ``g``: contiguous NHWC cotangent of the output, ``w``: contiguous HWIO
   weights, both float32 or both bfloat16 on one CUDA device. Returns dx of
-  shape ``x_shape`` (NHWC) in their dtype. Raises on any other input, and
-  when the launch reports an error.
+  shape ``x_shape`` (NHWC) in their dtype. :func:`dx_plan` picks the
+  kernel: the tensor-core route (counted in ``tensor_core_launches`` too)
+  or the CUDA-core one. Raises on any other input, and when the launch
+  reports an error.
   """
   _cuda_operands('conv_s2d_dx', g, w)
   p = _require_grad_plan('conv_s2d_dx', x_shape, w.shape, g.shape, strides,
                          pads, w.dtype, g.dtype)
   dx = torch.empty(tuple(x_shape), dtype=w.dtype, device=w.device)
+  plan = _dx_split(p, int(x_shape[0]), w.dtype,
+                   g.data_ptr() % 16 == 0 and dx.data_ptr() % 16 == 0)
+  tensor_core = plan['route'] == ROUTE_TENSOR_CORE
   lib = _build.load('conv_s2d', _SIGNATURES)
   with torch.cuda.device(w.device):
     stream = torch.cuda.current_stream(w.device).cuda_stream
-    status = lib.t2r_conv_s2d_dx(
-        g.data_ptr(), w.data_ptr(), dx.data_ptr(), _DTYPE_CODES[w.dtype],
-        x_shape[0], p['h'], p['w'], p['cin'], p['kh'], p['kw'], p['sh'],
-        p['sw'], p['plh'], p['plw'], p['oh'], p['ow'], p['cout'], stream)
+    geometry = (x_shape[0], p['h'], p['w'], p['cin'], p['kh'], p['kw'],
+                p['sh'], p['sw'], p['plh'], p['plw'], p['oh'], p['ow'],
+                p['cout'])
+    if tensor_core:
+      status = lib.t2r_conv_s2d_dx_mma(
+          g.data_ptr(), w.data_ptr(), dx.data_ptr(), *geometry,
+          plan['num_tiles'], plan['grid'], plan['smem'], stream)
+    else:
+      status = lib.t2r_conv_s2d_dx(
+          g.data_ptr(), w.data_ptr(), dx.data_ptr(), _DTYPE_CODES[w.dtype],
+          *geometry, stream)
   _build.check(lib, status, 'conv_s2d_dx')
   conv_s2d_dx.launches += 1
+  conv_s2d_dx.tensor_core_launches += tensor_core
   return dx
 
 
 conv_s2d_dx.launches = 0
+conv_s2d_dx.tensor_core_launches = 0
 
 
 def plain_conv2d_dw(x: torch.Tensor, g: torch.Tensor,

@@ -53,27 +53,43 @@
 // dx[b, ih, iw, c] is the sum of g[b, oh, ow, c] over the windows (oh, ow)
 // that cover the element and whose slot names it, taken in ascending
 // (oh, ow) order and rounded to the cotangent's dtype after every add, as
-// the TPU kernel's reversed-slot accumulation does. An element no window
-// selects gets 0.
+// the TPU kernel's reversed-slot accumulation does (from +0, so a lone -0.0
+// cotangent gives +0). An element no window selects gets +0. Where windows
+// do not overlap (stride == window), an element has at most one window,
+// and dx is that window's g, bit for bit, or +0: the TPU kernel's
+// interleave branch.
 //
 // What bounds it on an H100: bytes. It reads g and the int32 slots once
-// and writes dx once, with one compare and at most kh*kw adds per input
-// element. At the QT-Opt pool1 shape (g [32,79,79,64] bf16 -> dx
-// [32,236,236,64]) that is 25.6 MB + 51.1 MB read and 228.1 MB written:
-// about 0.091 ms at 3.35 TB/s.
+// and writes dx once. At the QT-Opt pool1 shape (g [32,79,79,64] bf16 ->
+// dx [32,236,236,64]) that is 25.6 MB + 51.1 MB read and 228.1 MB written:
+// about 0.091 ms at 3.35 TB/s, most of it dx's stores.
 //
-// Design: the gather form. One thread per input pixel and 8 neighbouring
-// channels (C innermost), so a thread moves 16-byte vectors: the 8 slots
-// and 8 cotangents of each covering window in, 8 dx values out. It finds
-// the windows that cover it from the geometry (at most one for QT-Opt's
-// non-overlapping pools), reads the cotangents only when a slot names its
-// position, and adds them. Every dx element is written exactly once: no
-// atomics, no zero-fill pass. Index arithmetic is 32-bit when the tensors
-// allow it. The TPU kernel interleaved whole routed planes in VMEM
-// instead; here the window search is a few integer ops per thread and the
-// neighbouring input pixels of one window hit the same g and slot lines in
-// L1. Channel counts that are not a multiple of 8, or unaligned tensors,
-// take the same kernel one channel per thread.
+// Two routes, chosen by launch_bwd (mirrored by ops/pool.py bwd_launch,
+// which the C entry refuses to differ from):
+// - Scatter (stride == window; all three QT-Opt pools). The forward's 2-D
+//   grid: one thread owns one window x 8 channels (y walks the B*OH window
+//   rows, striding past 65535; x a row's (ow, channel group) pairs), so it
+//   decodes its position with two 32-bit divisions. It loads the window's
+//   g (one uint4 in bf16, two in float32) and its 8 slots (two int4) once,
+//   then stores each of the window's kh*kw 16-byte positions inside the
+//   image: g's bits in the lanes whose slot names the position, +0
+//   elsewhere. No compare against another window, no re-read of g or the
+//   slots, every dx element written once. The 3x3 and 2x2 windows are
+//   template parameters with all stores unrolled; other windows loop at
+//   run time. Padded positions are skipped. Image rows and columns that no
+//   window covers (VALID tails, which the TPU kernel zero-pads) are
+//   written as +0 by the threads of the last window row and column.
+// - Gather (overlapping windows). One thread per input pixel and 8
+//   neighbouring channels: it finds the windows that cover it from the
+//   geometry, reads their slots, reads a cotangent only when a slot names
+//   its position, and adds in (oh, ow) order. Every dx element is written
+//   once: no atomics, no zero-fill pass. The TPU kernel interleaved whole
+//   routed planes in VMEM instead; here the window search is a few integer
+//   ops per thread and the neighbouring input pixels of one window hit the
+//   same g and slot lines in L1.
+// Both routes take channel counts that are not a multiple of 8, or
+// unaligned tensors, one channel a thread, and 64-bit offsets past 2**31
+// elements.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -364,12 +380,8 @@ __global__ void pool_bwd_kernel(const T* __restrict__ g,
     const int ow1 = min(pw / sw, OW - 1);
     const Index gb = b * OH * OW * C + c;
     float acc[kVec];
-    bool routed[kVec];
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      acc[i] = 0.f;
-      routed[i] = false;
-    }
+    for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
     for (int oh = oh0; oh <= oh1; ++oh) {
       const int dy = ph - oh * sh;
       for (int ow = ow0; ow <= ow1; ++ow) {
@@ -385,10 +397,7 @@ __global__ void pool_bwd_kernel(const T* __restrict__ g,
         load_vec<kVec>(g + o, v);
 #pragma unroll
         for (int i = 0; i < kVec; ++i) {
-          if (sl[i] == s) {
-            acc[i] = routed[i] ? round_to(acc[i] + v[i], g) : v[i];
-            routed[i] = true;
-          }
+          if (sl[i] == s) acc[i] = round_to(acc[i] + v[i], g);
         }
       }
     }
@@ -396,45 +405,264 @@ __global__ void pool_bwd_kernel(const T* __restrict__ g,
   }
 }
 
-template <typename T, typename Index, int kVec>
-int launch_bwd_as(const void* g, const void* slot, void* dx, int B, int H,
-                  int W, int C, int kh, int kw, int sh, int sw, int plh,
-                  int plw, int OH, int OW, cudaStream_t stream) {
-  const int64_t total = (int64_t)B * H * W * C / kVec;
-  const int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > (int64_t)1 << 30) blocks = (int64_t)1 << 30;
-  pool_bwd_kernel<T, Index, kVec><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const int32_t*>(slot),
-      static_cast<T*>(dx), H, W, C, kh, kw, sh, sw, plh, plw, OH, OW,
-      (Index)total);
+// A window's cotangent, kVec channels as loaded, kept as raw bits: the
+// scatter route stores them unchanged (NaN payloads and -0.0 included) in
+// the lanes whose slot names a position, and +0 (all bits clear) in the
+// others.
+template <typename T, int kVec>
+struct Routed;
+
+// Two bf16 lanes of one word: the half of lane 2j is the low one.
+__device__ __forceinline__ unsigned lane_mask(bool lo, bool hi) {
+  return (lo ? 0x0000ffffu : 0u) | (hi ? 0xffff0000u : 0u);
+}
+
+template <>
+struct Routed<__nv_bfloat16, 8> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16* p, const int* sl,
+                                        int s) const {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(u.x & lane_mask(sl[0] == s, sl[1] == s),
+                   u.y & lane_mask(sl[2] == s, sl[3] == s),
+                   u.z & lane_mask(sl[4] == s, sl[5] == s),
+                   u.w & lane_mask(sl[6] == s, sl[7] == s));
+  }
+  __device__ __forceinline__ static void zero(__nv_bfloat16* p) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+  }
+};
+
+template <>
+struct Routed<float, 8> {
+  uint4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = reinterpret_cast<const uint4*>(p)[0];
+    b = reinterpret_cast<const uint4*>(p)[1];
+  }
+  __device__ __forceinline__ void store(float* p, const int* sl,
+                                        int s) const {
+    uint4* q = reinterpret_cast<uint4*>(p);
+    q[0] = make_uint4(sl[0] == s ? a.x : 0u, sl[1] == s ? a.y : 0u,
+                      sl[2] == s ? a.z : 0u, sl[3] == s ? a.w : 0u);
+    q[1] = make_uint4(sl[4] == s ? b.x : 0u, sl[5] == s ? b.y : 0u,
+                      sl[6] == s ? b.z : 0u, sl[7] == s ? b.w : 0u);
+  }
+  __device__ __forceinline__ static void zero(float* p) {
+    uint4* q = reinterpret_cast<uint4*>(p);
+    q[0] = q[1] = make_uint4(0u, 0u, 0u, 0u);
+  }
+};
+
+template <>
+struct Routed<__nv_bfloat16, 1> {
+  unsigned short h;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    h = *reinterpret_cast<const unsigned short*>(p);
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16* p, const int* sl,
+                                        int s) const {
+    *reinterpret_cast<unsigned short*>(p) =
+        sl[0] == s ? h : (unsigned short)0;
+  }
+  __device__ __forceinline__ static void zero(__nv_bfloat16* p) {
+    *reinterpret_cast<unsigned short*>(p) = 0;
+  }
+};
+
+template <>
+struct Routed<float, 1> {
+  unsigned u;
+  __device__ __forceinline__ void load(const float* p) {
+    u = *reinterpret_cast<const unsigned*>(p);
+  }
+  __device__ __forceinline__ void store(float* p, const int* sl,
+                                        int s) const {
+    *reinterpret_cast<unsigned*>(p) = sl[0] == s ? u : 0u;
+  }
+  __device__ __forceinline__ static void zero(float* p) {
+    *reinterpret_cast<unsigned*>(p) = 0u;
+  }
+};
+
+// The scatter route, for windows that do not overlap (sh == kh, sw == kw).
+// KH = KW = 0: the window is (kh, kw) at run time.
+template <typename T, typename Index, int kVec, int KH, int KW>
+__global__ void __launch_bounds__(kFwdThreads)
+    pool_bwd_scatter_kernel(const T* __restrict__ g,
+                            const int32_t* __restrict__ slot,
+                            T* __restrict__ dx, int H, int W, int C, int kh,
+                            int kw, int plh, int plw, int OH, int OW,
+                            int rows) {
+  if constexpr (KH > 0) {
+    kh = KH;
+    kw = KW;
+  }
+  const int groups = C / kVec;
+  const int col = blockIdx.x * kFwdThreads + threadIdx.x;
+  if (col >= OW * groups) return;
+  const int ow = col / groups;
+  const int c = (col - ow * groups) * kVec;
+  const int w0 = ow * kw - plw;
+  // The image columns this thread writes: its window's, and, in the last
+  // window column, those right of it that no window covers.
+  const int w_lo = max(w0, 0);
+  const int w_win = min(w0 + kw, W);
+  const int w_end = ow == OW - 1 ? W : w_win;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const int b = row / OH;
+    const int oh = row - b * OH;
+    const int h0 = oh * kh - plh;
+    const Index o = ((Index)row * OW + ow) * C + c;
+    Routed<T, kVec> v;
+    v.load(g + o);
+    int sl[kVec];
+    load_vec<kVec>(slot + o, sl);
+    const Index image = (Index)b * H;
+    auto at = [&](int ih, int iw) {
+      return dx + ((image + ih) * W + iw) * C + c;
+    };
+    if constexpr (KH > 0) {
+#pragma unroll
+      for (int dy = 0; dy < KH; ++dy) {
+        const int ih = h0 + dy;
+        if ((unsigned)ih >= (unsigned)H) continue;
+#pragma unroll
+        for (int dx = 0; dx < KW; ++dx) {
+          const int iw = w0 + dx;
+          if ((unsigned)iw < (unsigned)W) v.store(at(ih, iw), sl, dy * KW + dx);
+        }
+      }
+    } else {
+      for (int dy = 0; dy < kh; ++dy) {
+        const int ih = h0 + dy;
+        if ((unsigned)ih >= (unsigned)H) continue;
+        for (int dx = 0; dx < kw; ++dx) {
+          const int iw = w0 + dx;
+          if ((unsigned)iw < (unsigned)W) v.store(at(ih, iw), sl, dy * kw + dx);
+        }
+      }
+    }
+    // Uncovered tails: the rows below the last window row (over this
+    // thread's columns, tail columns included), then the tail columns
+    // beside this window's rows.
+    const int h_win = min(h0 + kh, H);
+    if (oh == OH - 1) {
+      for (int ih = h_win; ih < H; ++ih) {
+        for (int iw = w_lo; iw < w_end; ++iw) Routed<T, kVec>::zero(at(ih, iw));
+      }
+    }
+    for (int ih = max(h0, 0); ih < h_win; ++ih) {
+      for (int iw = w_win; iw < w_end; ++iw) Routed<T, kVec>::zero(at(ih, iw));
+    }
+  }
+}
+
+template <typename T, typename Index, int kVec, int KH, int KW>
+int launch_scatter_as(const void* g, const void* slot, void* dx, int B, int H,
+                      int W, int C, int kh, int kw, int plh, int plw, int OH,
+                      int OW, cudaStream_t stream) {
+  const int rows = B * OH;
+  const int cols = OW * (C / kVec);
+  const dim3 grid((cols + kFwdThreads - 1) / kFwdThreads,
+                  rows < kFwdMaxGridY ? rows : kFwdMaxGridY);
+  pool_bwd_scatter_kernel<T, Index, kVec, KH, KW>
+      <<<grid, kFwdThreads, 0, stream>>>(
+          static_cast<const T*>(g), static_cast<const int32_t*>(slot),
+          static_cast<T*>(dx), H, W, C, kh, kw, plh, plw, OH, OW, rows);
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename Index, int kVec>
+int launch_scatter_window(const void* g, const void* slot, void* dx, int B,
+                          int H, int W, int C, int kh, int kw, int plh,
+                          int plw, int OH, int OW, cudaStream_t stream) {
+  if (kh == 3 && kw == 3) {
+    return launch_scatter_as<T, Index, kVec, 3, 3>(
+        g, slot, dx, B, H, W, C, kh, kw, plh, plw, OH, OW, stream);
+  }
+  if (kh == 2 && kw == 2) {
+    return launch_scatter_as<T, Index, kVec, 2, 2>(
+        g, slot, dx, B, H, W, C, kh, kw, plh, plw, OH, OW, stream);
+  }
+  return launch_scatter_as<T, Index, kVec, 0, 0>(
+      g, slot, dx, B, H, W, C, kh, kw, plh, plw, OH, OW, stream);
+}
+
+// Threads of a gather-route block, and its 1-D grid's cap.
+constexpr int kGatherThreads = 256;
+constexpr int kGatherMaxBlocksLog2 = 30;
+
+template <typename T, typename Index, int kVec>
+int launch_gather_as(const void* g, const void* slot, void* dx, int B, int H,
+                     int W, int C, int kh, int kw, int sh, int sw, int plh,
+                     int plw, int OH, int OW, cudaStream_t stream) {
+  const int64_t total = (int64_t)B * H * W * C / kVec;
+  int64_t blocks = (total + kGatherThreads - 1) / kGatherThreads;
+  if (blocks > (int64_t)1 << kGatherMaxBlocksLog2) {
+    blocks = (int64_t)1 << kGatherMaxBlocksLog2;
+  }
+  pool_bwd_kernel<T, Index, kVec>
+      <<<(unsigned)blocks, kGatherThreads, 0, stream>>>(
+          static_cast<const T*>(g), static_cast<const int32_t*>(slot),
+          static_cast<T*>(dx), H, W, C, kh, kw, sh, sw, plh, plw, OH, OW,
+          (Index)total);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename Index, int kVec>
+int launch_bwd_route(const void* g, const void* slot, void* dx, int B, int H,
+                     int W, int C, int kh, int kw, int sh, int sw, int plh,
+                     int plw, int OH, int OW, bool scatter,
+                     cudaStream_t stream) {
+  if (scatter) {
+    return launch_scatter_window<T, Index, kVec>(g, slot, dx, B, H, W, C, kh,
+                                                 kw, plh, plw, OH, OW, stream);
+  }
+  return launch_gather_as<T, Index, kVec>(g, slot, dx, B, H, W, C, kh, kw, sh,
+                                          sw, plh, plw, OH, OW, stream);
+}
+
+// scatter, vec, wide and templated are the caller's launch choice
+// (ops/pool.py bwd_launch); it must be the one this function makes.
 template <typename T>
 int launch_bwd(const void* g, const void* slot, void* dx, int B, int H,
                int W, int C, int kh, int kw, int sh, int sw, int plh,
-               int plw, int OH, int OW, cudaStream_t stream) {
-  const bool vec = C % 8 == 0 && aligned16(g) && aligned16(slot) &&
-                   aligned16(dx);
-  // 32-bit indices when every offset into dx and into g fits.
+               int plw, int OH, int OW, int scatter, int vec, int wide,
+               int templated, cudaStream_t stream) {
   const int64_t limit = (int64_t)1 << kNarrowIndexBits;
-  const bool small =
+  const bool disjoint = sh == kh && sw == kw;
+  const bool vector = C % kFwdVec == 0 && aligned16(g) && aligned16(slot) &&
+                      aligned16(dx);
+  const bool narrow =
       (int64_t)B * H * W * C < limit && (int64_t)B * OH * OW * C < limit;
-  if (vec && small) {
-    return launch_bwd_as<T, int32_t, 8>(g, slot, dx, B, H, W, C, kh, kw, sh,
-                                        sw, plh, plw, OH, OW, stream);
+  if (scatter != (disjoint ? 1 : 0) || vec != (vector ? kFwdVec : 1) ||
+      wide != (narrow ? 0 : 1) ||
+      templated != (disjoint && fixed_window(kh, kw) ? 1 : 0) ||
+      (disjoint && ((int64_t)B * OH >= limit || (int64_t)OW * C >= limit))) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (vec) {
-    return launch_bwd_as<T, int64_t, 8>(g, slot, dx, B, H, W, C, kh, kw, sh,
-                                        sw, plh, plw, OH, OW, stream);
+  if (vector && narrow) {
+    return launch_bwd_route<T, int32_t, kFwdVec>(g, slot, dx, B, H, W, C, kh,
+                                                 kw, sh, sw, plh, plw, OH, OW,
+                                                 disjoint, stream);
   }
-  if (small) {
-    return launch_bwd_as<T, int32_t, 1>(g, slot, dx, B, H, W, C, kh, kw, sh,
-                                        sw, plh, plw, OH, OW, stream);
+  if (vector) {
+    return launch_bwd_route<T, int64_t, kFwdVec>(g, slot, dx, B, H, W, C, kh,
+                                                 kw, sh, sw, plh, plw, OH, OW,
+                                                 disjoint, stream);
   }
-  return launch_bwd_as<T, int64_t, 1>(g, slot, dx, B, H, W, C, kh, kw, sh,
-                                      sw, plh, plw, OH, OW, stream);
+  if (narrow) {
+    return launch_bwd_route<T, int32_t, 1>(g, slot, dx, B, H, W, C, kh, kw,
+                                           sh, sw, plh, plw, OH, OW, disjoint,
+                                           stream);
+  }
+  return launch_bwd_route<T, int64_t, 1>(g, slot, dx, B, H, W, C, kh, kw, sh,
+                                         sw, plh, plw, OH, OW, disjoint,
+                                         stream);
 }
 
 template <typename T, typename Index, int kVec, int KH, int KW>
@@ -530,18 +758,23 @@ int t2r_pool_fwd(const void* x, void* out, void* slot, int dtype, int B,
 }
 
 // g: [B, OH, OW, C] in dtype, slot: int32 of the same shape, dx:
-// [B, H, W, C] in dtype. Returns cudaGetLastError().
+// [B, H, W, C] in dtype. scatter (the non-overlapping route), vec (8 or 1
+// channels a thread), wide (64-bit offsets) and templated (a window with
+// its own instantiation) are the launch choice, which must be launch_bwd's.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for another choice.
 int t2r_pool_bwd(const void* g, const void* slot, void* dx, int dtype, int B,
                  int H, int W, int C, int kh, int kw, int sh, int sw, int plh,
-                 int plw, int OH, int OW, void* stream) {
+                 int plw, int OH, int OW, int scatter, int vec, int wide,
+                 int templated, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch_bwd<float>(g, slot, dx, B, H, W, C, kh, kw, sh, sw, plh,
-                             plw, OH, OW, s);
+                             plw, OH, OW, scatter, vec, wide, templated, s);
   }
   if (dtype == 1) {
     return launch_bwd<__nv_bfloat16>(g, slot, dx, B, H, W, C, kh, kw, sh, sw,
-                                     plh, plw, OH, OW, s);
+                                     plh, plw, OH, OW, scatter, vec, wide,
+                                     templated, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,10 @@ Semantics are bitwise those of the TPU kernels:
   FIRST maximal slot in row-major window order;
 * where windows overlap, an input element sums the cotangents of the
   windows that selected it in ascending (oh, ow) order, in the
-  cotangent's dtype.
+  cotangent's dtype, from +0;
+* where they do not (stride == window), an input element has at most one
+  window, and its gradient is that window's cotangent, bit for bit (NaN
+  payloads and -0.0 included), or +0.
 
 Entry points take NHWC tensors, as the JAX package does.
 :func:`max_pool_argmax` (and :func:`max_pool` on top of it) goes through
@@ -39,18 +42,24 @@ Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
 # The forward kernel's launch constants (kFwdThreads, kFwdMaxGridY, kFwdVec
 # and kNarrowIndexBits in csrc/pool.cu) and the windows it instantiates
-# with all taps in flight (fixed_window there).
+# with all taps in flight (fixed_window there). The backward's scatter
+# route shares them; its gather route has 1-D blocks of kGatherThreads, at
+# most 2**kGatherMaxBlocksLog2 of them.
 _FWD_THREADS = 128
 _FWD_MAX_GRID_Y = 65535
 _FWD_VEC = 8
 _NARROW_INDEX_BITS = 31
 _FWD_WINDOWS = ((3, 3), (2, 2))
+_GATHER_THREADS = 256
+_GATHER_MAX_BLOCKS = 2**30
+ROUTE_SCATTER = 'scatter'
+ROUTE_GATHER = 'gather'
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     't2r_pool_fwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 +
                     [ctypes.c_void_p],
-    't2r_pool_bwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 +
+    't2r_pool_bwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 +
                     [ctypes.c_void_p],
 }
 
@@ -151,6 +160,57 @@ def fwd_launch(shape: Sequence[int], window: Tuple[int, int],
       grid=(-(-cols // _FWD_THREADS), min(b * oh, _FWD_MAX_GRID_Y)))
 
 
+def bwd_launch(shape: Sequence[int], window: Tuple[int, int],
+               strides: Tuple[int, int], pads: Pads,
+               aligned: bool = True) -> dict:
+  """The backward kernel's launch choice, as ``launch_bwd`` in
+  ``csrc/pool.cu`` makes it (the C entry refuses any other).
+
+  ``shape`` is the pool's input (dx) shape; ``aligned``: whether the
+  cotangent, slot and dx pointers are all 16-byte aligned. Returns the
+  ``route`` (``'scatter'`` where windows do not overlap, stride ==
+  window: a thread per window stores its kh*kw positions; else
+  ``'gather'``: a thread per input pixel sums the windows that cover it),
+  ``vec`` (8 channels a thread in 16-byte accesses, or 1), ``wide``
+  (64-bit offsets, for tensors of 2**31 elements or more), ``templated``
+  (a scatter window with its own instantiation, all stores unrolled), the
+  block's ``threads`` and the ``grid``: on the scatter route the
+  forward's (x over a window row's (ow, channel group) pairs, y over the
+  B*OH window rows, striding past the cap), on the gather route 1-D over
+  the (pixel, channel group) pairs, capped. Raises where the pool is
+  undefined.
+  """
+  b, h, w, c = (int(d) for d in shape)
+  plan = _plan((b, h, w, c), tuple(window), tuple(strides), pads,
+               torch.float32)
+  if plan is None:
+    raise ValueError(f'max_pool backward unsupported for shape '
+                     f'{tuple(shape)} window {window} strides {strides} '
+                     f'pads {pads}.')
+  oh, ow = plan['oh'], plan['ow']
+  limit = 2**_NARROW_INDEX_BITS
+  scatter = tuple(window) == tuple(strides)
+  if scatter and (b * oh >= limit or ow * c >= limit):
+    raise ValueError(f'max_pool backward window rows {b * oh} or row width '
+                     f'{ow * c} past the kernel\'s 32-bit grid.')
+  vec = _FWD_VEC if aligned and c % _FWD_VEC == 0 else 1
+  launch = dict(
+      route=ROUTE_SCATTER if scatter else ROUTE_GATHER, vec=vec,
+      wide=int(b * h * w * c >= limit or b * oh * ow * c >= limit),
+      templated=int(scatter and tuple(window) in _FWD_WINDOWS))
+  if scatter:
+    cols = ow * (c // vec)
+    launch.update(threads=_FWD_THREADS,
+                  grid=(-(-cols // _FWD_THREADS), min(b * oh,
+                                                      _FWD_MAX_GRID_Y)))
+  else:
+    total = b * h * w * c // vec
+    launch.update(threads=_GATHER_THREADS,
+                  grid=(min(-(-total // _GATHER_THREADS),
+                            _GATHER_MAX_BLOCKS),))
+  return launch
+
+
 def _aligned(*tensors: torch.Tensor) -> bool:
   return all(t.data_ptr() % 16 == 0 for t in tensors)
 
@@ -224,6 +284,17 @@ def plain_max_pool_argmax(x: torch.Tensor, window: Tuple[int, int],
   return best, slot
 
 
+def _cuda_cotangent(g: torch.Tensor, slot: torch.Tensor) -> None:
+  """Raises unless ``g`` and ``slot`` are contiguous tensors on one CUDA
+  device."""
+  if g.device.type != 'cuda' or slot.device != g.device:
+    raise ValueError(
+        f'pool_bwd takes CUDA tensors on one device, got {g.device} and '
+        f'{slot.device}.')
+  if not (g.is_contiguous() and slot.is_contiguous()):
+    raise ValueError('pool_bwd takes a contiguous NHWC cotangent and slots.')
+
+
 def pool_bwd(g: torch.Tensor, slot: torch.Tensor, x_shape: Sequence[int],
              window: Tuple[int, int], strides: Tuple[int, int],
              pads: Pads) -> torch.Tensor:
@@ -232,14 +303,11 @@ def pool_bwd(g: torch.Tensor, slot: torch.Tensor, x_shape: Sequence[int],
   ``g``: contiguous NHWC float32 or bfloat16 cotangent of the pooled
   output, ``slot``: the forward's contiguous int32 slots of the same shape,
   both on one CUDA device. Returns dx of shape ``x_shape`` in g's dtype.
-  Raises on any other input, and when the launch reports an error.
+  The launch choice is :func:`bwd_launch`'s; a launch on the scatter route
+  is also counted in ``scatter_launches``. Raises on any other input, and
+  when the launch reports an error.
   """
-  if g.device.type != 'cuda' or slot.device != g.device:
-    raise ValueError(
-        f'pool_bwd takes CUDA tensors on one device, got {g.device} and '
-        f'{slot.device}.')
-  if not (g.is_contiguous() and slot.is_contiguous()):
-    raise ValueError('pool_bwd takes a contiguous NHWC cotangent and slots.')
+  _cuda_cotangent(g, slot)
   p = _plan(tuple(x_shape), tuple(window), tuple(strides), pads, g.dtype)
   b = int(x_shape[0])
   out_shape = (b, p['oh'], p['ow'], p['c']) if p else None
@@ -250,19 +318,25 @@ def pool_bwd(g: torch.Tensor, slot: torch.Tensor, x_shape: Sequence[int],
         f'{tuple(slot.shape)} {slot.dtype}, x shape {tuple(x_shape)}, '
         f'window {window} strides {strides} pads {pads}.')
   dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
+  launch = bwd_launch(x_shape, window, strides, pads,
+                      aligned=_aligned(g, slot, dx))
+  scatter = launch['route'] == ROUTE_SCATTER
   lib = _build.load('pool', _SIGNATURES)
   with torch.cuda.device(g.device):
     stream = torch.cuda.current_stream(g.device).cuda_stream
     status = lib.t2r_pool_bwd(
         g.data_ptr(), slot.data_ptr(), dx.data_ptr(), _DTYPE_CODES[g.dtype],
         b, p['h'], p['w'], p['c'], p['kh'], p['kw'], p['sh'], p['sw'],
-        p['plh'], p['plw'], p['oh'], p['ow'], stream)
+        p['plh'], p['plw'], p['oh'], p['ow'], int(scatter), launch['vec'],
+        launch['wide'], launch['templated'], stream)
   _build.check(lib, status, 'pool_bwd')
   pool_bwd.launches += 1
+  pool_bwd.scatter_launches += scatter
   return dx
 
 
 pool_bwd.launches = 0
+pool_bwd.scatter_launches = 0
 
 
 def plain_max_pool_bwd(g: torch.Tensor, slot: torch.Tensor,
@@ -271,9 +345,12 @@ def plain_max_pool_bwd(g: torch.Tensor, slot: torch.Tensor,
   """The backward kernel's function in plain PyTorch, on any device.
 
   Each slot's routed cotangent (``g`` where the slot won, else 0) is added
-  into the padded extent at its stride and offset, slots in reverse
-  row-major order, so the windows covering one element add in ascending
-  (oh, ow) order, in g's dtype; then the padding is cropped off.
+  into the padded extent, from +0, at its stride and offset, slots in
+  reverse row-major order, so the windows covering one element add in
+  ascending (oh, ow) order, in g's dtype; then the padding is cropped off.
+  Where windows do not overlap the routed cotangents are placed, not
+  added, so an element is its window's ``g`` bit for bit or +0, as the
+  TPU kernel's interleave branch has it.
   """
   p = _plan(tuple(x_shape), tuple(window), tuple(strides), pads, g.dtype)
   if p is None or tuple(g.shape[1:3]) != (p['oh'], p['ow']):
@@ -287,11 +364,15 @@ def plain_max_pool_bwd(g: torch.Tensor, slot: torch.Tensor,
   acc = g.new_zeros((g.shape[0], oh * sh + kh - 1, ow * sw + kw - 1,
                      g.shape[3]))
   zero = g.new_zeros(())
+  disjoint = (sh, sw) == (kh, kw)
   for dy in reversed(range(kh)):
     for dx in reversed(range(kw)):
-      acc[:, dy:dy + (oh - 1) * sh + 1:sh,
-          dx:dx + (ow - 1) * sw + 1:sw] += torch.where(
-              slot == dy * kw + dx, g, zero)
+      routed = torch.where(slot == dy * kw + dx, g, zero)
+      view = acc[:, dy:dy + (oh - 1) * sh + 1:sh, dx:dx + (ow - 1) * sw + 1:sw]
+      if disjoint:
+        view.copy_(routed)
+      else:
+        view += routed
   return acc[:, p['plh']:p['plh'] + p['h'], p['plw']:p['plw'] + p['w']]
 
 

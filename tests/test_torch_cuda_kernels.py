@@ -5,10 +5,15 @@ visible. ``chip_smoke.py`` holds the kernels at the main path's shapes;
 these tests cover the other geometries the wrappers accept (odd sizes,
 VALID and explicit pads, overlapping windows, Cout that is not a multiple
 of the kernel's 64-channel block, one, two and eight input channels, the
-deepest patch of 512 taps, partial pixel tiles), for the forward kernels
-and for the backward ones (pool routing: bitwise; conv dW and dx: the
-forward's bands; the conv forward and dW repeated bit for bit, bfloat16
-on the tensor cores), the pool forward's vector and one-channel
+deepest patch of 512 taps, partial pixel tiles, strides 1 and 3), for the
+forward kernels and for the backward ones (pool routing: bit for bit with
+NaN, -0.0 and infinite cotangents, on the scatter route where windows do
+not overlap, its vector and one-channel instantiations with templated and
+runtime windows and its 64-bit offsets, on the gather route where they
+do; conv dW and dx: the forward's bands; the conv forward, dW and dx
+repeated bit for bit, bfloat16 on the tensor cores where dx_plan says so;
+the C entries refuse a launch choice other than ``bwd_launch``'s and a dx
+plan other than ``dx_plan``'s), the pool forward's vector and one-channel
 instantiations with templated and runtime windows, its 64-bit offsets
 past 2**31 elements and NaN and signed zeros at slot 0 (bitwise, NaN
 payloads included), the flash attention forward, dq and dk/dv kernels
@@ -24,7 +29,9 @@ two past the table's 512 (atol 1e-6 / rtol 1e-5, a False guard bitwise
 untouched, twice bit for bit), the trainer's ``apply_update`` through its
 packed table against the CPU over three steps, and the photometric pass
 at 1 to 4 channels, aligned and not (float32 1e-6, bfloat16 one ulp,
-twice bit for bit). The file imports
+twice bit for bit), and at QT-Opt's training images over 12 draws, where
+a bfloat16 output past one ulp must be one whose float32 value cancels to
+below 2**-13 and lie within one ulp plus 1e-6. The file imports
 neither JAX nor the JAX package, and the repository's
 ``tests/conftest.py`` does, so on a machine with a card run
 
@@ -66,6 +73,12 @@ CONV_CASES = [
     # The deepest patch the kernels take: K = 8*8*8 = 512, 32 k16 steps of
     # the tensor-core forward, Cout 24 (16-byte stores, a partial n8 set).
     ('k512', (1, 19, 21, 8), (8, 8, 8, 24), (2, 2), 'SAME'),
+    # The tensor-core dx's other packings: one phase (stride 1) in one n8
+    # tile; 9 phases two to an n8 tile, in 2 passes of 4 n8 tiles; 9
+    # phases one to an n8 tile, in 3 passes.
+    ('dx_stride1', (1, 17, 19, 2), (3, 3, 2, 16), (1, 1), 'SAME'),
+    ('dx_stride3_cin3', (1, 40, 38, 3), (7, 7, 3, 32), (3, 3), 'SAME'),
+    ('dx_stride3_cin8', (2, 31, 29, 8), (5, 5, 8, 16), (3, 3), 'SAME'),
 ]
 DTYPES = [torch.float32, torch.bfloat16]
 FLASH_CASES = [  # name, [B, T, H, D]
@@ -240,18 +253,109 @@ def test_conv_kernel_band_vs_plain(device, name, xshape, wshape, strides,
                          ids=[case[0] for case in POOL_CASES])
 def test_pool_bwd_kernel_bitwise_vs_plain(device, name, shape, window,
                                           strides, padding, dtype):
+  """Bit for bit, with NaN, -0.0 and infinite cotangents planted: the
+  scatter route where windows do not overlap (the VALID case with tails no
+  window covers), the gather route where they do."""
   del name
   x = _tied(shape, dtype, device)
   pads = pool.resolve_padding(padding, window, strides, shape[1:3])
   _, slot = pool.pool_fwd(x, window, strides, pads)
   g = _tied(tuple(slot.shape), dtype, device, seed=3)
-  before = pool.pool_bwd.launches
+  g.view(-1)[::13] = float('nan')
+  g.view(-1)[5::17] = -0.0
+  g.view(-1)[7::19] = float('-inf')
+  before = (pool.pool_bwd.launches, pool.pool_bwd.scatter_launches)
   got = pool.pool_bwd(g, slot, shape, window, strides, pads)
   want = pool.plain_max_pool_bwd(g, slot, shape, window, strides, pads)
   torch.cuda.synchronize()
-  assert pool.pool_bwd.launches == before + 1
+  scatter = pool.bwd_launch(shape, window, strides, pads)['route'] == (
+      pool.ROUTE_SCATTER)
+  assert scatter == (tuple(window) == tuple(strides))
+  assert (pool.pool_bwd.launches, pool.pool_bwd.scatter_launches) == (
+      before[0] + 1, before[1] + scatter)
   assert got.dtype == dtype and tuple(got.shape) == shape
-  assert torch.equal(got, want)
+  assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('name,shape,window,offset', [
+    ('pool1_vector', (2, 236, 236, 64), (3, 3), 0),
+    ('pool3_vector', (3, 27, 27, 16), (2, 2), 0),
+    ('runtime_vector', (2, 23, 23, 8), (3, 2), 0),
+    ('pool1_unaligned', (2, 236, 236, 64), (3, 3), 1),
+    ('pool3_c3', (3, 27, 27, 3), (2, 2), 0),
+    ('runtime_c5', (2, 23, 23, 5), (3, 2), 0),
+], ids=str)
+def test_pool_bwd_scatter_instantiations_bitwise(device, name, shape, window,
+                                                 offset, dtype):
+  """The scatter route's vector and scalar instantiations, with a
+  templated and a runtime window, bit for bit; a storage offset of the
+  cotangent that breaks 16-byte alignment takes the scalar one."""
+  x = _tied(shape, dtype, device)
+  pads = pool.resolve_padding('SAME', window, window, shape[1:3])
+  _, slot = pool.pool_fwd(x, window, window, pads)
+  g = _tied(tuple(slot.shape), dtype, device, seed=4)
+  g.view(-1)[::11] = -0.0
+  if offset:
+    buffer = torch.empty(g.numel() + offset, dtype=dtype, device=device)
+    buffer[offset:].copy_(g.flatten())
+    g = buffer[offset:].view(g.shape)
+  launch = pool.bwd_launch(shape, window, window, pads,
+                           aligned=g.data_ptr() % 16 == 0)
+  assert launch['route'] == pool.ROUTE_SCATTER
+  assert launch['vec'] == (8 if 'vector' in name else 1)
+  assert launch['templated'] == (not name.startswith('runtime'))
+  got = pool.pool_bwd(g, slot, shape, window, window, pads)
+  want = pool.plain_max_pool_bwd(g, slot, shape, window, window, pads)
+  torch.cuda.synchronize()
+  assert _same_bits(got, want)
+
+
+def test_pool_bwd_past_2_31_elements(device):
+  """dx of [1, 8200, 8200, 32] bf16 (2.15e9 elements) takes the scatter
+  route's 64-bit instantiation and stays bit for bit."""
+  shape, window = (1, 8200, 8200, 32), (3, 3)
+  pads = pool.resolve_padding('SAME', window, window, shape[1:3])
+  assert pool.bwd_launch(shape, window, window, pads)['wide'] == 1
+  generator = torch.Generator(device=device).manual_seed(5)
+  plan = pool._plan(shape, window, window, pads, torch.bfloat16)  # pylint: disable=protected-access
+  out_shape = (1, plan['oh'], plan['ow'], 32)
+  g = torch.randn(out_shape, generator=generator, device=device,
+                  dtype=torch.bfloat16)
+  slot = torch.randint(0, 9, out_shape, generator=generator, device=device,
+                       dtype=torch.int32)
+  got = pool.pool_bwd(g, slot, shape, window, window, pads)
+  want = pool.plain_max_pool_bwd(g, slot, shape, window, window, pads)
+  torch.cuda.synchronize()
+  assert _same_bits(got, want)
+
+
+def test_pool_bwd_entry_refuses_another_choice(device):
+  """t2r_pool_bwd launches only the choice bwd_launch makes: another
+  route, channels a thread or template returns cudaErrorInvalidValue and
+  writes nothing."""
+  lib = _build.load('pool', pool._SIGNATURES)  # pylint: disable=protected-access
+  stream = torch.cuda.current_stream(device).cuda_stream
+  for shape, window, strides in (((2, 24, 24, 8), (3, 3), (3, 3)),
+                                 ((2, 23, 23, 8), (3, 3), (2, 2))):
+    pads = pool.resolve_padding('SAME', window, strides, shape[1:3])
+    x = _tied(shape, torch.float32, device)
+    _, slot = pool.pool_fwd(x, window, strides, pads)
+    g = _tied(tuple(slot.shape), torch.float32, device, seed=2)
+    dx = torch.full(shape, 7.0, device=device)
+    launch = pool.bwd_launch(shape, window, strides, pads)
+    choice = (int(launch['route'] == pool.ROUTE_SCATTER), launch['vec'],
+              launch['wide'], launch['templated'])
+    p = pool._plan(shape, window, strides, pads, torch.float32)  # pylint: disable=protected-access
+    for bad in ((1 - choice[0],) + choice[1:],
+                (choice[0], 9 - choice[1]) + choice[2:],
+                choice[:3] + (1 - choice[3],)):
+      status = lib.t2r_pool_bwd(
+          g.data_ptr(), slot.data_ptr(), dx.data_ptr(), 0, *shape, *window,
+          *strides, pads[0][0], pads[1][0], p['oh'], p['ow'], *bad, stream)
+      assert status == 1, (shape, bad, status)  # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    assert bool((dx == 7.0).all())
 
 
 @pytest.mark.parametrize('dtype', DTYPES, ids=str)
@@ -272,24 +376,62 @@ def test_conv_grad_kernels_band_vs_plain(device, name, xshape, wshape,
   g = torch.randn(out_shape, generator=generator).to(device=device,
                                                      dtype=dtype)
   before = (conv_s2d.conv_s2d_dw.launches, conv_s2d.conv_s2d_dx.launches)
-  tensor_core = conv_s2d.conv_s2d_dw.tensor_core_launches
+  tensor_core = (conv_s2d.conv_s2d_dw.tensor_core_launches,
+                 conv_s2d.conv_s2d_dx.tensor_core_launches)
   dw = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
   dw_again = conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
   dx = conv_s2d.conv_s2d_dx(g, w, xshape, strides, pads)
+  dx_again = conv_s2d.conv_s2d_dx(g, w, xshape, strides, pads)
   want_dw = conv_s2d.plain_conv2d_dw(x, g, wshape, strides, pads)
   want_dx = conv_s2d.plain_conv2d_dx(g, w, xshape, strides, pads)
   torch.cuda.synchronize()
   assert (conv_s2d.conv_s2d_dw.launches,
-          conv_s2d.conv_s2d_dx.launches) == (before[0] + 2, before[1] + 1)
-  assert conv_s2d.conv_s2d_dw.tensor_core_launches == tensor_core + (
-      2 if dtype == torch.bfloat16 else 0)
+          conv_s2d.conv_s2d_dx.launches) == (before[0] + 2, before[1] + 2)
+  dx_route = conv_s2d.dx_plan(xshape, wshape, strides, pads, dtype)['route']
+  assert (dx_route == conv_s2d.ROUTE_TENSOR_CORE) == (
+      dtype == torch.bfloat16 and wshape[3] % 16 == 0)
+  assert (conv_s2d.conv_s2d_dw.tensor_core_launches,
+          conv_s2d.conv_s2d_dx.tensor_core_launches) == (
+              tensor_core[0] + (2 if dtype == torch.bfloat16 else 0),
+              tensor_core[1] + (
+                  2 if dx_route == conv_s2d.ROUTE_TENSOR_CORE else 0))
   assert torch.equal(dw, dw_again)
+  assert torch.equal(dx, dx_again)
   band = 1e-5 if dtype == torch.float32 else 2.0**-7
   for got, want in ((dw, want_dw), (dx, want_dx)):
     assert got.dtype == dtype and got.shape == want.shape
     scale = float(want.float().abs().max())
     torch.testing.assert_close(got.float() / scale, want.float() / scale,
                                rtol=band, atol=band)
+
+
+def test_conv_dx_entries_refuse_another_plan(device):
+  """t2r_conv_s2d_dx_mma launches only dx_plan's plan (another tile
+  count, grid or shared memory returns cudaErrorInvalidValue), and
+  t2r_conv_s2d_dx refuses a bfloat16 problem the tensor cores take; dx is
+  left unwritten."""
+  lib = _build.load('conv_s2d', conv_s2d._SIGNATURES)  # pylint: disable=protected-access
+  stream = torch.cuda.current_stream(device).cuda_stream
+  xshape, wshape, strides = (2, 48, 48, 3), (6, 6, 3, 64), (2, 2)
+  pads = conv_s2d.resolve_padding('SAME', wshape[:2], strides, xshape[1:3])
+  g = _tied((2, 24, 24, 64), torch.bfloat16, device)
+  w = _tied(wshape, torch.bfloat16, device)
+  dx = torch.full(xshape, 7.0, dtype=torch.bfloat16, device=device)
+  plan = conv_s2d.dx_plan(xshape, wshape, strides, pads, torch.bfloat16)
+  assert plan['route'] == conv_s2d.ROUTE_TENSOR_CORE
+  geometry = (*xshape, 6, 6, *strides, pads[0][0], pads[1][0], 24, 24, 64)
+  good = (plan['num_tiles'], plan['grid'], plan['smem'])
+  for i, delta in ((0, 1), (1, -1), (2, 16)):
+    bad = list(good)
+    bad[i] += delta
+    status = lib.t2r_conv_s2d_dx_mma(g.data_ptr(), w.data_ptr(),
+                                     dx.data_ptr(), *geometry, *bad, stream)
+    assert status == 1, (i, bad, status)  # cudaErrorInvalidValue
+  status = lib.t2r_conv_s2d_dx(g.data_ptr(), w.data_ptr(), dx.data_ptr(), 1,
+                               *geometry, stream)
+  assert status == 1, status
+  torch.cuda.synchronize()
+  assert bool((dx == 7.0).all())
 
 
 def test_autograd_functions_launch_the_backward_kernels(device):
@@ -767,6 +909,28 @@ def test_photometric_band_vs_plain(device, shape, dtype):
     # One bfloat16 ulp at each value: 2**(e - 8) for want = m * 2**e.
     ulp = torch.ldexp(torch.ones_like(err), torch.frexp(want.float())[1] - 8)
     assert bool((err <= ulp).all())
+
+
+def test_photometric_bf16_outside_one_ulp_only_where_float32_cancels(device):
+  """At QT-Opt's training images, over 12 draws: every bfloat16 output
+  meets chip_smoke.photometric_bf16_check's bars (the rounding of the
+  float32 pass, bit for bit; that pass within the band derived from its
+  float32 roundings and the means' difference; one bfloat16 ulp wherever
+  that band is under half an ulp). Further than one ulp lie only outputs
+  below 2**-13, where (x - mean) * factor + mean cancels and a bfloat16
+  ulp is under the float32 roundings of the terms."""
+  import chip_smoke  # pylint: disable=import-outside-toplevel
+  shape = (32, 472, 472, 3)
+  for seed in range(12):
+    generator = torch.Generator(device=device).manual_seed(seed)
+    images = torch.rand(shape, generator=generator, device=device).to(
+        torch.bfloat16)
+    delta = (torch.rand(32, generator=generator, device=device) - 0.5) * 0.25
+    factor = torch.rand(32, generator=generator, device=device) + 0.5
+    got = photometric.photometric(images, delta, factor)
+    _, past, largest = chip_smoke.photometric_bf16_check(got, images, delta,
+                                                         factor)
+    assert past == 0 or largest < 2.0**-13, (seed, past, largest)
 
 
 def test_photometric_fused_branch_launches_the_kernel(device):

@@ -62,6 +62,38 @@ def test_plain_matches_jax_kernel_bfloat16(shape):
   assert (np.abs(got.float().numpy() - want) <= ulp).all()
 
 
+@pytest.mark.parametrize('shape', SHAPES)
+def test_derived_float32_band_covers_other_evaluations(shape):
+  """chip_smoke.photometric_float32_band (the card's bfloat16 bar) holds
+  two other float32 evaluations to the plain version: the JAX kernel
+  (interpreted; its means read back at factor 0) and a fused multiply-add
+  over float64-summed means. Each lies within the band everywhere, and the
+  band is far under the float32 check's 1e-6."""
+  import chip_smoke  # pylint: disable=import-outside-toplevel
+  images, delta, factor = _inputs(shape, seed=2)
+  timages, tdelta, tfactor = (torch.from_numpy(v)
+                              for v in (images, delta, factor))
+  plain = photometric.plain_brightness_contrast(timages, tdelta, tfactor)
+
+  def jax_pass(scale):
+    return torch.from_numpy(np.asarray(
+        jax_photometric.fused_brightness_contrast(
+            jnp.asarray(images), jnp.asarray(delta), jnp.asarray(scale),
+            interpret=True)).copy())
+
+  jax_mean = jax_pass(np.zeros_like(factor))[:, :1, :1, :]
+  x = timages + tdelta.reshape(-1, 1, 1, 1)
+  f64_mean = x.double().mean(dim=(1, 2), keepdim=True).float()
+  fma = ((x - f64_mean).double() * tfactor.double().reshape(-1, 1, 1, 1) +
+         f64_mean.double()).float().clamp(0.0, 1.0)
+  for other, mean in ((jax_pass(factor), jax_mean), (fma, f64_mean)):
+    assert bool(((mean > 0) & (mean < 1)).all())
+    band = chip_smoke.photometric_float32_band(timages, tdelta, tfactor,
+                                               mean)
+    assert bool(((other.double() - plain.double()).abs() <= band).all())
+    assert float(band.max()) < 1e-6
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_fused_branch_equals_stock_chain_on_one_generator(dtype):
   images = torch.from_numpy(_inputs((4, 14, 11, 3), seed=2)[0]).to(dtype)
