@@ -81,10 +81,32 @@ Run from the repository root. The phases:
    finite gradient on every trainable parameter, parameters and EMA moved;
    then the EMA weights and batch statistics served by a
    ``CheckpointPredictor`` on 8 pairs;
-6. dx on a path: a full-width conv1, and the odd geometry, whose input
+6. checkpoints, resume, eval and serving from a checkpoint at full width,
+   batch 32, under deterministic cuDNN without autotuning (restored
+   after the phase), all files under a temporary directory below
+   ``chiprun_out/`` that the phase removes: ``train_eval_model`` with
+   random-data generators, 6 steps, saves and eval passes (2 batches)
+   every 3, and an uninterrupted 9-step run; a fresh ``Trainer`` restores
+   step 6 bit for bit what was saved (``same_bits`` over the whole
+   payload), evaluates to train_eval_model's step-6 metrics exactly, and
+   resumes to step 9 bit for bit the uninterrupted run's state;
+   ``CheckpointPredictor.restore()`` loads step 9 (q on 8 pairs bit for
+   bit a predictor loaded from the state), the device-resident CEM serves
+   3 actions from it, and after a save at step 12 a second ``restore()``
+   makes the same ``device_serving_fn`` serve step 12; every part's
+   launches counted (3 ``pool_fwd``, 3 ``pool_bwd``, 1 ``conv_s2d_fwd``
+   and 1 ``conv_s2d_dw`` a step, 3 ``pool_fwd`` and 1 ``conv_s2d_fwd`` an
+   eval batch, 9 and 3 an action); the checkpoint's size, an async save's
+   host copy and write, the restore, the eval pass, ms/step with and
+   without a save in the window and the predictor's restore to first
+   action printed beside the card; and the trainer binary
+   (``python -m tensor2robot_tpu_torch.bin.run_t2r_trainer`` on the
+   port's ``train_qtopt.gin``, 3 steps) in a subprocess, which must exit
+   0 and leave a committed ``ckpt_3``;
+7. dx on a path: a full-width conv1, and the odd geometry, whose input
    requires a gradient launch ``conv_s2d_dx`` once each, on the tensor
    cores, and dx matches the plain version and repeats bit for bit;
-7. a float32 training step on the card (kernels) against the same step on
+8. a float32 training step on the card (kernels) against the same step on
    the CPU (plain versions) at full width and batch 2, TF32 off, both held
    to a float64 CPU gradient of the same step: the losses within 1e-4;
    every leaf of the card's gradient no further from float64 (relative
@@ -93,7 +115,7 @@ Run from the repository root. The phases:
    controls printed leaf by leaf against the same float64 gradient, cuDNN
    deterministic without autotuning and the pools and conv1 left to the
    library, with the cuDNN flags and the card step's kernels by name;
-8. the SNAIL training paths at full width, each a ``Trainer`` with default
+9. the SNAIL training paths at full width, each a ``Trainer`` with default
    Adam on seeded 220x300 uint8 episodes: ``VRGripperEnvLongHorizonModel(
    episode_length=512, 8 heads of 8)`` at batch 2 and
    ``VRGripperEnvSequentialModel(episode_length=40)`` at batch 8 (the
@@ -102,11 +124,11 @@ Run from the repository root. The phases:
    before and read just after (per step: 2 ``flash_fwd``, 2 ``flash_dq``,
    2 ``flash_dkv``); a finite loss, a finite gradient on every parameter,
    parameters and Adam moments moved;
-9. a float32 long-horizon SNAIL step (episode 64, batch 1), TF32 off, on
+10. a float32 long-horizon SNAIL step (episode 64, batch 1), TF32 off, on
    the card through the flash kernels, on the card through the dense
    attention and on the CPU, held to each other and to a float64 CPU
    gradient of the same step (see ``phase_snail_reference``);
-10. the fused update paths: QT-Opt training at full width and batch 32 with
+11. the fused update paths: QT-Opt training at full width and batch 32 with
    tagged Adam under a decaying rate, the EMA, ``fused_update=True`` and
    ``nonfinite_mode='skip_update'`` (per step: the five kernels above and
    1 ``fused_update``), then one NaN-poisoned batch that must leave
@@ -115,11 +137,11 @@ Run from the repository root. The phases:
    default Adam (per step: 2/2/2 flash and 1 ``fused_update`` launch, the
    stock ``Adam.step`` never entered), each ms/step printed beside the
    stock run's;
-11. the fused photometric branch, ``apply_photometric_image_distortions(
+12. the fused photometric branch, ``apply_photometric_image_distortions(
    random_brightness=True, random_contrast=True, use_fused_kernel=True)``,
    on QT-Opt's training images at batch 32 against the stock chain on the
    same generator (1e-6), with its launches counted;
-12. timings with CUDA events (each call after an L2 flush and a spin
+13. timings with CUDA events (each call after an L2 flush and a spin
    kernel that keeps the card busy while the host enqueues it): each
    kernel, its plain version, one library
    call computing the same function (``F.max_pool2d(return_indices=True)``,
@@ -129,7 +151,9 @@ Run from the repository root. The phases:
    its backward, ``torch.optim.Adam(fused=True)``; none for the
    photometric pass; the fused update's row is the trainer's per-step
    call through its packed table and the library's step, both on the host
-   clock, since the host bounds them), and each kernel's bound on an H100
+   clock, since the host bounds them, with the kernel's own device time
+   printed beside them, profiled after an L2 flush), and each kernel's
+   bound on an H100
    SXM (3.35 TB/s;
    989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones); the float32
    forward, dW and dx and the bfloat16 forward at the training shape too,
@@ -154,16 +178,20 @@ Any failure exits non-zero before them, and nothing falls back to the CPU.
 import argparse
 import contextlib
 import functools
+import itertools
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tensor2robot_tpu_torch.data import input_generators
 from tensor2robot_tpu_torch.layers import snail
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.models import optimizers
@@ -177,7 +205,10 @@ from tensor2robot_tpu_torch.research.qtopt import GraspingModelWrapper
 from tensor2robot_tpu_torch.research.qtopt import networks
 from tensor2robot_tpu_torch.research.vrgripper import (
     VRGripperEnvLongHorizonModel, VRGripperEnvSequentialModel)
-from tensor2robot_tpu_torch.train import Trainer, TrainerConfig
+from tensor2robot_tpu_torch.train import (Trainer, TrainerCallback,
+                                          TrainerConfig, train_eval_model)
+from tensor2robot_tpu_torch.train import checkpoints as ckpt_lib
+from tensor2robot_tpu_torch.train import train_state
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
@@ -310,6 +341,13 @@ FUSED_BAND = (1e-6, 1e-5)
 # The bfloat16 bars are photometric_bf16_check's.
 PHOTOMETRIC_SHAPE = (TRAIN_BATCH, 472, 472, 3)
 PHOTOMETRIC_F32_BAND = 1e-6
+# The checkpoint phase: saves and eval passes every CKPT_INTERVAL steps,
+# CKPT_EVAL_BATCHES batches a pass, CKPT_ACTIONS actions served from the
+# restored step; the trainer binary runs the port's QT-Opt config.
+CKPT_INTERVAL = 3
+CKPT_EVAL_BATCHES = 2
+CKPT_ACTIONS = 3
+QTOPT_GIN = 'tensor2robot_tpu_torch/research/qtopt/configs/train_qtopt.gin'
 
 
 def log(*parts):
@@ -1001,6 +1039,310 @@ def phase_train(seed, steps):
   log(f'train: EMA weights served, q_predicted '
       f'{np.array2string(q, precision=4)}')
   return ms_per_step, launches, trainer
+
+
+# Kernel launches of the checkpoint phase's parts: per training step as on
+# the training path, per eval batch and per served action one forward.
+EVAL_BATCH_LAUNCHES = {'pool_fwd': 3, 'conv_s2d_fwd': 1,
+                       'conv_s2d_fwd_tensor_core': 1}
+ACTION_LAUNCHES = {'pool_fwd': 9, 'conv_s2d_fwd': 3,
+                   'conv_s2d_fwd_tensor_core': 3}
+
+
+def path_launches(steps=0, eval_batches=0, actions=0):
+  """The launch counts of ``steps`` training steps, ``eval_batches`` eval
+  batches and ``actions`` served actions of the QT-Opt paths."""
+  want = {name: steps * count for name, count in TRAIN_LAUNCHES.items()}
+  for per, count in ((EVAL_BATCH_LAUNCHES, eval_batches),
+                     (ACTION_LAUNCHES, actions)):
+    for name, value in per.items():
+      want[name] += count * value
+  return want
+
+
+def check_launches(what, launches, want):
+  if launches != want:
+    raise AssertionError(f'checkpoint phase, {what}: launches {launches}, '
+                         f'expected {want}')
+
+
+def payload_tensors(tree, prefix=''):
+  """(path, leaf) of every leaf of a checkpoint payload."""
+  if isinstance(tree, dict):
+    for key, value in tree.items():
+      yield from payload_tensors(value, f'{prefix}/{key}')
+  elif isinstance(tree, (list, tuple)):
+    for i, value in enumerate(tree):
+      yield from payload_tensors(value, f'{prefix}/{i}')
+  else:
+    yield prefix, tree
+
+
+def payload_mismatches(got, want):
+  """The paths where two payloads differ: tensors by their bits, other
+  leaves by value."""
+  got, want = dict(payload_tensors(got)), dict(payload_tensors(want))
+  if set(got) != set(want):
+    return sorted(set(got) ^ set(want))
+  bad = []
+  for path, value in want.items():
+    other = got[path]
+    if isinstance(value, torch.Tensor):
+      same = isinstance(other, torch.Tensor) and same_bits(
+          other.cpu(), value.cpu())
+    else:
+      same = other == value
+    if not same:
+      bad.append(path)
+  return bad
+
+
+class _Recorder(TrainerCallback):
+  """Keeps the eval metrics by step, a host copy of the state at each
+  checkpoint, and the host-clock time of each step (synchronised)."""
+
+  def __init__(self):
+    self.metrics, self.saved, self.step_ms = {}, {}, {}
+    self._last = None
+
+  def begin(self, trainer):
+    torch.cuda.synchronize()
+    self._last = time.perf_counter()
+
+  def after_step(self, trainer, step, scalars):
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    self.step_ms[step] = 1e3 * (now - self._last)
+    self._last = now
+
+  def after_checkpoint(self, trainer, step):
+    self.saved[step] = ckpt_lib.to_host(train_state.state_dict(trainer.state))
+
+  def after_eval(self, trainer, step, metrics):
+    self.metrics[step] = dict(metrics)
+
+
+def synced_ms(fn):
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  return 1e3 * (time.perf_counter() - start), out
+
+
+def run_trainer_binary(model_dir):
+  """The trainer binary on the port's QT-Opt config, 3 steps and one eval
+  batch, in a subprocess; its model_dir must hold a committed ckpt_3."""
+  repo = pathlib.Path(__file__).resolve().parent
+  cmd = [sys.executable, '-m', 'tensor2robot_tpu_torch.bin.run_t2r_trainer',
+         '--gin_configs', str(repo / QTOPT_GIN),
+         '--gin_bindings', 'train_eval_model.max_train_steps = 3',
+         '--gin_bindings', 'train_eval_model.eval_steps = 1',
+         '--gin_bindings', f"train_eval_model.model_dir = '{model_dir}'"]
+  start = time.perf_counter()
+  proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                        timeout=600, check=False)
+  seconds = time.perf_counter() - start
+  step = ckpt_lib.latest_checkpoint_step(str(model_dir / 'checkpoints'))
+  if proc.returncode != 0 or step != 3:
+    raise AssertionError(
+        f'trainer binary: exit {proc.returncode}, newest committed step '
+        f'{step}; its output ended:\n{proc.stdout[-3000:]}\n'
+        f'{proc.stderr[-3000:]}')
+  log(f'checkpoint: python -m tensor2robot_tpu_torch.bin.run_t2r_trainer '
+      f'--gin_configs {QTOPT_GIN} (3 steps, eval_steps 1) exited 0 in '
+      f'{seconds:.1f} s and left a committed ckpt_3')
+
+
+def phase_checkpoint(seed, card):
+  """Checkpoints, resume, eval and serving from a checkpoint on the QT-Opt
+  main path at full width, batch 32, under deterministic cuDNN without
+  autotuning (restored after the phase). Returns the launch counts of
+  its training, eval and serving parts."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='checkpoint_phase_',
+                                       dir=OUT_DIR))
+  try:
+    with cudnn_settings(deterministic=True, benchmark=False), \
+        _dispatch.force_kernels(True):
+      return checkpoint_paths(seed, card, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def checkpoint_paths(seed, card, root):
+  def model():
+    return GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv')
+
+  def generator(mode):
+    gen = input_generators.DefaultRandomInputGenerator(batch_size=TRAIN_BATCH)
+    gen.set_specification_from_model(model(), mode)
+    return gen
+
+  def run(model_dir, steps, recorder):
+    return train_eval_model(
+        model=model(), model_dir=str(model_dir),
+        train_input_generator=generator(ModeKeys.TRAIN),
+        eval_input_generator=generator(ModeKeys.EVAL),
+        max_train_steps=steps, eval_steps=CKPT_EVAL_BATCHES,
+        eval_interval_steps=CKPT_INTERVAL, save_interval_steps=CKPT_INTERVAL,
+        log_interval_steps=0, seed=seed, callbacks=[recorder], device='cuda')
+
+  total = path_launches()
+
+  def counted(what, fn, want):
+    zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    check_launches(what, launches, want)
+    for name in total:
+      total[name] += launches[name]
+    return out
+
+  # 1. Training with saves and interleaved eval, and an uninterrupted run.
+  first, straight = _Recorder(), _Recorder()
+  dir_a, dir_b = root / 'a', root / 'b'
+  metrics = counted(
+      'train_eval_model, 6 steps', lambda: run(dir_a, 6, first),
+      path_launches(steps=6, eval_batches=2 * CKPT_EVAL_BATCHES))
+  counted('train_eval_model, 9 steps', lambda: run(dir_b, 9, straight),
+          path_launches(steps=9, eval_batches=3 * CKPT_EVAL_BATCHES))
+  ckpt_dir = dir_a / 'checkpoints'
+  if ckpt_lib.latest_checkpoint_step(str(ckpt_dir)) != 6 or sorted(
+      first.saved) != [3, 6]:
+    raise AssertionError(f'saves {sorted(first.saved)} under {ckpt_dir}')
+  size_mb = (ckpt_dir / 'ckpt_6' / ckpt_lib.STATE_FILENAME).stat().st_size / 1e6
+
+  # 2. A fresh trainer restores step 6: bit for bit what was saved.
+  timed = _Recorder()
+  trainer = Trainer(model(), TrainerConfig(
+      model_dir=str(dir_a), max_train_steps=9, eval_steps=CKPT_EVAL_BATCHES,
+      save_interval_steps=CKPT_INTERVAL, log_interval_steps=0, seed=seed),
+                    callbacks=[timed])
+  stream = itertools.islice(generator(ModeKeys.TRAIN).create_iterator(
+      ModeKeys.TRAIN), 5, None)
+  trainer.initialize(next(stream)[0])
+  restored = ckpt_lib.to_host(train_state.state_dict(trainer.state))
+  bad = payload_mismatches(restored, first.saved[6])
+  if trainer.step != 6 or bad:
+    raise AssertionError(f'restored step {trainer.step}; differs from the '
+                         f'saved state at {bad[:8]}')
+  restore_ms, _ = synced_ms(lambda: trainer.restore_checkpoint(6))
+  log(f'checkpoint: step 6 restored bit for bit ({len(restored["network"])} '
+      f'network tensors, the momentum buffers and counts, the EMA, the '
+      f'generator and the step; same_bits)')
+
+  # 4. Eval: train_eval_model's metrics at step 6 again from the restore.
+  if not all(np.isfinite(v) for v in metrics.values()) or (
+      metrics != first.metrics[6]):
+    raise AssertionError(f'eval metrics {metrics} at step 6, recorded '
+                         f'{first.metrics}')
+  eval_batches = list(itertools.islice(
+      generator(ModeKeys.EVAL).create_iterator(ModeKeys.EVAL),
+      CKPT_EVAL_BATCHES))
+  eval_ms, again = synced_ms(lambda: counted(
+      'Trainer.evaluate', lambda: trainer.evaluate(iter(eval_batches)),
+      path_launches(eval_batches=CKPT_EVAL_BATCHES)))
+  if again != metrics:
+    raise AssertionError(f'eval from the restored state {again}, from '
+                         f'train_eval_model {metrics}')
+  log(f'checkpoint: eval at step 6 {metrics}, equal from the restored '
+      'state')
+
+  # 3. Resume to 9: bit for bit the uninterrupted run's step 9.
+  batches = list(itertools.islice(stream, 12))
+  counted('resume 6 -> 9', lambda: trainer.train(iter(batches[:3])),
+          path_launches(steps=3))
+  bad = payload_mismatches(ckpt_lib.to_host(
+      train_state.state_dict(trainer.state)), straight.saved[9])
+  if trainer.step != 9 or bad:
+    raise AssertionError(
+        f'resumed step {trainer.step} differs from the uninterrupted run at '
+        f'{bad[:8]} ({len(bad)} leaves)')
+  log('checkpoint: resumed 6 -> 9 bit for bit the uninterrupted 9-step run '
+      '(parameters, batch statistics, EMA, momentum buffers, counts, '
+      f'generator; {cudnn_flags()})')
+
+  # 5. Serving from the checkpoint, then a hot swap to step 12.
+  serving_model = model()
+  predictor = CheckpointPredictor(serving_model, str(dir_a), device='cuda')
+  np.random.seed(seed)
+  frames = np.random.RandomState(seed + 5).randint(
+      0, 256, (CKPT_ACTIONS + 1, 512, 640, 3), dtype=np.uint8)
+  policy = CEMPolicy(t2r_model=serving_model, predictor=predictor,
+                     action_size=5, cem_samples=64, cem_iters=3,
+                     num_elites=6, device_resident=True)
+  first_ms, _ = synced_ms(lambda: (predictor.restore(), policy.SelectAction(
+      frames[0], None, 0)))
+  if predictor.global_step != 9:
+    raise AssertionError(f'restored step {predictor.global_step}, not 9')
+  rng = np.random.RandomState(seed + 6)
+  pairs = rng.randn(8, 5).astype(np.float32)
+  features = {'state/image': rng.randint(0, 256, (8, 512, 640, 3),
+                                         dtype=np.uint8),
+              'action/world_vector': pairs[:, :3],
+              'action/vertical_rotation': pairs[:, 3:]}
+  direct = CheckpointPredictor(model(), device='cuda')
+  direct.load_state_dict(trainer.state.eval_state_dict(), global_step=9)
+  q = predictor.predict(features)['q_predicted']
+  if not np.array_equal(q.view(np.int32), direct.predict(features)[
+      'q_predicted'].view(np.int32)) or not np.isfinite(q).all():
+    raise AssertionError(f'restored q {q} differs from the state\'s')
+  actions = counted(
+      'serving', lambda: [policy.SelectAction(frames[t], None, t)
+                          for t in range(1, CKPT_ACTIONS + 1)],
+      path_launches(actions=CKPT_ACTIONS))
+  if not all(a.shape == (5,) and np.isfinite(a).all() for a in actions):
+    raise AssertionError(f'bad actions {actions}')
+  serving_fn = predictor.device_serving_fn()
+  served_9 = {k: v.clone() for k, v in serving_fn.network.state_dict().items()}
+  trainer.config.max_train_steps = 12
+  counted('train 9 -> 12', lambda: trainer.train(iter(batches[3:6])),
+          path_launches(steps=3))
+  if not predictor.restore() or predictor.global_step != 12 or (
+      predictor.device_serving_fn() is not serving_fn):
+    raise AssertionError(f'hot swap: step {predictor.global_step}')
+  want = trainer.state.eval_state_dict()
+  swapped = [name for name, value in serving_fn.network.state_dict().items()
+             if not same_bits(value, want[name])]
+  moved = [name for name, value in served_9.items()
+           if not same_bits(value, want[name])]
+  if swapped or not moved:
+    raise AssertionError(f'the served network is not step 12 at {swapped}, '
+                         f'or step 12 is step 9 ({len(moved)} moved)')
+  policy.SelectAction(frames[0], None, 0)
+  log(f'checkpoint: CheckpointPredictor.restore() served {CKPT_ACTIONS} CEM '
+      'actions from step 9 (q on 8 pairs bit for bit a predictor loaded '
+      'from the state), then the same device_serving_fn served step 12')
+
+  # 8. Timings: steps 13-15 with no save in them, 16-18 with step 15's
+  # save (its host copy before step 16, its write during 16-17).
+  trainer.config.max_train_steps = 18
+  trainer.train(iter(batches[6:12]))
+  manager = trainer.checkpoint_manager
+  quiet = [timed.step_ms[s] for s in (13, 14, 15)]
+  saving = [timed.step_ms[s] for s in (16, 17, 18)]
+  log(f'checkpoint: state.pt {size_mb:.2f} MB on {card}')
+  log(f'checkpoint: async save of step 18: host copy '
+      f'{manager.timings["copy_ms"]:.2f} ms (the train loop waits for it), '
+      f'write to durable {manager.timings["write_ms"]:.2f} ms (background '
+      f'thread) on {card}')
+  log(f'checkpoint: restore of step 6 {restore_ms:.2f} ms (host clock, '
+      f'synchronised: read, copy into the live state) on {card}')
+  log(f'checkpoint: eval pass {eval_ms / CKPT_EVAL_BATCHES:.2f} ms/batch '
+      f'(host clock, synchronised, batch {TRAIN_BATCH}, batches made '
+      f'beforehand) on {card}')
+  log(f'checkpoint: ms/step steps 13-15 (no save) '
+      f'{np.round(quiet, 3).tolist()}, mean {np.mean(quiet):.3f}; steps 16-18 '
+      f'(step 15\'s async save) {np.round(saving, 3).tolist()}, mean '
+      f'{np.mean(saving):.3f} (host clock, synchronised) on {card}')
+  log(f'checkpoint: predictor restore to first action {first_ms:.2f} ms '
+      f'(build, load step 9, one CEM action) on {card}')
+
+  # 7. The trainer binary.
+  run_trainer_binary(root / 'binary')
+  return total
 
 
 def phase_dx_path(generator):
@@ -2200,12 +2542,16 @@ def kernel_device_ms(fn, names):
   """Device time of one call of ``fn`` spent in kernels whose names hold
   one of ``names`` (torch.profiler), without the host time that CUDA events
   around a host-bound call also take in; None when the profiler recorded
-  no such kernel."""
+  no such kernel. A 256 MB write flushes the 50 MB L2 cache before the
+  profiled call, so its inputs come from device memory, as the bytes bound
+  assumes."""
   from torch.profiler import ProfilerActivity, profile
 
+  flush = torch.empty(256 * 2**20, dtype=torch.uint8, device='cuda')
   fn()
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    flush.zero_()
     fn()
     torch.cuda.synchronize()
   rows = [e for e in prof.key_averages()
@@ -2828,6 +3174,8 @@ def main(argv=None):
   phase_reference(args.seed)
   torch.cuda.empty_cache()
   ms_per_step, train_launches, trainer = phase_train(args.seed, args.steps)
+  checkpoint_launches = phase_checkpoint(args.seed, card)
+  torch.cuda.empty_cache()
   fused_ms, fused_launches, fused_trainer = phase_train_fused(
       args.seed, args.steps, ms_per_step)
   dx_launches = phase_dx_path(generator)
@@ -2840,12 +3188,13 @@ def main(argv=None):
   phase_snail_reference(args.seed)
   torch.cuda.empty_cache()
   photometric_launches = phase_photometric_path(args.seed)
-  # Launches: the pool and conv forward kernels over the QT-Opt serving
-  # and training paths, their backward ones over both training paths, dx
-  # over the path that needs it, the flash kernels over the three SNAIL
-  # paths, the fused update over the two fused training paths, the
+  # Launches: the pool and conv forward kernels over the QT-Opt serving,
+  # training and checkpoint paths, their backward ones over the training
+  # paths, dx over the path that needs it, the flash kernels over the three
+  # SNAIL paths, the fused update over the two fused training paths, the
   # photometric pass over its branch.
-  paths = [serve_launches, train_launches, fused_launches,
+  paths = [serve_launches, train_launches, checkpoint_launches,
+           fused_launches,
            *(result[1] for result in snail.values()),
            *(result[1] for result in snail_fused.values()),
            photometric_launches]
@@ -2855,7 +3204,8 @@ def main(argv=None):
     launches[name] = dx_launches[name]
   log(f'launches: serving {serve_launches} over {args.actions} actions; '
       f'training {train_launches} and fused training {fused_launches} over '
-      f'{args.steps} steps; dx path {dx_launches}; SNAIL '
+      f'{args.steps} steps; checkpoint phase {checkpoint_launches}; dx path '
+      f'{dx_launches}; SNAIL '
       f'{ {name: result[1] for name, result in snail.items()} } and fused '
       f'{ {name: result[1] for name, result in snail_fused.items()} } over '
       f'{args.snail_steps} steps each; photometric path '

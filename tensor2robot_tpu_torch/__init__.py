@@ -7,8 +7,9 @@ pieces (specs, modes, padding rules) rather than importing them.
 
 Covered so far: the QT-Opt Grasping44 serving path, from a numpy frame
 through the predictor to the device-resident cross-entropy method, and
-its training step (``train/``: TRAIN preprocessing, log loss, momentum SGD
-with a staircase learning rate, parameter averaging), with hand-written
-CUDA kernels for the argmax-slot max pool and the space-to-depth first
-convolution, forward and backward (``ops/``).
+its training (``train/``: TRAIN preprocessing, log loss, momentum SGD with
+a staircase learning rate, parameter averaging; checkpoints, resume,
+interleaved eval, ``train_eval_model`` and the trainer binary), the SNAIL
+meta-learners' training, with hand-written CUDA kernels for every Pallas
+kernel of the JAX package (``ops/``).
 """

@@ -1,6 +1,6 @@
 """Predictors: the port's counterpart of
-``tensor2robot_tpu/predictors/predictors.py`` (AbstractPredictor and
-CheckpointPredictor).
+``tensor2robot_tpu/predictors/predictors.py`` (AbstractPredictor,
+CheckpointPredictor and ``poll_and_load_newest``).
 
 A predictor owns the network on its device and runs the PREDICT chain
 preprocess -> network -> export outputs:
@@ -10,17 +10,24 @@ preprocess -> network -> export outputs:
   a callable over device tensors, so a caller (the device-resident CEM
   policy) can close a whole loop on the card around it without a host
   round trip;
-* weights come from :meth:`init_randomly` (a seeded ``torch.Generator``
-  and the JAX package's initialisers), :meth:`load_variables` (a JAX
-  variables tree as numpy, through ``utils/convert.py``) or
-  :meth:`load_state_dict` (the network's own ``state_dict``, e.g. a train
-  state's ``eval_state_dict()``). Restoring a trainer checkpoint arrives
-  with the checkpoint slice of the port.
+* weights come from :meth:`CheckpointPredictor.restore` (the newest
+  committed step of a trainer's ``<model_dir>/checkpoints``, its EMA in
+  place of the parameters, as eval reads them), :meth:`init_randomly` (a
+  seeded ``torch.Generator`` and the JAX package's initialisers),
+  :meth:`load_variables` (a JAX variables tree as numpy, through
+  ``utils/convert.py``) or :meth:`load_state_dict` (the network's own
+  ``state_dict``, e.g. a train state's ``eval_state_dict()``).
+
+The network is built once, at the first load; every later load copies the
+new weights into it (``copy_``), so a serving function that a policy
+already holds serves the new weights.
 """
 
 from __future__ import annotations
 
 import abc
+import os
+import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -29,6 +36,8 @@ import torch
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 from tensor2robot_tpu_torch.specs import SpecStruct, algebra
+from tensor2robot_tpu_torch.train import checkpoints as ckpt_lib
+from tensor2robot_tpu_torch.train import train_state
 from tensor2robot_tpu_torch.utils import convert
 
 
@@ -112,7 +121,11 @@ def _expand_to_spec_rank(features: Mapping[str, Any],
 
 class CheckpointPredictor(AbstractPredictor):
   """Model -> predictor on ``device`` (``'cuda'`` unless the caller asks
-  for ``'cpu'``; a CUDA request with no card raises)."""
+  for ``'cpu'``; a CUDA request with no card raises).
+
+  ``restore()`` polls ``<model_dir>/checkpoints`` for the newest committed
+  step until ``restore_timeout_secs`` have passed, and loads it.
+  """
 
   def __init__(self, t2r_model, model_dir: str = '',
                restore_timeout_secs: float = 0.0, device='cuda'):
@@ -122,6 +135,7 @@ class CheckpointPredictor(AbstractPredictor):
     self._device = dispatch.resolve_device(device)
     self._forward: Optional[_Forward] = None
     self._global_step = -1
+    self._restored_step: Optional[int] = None
     self._feature_spec = algebra.filter_required_flat_tensor_spec(
         t2r_model.preprocessor.get_in_feature_specification(ModeKeys.PREDICT))
 
@@ -132,9 +146,15 @@ class CheckpointPredictor(AbstractPredictor):
   def get_feature_specification(self) -> SpecStruct:
     return self._feature_spec
 
-  def _publish(self, network: torch.nn.Module, global_step: int) -> None:
-    network = network.to(self._device).eval()
-    self._forward = _Forward(self._model, network)
+  def _publish(self, state_dict: Mapping[str, torch.Tensor],
+               global_step: int) -> None:
+    """Loads ``state_dict`` (every parameter and batch statistic) into the
+    network, building it at the first load (see the module doc)."""
+    if self._forward is None:
+      network = self._model.create_module().to(self._device).eval()
+      self._forward = _Forward(self._model, network)
+    self._forward.network.load_state_dict(
+        {k: v.detach().float() for k, v in state_dict.items()}, strict=True)
     self._global_step = global_step
 
   def init_randomly(self, generator: Optional[torch.Generator] = None
@@ -143,31 +163,40 @@ class CheckpointPredictor(AbstractPredictor):
     ``generator`` (seeded runs give the same weights on every device)."""
     network = self._model.create_module()
     self._model.init_network(network, generator)
-    self._publish(network, 0)
+    self._publish(network.state_dict(), 0)
 
   def load_variables(self, variables: Mapping[str, Any],
                      global_step: int = 0) -> None:
     """Loads a JAX variables tree (numpy leaves, e.g. from
     ``jax.device_get(state.eval_variables)``)."""
-    network = self._model.create_module()
-    network.load_state_dict(convert.jax_variables_to_torch(variables),
-                            strict=True)
-    self._publish(network, global_step)
+    self._publish(convert.jax_variables_to_torch(variables), global_step)
 
   def load_state_dict(self, state_dict: Mapping[str, torch.Tensor],
                       global_step: int = 0) -> None:
     """Loads the network's ``state_dict`` (every parameter and batch
     statistic)."""
-    network = self._model.create_module()
-    network.load_state_dict(
-        {k: v.detach().float().cpu() for k, v in state_dict.items()},
-        strict=True)
-    self._publish(network, global_step)
+    self._publish(state_dict, global_step)
 
   def restore(self) -> bool:
-    raise NotImplementedError(
-        'Restoring trainer checkpoints arrives with the checkpoint slice of '
-        'the port; use load_variables() or init_randomly().')
+    """Loads the newest committed step of ``<model_dir>/checkpoints`` (its
+    EMA weights); True when loaded, or when nothing newer than the loaded
+    step exists; False when no step appeared before the timeout."""
+    ckpt_dir = os.path.join(self._model_dir, 'checkpoints')
+
+    def committed():
+      step = ckpt_lib.latest_checkpoint_step(ckpt_dir)
+      return [] if step is None else [step]
+
+    def load(step: int) -> bool:
+      with ckpt_lib.CheckpointManager(ckpt_dir, async_save=False) as manager:
+        step, payload = manager.restore(step=step)
+      self._publish(train_state.eval_state_dict(payload),
+                    int(payload['step']))
+      self._restored_step = step
+      return True
+
+    return poll_and_load_newest(committed, self._restored_step,
+                                self._restore_timeout_secs, load)
 
   def _to_device(self, features: Mapping[str, np.ndarray]):
     return {
@@ -182,8 +211,8 @@ class CheckpointPredictor(AbstractPredictor):
     return {k: v.cpu().numpy() for k, v in outputs.items()}
 
   def device_serving_fn(self) -> Callable:
-    """The PREDICT chain over device tensors; the same object until new
-    weights are published."""
+    """The PREDICT chain over device tensors; the same object, over the
+    same network, for the predictor's life (loads copy into it)."""
     self.assert_is_loaded()
     return self._forward
 
@@ -199,3 +228,23 @@ class CheckpointPredictor(AbstractPredictor):
   @property
   def global_step(self) -> int:
     return self._global_step
+
+
+def poll_and_load_newest(list_dirs_fn: Callable[[], list], loaded_dir,
+                         timeout: float, load_fn: Callable[[Any], bool]
+                         ) -> bool:
+  """The restore contract of predictors that poll a directory: scan with
+  ``list_dirs_fn`` (oldest first), load the newest entry with ``load_fn``
+  when it differs from ``loaded_dir``, and wait up to ``timeout`` seconds
+  for a first entry."""
+  deadline = time.time() + timeout
+  while True:
+    dirs = list_dirs_fn()
+    if dirs:
+      newest = dirs[-1]
+      if newest != loaded_dir:
+        return load_fn(newest)
+      return True
+    if time.time() >= deadline:
+      return False
+    time.sleep(1.0)

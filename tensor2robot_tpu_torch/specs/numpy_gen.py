@@ -1,7 +1,7 @@
 """Spec-driven numpy data generation.
 
 The port's counterpart of ``tensor2robot_tpu/specs/numpy_gen.py``, limited
-to :func:`make_random_numpy`.
+to :func:`make_random_numpy` and :func:`make_constant_numpy`.
 """
 
 from __future__ import annotations
@@ -25,6 +25,20 @@ def _concrete_shape(spec: TensorSpec, batch_size: Optional[int],
   if batch_size is not None and batch_size != -1:
     shape = (batch_size,) + shape
   return shape
+
+
+def make_constant_numpy(spec_structure,
+                        constant_value,
+                        batch_size: int = 2,
+                        sequence_length: int = _DEFAULT_SEQUENCE_LENGTH
+                        ) -> SpecStruct:
+  """Constant-filled numpy arrays shaped like the spec structure."""
+  out = SpecStruct()
+  for key, value in flatten_spec_structure(spec_structure).items():
+    spec = TensorSpec.to_spec(value)
+    out[key] = np.full(_concrete_shape(spec, batch_size, sequence_length),
+                       constant_value, dtype=to_numpy_dtype(spec.dtype))
+  return out
 
 
 def make_random_numpy(spec_structure,

@@ -1,13 +1,20 @@
-"""The non-finite update policy: the port's counterpart of
-``NonFinitePolicy`` and ``NonFiniteError`` in
-``tensor2robot_tpu/train/resilience.py``.
+"""Preemption-safe shutdown and the non-finite update policy: the port's
+counterpart of ``tensor2robot_tpu/train/resilience.py``.
 
-The trainer's step computes an all-finite flag over the loss and the
-gradients on the device and guards the update with it, so a NaN or Inf
-batch never reaches the parameters. :class:`NonFinitePolicy` decides what
-the host does about a bad step: count and skip it (halting after a run of
-``halt_after`` bad steps), or raise. The counts are attributes; the JAX
-package's metrics registry and flight recorder are not ported.
+* :class:`GracefulShutdown` turns SIGTERM/SIGINT into a flag. The trainer
+  checks it at each step boundary, forces a checkpoint and raises
+  :class:`PreemptedError`, which the trainer binary turns into the
+  resumable exit status ``PREEMPTED_EXIT_CODE`` (42). The first signal
+  restores the previous handlers, so a second one kills as before.
+  :func:`install_graceful_shutdown` installs one process-wide handler that
+  every trainer of the process honours (:func:`active_shutdown`).
+* :class:`NonFinitePolicy` decides what the host does about a bad step.
+  The trainer's step computes an all-finite flag over the loss and the
+  gradients on the device and guards the update with it, so a NaN or Inf
+  batch never reaches the parameters: the policy counts and skips it
+  (halting after a run of ``halt_after`` bad steps), or raises. The counts
+  are attributes; the JAX package's metrics registry and flight recorder
+  are not ported.
 
 The port reads the flag once per step (a one-byte copy, only with the guard
 on), so ``'raise'`` raises at the bad step itself, where the JAX trainer
@@ -17,6 +24,26 @@ raises one dispatch later. Either way the bad step changed nothing.
 from __future__ import annotations
 
 import logging
+import signal
+import threading
+from typing import Optional, Tuple
+
+# The resumable exit status of a preempted trainer binary: a scheduler
+# restarts the job, and the restarted run restores the forced checkpoint.
+PREEMPTED_EXIT_CODE = 42
+
+
+class PreemptedError(RuntimeError):
+  """Training stopped by a preemption signal after a forced checkpoint;
+  rerunning the job resumes from it. ``exit_code`` is the status a binary
+  exits with."""
+
+  exit_code = PREEMPTED_EXIT_CODE
+
+  def __init__(self, step: int):
+    super().__init__(
+        f'training preempted at step {step}; checkpoint saved, resumable')
+    self.step = int(step)
 
 
 class NonFiniteError(RuntimeError):
@@ -76,3 +103,73 @@ class NonFinitePolicy:
           f'loss/grads (>= halt_after={self.halt_after}) at step {step}; '
           f'{self.bad_steps} update(s) skipped in total: halting, the input '
           'stream looks systematically broken')
+
+
+class GracefulShutdown:
+  """Converts SIGTERM/SIGINT into a flag checked at step boundaries.
+
+  ``install()`` registers handlers (main thread only; other threads call
+  :meth:`request`); the first signal sets the flag and restores the
+  previous handlers. Usable as a context manager.
+  """
+
+  def __init__(self, signals: Tuple[int, ...] = (signal.SIGTERM,
+                                                 signal.SIGINT)):
+    self._signals = tuple(signals)
+    self._event = threading.Event()
+    self._prev = {}
+    self._installed = False
+
+  @property
+  def requested(self) -> bool:
+    return self._event.is_set()
+
+  def request(self) -> None:
+    """A preemption without a signal (tests, agents without signals)."""
+    self._event.set()
+
+  def _handler(self, signum, frame) -> None:
+    del frame
+    logging.warning(
+        'Received signal %d: finishing the step in flight, then '
+        'checkpointing and exiting resumable (the next signal kills).',
+        signum)
+    self._event.set()
+    self.uninstall()
+
+  def install(self) -> 'GracefulShutdown':
+    if not self._installed:
+      for s in self._signals:
+        self._prev[s] = signal.signal(s, self._handler)
+      self._installed = True
+    return self
+
+  def uninstall(self) -> None:
+    if self._installed:
+      for s, prev in self._prev.items():
+        signal.signal(s, prev)
+      self._prev.clear()
+      self._installed = False
+
+  def __enter__(self) -> 'GracefulShutdown':
+    return self.install()
+
+  def __exit__(self, *exc) -> None:
+    self.uninstall()
+
+
+_GLOBAL_SHUTDOWN: Optional[GracefulShutdown] = None
+
+
+def install_graceful_shutdown() -> GracefulShutdown:
+  """Installs the process-wide shutdown handler (idempotent; installing
+  again after an ``uninstall`` brings it back)."""
+  global _GLOBAL_SHUTDOWN
+  if _GLOBAL_SHUTDOWN is None:
+    _GLOBAL_SHUTDOWN = GracefulShutdown()
+  return _GLOBAL_SHUTDOWN.install()
+
+
+def active_shutdown() -> Optional[GracefulShutdown]:
+  """The process-wide handler, if one was installed."""
+  return _GLOBAL_SHUTDOWN

@@ -20,12 +20,21 @@ the generator advances with every draw, so a guarded step takes a
 :func:`snapshot` of both before it starts and :func:`restore` puts them back
 when the step is skipped. The step count and the optimizer's counts are
 host integers that a skipped step does not advance.
+
+:func:`state_dict` and :func:`load_state_dict` carry the whole state to a
+checkpoint payload and back: the step, the network's ``state_dict``
+(parameters and batch statistics), the optimizer's (its slots, and each
+group's ``count``, which drives the learning-rate schedule), the EMA and
+the generator's state. A load copies into the live tensors (``copy_``) and
+replaces none: the fused update's ``PreparedUpdate``
+(``ops/fused_update.py``) keeps the very tensors it validated, and a
+serving function keeps its network, so both go on with the loaded values.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
@@ -110,3 +119,84 @@ def apply_ema(state: TrainState, decay: float) -> None:
     params.append(p.detach().float())
   torch._foreach_mul_(emas, decay)  # pylint: disable=protected-access
   torch._foreach_add_(emas, params, alpha=1.0 - decay)  # pylint: disable=protected-access
+
+
+def state_dict(state: TrainState) -> Dict[str, Any]:
+  """The checkpoint payload of ``state``: references to the live tensors
+  (a checkpoint manager copies them to the host)."""
+  return {
+      'step': state.step,
+      'network': state.network.state_dict(),
+      'optimizer': state.optimizer.state_dict(),
+      'ema': state.ema,
+      'generator': state.generator.get_state(),
+  }
+
+
+def eval_state_dict(payload: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """:meth:`TrainState.eval_state_dict` of a checkpoint payload: the EMA in
+  place of the parameters when averaging is on."""
+  state = dict(payload['network'])
+  if payload.get('ema') is not None:
+    state.update(payload['ema'])
+  return state
+
+
+def _copy_into(live: torch.Tensor, value: torch.Tensor, what: str) -> None:
+  if live.shape != value.shape or live.dtype != value.dtype:
+    raise ValueError(f'{what}: the checkpoint holds {tuple(value.shape)} '
+                     f'{value.dtype}, the state {tuple(live.shape)} '
+                     f'{live.dtype}')
+  live.copy_(value)
+
+
+@torch.no_grad()
+def _load_optimizer(optimizer: torch.optim.Optimizer,
+                    payload: Mapping[str, Any]) -> None:
+  """The optimizer's ``state_dict`` into its live slots: a slot the state
+  holds takes the payload's values in place; one it lacks is created like
+  its parameter; one the payload lacks goes."""
+  params = [p for group in optimizer.param_groups for p in group['params']]
+  groups = payload['param_groups']
+  sizes = [len(g['params']) for g in optimizer.param_groups]
+  if sizes != [len(g['params']) for g in groups]:
+    raise ValueError(f'The checkpoint\'s optimizer groups hold '
+                     f'{[len(g["params"]) for g in groups]} parameters, the '
+                     f'state\'s {sizes}.')
+  by_id = dict(zip([i for group in groups for i in group['params']], params))
+  saved = {by_id[i]: slots for i, slots in payload['state'].items()}
+  for n, p in enumerate(params):
+    live = optimizer.state[p]
+    slots = saved.get(p, {})
+    for key in [k for k in live if k not in slots]:
+      del live[key]
+    for key, value in slots.items():
+      if not isinstance(value, torch.Tensor):
+        live[key] = value
+      elif isinstance(live.get(key), torch.Tensor):
+        _copy_into(live[key], value, f'optimizer slot {key} of parameter {n}')
+      elif value.shape == p.shape:
+        live[key] = torch.empty_like(p, dtype=value.dtype).copy_(value)
+      else:
+        live[key] = value.to(p.device, copy=True)
+    if not live:
+      del optimizer.state[p]
+  for group, saved_group in zip(optimizer.param_groups, groups):
+    group.update({k: v for k, v in saved_group.items() if k != 'params'})
+
+
+@torch.no_grad()
+def load_state_dict(state: TrainState, payload: Mapping[str, Any]) -> None:
+  """A :func:`state_dict` payload into ``state``, in place (module doc)."""
+  state.network.load_state_dict(payload['network'], strict=True)
+  _load_optimizer(state.optimizer, payload['optimizer'])
+  ema = payload.get('ema')
+  if (ema is None) != (state.ema is None) or (
+      ema is not None and set(ema) != set(state.ema)):
+    raise ValueError('The checkpoint\'s EMA does not match the state\'s '
+                     f'(averaging {"on" if ema is not None else "off"} in the '
+                     'checkpoint).')
+  for name, value in (ema or {}).items():
+    _copy_into(state.ema[name], value, f'EMA {name}')
+  state.generator.set_state(payload['generator'])
+  state.step = int(payload['step'])

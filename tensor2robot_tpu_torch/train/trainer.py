@@ -1,12 +1,12 @@
-"""The trainer core: the port's counterpart of
+"""The trainer: the port's counterpart of
 ``tensor2robot_tpu/train/trainer.py``.
 
-``Trainer(model, TrainerConfig(...)).train(batch_iter)`` pulls (features,
-labels) batches of numpy arrays, as the JAX trainer does, and runs one
-step per batch on ``device`` (the card unless the caller asks for the
-CPU). A step follows the JAX step body with one microbatch: preprocess the
-whole batch, forward in TRAIN mode (batch statistics update in place),
-loss, backward, then the update, on one of two arms:
+``Trainer(model, TrainerConfig(...)).train(batch_iter, eval_iter_fn)``
+pulls (features, labels) batches of numpy arrays, as the JAX trainer does,
+and runs one step per batch on ``device`` (the card unless the caller asks
+for the CPU). A step follows the JAX step body with one microbatch:
+preprocess the whole batch, forward in TRAIN mode (batch statistics update
+in place), loss, backward, then the update, on one of two arms:
 
 * stock: ``optimizer.step()``, then the EMA;
 * fused (``fused_update=True`` and a tagged optimizer, see
@@ -31,17 +31,49 @@ it does not wait for the card; ``train`` reads them at log intervals and at
 the end. Training stops at ``max_train_steps`` applied updates or when the
 iterator runs out.
 
-What the JAX trainer does beyond that is not ported yet and raises
-instead of being ignored: checkpoints (a non-empty ``model_dir``) and
-interleaved eval (``eval_iter_fn``). Batches move to the card
-synchronously; an overlapped record feed comes later.
+Checkpoints (``train/checkpoints.py``). With a ``model_dir`` the trainer
+owns a ``CheckpointManager(<model_dir>/checkpoints)``: ``initialize``
+restores the newest committed step into the live state
+(``train_state.load_state_dict``), every crossed ``save_interval_steps``
+saves (0 disables periodic saves), and the end of training forces a save.
+On resume the batch pulled to build the state is not trained on, as in
+the JAX trainer. A requested shutdown (``train/resilience.py``,
+``handle_preemption``) forces a save at the next step boundary and raises
+``PreemptedError``.
+
+Eval. :meth:`Trainer.evaluate` runs ``model_eval_fn`` over ``eval_steps``
+batches in EVAL mode with the EMA weights (``eval_state_dict``), as the
+JAX package's ``eval_variables`` do, on one eval network built once and
+loaded by ``copy_`` at each pass, so the training network, its batch
+statistics and the fused plan's tensors are never touched. Each batch's
+metrics stay on the device until one read per pass. ``train`` interleaves
+a pass at every crossed ``eval_interval_steps``, and one at the end if
+none ran.
+
+Callbacks (:class:`TrainerCallback`) see ``begin``, ``after_step``,
+``after_checkpoint``, ``after_eval`` and ``end``; ``train/callbacks.py``
+has the stock ones.
+
+:func:`train_eval_model` is the entry point: train only, train with
+interleaved eval, or a continuous evaluator that follows the trainer's
+committed steps (``eval_state.json`` records the last step it evaluated,
+so a restarted evaluator skips it) from a backup copy that the trainer's
+retention cannot delete. :func:`predict_from_model` streams predictions.
+
+Not ported yet, and raising rather than ignored: several steps a dispatch,
+microbatch accumulation and device prefetch (ROADMAP queue 1 item 8), the
+distributed checkpoint protocol (item 10), exporters (item 5) and
+resumable input streams (item 4). Batches move to the card synchronously.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
-from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
+import os
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -50,26 +82,69 @@ from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 from tensor2robot_tpu_torch.ops import fused_update as fused_lib
 from tensor2robot_tpu_torch.specs import algebra
+from tensor2robot_tpu_torch.train import checkpoints as ckpt_lib
 from tensor2robot_tpu_torch.train import resilience
 from tensor2robot_tpu_torch.train.train_state import (TrainState, apply_ema,
                                                       create_train_state,
-                                                      restore, snapshot)
+                                                      load_state_dict,
+                                                      restore, snapshot,
+                                                      state_dict)
 
 Batch = Tuple[Mapping[str, Any], Optional[Mapping[str, Any]]]
+MetricDict = Dict[str, float]
 
-_NOT_YET = ('is not ported yet: checkpoints, resume, eval and '
-            'train_eval_model are ROADMAP.md queue 1 item 3')
+
+def crossed_interval(interval: int, step_before: int, step_after: int) -> bool:
+  """Whether the step counter crossed a multiple of ``interval`` (0
+  disables): the one interval test of the loop and the callbacks."""
+  return bool(interval) and (step_after // interval) > (step_before // interval)
+
+
+class TrainerCallback:
+  """The trainer's hook surface."""
+
+  def begin(self, trainer: 'Trainer') -> None:
+    ...
+
+  def after_step(self, trainer: 'Trainer', step: int,
+                 scalars: Mapping[str, Any]) -> None:
+    ...
+
+  def after_checkpoint(self, trainer: 'Trainer', step: int) -> None:
+    ...
+
+  def after_eval(self, trainer: 'Trainer', step: int,
+                 metrics: MetricDict) -> None:
+    ...
+
+  def end(self, trainer: 'Trainer') -> None:
+    ...
 
 
 @dataclasses.dataclass
 class TrainerConfig:
-  """Run configuration (the subset of the JAX ``TrainerConfig`` the core
-  honours)."""
+  """Run configuration (the subset of the JAX ``TrainerConfig`` the port
+  honours, and the knobs it refuses)."""
 
   model_dir: str = ''
   max_train_steps: int = 1000
+  eval_steps: int = 10          # batches per eval pass
+  eval_interval_steps: int = 500  # train steps between eval passes
+  save_interval_steps: int = 500  # 0: only the final save
+  max_checkpoints_to_keep: Optional[int] = 5
+  keep_checkpoint_period: Optional[int] = None
   log_interval_steps: int = 100
   seed: int = 0
+  # The host copy of a save is synchronous; its write to disk runs on a
+  # background thread (train/checkpoints.py).
+  async_checkpoints: bool = True
+  # Record the run topology in every commit marker and check it on
+  # restore (a mismatch raises TopologyMismatchError).
+  checkpoint_topology_check: bool = True
+  # SIGTERM/SIGINT at a step boundary: force a checkpoint and raise
+  # resilience.PreemptedError. An installed process-wide handler
+  # (resilience.install_graceful_shutdown) is honoured either way.
+  handle_preemption: bool = False
   # The fused optimizer/EMA/guard update (ops/fused_update.py): over a
   # tagged optimizer (models/optimizers.py: Adam, GradientDescent) the whole
   # update runs as one kernel pass per LEAVES_PER_LAUNCH parameters; an
@@ -79,6 +154,31 @@ class TrainerConfig:
   # skip run halts after nonfinite_halt_after consecutive bad steps.
   nonfinite_mode: str = 'off'
   nonfinite_halt_after: int = 10
+  # Not ported yet; anything but these values raises in Trainer.
+  steps_per_dispatch: int = 1          # ROADMAP queue 1 item 8
+  grad_accum_microbatches: int = 1     # item 8
+  prefetch_batches: Optional[int] = None  # item 8 (None or 0: no prefetch)
+  distributed_coordination: Optional[bool] = None  # item 10 (True raises)
+  checkpoint_sharded_payloads: str = 'auto'  # item 10 ('on' raises)
+  checkpoint_async_commit: bool = False  # item 10
+
+
+def _refuse_unported(config: TrainerConfig) -> None:
+  knobs = (
+      ('steps_per_dispatch', config.steps_per_dispatch != 1, 8),
+      ('grad_accum_microbatches', config.grad_accum_microbatches != 1, 8),
+      ('prefetch_batches', bool(config.prefetch_batches), 8),
+      ('distributed_coordination', bool(config.distributed_coordination),
+       10),
+      ('checkpoint_sharded_payloads',
+       config.checkpoint_sharded_payloads == 'on', 10),
+      ('checkpoint_async_commit', config.checkpoint_async_commit, 10),
+  )
+  for name, asked, item in knobs:
+    if asked:
+      raise NotImplementedError(
+          f'TrainerConfig.{name}={getattr(config, name)!r} is not ported '
+          f'yet: ROADMAP.md queue 1 item {item}.')
 
 
 def all_finite(loss: torch.Tensor, grads) -> torch.Tensor:
@@ -100,15 +200,21 @@ def all_finite(loss: torch.Tensor, grads) -> torch.Tensor:
 
 
 class Trainer:
-  """Owns the train state and runs training steps on one device."""
+  """Owns the train state, its checkpoints and the eval network, and runs
+  training steps on one device."""
 
-  def __init__(self, model, config: TrainerConfig, device='cuda'):
-    if config.model_dir:
-      raise NotImplementedError(f'model_dir (checkpoints) {_NOT_YET}.')
+  def __init__(self, model, config: TrainerConfig, device='cuda',
+               callbacks: Sequence[TrainerCallback] = (),
+               shutdown: Optional[resilience.GracefulShutdown] = None):
+    _refuse_unported(config)
     self._nonfinite_policy = (
         resilience.NonFinitePolicy(config.nonfinite_mode,
                                    config.nonfinite_halt_after)
         if config.nonfinite_mode != 'off' else None)
+    if shutdown is None and config.handle_preemption:
+      shutdown = resilience.install_graceful_shutdown()
+    self._shutdown = shutdown
+    self._callbacks = list(callbacks)
     self._fused_plan: Optional[fused_lib.FusedPlan] = None
     self._model = model
     self._config = config
@@ -119,6 +225,22 @@ class Trainer:
       model.set_mesh(None)
     self._preprocessor = model.preprocessor
     self._state: Optional[TrainState] = None
+    self._eval_network: Optional[torch.nn.Module] = None
+    self._dispatch_start_step = 0
+    self._manager: Optional[ckpt_lib.CheckpointManager] = None
+    if config.model_dir:
+      topology = None
+      if config.checkpoint_topology_check:
+        topology = {'grad_accum_microbatches': config.grad_accum_microbatches,
+                    'steps_per_dispatch': config.steps_per_dispatch,
+                    'process_count': 1}
+      self._manager = ckpt_lib.CheckpointManager(
+          os.path.join(config.model_dir, 'checkpoints'),
+          max_to_keep=config.max_checkpoints_to_keep,
+          keep_period=config.keep_checkpoint_period,
+          save_interval_steps=config.save_interval_steps,
+          async_save=config.async_checkpoints,
+          topology=topology)
 
   @property
   def model(self):
@@ -131,6 +253,10 @@ class Trainer:
   @property
   def state(self) -> Optional[TrainState]:
     return self._state
+
+  @property
+  def checkpoint_manager(self) -> Optional[ckpt_lib.CheckpointManager]:
+    return self._manager
 
   @property
   def nonfinite_policy(self) -> Optional[resilience.NonFinitePolicy]:
@@ -146,15 +272,29 @@ class Trainer:
   def step(self) -> int:
     return 0 if self._state is None else self._state.step
 
+  @property
+  def shutdown(self) -> Optional[resilience.GracefulShutdown]:
+    """The shutdown handler the loop honours: the trainer's own, else the
+    process-wide one, else None."""
+    return (self._shutdown if self._shutdown is not None
+            else resilience.active_shutdown())
+
+  def crossed(self, interval: int, step: int) -> bool:
+    """Whether the step that just reported ``step`` crossed a multiple of
+    ``interval``: the interval test for callbacks."""
+    return crossed_interval(interval, self._dispatch_start_step, step)
+
   def initialize(self, features, labels=None) -> TrainState:
-    """Creates the train state; ``features`` (one host batch) is checked
-    against the data contract."""
+    """Creates the train state (``features``, one host batch, is checked
+    against the data contract) and restores the newest committed
+    checkpoint into it."""
     del labels
     algebra.validate_and_pack(
         self._preprocessor.get_in_feature_specification(ModeKeys.TRAIN),
         dict(features), ignore_batch=True)
     generator = torch.Generator().manual_seed(self._config.seed)
     self._state = create_train_state(self._model, generator, self._device)
+    self.restore_checkpoint()
     if self._config.fused_update:
       # plan_for logs the reason when it returns None (untagged optimizer or
       # unrecognised state).
@@ -163,6 +303,29 @@ class Trainer:
           ema_decay=(self._model.avg_model_params_decay
                      if self._state.ema is not None else None))
     return self._state
+
+  def restore_checkpoint(self, step: Optional[int] = None) -> Optional[int]:
+    """Loads the newest committed step (or ``step``) into the live state;
+    returns the step loaded, or None when there is none (or no
+    ``model_dir``)."""
+    if self._manager is None:
+      return None
+    restored = self._manager.restore(step)
+    if restored is None:
+      return None
+    step, payload = restored
+    load_state_dict(self._state, payload)
+    logging.info('Restored checkpoint step %d from %s.', step,
+                 self._manager.directory)
+    return step
+
+  def save_checkpoint(self, force: bool = False) -> None:
+    """Saves the current state (see ``CheckpointManager.save``)."""
+    if self._manager is None or self._state is None:
+      return
+    if self._manager.save(self.step, state_dict(self._state), force=force):
+      for cb in self._callbacks:
+        cb.after_checkpoint(self, self.step)
 
   def _to_device(self, tensors) -> Optional[Dict[str, torch.Tensor]]:
     if tensors is None:
@@ -214,27 +377,310 @@ class Trainer:
   def train(self,
             train_iter: Iterator[Batch],
             eval_iter_fn: Optional[Callable[[], Iterator[Batch]]] = None
-            ) -> Dict[str, float]:
+            ) -> MetricDict:
     """Steps until ``max_train_steps`` updates are applied or the iterator
-    runs out; returns the last step's summaries as floats."""
-    if eval_iter_fn is not None:
-      raise NotImplementedError(f'eval_iter_fn (interleaved eval) {_NOT_YET}.')
+    runs out, with saves and interleaved eval (module doc); returns the
+    last eval pass's metrics, else the last step's summaries."""
+    config = self._config
     pending: Optional[Batch] = None
     if self._state is None:
-      pending = next(train_iter)
-      self.initialize(pending[0])
-    config = self._config
-    scalars: Dict[str, torch.Tensor] = {}
+      resuming = (self._manager is not None and
+                  self._manager.latest_committed_step() is not None)
+      probe = next(train_iter)
+      self.initialize(probe[0])
+      if not resuming:
+        pending = probe
+    for cb in self._callbacks:
+      cb.begin(self)
+    shutdown = self.shutdown
+    scalars: Mapping[str, Any] = {}
+    eval_metrics: MetricDict = {}
     while self._state.step < config.max_train_steps:
+      if shutdown is not None and shutdown.requested:
+        logging.warning('Graceful shutdown requested; checkpointing step %d '
+                        'and raising PreemptedError (resumable).', self.step)
+        self.save_checkpoint(force=True)
+        if self._manager is not None:
+          self._manager.wait_until_finished()
+        for cb in self._callbacks:
+          cb.end(self)
+        raise resilience.PreemptedError(self.step)
       if pending is None:
         pending = next(train_iter, None)
         if pending is None:
           break
       features, labels = pending
       pending = None
+      before = self._state.step
       scalars = self._train_step(features, labels)
       step = self._state.step
-      if config.log_interval_steps and step % config.log_interval_steps == 0:
-        logging.info('step %d: %s', step,
-                     {k: float(v) for k, v in scalars.items()})
-    return {k: float(v) for k, v in scalars.items()}
+      self._dispatch_start_step = before
+      if crossed_interval(config.log_interval_steps, before, step):
+        scalars = {k: float(v) for k, v in scalars.items()}
+        logging.info('step %d: %s', step, scalars)
+      for cb in self._callbacks:
+        cb.after_step(self, step, scalars)
+      if crossed_interval(config.save_interval_steps, before, step):
+        self.save_checkpoint()
+      if (eval_iter_fn is not None and config.eval_interval_steps and
+          (crossed_interval(config.eval_interval_steps, before, step) or
+           step >= config.max_train_steps)):
+        eval_metrics = self.evaluate(eval_iter_fn())
+    self.save_checkpoint(force=True)
+    if self._manager is not None:
+      self._manager.wait_until_finished()
+    if eval_iter_fn is not None and not eval_metrics:
+      eval_metrics = self.evaluate(eval_iter_fn())
+    for cb in self._callbacks:
+      cb.end(self)
+    return eval_metrics or {k: float(v) for k, v in scalars.items()}
+
+  def _eval_module(self) -> torch.nn.Module:
+    """The eval network, built once, holding the state's
+    ``eval_state_dict()`` (copied in at each call)."""
+    if self._eval_network is None:
+      self._eval_network = self._model.create_module().to(self._device)
+    with torch.no_grad():
+      self._eval_network.load_state_dict(self._state.eval_state_dict())
+    return self._eval_network
+
+  def evaluate(self, eval_iter: Iterator[Batch]) -> MetricDict:
+    """``model_eval_fn`` over up to ``eval_steps`` batches with the EMA
+    weights; the mean of each metric over the batches."""
+    batches: List[Batch] = []
+    if self._state is None:
+      probe = next(eval_iter)
+      self.initialize(probe[0])
+      batches.append(probe)
+    network = self._eval_module()
+    model = self._model
+    metric_batches = []
+    for _ in range(self._config.eval_steps):
+      batch = batches.pop() if batches else next(eval_iter, None)
+      if batch is None:
+        break
+      with torch.no_grad():
+        features, labels = self._preprocessor.preprocess(
+            self._to_device(batch[0]), self._to_device(batch[1]),
+            ModeKeys.EVAL)
+        outputs = model.inference_network_fn(network, features, labels,
+                                             ModeKeys.EVAL)
+        metric_batches.append(
+            model.model_eval_fn(features, labels, outputs))
+    metrics = _mean_metrics(metric_batches)
+    for cb in self._callbacks:
+      cb.after_eval(self, self.step, metrics)
+    return metrics
+
+  def predict(self, features) -> Dict[str, np.ndarray]:
+    """One PREDICT forward pass on numpy features with the EMA weights."""
+    if self._state is None:
+      self.initialize(features)
+    network = self._eval_module()
+    with torch.no_grad():
+      features_p, _ = self._preprocessor.preprocess(
+          self._to_device(features), None, ModeKeys.PREDICT)
+      outputs = self._model.inference_network_fn(network, features_p, None,
+                                                  ModeKeys.PREDICT)
+      outputs = self._model.create_export_outputs_fn(features_p, outputs)
+    return {k: v.float().cpu().numpy() for k, v in outputs.items()}
+
+  def close(self) -> None:
+    """Waits for the pending checkpoint write and commits it."""
+    if self._manager is not None:
+      self._manager.close()
+
+
+def _mean_metrics(metric_batches: List[Mapping[str, torch.Tensor]]
+                  ) -> MetricDict:
+  """The mean of each metric over the batches, read from the device once."""
+  if not metric_batches:
+    return {}
+  keys = list(metric_batches[0])
+  values = torch.stack([torch.stack([m[k].detach().float().reshape(())
+                                     for k in keys])
+                        for m in metric_batches]).cpu().numpy()
+  return {k: float(np.mean(values[:, i])) for i, k in enumerate(keys)}
+
+
+# ------------------------------------------------------------ entry points
+
+
+EVAL_STATE_FILENAME = 'eval_state.json'
+
+
+def _read_continuous_eval_state(model_dir: str) -> Optional[int]:
+  """The last step the continuous evaluator finished, or None."""
+  if not model_dir:
+    return None
+  try:
+    with open(os.path.join(model_dir, EVAL_STATE_FILENAME)) as f:
+      return int(json.load(f)['last_evaluated_step'])
+  except (OSError, ValueError, KeyError, TypeError):
+    return None
+
+
+def _write_continuous_eval_state(model_dir: str, step: int) -> None:
+  """Persists the evaluator's position atomically."""
+  if not model_dir:
+    return
+  text = json.dumps({'last_evaluated_step': int(step)})
+  ckpt_lib.write_durably(os.path.join(model_dir, EVAL_STATE_FILENAME),
+                         lambda f: f.write(text.encode()))
+
+
+def provide_input_generator_with_model_information(input_generator, model,
+                                                   mode: str):
+  """The spec handshake: the generator takes the preprocessor's in specs."""
+  input_generator.set_specification_from_model(model, mode)
+  return input_generator
+
+
+def train_eval_model(model=None,
+                     model_dir: str = '',
+                     train_input_generator=None,
+                     eval_input_generator=None,
+                     max_train_steps: int = 1000,
+                     eval_steps: int = 10,
+                     eval_interval_steps: int = 500,
+                     save_interval_steps: int = 500,
+                     max_checkpoints_to_keep: Optional[int] = 5,
+                     log_interval_steps: int = 100,
+                     seed: int = 0,
+                     callbacks: Sequence[TrainerCallback] = (),
+                     create_exporters_fn=None,
+                     use_continuous_eval: bool = False,
+                     eval_timeout_secs: Optional[float] = 30.0,
+                     steps_per_dispatch: int = 1,
+                     checkpoint_input_state: bool = False,
+                     nonfinite_mode: str = 'off',
+                     nonfinite_halt_after: int = 10,
+                     handle_preemption: bool = False,
+                     device='cuda') -> MetricDict:
+  """The trainer's entry point:
+
+  * train and eval generators: training with interleaved eval;
+  * a train generator only: a train-only job;
+  * an eval generator only: evaluate the newest committed step once, or,
+    with ``use_continuous_eval``, every new committed step until
+    ``max_train_steps`` (or ``eval_timeout_secs`` without a new one).
+    Each step is evaluated from a backup copy in the evaluator's own
+    directory, and ``<model_dir>/eval_state.json`` keeps the last step
+    evaluated, so a restarted evaluator skips it. A requested shutdown
+    between steps raises ``PreemptedError``.
+  """
+  if model is None:
+    raise ValueError('train_eval_model requires a model.')
+  if create_exporters_fn is not None:
+    raise NotImplementedError(
+        'create_exporters_fn: export is not ported yet: ROADMAP.md queue 1 '
+        'item 5.')
+  if checkpoint_input_state:
+    raise NotImplementedError(
+        'checkpoint_input_state: resumable input streams are not ported '
+        'yet: ROADMAP.md queue 1 item 4.')
+  config = TrainerConfig(
+      model_dir=model_dir,
+      max_train_steps=max_train_steps,
+      eval_steps=eval_steps,
+      eval_interval_steps=eval_interval_steps,
+      save_interval_steps=save_interval_steps,
+      max_checkpoints_to_keep=max_checkpoints_to_keep,
+      log_interval_steps=log_interval_steps,
+      seed=seed,
+      steps_per_dispatch=steps_per_dispatch,
+      nonfinite_mode=nonfinite_mode,
+      nonfinite_halt_after=nonfinite_halt_after,
+      handle_preemption=handle_preemption)
+  if train_input_generator is not None:
+    provide_input_generator_with_model_information(
+        train_input_generator, model, ModeKeys.TRAIN)
+  if eval_input_generator is not None:
+    provide_input_generator_with_model_information(
+        eval_input_generator, model, ModeKeys.EVAL)
+  trainer = Trainer(model, config, device=device, callbacks=callbacks)
+  preprocessor = model.preprocessor
+  for kind, getter in (
+      ('feature', preprocessor.get_in_feature_specification),
+      ('label', preprocessor.get_in_label_specification)):
+    spec = getter(ModeKeys.TRAIN)
+    if spec is not None:
+      logging.info('train %s specs:\n%s', kind,
+                   '\n'.join(f'  {k}: {v}' for k, v in sorted(spec.items())))
+  try:
+    if train_input_generator is not None:
+      eval_iter_fn = None
+      if eval_input_generator is not None:
+        eval_iter_fn = lambda: eval_input_generator.create_iterator(
+            ModeKeys.EVAL)
+      return trainer.train(
+          train_input_generator.create_iterator(ModeKeys.TRAIN), eval_iter_fn)
+    if eval_input_generator is None:
+      raise ValueError('Need a train or eval input generator.')
+    return _evaluate_checkpoints(trainer, eval_input_generator, model_dir,
+                                 max_train_steps, eval_timeout_secs,
+                                 use_continuous_eval)
+  finally:
+    trainer.close()
+
+
+def _evaluate_checkpoints(trainer: Trainer, eval_input_generator,
+                          model_dir: str, max_train_steps: int,
+                          eval_timeout_secs: Optional[float],
+                          use_continuous_eval: bool) -> MetricDict:
+  """The eval-only job of :func:`train_eval_model`."""
+  metrics: MetricDict = {}
+  ckpt_dir = os.path.join(model_dir, 'checkpoints')
+  backup_dir = os.path.join(model_dir, ckpt_lib.EVAL_BACKUP_DIRNAME)
+  last_evaluated: Optional[int] = None
+  if use_continuous_eval:
+    last_evaluated = _read_continuous_eval_state(model_dir)
+    if last_evaluated is not None:
+      logging.info('Continuous eval resuming: checkpoints up to step %d were '
+                   'already evaluated.', last_evaluated)
+  shutdown = trainer.shutdown
+  for step in ckpt_lib.checkpoints_iterator(
+      ckpt_dir, timeout=eval_timeout_secs,
+      stop_after_step=max_train_steps if use_continuous_eval else None):
+    if last_evaluated is not None and step <= last_evaluated:
+      logging.info('Continuous eval: skipping step %d (already evaluated '
+                   'before the restart).', step)
+      continue
+    if shutdown is not None and shutdown.requested:
+      logging.warning('Graceful shutdown requested; continuous eval exiting '
+                      'resumable after step %s.', last_evaluated)
+      if use_continuous_eval and last_evaluated is not None:
+        _write_continuous_eval_state(model_dir, last_evaluated)
+      raise resilience.PreemptedError(last_evaluated or 0)
+    backup = ckpt_lib.create_backup_checkpoint_for_eval(ckpt_dir, step,
+                                                        backup_dir)
+    if backup is None:
+      logging.warning('Continuous eval: checkpoint %d disappeared before it '
+                      'could be backed up; skipping its eval.', step)
+      continue
+    if trainer.state is None:
+      features, _ = next(eval_input_generator.create_iterator(ModeKeys.EVAL))
+      trainer.initialize(features)
+    load_state_dict(trainer.state, ckpt_lib.restore_from_backup(backup))
+    metrics = trainer.evaluate(
+        eval_input_generator.create_iterator(ModeKeys.EVAL))
+    last_evaluated = step
+    if not use_continuous_eval:
+      break
+    _write_continuous_eval_state(model_dir, step)
+  return metrics
+
+
+def predict_from_model(model=None, input_generator=None, model_dir: str = '',
+                       device='cuda'):
+  """Streams predictions batch by batch, from the newest committed step of
+  ``model_dir`` (fresh weights without one)."""
+  if model is None or input_generator is None:
+    raise ValueError('predict_from_model requires model and input generator.')
+  trainer = Trainer(model, TrainerConfig(model_dir=model_dir,
+                                         async_checkpoints=False),
+                    device=device)
+  provide_input_generator_with_model_information(input_generator, model,
+                                                 ModeKeys.PREDICT)
+  for features, _ in input_generator.create_iterator(ModeKeys.PREDICT):
+    yield trainer.predict(features)

@@ -3,8 +3,9 @@
 :func:`jax_variables_to_torch` maps the Grasping44 tree;
 :func:`snail_variables_to_torch` maps the SNAIL trees of the vrgripper
 meta models (see its docstring); :func:`optax_state_to_torch` carries an
-optax Adam/SGD state across as the port optimizer's ``state_dict``. The
-Grasping44 rules:
+optax Adam, momentum or SGD state across as the port optimizer's
+``state_dict``; :func:`jax_train_state_to_torch` maps a whole JAX
+``TrainState`` onto the port's checkpoint payload. The Grasping44 rules:
 
 Takes the variables tree the JAX package serves from
 (``jax.device_get(state.eval_variables)``: ``{'params': ...,
@@ -201,34 +202,44 @@ def optax_state_to_torch(
     adam: Optional[Tuple[Any, Any, Any]] = None,
     schedule_count: Optional[Any] = None,
     variables_to_torch: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]
-    = jax_variables_to_torch) -> Dict[str, Any]:
+    = jax_variables_to_torch,
+    momentum: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
   """An optax optimizer state, as numpy, -> ``optimizer``'s ``state_dict``.
 
   ``adam`` is an optax ``ScaleByAdamState``'s ``(count, mu, nu)``, ``mu``
   and ``nu`` params trees of ``network``'s JAX counterpart, mapped by
   ``variables_to_torch`` (:func:`jax_variables_to_torch` or
-  :func:`snail_variables_to_torch`); ``schedule_count`` is a
-  ``ScaleByScheduleState``'s count. The port's ``Adam`` and
-  ``GradientDescent`` keep one ``count`` per parameter group for both, so
-  the two must agree. Load the result with ``optimizer.load_state_dict``.
+  :func:`snail_variables_to_torch`); ``momentum`` is a ``TraceState``'s
+  ``trace`` tree, which becomes each parameter's ``momentum_buffer``
+  (optax's ``t = momentum * t + g`` is torch SGD's buffer with
+  ``dampening=0``); ``schedule_count`` is a ``ScaleByScheduleState``'s
+  count. The port's optimizers keep one ``count`` per parameter group for
+  Adam and the schedule, so the two must agree. Load the result with
+  ``optimizer.load_state_dict`` or ``train_state.load_state_dict``.
   """
   names = {id(p): name for name, p in network.named_parameters()}
   order = [names[id(p)] for group in optimizer.param_groups
            for p in group['params']]
   template = optimizer.state_dict()
-  state: Dict[int, Dict[str, torch.Tensor]] = {}
+  state: Dict[int, Dict[str, torch.Tensor]] = {i: {} for i in
+                                               range(len(order))}
   counts = set()
+  slots = []
   if adam is not None:
     count, mu, nu = adam
-    moments = [variables_to_torch({'params': tree}) for tree in (mu, nu)]
-    for tree in moments:
-      if set(tree) != set(order):
-        raise ValueError(
-            f'Adam moments map to {sorted(set(tree) ^ set(order))} '
-            'differently from the optimizer\'s parameters.')
-    state = {i: {'mu': moments[0][name], 'nu': moments[1][name]}
-             for i, name in enumerate(order)}
+    slots += [('mu', mu), ('nu', nu)]
     counts.add(int(np.asarray(count)))
+  if momentum is not None:
+    slots.append(('momentum_buffer', momentum))
+  for slot, tree in slots:
+    tree = variables_to_torch({'params': tree})
+    if set(tree) != set(order):
+      raise ValueError(
+          f'{slot} maps to {sorted(set(tree) ^ set(order))} differently from '
+          'the optimizer\'s parameters.')
+    for i, name in enumerate(order):
+      state[i][slot] = tree[name]
+  state = {i: entry for i, entry in state.items() if entry}
   if schedule_count is not None:
     counts.add(int(np.asarray(schedule_count)))
   if len(counts) > 1:
@@ -242,3 +253,61 @@ def optax_state_to_torch(
                          'GradientDescent) but the optax state has one.')
       group['count'] = next(iter(counts))
   return {'state': state, 'param_groups': groups}
+
+
+def _optax_parts(opt_state) -> Dict[str, Any]:
+  """The Adam moments, the momentum trace and the schedule count found in
+  an optax state (nested tuples of optax's named states)."""
+  parts: Dict[str, Any] = {}
+  fields = set(getattr(opt_state, '_fields', ()))  # optax's namedtuples
+  if {'count', 'mu', 'nu'} <= fields:
+    parts['adam'] = (opt_state.count, opt_state.mu, opt_state.nu)
+  elif 'trace' in fields:
+    parts['momentum'] = opt_state.trace
+  elif 'count' in fields:
+    parts['schedule_count'] = opt_state.count
+  elif isinstance(opt_state, (tuple, list)):
+    for item in opt_state:
+      for key, value in _optax_parts(item).items():
+        if key in parts:
+          raise ValueError(f'The optax state holds two {key} entries.')
+        parts[key] = value
+  return parts
+
+
+def jax_train_state_to_torch(
+    state_numpy,
+    trainer_state,
+    seed: int = 0,
+    variables_to_torch: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]
+    = jax_variables_to_torch) -> Dict[str, Any]:
+  """A JAX ``TrainState`` with numpy leaves (``jax.device_get(state)``) ->
+  the port's checkpoint payload (``train/train_state.state_dict``) for
+  ``trainer_state``, the port's train state of the same model:
+
+  * ``params`` and ``model_state`` (batch statistics) -> the network;
+  * ``ema_params`` -> the EMA;
+  * ``opt_state`` -> the optimizer (the Adam moments or the momentum
+    trace, and the schedule count: :func:`optax_state_to_torch`);
+  * ``step`` -> the step.
+
+  The JAX ``rng`` key does not cross over: the two packages draw from
+  different generators, so the payload's generator is a
+  ``torch.Generator`` seeded with ``seed`` (pass ``TrainerConfig.seed``).
+  """
+  network = variables_to_torch(
+      {'params': state_numpy.params, **dict(state_numpy.model_state or {})})
+  ema = None
+  if state_numpy.ema_params is not None:
+    ema = variables_to_torch({'params': state_numpy.ema_params})
+  optimizer = optax_state_to_torch(
+      trainer_state.optimizer, trainer_state.network,
+      variables_to_torch=variables_to_torch,
+      **_optax_parts(state_numpy.opt_state))
+  return {
+      'step': int(np.asarray(state_numpy.step)),
+      'network': network,
+      'optimizer': optimizer,
+      'ema': ema,
+      'generator': torch.Generator().manual_seed(seed).get_state(),
+  }
