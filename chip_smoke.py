@@ -103,6 +103,32 @@ Run from the repository root. The phases:
    (``python -m tensor2robot_tpu_torch.bin.run_t2r_trainer`` on the
    port's ``train_qtopt.gin``, 3 steps) in a subprocess, which must exit
    0 and leave a committed ``ckpt_3``;
+6b. the record feed at full width: 4 TFRecord shards of 48 QT-Opt
+   examples (seeded 512x640x3 uint8 frames as PNG, actions, 0/1 rewards,
+   index sidecars) written into a temporary directory below
+   ``chiprun_out/``; ``Trainer`` steps at batch 32 from
+   ``NativeRecordInputGenerator`` (the C++ reader and parser, PNG decode
+   in the engine's workers, a ring of page-locked slots, the trainer's
+   ``non_blocking`` upload on a side stream) on one trainer, in blocks of
+   one warm-up step and 10 counted ones (3/3/1/1 ``pool_fwd``/``pool_bwd``/
+   ``conv_s2d_fwd``/``conv_s2d_dw`` a step), three feeds taking turns
+   twice: the record feed, the same batches decoded beforehand (no feed
+   threads), and the record feed with one decode thread an engine worker,
+   so the feed's threads and the train loop fit the host's cores;
+   under deterministic cuDNN, the state after 8 record-fed steps through a
+   ring at its least depth (fewer slots than steps), each slot's frames
+   poisoned at its release, bit for bit the state after the same batches
+   uploaded by a synchronous ``.to('cuda')``, and a control that releases
+   each slot as soon as its upload is issued must differ from it;
+   ``train_eval_model(checkpoint_input_state=True)`` stopped at 4 and
+   resumed in a fresh ``Trainer`` to 8 bit for bit the uninterrupted 8
+   steps; printed beside the card: each feed's ms/step, and the record
+   feed's against the synthetic-fed training path's, one batch's 31.5 MB upload pinned
+   ``non_blocking`` against pageable (CUDA events), the host's parse +
+   decode ms of a batch and the engine's workers, the PNG decode ms of a
+   batch of the cell's frames against camera-like frames with row
+   filters 1-4, and under ``--profile`` the record-fed steps' device time
+   and idle share;
 7. dx on a path: a full-width conv1, and the odd geometry, whose input
    requires a gradient launch ``conv_s2d_dx`` once each, on the tensor
    cores, and dx matches the plain version and repeats bit for bit;
@@ -176,6 +202,8 @@ Any failure exits non-zero before them, and nothing falls back to the CPU.
 """
 
 import argparse
+import collections
+import concurrent.futures
 import contextlib
 import functools
 import itertools
@@ -191,7 +219,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tensor2robot_tpu_torch.data import input_generators
+from tensor2robot_tpu_torch.data import (example_codec, image_codec,
+                                         input_generators, native_io, records,
+                                         shard_index)
 from tensor2robot_tpu_torch.layers import snail
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.models import optimizers
@@ -209,6 +239,7 @@ from tensor2robot_tpu_torch.train import (Trainer, TrainerCallback,
                                           TrainerConfig, train_eval_model)
 from tensor2robot_tpu_torch.train import checkpoints as ckpt_lib
 from tensor2robot_tpu_torch.train import train_state
+from tensor2robot_tpu_torch.train.trainer import BatchUploader
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
@@ -1343,6 +1374,423 @@ def checkpoint_paths(seed, card, root):
   # 7. The trainer binary.
   run_trainer_binary(root / 'binary')
   return total
+
+
+# The record-fed QT-Opt path: shards of PNG frames (the card's host had no
+# libjpeg header when probed, so JPEG records and the pose_env gate are
+# not driven on the card; ROADMAP queue 1 item 4).
+RECORD_SHARDS = 4
+RECORD_PER_SHARD = 48
+RECORD_SHUFFLE = 64
+RECORD_STEPS = 10
+RECORD_BITS_STEPS = 8  # more than the ring's slots at its least depth
+RECORD_RESUME = (4, 8)
+RECORD_PROFILE_STEPS = 3
+
+
+def write_record_shards(root, seed):
+  """RECORD_SHARDS TFRecord shards of RECORD_PER_SHARD QT-Opt examples at
+  the wrapper's in-specs: seeded uint8 frames as PNG (zlib level 1),
+  actions and 0/1 rewards; each shard with its index sidecar. Returns the
+  paths, the bytes written and the seconds taken."""
+  pre = GraspingModelWrapper(device_type='gpu').preprocessor
+  spec = dict(pre.get_in_feature_specification(ModeKeys.TRAIN).items())
+  spec.update(pre.get_in_label_specification(ModeKeys.TRAIN).items())
+  input_shape = spec['state/image'].shape
+  rng = np.random.RandomState(seed + 11)
+  values = [[{
+      'state/image': rng.randint(0, 256, input_shape, dtype=np.uint8),
+      'action/world_vector': rng.randn(3).astype(np.float32),
+      'action/vertical_rotation': rng.randn(2).astype(np.float32),
+      'reward': rng.randint(0, 2, (1,)).astype(np.float32),
+  } for _ in range(RECORD_PER_SHARD)] for _ in range(RECORD_SHARDS)]
+  start = time.perf_counter()
+
+  def write(shard):
+    path = str(root / f'qtopt-{shard:05d}-of-{RECORD_SHARDS:05d}.tfrecord')
+    records.write_examples(path, [
+        example_codec.encode_example(spec, value, png_level=1)
+        for value in values[shard]])
+    shard_index.write_index(path)
+    return path
+
+  with concurrent.futures.ThreadPoolExecutor(RECORD_SHARDS) as pool_:
+    paths = list(pool_.map(write, range(RECORD_SHARDS)))
+  seconds = time.perf_counter() - start
+  return (paths, 'x'.join(map(str, input_shape)),
+          sum(pathlib.Path(p).stat().st_size for p in paths), seconds)
+
+
+def record_generator(paths, seed, **kwargs):
+  """The record feed of the QT-Opt training path: batch 32, a 64-record
+  shuffle buffer, the engine's ring of page-locked slots."""
+  gen = input_generators.NativeRecordInputGenerator(
+      ','.join(paths), batch_size=TRAIN_BATCH,
+      shuffle_buffer_size=RECORD_SHUFFLE, seed=seed,
+      reuse_batch_buffers=True, **kwargs)
+  gen.set_specification_from_model(
+      GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv'),
+      ModeKeys.TRAIN)
+  return gen
+
+
+def phase_record_train(seed, card, synthetic_ms, profile):
+  """QT-Opt trained from TFRecord shards at full width (see the module
+  doc, phase 6b). Returns the launch counts of its training runs; with
+  ``profile``, profiles record-fed steps while the shards still exist."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='record_phase_', dir=OUT_DIR))
+  try:
+    with _dispatch.force_kernels(True):
+      return record_paths(seed, card, synthetic_ms, root, profile)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+class PoisonOnRelease:
+  """A record iterator whose batch frames are overwritten in part the
+  moment their ring slot is released: the last row of every frame is
+  inverted, as a worker that takes the slot at once would overwrite it.
+  A slot released before its upload has ended uploads poisoned frames,
+  so a bit check against the untouched batches sees the early release
+  whatever the workers' timing."""
+
+  def __init__(self, inner):
+    self._inner = inner
+    self._leased = collections.deque()
+    self.poisoned = 0
+
+  def __iter__(self):
+    return self
+
+  def __next__(self):
+    batch = next(self._inner)
+    self._leased.append(batch[0]['state/image'])
+    return batch
+
+  def release(self):
+    frames = self._leased.popleft()
+    np.invert(frames[:, -1], out=frames[:, -1])
+    self.poisoned += 1
+    self._inner.release()
+
+  def close(self):
+    self._inner.close()
+
+
+class EarlyReleaseUploader(BatchUploader):
+  """The control of the release check: gives a batch's ring slot back as
+  soon as its upload is issued, before the copy has ended."""
+
+  def stage(self, batch, release=None):
+    staged = super().stage(batch)
+    if release is not None:
+      release()
+    return staged
+
+
+def record_paths(seed, card, synthetic_ms, root, profile):
+  def model():
+    return GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv')
+
+  paths, shape, nbytes, write_s = write_record_shards(root, seed)
+  log(f'record: {RECORD_SHARDS} shards of {RECORD_PER_SHARD} examples '
+      f'({shape} uint8 PNG frames, zlib level 1), {nbytes / 1e6:.1f} MB, '
+      f'written with index sidecars in {write_s:.2f} s')
+  total = path_launches()
+
+  def counted(what, fn, steps, keep=True):
+    zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = path_launches(steps=steps)
+    if launches != want:
+      raise AssertionError(f'record phase, {what}: launches {launches}, '
+                           f'expected {want}')
+    if keep:
+      for name in total:
+        total[name] += launches[name]
+    return out
+
+  # 1. Training from the shards, on one trainer, in blocks of a warm-up
+  # step and RECORD_STEPS timed ones, the feeds taking turns twice so that
+  # the host's drift falls on each alike: the record feed (the engine's
+  # workers, 8 decode threads each); the same batches decoded beforehand
+  # into pageable host memory (no feed threads, as the synthetic paths);
+  # the record feed with one decode thread a worker, so the feed's threads
+  # and the train loop together take fewer threads than the host's cpus.
+  gen = record_generator(paths, seed)
+  lean = record_generator(paths, seed, decode_workers=1)
+  plain = record_generator(paths, seed, engine_workers=0).create_iterator(
+      ModeKeys.TRAIN)
+  try:
+    decoded = list(itertools.islice(plain, 1 + RECORD_STEPS))
+  finally:
+    plain.close()
+  timed = _Recorder()
+  trainer = Trainer(model(), TrainerConfig(max_train_steps=0,
+                                           log_interval_steps=0, seed=seed),
+                    callbacks=[timed])
+  feeds = {
+      'record-fed, 8 decode threads a worker':
+          lambda: gen.create_iterator(ModeKeys.TRAIN),
+      'pre-decoded pageable batches, no feed threads':
+          lambda: iter(decoded),
+      'record-fed, 1 decode thread a worker':
+          lambda: lean.create_iterator(ModeKeys.TRAIN),
+  }
+  block_ms = {name: [] for name in feeds}
+  for name, make in list(feeds.items()) * 2:
+    it = make()
+    try:
+      if name.startswith('record') and not it.reuse_buffers:
+        raise AssertionError('the record feed did not take the ring of slots')
+      start = trainer.step
+      trainer.config.max_train_steps = start + 1
+      counted(f'{name}: warm-up step', lambda: trainer.train(it), 1)
+      trainer.config.max_train_steps = start + 1 + RECORD_STEPS
+      scalars = counted(f'{name}: {RECORD_STEPS} steps',
+                        lambda: trainer.train(it), RECORD_STEPS)
+    finally:
+      if hasattr(it, 'close'):
+        it.close()
+    if trainer.step != start + 1 + RECORD_STEPS or not all(
+        np.isfinite(v) for v in scalars.values()):
+      raise AssertionError(f'{name}: step {trainer.step}, {scalars}')
+    block_ms[name].append([timed.step_ms[s] for s in range(
+        start + 3, start + 2 + RECORD_STEPS)])
+  decision = gen.last_decision
+  log(f'record: steps from the shards at batch {TRAIN_BATCH}, launches '
+      '3/3/1/1 a step (pool_fwd/pool_bwd/conv_s2d_fwd/conv_s2d_dw), loss '
+      f'{scalars["loss"]:.4f}; engine {decision.num_workers} workers, a ring '
+      f'of {decision.ring_depth} slots ('
+      f'{"page-locked" if gen.pin_memory else "pageable"}), '
+      f'{decision.cpus} cpus')
+  for name, blocks in block_ms.items():
+    log(f'record: ms/step, {name}: median of steps 3-{1 + RECORD_STEPS} of '
+        f'two blocks {np.median(blocks[0]):.3f} and {np.median(blocks[1]):.3f}'
+        f' (each {[np.round(b, 3).tolist() for b in blocks]}; host clock, '
+        f'synchronised), on {card}')
+  record_ms = np.median(block_ms['record-fed, 8 decode threads a worker'])
+  log(f'record: record-fed ms/step {record_ms:.3f} (median of both blocks) '
+      f'against the synthetic-fed training path\'s {synthetic_ms:.3f} in '
+      f'this run, on {card}')
+  if profile:
+    it = gen.create_iterator(ModeKeys.TRAIN)
+    try:
+      trainer.config.max_train_steps = trainer.step + 2
+      trainer.train(it)  # the engine's ring fills
+      phase_profile_records(trainer, it, card)
+    finally:
+      it.close()
+
+  upload_timing(decoded[0][0]['state/image'], card)
+  decode_timing(paths, gen, seed, decision, card)
+
+  with cudnn_settings(deterministic=True, benchmark=False):
+    # 2. Bits, upload: the record-fed state after RECORD_BITS_STEPS steps
+    # equals the state after the same batches uploaded synchronously. The
+    # ring has its least depth (workers + 1 slots), fewer than the steps,
+    # so slots are reused within the run, and each slot's frames are
+    # poisoned when it is released; the control releases each slot as soon
+    # as its upload is issued and must differ.
+    def record_fed(early):
+      t = Trainer(model(), TrainerConfig(max_train_steps=RECORD_BITS_STEPS,
+                                         log_interval_steps=0, seed=seed))
+      if early:
+        t._uploader = EarlyReleaseUploader(t._device)  # pylint: disable=protected-access
+      bits_gen = record_generator(paths, seed, engine_ring_depth=1)
+      it = PoisonOnRelease(bits_gen.create_iterator(ModeKeys.TRAIN))
+      try:
+        t.train(it)
+      finally:
+        it.close()
+      ring = bits_gen.last_decision.ring_depth
+      if ring >= RECORD_BITS_STEPS or it.poisoned != RECORD_BITS_STEPS:
+        raise AssertionError(f'release check: a ring of {ring} slots over '
+                             f'{RECORD_BITS_STEPS} steps, {it.poisoned} '
+                             'slots released')
+      return t, ring
+
+    def synchronous():
+      batches = [synchronous_upload(batch)
+                 for batch in decoded[:RECORD_BITS_STEPS]]
+      t = Trainer(model(), TrainerConfig(max_train_steps=RECORD_BITS_STEPS,
+                                         log_interval_steps=0, seed=seed))
+      t.train(iter(batches))
+      return t
+
+    fed, ring = counted('record-fed bits run', lambda: record_fed(False),
+                        RECORD_BITS_STEPS)
+    sync = counted('synchronous bits run', synchronous, RECORD_BITS_STEPS)
+    sync_state = ckpt_lib.to_host(train_state.state_dict(sync.state))
+    bad = payload_mismatches(
+        ckpt_lib.to_host(train_state.state_dict(fed.state)), sync_state)
+    if bad:
+      raise AssertionError(f'record-fed state differs from the synchronously '
+                           f'uploaded one at {bad[:8]} ({len(bad)} leaves)')
+    early, _ = counted('early-release control', lambda: record_fed(True),
+                       RECORD_BITS_STEPS, keep=False)
+    control = payload_mismatches(
+        ckpt_lib.to_host(train_state.state_dict(early.state)), sync_state)
+    if not control:
+      raise AssertionError('the early-release control trained the same state '
+                           'as the synchronous upload: the bit check cannot '
+                           'see a slot released before its copy ended')
+    log(f'record: after {RECORD_BITS_STEPS} steps through a ring of {ring} '
+        'slots, each poisoned at its release, the record-fed state '
+        '(page-locked ring, non_blocking side-stream upload) equals bit for '
+        'bit the state fed the same batches by a synchronous .to(\'cuda\') '
+        f'(parameters, batch statistics, EMA, momentum, step; '
+        f'{cudnn_flags()}); the control that releases each slot as its '
+        f'upload is issued differs at {len(control)} leaves')
+
+    # 3. Bits, resume: checkpoint_input_state stopped at 4, resumed in a
+    # fresh Trainer to 8, equals the uninterrupted 8 steps.
+    stop, end = RECORD_RESUME
+
+    def run(model_dir, steps, recorder):
+      return train_eval_model(
+          model=model(), model_dir=str(model_dir),
+          train_input_generator=record_generator(paths, seed),
+          max_train_steps=steps, save_interval_steps=2,
+          eval_interval_steps=0, log_interval_steps=0, seed=seed,
+          checkpoint_input_state=True, callbacks=[recorder], device='cuda')
+
+    straight, first, resumed = _Recorder(), _Recorder(), _Recorder()
+    counted('input-state run, straight', lambda: run(
+        root / 'straight', end, straight), end)
+    counted('input-state run to the stop', lambda: run(
+        root / 'resumed', stop, first), stop)
+    counted('input-state run resumed', lambda: run(
+        root / 'resumed', end, resumed), end - stop)
+    bad = payload_mismatches(resumed.saved[end], straight.saved[end])
+    if bad:
+      raise AssertionError(f'resumed record-fed run differs at {bad[:8]} '
+                           f'({len(bad)} leaves)')
+    log(f'record: train_eval_model(checkpoint_input_state=True) stopped at '
+        f'{stop} and resumed in a fresh Trainer to {end} equals the '
+        f'uninterrupted {end} steps bit for bit')
+  return total
+
+
+def smooth_frames(shape, seed, count):
+  """``count`` seeded camera-like uint8 frames: low-frequency colour
+  gradients with mild noise, which zlib compresses (unlike uniform
+  noise, which it stores)."""
+  rng = np.random.RandomState(seed)
+  h, w, c = shape
+  y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+  frames = []
+  for _ in range(count):
+    freq = rng.uniform(0.004, 0.02, (c, 2))
+    phase = rng.uniform(0, 2 * np.pi, c)
+    base = np.stack([127 + 100 * np.sin(freq[k, 0] * y + freq[k, 1] * x +
+                                        phase[k]) for k in range(c)], -1)
+    frames.append(np.clip(base + rng.normal(0, 3, shape), 0, 255).astype(
+        np.uint8))
+  return frames
+
+
+def decode_timing(paths, gen, seed, decision, card):
+  """Host parse + decode of one batch of the cell's records, as one engine
+  worker does it, and the PNG decode alone of a batch of the cell's frames
+  against camera-like frames with every non-zero row filter, as a
+  standard encoder's adaptive filtering writes them (8 decode threads,
+  median of 5)."""
+  parse_fn = native_io.make_native_parse_fn(
+      gen.feature_spec, gen.label_spec, decode_workers=8)
+  with native_io.NativeInterleaveReader(paths) as reader:
+    raw = list(itertools.islice(reader, TRAIN_BATCH))
+
+  def median_ms(fn):
+    fn()
+    times = []
+    for _ in range(5):
+      begin = time.perf_counter()
+      fn()
+      times.append(1e3 * (time.perf_counter() - begin))
+    return np.median(times)
+
+  log(f'record: host parse + PNG decode of one batch of {TRAIN_BATCH} '
+      f'records {median_ms(lambda: parse_fn(raw)):.2f} ms (median of 5, 8 '
+      f'decode threads, one engine worker\'s share); {decision.num_workers} '
+      'engine workers decode different batches at once')
+  shape = tuple(gen.feature_spec['state/image'].shape)
+  rng = np.random.RandomState(seed + 11)
+  noise = [rng.randint(0, 256, shape, dtype=np.uint8) for _ in range(8)]
+  smooth = smooth_frames(shape, seed + 12, 8)
+  out = np.empty((TRAIN_BATCH,) + shape, np.uint8)
+  for label, frames, level, filters in (
+      ('the cell\'s uniform noise, filter 0', noise, 1, 0),
+      ('camera-like, filter 0', smooth, 6, 0),
+      ('camera-like, filters 1-4 cycled over the rows', smooth, 6,
+       (1, 2, 3, 4)),
+      ('camera-like, Paeth on every row', smooth, 6, 4)):
+    pngs = [image_codec.encode_png(frame, level, filters) for frame in frames]
+    batch = [pngs[i % len(pngs)] for i in range(TRAIN_BATCH)]
+    ms = median_ms(lambda b=batch: image_codec.decode_image_batch(
+        b, shape, out=out, workers=8))
+    if not all(np.array_equal(out[i], frames[i % len(frames)])
+               for i in range(len(frames))):
+      raise AssertionError(f'PNG decode of {label} differs from its frames')
+    one_ms = median_ms(lambda png=pngs[0]: image_codec.decode_png(png))
+    log(f'record: PNG decode of {TRAIN_BATCH} frames ({label}, zlib level '
+        f'{level}, {sum(map(len, batch)) / TRAIN_BATCH / 1e6:.3f} MB a '
+        f'frame) {ms:.2f} ms (median of 5, 8 decode threads), one frame on '
+        f'one thread {one_ms:.2f} ms, on {card}\'s host')
+
+
+def synchronous_upload(batch):
+  """A host batch on the card by a plain synchronous ``.to('cuda')``."""
+  return tuple({k: torch.from_numpy(np.array(v)).to('cuda')
+                for k, v in part.items()} for part in batch)
+
+
+def upload_timing(frames, card):
+  """One batch's frames uploaded from page-locked memory with
+  ``non_blocking`` against a pageable copy (CUDA events, after an L2
+  flush)."""
+  pinned = torch.empty(frames.shape, dtype=torch.uint8, pin_memory=True)
+  pinned.numpy()[...] = frames
+  pageable = torch.from_numpy(np.array(frames))
+  pinned_ms = cuda_ms(lambda: pinned.to('cuda', non_blocking=True), iters=10)
+  pageable_ms = cuda_ms(lambda: pageable.to('cuda'), iters=10)
+  log(f'record: upload of one batch\'s frames ({frames.nbytes / 1e6:.1f} MB): '
+      f'pinned non_blocking {pinned_ms:.3f} ms, pageable {pageable_ms:.3f} ms '
+      f'(CUDA events, mean of 10) on {card}')
+
+
+def phase_profile_records(trainer, stream, card):
+  """Device time and the compute stream's idle share over record-fed
+  steps (torch.profiler)."""
+  from torch.profiler import ProfilerActivity, profile
+
+  trainer.config.max_train_steps = trainer.step + RECORD_PROFILE_STEPS
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    begin = time.perf_counter()
+    with _dispatch.force_kernels(True):
+      trainer.train(stream)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - begin)
+  averages = prof.key_averages()
+  table = averages.table(sort_by='self_cuda_time_total', row_limit=40)
+  OUT_DIR.mkdir(exist_ok=True)
+  (OUT_DIR / 'chip_smoke_profile_records.txt').write_text(table)
+  upload_us = device_time_us(averages, 'Memcpy HtoD')
+  kernel_us = device_time_us(averages) - upload_us
+  steps = RECORD_PROFILE_STEPS
+  log(f'profile records: {RECORD_PROFILE_STEPS} record-fed steps, '
+      f'{kernel_us / 1e3 / steps:.3f} ms of device time a step outside the '
+      f'upload, {upload_us / 1e3 / steps:.3f} ms of host-to-device copy a '
+      f'step (side stream), {wall_ms / steps:.3f} ms a step on the host clock;'
+      f' the device idle share {1 - kernel_us / 1e3 / wall_ms:.3f} (1 - '
+      f'device time outside the upload / wall time) on {card}; table in '
+      'chiprun_out/chip_smoke_profile_records.txt')
+  log_activity_row(' records', averages)
 
 
 def phase_dx_path(generator):
@@ -3176,6 +3624,9 @@ def main(argv=None):
   ms_per_step, train_launches, trainer = phase_train(args.seed, args.steps)
   checkpoint_launches = phase_checkpoint(args.seed, card)
   torch.cuda.empty_cache()
+  record_launches = phase_record_train(args.seed, card, ms_per_step,
+                                       args.profile)
+  torch.cuda.empty_cache()
   fused_ms, fused_launches, fused_trainer = phase_train_fused(
       args.seed, args.steps, ms_per_step)
   dx_launches = phase_dx_path(generator)
@@ -3189,12 +3640,12 @@ def main(argv=None):
   torch.cuda.empty_cache()
   photometric_launches = phase_photometric_path(args.seed)
   # Launches: the pool and conv forward kernels over the QT-Opt serving,
-  # training and checkpoint paths, their backward ones over the training
-  # paths, dx over the path that needs it, the flash kernels over the three
+  # training, checkpoint and record-fed paths, their backward ones over the
+  # training paths, dx over the path that needs it, the flash kernels over the three
   # SNAIL paths, the fused update over the two fused training paths, the
   # photometric pass over its branch.
   paths = [serve_launches, train_launches, checkpoint_launches,
-           fused_launches,
+           record_launches, fused_launches,
            *(result[1] for result in snail.values()),
            *(result[1] for result in snail_fused.values()),
            photometric_launches]
@@ -3204,8 +3655,8 @@ def main(argv=None):
     launches[name] = dx_launches[name]
   log(f'launches: serving {serve_launches} over {args.actions} actions; '
       f'training {train_launches} and fused training {fused_launches} over '
-      f'{args.steps} steps; checkpoint phase {checkpoint_launches}; dx path '
-      f'{dx_launches}; SNAIL '
+      f'{args.steps} steps; checkpoint phase {checkpoint_launches}; record '
+      f'phase {record_launches}; dx path {dx_launches}; SNAIL '
       f'{ {name: result[1] for name, result in snail.items()} } and fused '
       f'{ {name: result[1] for name, result in snail_fused.items()} } over '
       f'{args.snail_steps} steps each; photometric path '

@@ -21,7 +21,7 @@ def register() -> None:
   from tensor2robot_tpu_torch.models import optimizers, warm_start
   from tensor2robot_tpu_torch.policies import CEMPolicy
   from tensor2robot_tpu_torch.predictors import CheckpointPredictor
-  from tensor2robot_tpu_torch.research import qtopt, vrgripper
+  from tensor2robot_tpu_torch.research import pose_env, qtopt, vrgripper
   from tensor2robot_tpu_torch.train import callbacks as callbacks_lib
   from tensor2robot_tpu_torch.train import resilience
   from tensor2robot_tpu_torch.train import trainer as trainer_lib
@@ -36,6 +36,8 @@ def register() -> None:
   reg(ig.GeneratorInputGenerator, 'GeneratorInputGenerator')
   reg(ig.DefaultRandomInputGenerator, 'DefaultRandomInputGenerator')
   reg(ig.DefaultConstantInputGenerator, 'DefaultConstantInputGenerator')
+  reg(ig.DefaultRecordInputGenerator, 'DefaultRecordInputGenerator')
+  reg(ig.NativeRecordInputGenerator, 'NativeRecordInputGenerator')
   # Optimizer factories and learning-rate schedules.
   reg(optimizers.create_adam_optimizer, 'create_adam_optimizer')
   reg(optimizers.create_gradient_descent_optimizer,
@@ -61,5 +63,7 @@ def register() -> None:
   reg(mocks.MockT2RModel, 'MockT2RModel')
   reg(mocks.MockInputGenerator, 'MockInputGenerator')
   reg(qtopt.GraspingModelWrapper, 'GraspingModelWrapper')
+  reg(pose_env.PoseEnvRegressionModel, 'PoseEnvRegressionModel')
+  reg(pose_env.PoseEnvContinuousMCModel, 'PoseEnvContinuousMCModel')
   reg(vrgripper.VRGripperEnvSequentialModel, 'VRGripperEnvSequentialModel')
   reg(vrgripper.VRGripperEnvLongHorizonModel, 'VRGripperEnvLongHorizonModel')

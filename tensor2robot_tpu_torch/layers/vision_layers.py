@@ -2,8 +2,8 @@
 
 The port's counterpart of ``tensor2robot_tpu/layers/vision_layers.py``
 (``film_modulation``, ``film_params_size``, ``ImagesToFeaturesModel``,
-``FILMParams``; the high-resolution tower and the pose MLP are not ported
-yet).
+``FILMParams``, ``ImageFeaturesToPoseModel``; the high-resolution tower is
+not ported yet).
 
 Numerics follow the flax modules with ``dtype=None``: each conv and dense
 layer computes in the promotion of its input and its float32 parameters,
@@ -204,3 +204,75 @@ class FILMParams(nn.Module):
 
   def forward(self, embedding: torch.Tensor) -> torch.Tensor:
     return self.film(embedding)
+
+
+class ImageFeaturesToPoseModel(nn.Module):
+  """Feature points (+ aux input) -> pose MLP, the flax module's
+  ``ImageFeaturesToPoseModel``.
+
+  A learned ``bias_transform`` vector (``bias_transform_size`` wide,
+  initialised to 0.01) is tiled over the batch and concatenated to the
+  input: MAML's inner loop gets a direct knob on the MLP's input. Then
+  ``num_layers`` of Dense(``hidden_dim``) -> LayerNorm -> relu
+  (``pose_fc<i>``, ``pose_norm<i>``; flax names the norms
+  ``LayerNorm_<i>``), and a Dense(``num_outputs``) head
+  (``pose_fc<num_layers>``) when ``num_outputs``. Dense kernels are
+  drawn from a normal of std 0.01 truncated at two std, biases 0.01.
+  ``forward`` returns ``(net, aux_output)``; ``aux_output`` is a
+  Dense(``aux_output_dim``) of the feature points (``pose_fc_aux``) or
+  None.
+  """
+
+  def __init__(self, in_features: int, num_outputs: Optional[int],
+               aux_input_dim: int = 0, aux_output_dim: int = 0,
+               hidden_dim: int = 100, num_layers: int = 2,
+               bias_transform_size: int = 10):
+    super().__init__()
+    self.num_outputs = num_outputs
+    self.num_layers = num_layers
+    self.bias_transform_size = bias_transform_size
+    width = in_features + aux_input_dim + bias_transform_size
+    if bias_transform_size > 0:
+      self.bias_transform = nn.Parameter(torch.zeros(bias_transform_size))
+    else:
+      self.register_parameter('bias_transform', None)
+    for i in range(num_layers):
+      self.add_module(f'pose_fc{i}', Dense(width, hidden_dim))
+      self.add_module(f'pose_norm{i}', LayerNorm(hidden_dim))
+      width = hidden_dim
+    if num_outputs:
+      self.add_module(f'pose_fc{num_layers}', Dense(width, num_outputs))
+    self.pose_fc_aux = (Dense(in_features, aux_output_dim)
+                        if aux_output_dim > 0 else None)
+
+  def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
+    with torch.no_grad():
+      for module in self.modules():
+        if isinstance(module, Dense):
+          nn.init.trunc_normal_(module.weight, std=0.01, a=-0.02, b=0.02,
+                                generator=generator)
+          nn.init.constant_(module.bias, 0.01)
+        elif isinstance(module, LayerNorm):
+          module.scale.fill_(1.0)
+          module.bias.zero_()
+      if self.bias_transform is not None:
+        self.bias_transform.fill_(0.01)
+
+  def forward(self, expected_feature_points: torch.Tensor,
+              aux_input: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    net = expected_feature_points
+    if aux_input is not None:
+      net = torch.cat([net, aux_input], dim=1)
+    if self.bias_transform is not None:
+      tiled = self.bias_transform.expand(net.shape[0], -1).to(net.dtype)
+      net = torch.cat([net, tiled], dim=1)
+    for i in range(self.num_layers):
+      net = getattr(self, f'pose_fc{i}')(net)
+      net = F.relu(getattr(self, f'pose_norm{i}')(net))
+    if self.num_outputs:
+      net = getattr(self, f'pose_fc{self.num_layers}')(net)
+    aux_output = None
+    if self.pose_fc_aux is not None:
+      aux_output = self.pose_fc_aux(expected_feature_points)
+    return net, aux_output

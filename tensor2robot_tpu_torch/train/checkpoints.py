@@ -370,6 +370,14 @@ class CheckpointManager:
 
   # -------------------------------------------------------- bookkeeping
 
+  def all_steps(self) -> List[int]:
+    """Every step in the directory, committed or still being written:
+    the steps whose companions (an input state) must be kept."""
+    steps = set(_fs_steps(self._directory))
+    if self._pending is not None:
+      steps.add(self._pending)
+    return sorted(steps)
+
   def latest_committed_step(self) -> Optional[int]:
     """The newest step :meth:`restore` would consider."""
     steps, _ = _committed_steps(self._directory, _fs_steps(self._directory),

@@ -60,10 +60,24 @@ committed steps (``eval_state.json`` records the last step it evaluated,
 so a restarted evaluator skips it) from a backup copy that the trainer's
 retention cannot delete. :func:`predict_from_model` streams predictions.
 
+The upload (:class:`BatchUploader`). On the card, each host batch is
+copied with ``non_blocking=True`` on one side ``torch.cuda.Stream``, which
+records an event; the step's first launch waits on that event on the
+compute stream. The next batch's upload is issued before the current
+step's launches, exactly one batch ahead (``staged_batches``), so the copy
+overlaps the step. A ring-buffer iterator (``data/engine.py``, pinned
+slots) gets its slot back through ``release()`` only once the copy's event
+has completed: a slot released earlier would be overwritten while the DMA
+still reads it. On the CPU nothing is pinned and there is no side stream:
+the batch's tensors pass straight through (they alias the host arrays, so
+a ring slot is released after its step ran). Batches already on the card
+pass through untouched. ``checkpoint_input_state`` saves the input
+stream's position as that of the trained batches, the staged one not
+counted (``train/input_state.py``).
+
 Not ported yet, and raising rather than ignored: several steps a dispatch,
 microbatch accumulation and device prefetch (ROADMAP queue 1 item 8), the
-distributed checkpoint protocol (item 10), exporters (item 5) and
-resumable input streams (item 4). Batches move to the card synchronously.
+distributed checkpoint protocol (item 10) and exporters (item 5).
 """
 
 from __future__ import annotations
@@ -181,6 +195,75 @@ def _refuse_unported(config: TrainerConfig) -> None:
           f'yet: ROADMAP.md queue 1 item {item}.')
 
 
+class _Staged:
+  """A batch uploaded, or being uploaded, ahead of its step."""
+
+  __slots__ = ('features', 'labels', 'event', 'copies', 'release')
+
+  def __init__(self, features, labels, event, copies, release):
+    self.features, self.labels = features, labels
+    self.event, self.copies, self.release = event, copies, release
+
+
+class BatchUploader:
+  """Moves host batches to the trainer's device (see the module doc).
+
+  ``stage(batch, release)`` issues the upload and returns a handle;
+  ``consume(handle)`` makes the compute stream wait for it and returns
+  (features, labels) on the device; ``finish(handle)`` waits for the
+  copy's end and then calls ``release`` (the iterator's ring-slot
+  release, or None)."""
+
+  def __init__(self, device: torch.device):
+    if device.type == 'cuda' and device.index is None:
+      device = torch.device('cuda', torch.cuda.current_device())
+    self._device = device
+    self._stream = (torch.cuda.Stream(device) if device.type == 'cuda'
+                    else None)
+
+  def _upload(self, tensors, copies):
+    if tensors is None:
+      return None
+    out = {}
+    for key, value in dict(tensors).items():
+      if not isinstance(value, torch.Tensor):
+        value = torch.from_numpy(np.ascontiguousarray(value))
+      if value.device != self._device:
+        value = value.to(self._device, non_blocking=self._stream is not None)
+        copies.append(value)
+      out[key] = value
+    return out
+
+  def stage(self, batch: Batch,
+            release: Optional[Callable[[], None]] = None) -> _Staged:
+    features, labels = batch
+    copies: List[torch.Tensor] = []
+    if self._stream is None:
+      return _Staged(self._upload(features, copies),
+                     self._upload(labels, copies), None, copies, release)
+    with torch.cuda.stream(self._stream):
+      staged = _Staged(self._upload(features, copies),
+                       self._upload(labels, copies), torch.cuda.Event(),
+                       copies, release)
+      staged.event.record(self._stream)
+    return staged
+
+  def consume(self, staged: _Staged):
+    if staged.event is not None:
+      current = torch.cuda.current_stream(self._device)
+      current.wait_event(staged.event)
+      for tensor in staged.copies:  # allocated on the side stream
+        tensor.record_stream(current)
+    return staged.features, staged.labels
+
+  def finish(self, staged: _Staged) -> None:
+    if staged.event is not None:
+      staged.event.synchronize()
+    if staged.release is not None:
+      staged.release()
+      staged.release = None
+
+
 def all_finite(loss: torch.Tensor, grads) -> torch.Tensor:
   """Device-side guard flag: a one-element bool tensor, True when the loss
   and every floating gradient are finite. No host synchronisation.
@@ -224,6 +307,8 @@ class Trainer:
       # is built; the port's trainer runs on one device, so there is none.
       model.set_mesh(None)
     self._preprocessor = model.preprocessor
+    self._uploader = BatchUploader(self._device)
+    self._staged: Optional[_Staged] = None
     self._state: Optional[TrainState] = None
     self._eval_network: Optional[torch.nn.Module] = None
     self._dispatch_start_step = 0
@@ -271,6 +356,12 @@ class Trainer:
   @property
   def step(self) -> int:
     return 0 if self._state is None else self._state.step
+
+  @property
+  def staged_batches(self) -> int:
+    """Batches pulled from the train iterator and uploaded, not yet
+    trained: 1 while the next step's batch is staged, else 0."""
+    return 0 if self._staged is None else 1
 
   @property
   def shutdown(self) -> Optional[resilience.GracefulShutdown]:
@@ -327,25 +418,15 @@ class Trainer:
       for cb in self._callbacks:
         cb.after_checkpoint(self, self.step)
 
-  def _to_device(self, tensors) -> Optional[Dict[str, torch.Tensor]]:
-    if tensors is None:
-      return None
-    out = {}
-    for key, value in dict(tensors).items():
-      if not isinstance(value, torch.Tensor):
-        value = torch.from_numpy(np.ascontiguousarray(value))
-      out[key] = value.to(self._device)
-    return out
-
-  def _train_step(self, features, labels) -> Dict[str, torch.Tensor]:
-    """One optimizer step on one host batch; returns device scalars."""
+  def _train_step(self, staged: _Staged) -> Dict[str, torch.Tensor]:
+    """One optimizer step on one staged batch; returns device scalars."""
     state = self._state
     model = self._model
     policy = self._nonfinite_policy
     before = snapshot(state) if policy is not None else None
+    features, labels = self._uploader.consume(staged)
     features, labels = self._preprocessor.preprocess(
-        self._to_device(features), self._to_device(labels), ModeKeys.TRAIN,
-        state.generator)
+        features, labels, ModeKeys.TRAIN, state.generator)
     state.optimizer.zero_grad(set_to_none=True)
     outputs = model.inference_network_fn(state.network, features, labels,
                                          ModeKeys.TRAIN)
@@ -382,14 +463,16 @@ class Trainer:
     runs out, with saves and interleaved eval (module doc); returns the
     last eval pass's metrics, else the last step's summaries."""
     config = self._config
-    pending: Optional[Batch] = None
+    release = getattr(train_iter, 'release', None)
     if self._state is None:
       resuming = (self._manager is not None and
                   self._manager.latest_committed_step() is not None)
       probe = next(train_iter)
       self.initialize(probe[0])
       if not resuming:
-        pending = probe
+        self._staged = self._uploader.stage(probe, release)
+      elif release is not None:
+        release()  # the probe only built the state
     for cb in self._callbacks:
       cb.begin(self)
     shutdown = self.shutdown
@@ -402,17 +485,23 @@ class Trainer:
         self.save_checkpoint(force=True)
         if self._manager is not None:
           self._manager.wait_until_finished()
+        self._drop_staged()
         for cb in self._callbacks:
           cb.end(self)
         raise resilience.PreemptedError(self.step)
-      if pending is None:
-        pending = next(train_iter, None)
-        if pending is None:
+      if self._staged is None:
+        batch = next(train_iter, None)
+        if batch is None:
           break
-      features, labels = pending
-      pending = None
+        self._staged = self._uploader.stage(batch, release)
+      current, self._staged = self._staged, None
+      if self._state.step + 1 < config.max_train_steps:
+        batch = next(train_iter, None)  # uploads during this step
+        if batch is not None:
+          self._staged = self._uploader.stage(batch, release)
       before = self._state.step
-      scalars = self._train_step(features, labels)
+      scalars = self._train_step(current)
+      self._uploader.finish(current)
       step = self._state.step
       self._dispatch_start_step = before
       if crossed_interval(config.log_interval_steps, before, step):
@@ -429,11 +518,19 @@ class Trainer:
     self.save_checkpoint(force=True)
     if self._manager is not None:
       self._manager.wait_until_finished()
+    self._drop_staged()
     if eval_iter_fn is not None and not eval_metrics:
       eval_metrics = self.evaluate(eval_iter_fn())
     for cb in self._callbacks:
       cb.end(self)
     return eval_metrics or {k: float(v) for k, v in scalars.items()}
+
+  def _drop_staged(self) -> None:
+    """Lets go of a staged batch that will not be trained in this call
+    (its ring slot goes back once its copy has ended)."""
+    if self._staged is not None:
+      self._uploader.finish(self._staged)
+      self._staged = None
 
   def _eval_module(self) -> torch.nn.Module:
     """The eval network, built once, holding the state's
@@ -454,19 +551,21 @@ class Trainer:
       batches.append(probe)
     network = self._eval_module()
     model = self._model
+    release = getattr(eval_iter, 'release', None)
     metric_batches = []
     for _ in range(self._config.eval_steps):
       batch = batches.pop() if batches else next(eval_iter, None)
       if batch is None:
         break
+      staged = self._uploader.stage(batch, release)
       with torch.no_grad():
         features, labels = self._preprocessor.preprocess(
-            self._to_device(batch[0]), self._to_device(batch[1]),
-            ModeKeys.EVAL)
+            *self._uploader.consume(staged), ModeKeys.EVAL)
         outputs = model.inference_network_fn(network, features, labels,
                                              ModeKeys.EVAL)
         metric_batches.append(
             model.model_eval_fn(features, labels, outputs))
+      self._uploader.finish(staged)
     metrics = _mean_metrics(metric_batches)
     for cb in self._callbacks:
       cb.after_eval(self, self.step, metrics)
@@ -477,9 +576,10 @@ class Trainer:
     if self._state is None:
       self.initialize(features)
     network = self._eval_module()
+    staged = self._uploader.stage((features, None))
     with torch.no_grad():
       features_p, _ = self._preprocessor.preprocess(
-          self._to_device(features), None, ModeKeys.PREDICT)
+          self._uploader.consume(staged)[0], None, ModeKeys.PREDICT)
       outputs = self._model.inference_network_fn(network, features_p, None,
                                                   ModeKeys.PREDICT)
       outputs = self._model.create_export_outputs_fn(features_p, outputs)
@@ -561,6 +661,10 @@ def train_eval_model(model=None,
 
   * train and eval generators: training with interleaved eval;
   * a train generator only: a train-only job;
+  * ``checkpoint_input_state``: the train generator's stream position is
+    saved with each checkpoint and restored on resume
+    (``train/input_state.py``); a generator without
+    ``create_checkpointable_iterator`` raises ``ValueError``;
   * an eval generator only: evaluate the newest committed step once, or,
     with ``use_continuous_eval``, every new committed step until
     ``max_train_steps`` (or ``eval_timeout_secs`` without a new one).
@@ -575,10 +679,6 @@ def train_eval_model(model=None,
     raise NotImplementedError(
         'create_exporters_fn: export is not ported yet: ROADMAP.md queue 1 '
         'item 5.')
-  if checkpoint_input_state:
-    raise NotImplementedError(
-        'checkpoint_input_state: resumable input streams are not ported '
-        'yet: ROADMAP.md queue 1 item 4.')
   config = TrainerConfig(
       model_dir=model_dir,
       max_train_steps=max_train_steps,
@@ -598,6 +698,26 @@ def train_eval_model(model=None,
   if eval_input_generator is not None:
     provide_input_generator_with_model_information(
         eval_input_generator, model, ModeKeys.EVAL)
+  callbacks = list(callbacks)
+  train_iter = None
+  if train_input_generator is not None:
+    if checkpoint_input_state:
+      # The stream's position is saved with every checkpoint and restored
+      # on resume (train/input_state.py); a generator that cannot say
+      # where it is fails here instead of restarting its stream.
+      from tensor2robot_tpu_torch.train.input_state import (  # pylint: disable=import-outside-toplevel
+          InputStateCallback)
+
+      if not hasattr(train_input_generator, 'create_checkpointable_iterator'):
+        raise ValueError(
+            'checkpoint_input_state=True needs a generator with '
+            'create_checkpointable_iterator (e.g. NativeRecordInputGenerator); '
+            f'got {type(train_input_generator).__name__}.')
+      train_iter = train_input_generator.create_checkpointable_iterator(
+          ModeKeys.TRAIN)
+      callbacks.append(InputStateCallback(train_iter))
+    else:
+      train_iter = train_input_generator.create_iterator(ModeKeys.TRAIN)
   trainer = Trainer(model, config, device=device, callbacks=callbacks)
   preprocessor = model.preprocessor
   for kind, getter in (
@@ -613,8 +733,7 @@ def train_eval_model(model=None,
       if eval_input_generator is not None:
         eval_iter_fn = lambda: eval_input_generator.create_iterator(
             ModeKeys.EVAL)
-      return trainer.train(
-          train_input_generator.create_iterator(ModeKeys.TRAIN), eval_iter_fn)
+      return trainer.train(train_iter, eval_iter_fn)
     if eval_input_generator is None:
       raise ValueError('Need a train or eval input generator.')
     return _evaluate_checkpoints(trainer, eval_input_generator, model_dir,
@@ -622,6 +741,9 @@ def train_eval_model(model=None,
                                  use_continuous_eval)
   finally:
     trainer.close()
+    close = getattr(train_iter, 'close', None)
+    if close is not None:
+      close()  # the engine's threads and ring slots
 
 
 def _evaluate_checkpoints(trainer: Trainer, eval_input_generator,

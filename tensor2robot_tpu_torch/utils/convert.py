@@ -1,11 +1,14 @@
-"""JAX variables -> port state_dicts: Grasping44 and the SNAIL networks.
+"""JAX variables -> port state_dicts: Grasping44, the SNAIL networks and
+the pose_env networks.
 
 :func:`jax_variables_to_torch` maps the Grasping44 tree;
 :func:`snail_variables_to_torch` maps the SNAIL trees of the vrgripper
-meta models (see its docstring); :func:`optax_state_to_torch` carries an
-optax Adam, momentum or SGD state across as the port optimizer's
-``state_dict``; :func:`jax_train_state_to_torch` maps a whole JAX
-``TrainState`` onto the port's checkpoint payload. The Grasping44 rules:
+meta models (see its docstring); :func:`pose_env_variables_to_torch`
+maps the pose_env regression and critic trees;
+:func:`optax_state_to_torch` carries an optax Adam, momentum or SGD
+state across as the port optimizer's ``state_dict``;
+:func:`jax_train_state_to_torch` maps a whole JAX ``TrainState`` onto the
+port's checkpoint payload. The Grasping44 rules:
 
 Takes the variables tree the JAX package serves from
 (``jax.device_get(state.eval_variables)``: ``{'params': ...,
@@ -189,6 +192,58 @@ def snail_variables_to_torch(
     state_dict[name] = torch.from_numpy(np.ascontiguousarray(array))
   if unmapped:
     raise ValueError(f'Unmapped JAX variables (no SNAIL counterpart): '
+                     f'{unmapped}')
+  return state_dict
+
+
+_POSE_SCOPES = {'ImageFeaturesToPoseModel_0': 'pose_model'}
+_FLAX_AUTO = re.compile(r'(LayerNorm|Dense)_(\d+)$')
+
+
+def pose_env_variables_to_torch(
+    variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """The JAX variables tree of a pose_env network (``_RegressionNet`` or
+  ``_CriticNet`` of ``research/pose_env/pose_env_models.py``) -> the
+  port's ``state_dict``.
+
+  * scopes keep their names, except flax's automatic ones:
+    ``ImageFeaturesToPoseModel_0`` -> ``pose_model``, inside it
+    ``LayerNorm_<i>`` -> ``pose_norm<i>``; in the critic ``LayerNorm_<i>``
+    -> ``norm<i>`` and ``Dense_<i>`` -> ``fc<i>``;
+  * ``kernel`` -> ``weight`` in torch's layout (:func:`_kernel_to_weight`);
+    ``bias``, LayerNorm ``scale`` and the MLP's ``bias_transform`` keep
+    their names.
+
+  Every leaf must map, as for :func:`jax_variables_to_torch`.
+  """
+  state_dict: Dict[str, torch.Tensor] = {}
+  unmapped = []
+  for path, value in _flatten(variables):
+    collection, *head, leaf = path
+    if collection != 'params' or leaf not in ('kernel', 'bias', 'scale',
+                                              'bias_transform'):
+      unmapped.append('/'.join(path))
+      continue
+    names = []
+    in_pose = False
+    for scope in head:
+      if scope in _POSE_SCOPES:
+        in_pose = True
+        names.append(_POSE_SCOPES[scope])
+        continue
+      auto = _FLAX_AUTO.match(scope)
+      if auto and auto.group(1) == 'LayerNorm':
+        scope = f'{"pose_norm" if in_pose else "norm"}{auto.group(2)}'
+      elif auto:
+        scope = f'fc{auto.group(2)}'
+      names.append(scope)
+    array = np.array(value, dtype=np.float32)
+    if leaf == 'kernel':
+      array, leaf = _kernel_to_weight(array), 'weight'
+    state_dict['.'.join(names + [leaf])] = torch.from_numpy(
+        np.ascontiguousarray(array))
+  if unmapped:
+    raise ValueError(f'Unmapped JAX variables (no pose_env counterpart): '
                      f'{unmapped}')
   return state_dict
 

@@ -55,6 +55,8 @@ from tensor2robot_tpu.train import train_state as jax_train_state
 from tensor2robot_tpu.train.trainer import Trainer as JaxTrainer
 from tensor2robot_tpu.train.trainer import TrainerCallback
 from tensor2robot_tpu.train.trainer import TrainerConfig as JaxTrainerConfig
+from tensor2robot_tpu_torch.data.input_generators import (
+    DefaultRandomInputGenerator)
 from tensor2robot_tpu_torch.models import critic_model, optimizers
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.predictors import CheckpointPredictor
@@ -424,10 +426,15 @@ def test_trainer_refuses_what_is_not_ported_yet():
                      (dict(checkpoint_async_commit=True), 10)):
     with pytest.raises(NotImplementedError, match=f'queue 1 item {item}'):
       Trainer(model, TrainerConfig(**knob), device='cpu')
-  for knob, item in ((dict(create_exporters_fn=lambda model: []), 5),
-                     (dict(checkpoint_input_state=True), 4)):
+  for knob, item in ((dict(create_exporters_fn=lambda model: []), 5),):
     with pytest.raises(NotImplementedError, match=f'queue 1 item {item}'):
       train_eval_model(model=model, device='cpu', **knob)
+  # checkpoint_input_state is ported; as in the JAX package, a generator
+  # that cannot checkpoint its stream position is refused.
+  with pytest.raises(ValueError, match='create_checkpointable_iterator'):
+    train_eval_model(
+        model=model, device='cpu', checkpoint_input_state=True,
+        train_input_generator=DefaultRandomInputGenerator(batch_size=BATCH))
 
 
 def test_trained_ema_weights_serve_through_the_predictor():
