@@ -103,6 +103,30 @@ Run from the repository root. The phases:
    (``python -m tensor2robot_tpu_torch.bin.run_t2r_trainer`` on the
    port's ``train_qtopt.gin``, 3 steps) in a subprocess, which must exit
    0 and leave a committed ``ckpt_3``;
+6a. export, the exported predictor and the batching plane at full width,
+   under deterministic cuDNN without autotuning (restored after the
+   phase), files under a temporary directory below ``chiprun_out/`` that
+   the phase removes: ``ModelExporter`` writes the seeded serving weights
+   as an export version traced on the card (the graph's op nodes, its 3
+   ``t2r.pool_fwd`` and 1 ``t2r.conv_s2d_fwd`` nodes, the artifact's bytes
+   and the export's ms printed; ``self_contained_serving_fn`` must be
+   true); a subprocess that cannot import the port's ``research`` and
+   ``models`` modules loads it with ``ExportedModelPredictor`` and
+   predicts 8 (frame, grasp) pairs, bit for bit the eager
+   ``CheckpointPredictor``'s q, with its restore-to-first-prediction ms
+   and launches (3 and 1); ``CEMPolicy(64 x 3, device_resident=True)``
+   through the exported predictor and through the eager one in blocks of
+   5 actions in turns (eager, exported, exported, eager), ms/action
+   printed, the same actions from both, 9 ``pool_fwd`` and 3
+   ``conv_s2d_fwd`` launches an action; a program traced on the CPU and
+   moved to the card launches the same and chooses the same actions;
+   ``DynamicBatcher(max_batch=64)`` over ``ExportedModelPredictor.
+   stateless_serving_fn()`` with 8 client threads of 8-example requests
+   for 6 s, a second version with other weights exported under load at
+   2 s by a process of its own, as a trainer exports: requests/s, examples/s, p50/p99 latency, ``serving/
+   bucket_compiles`` after warm-up and at the end (equal), the swap
+   (``serving/model_swaps`` at least 1, no failed request, the program
+   key kept) and 3/1 launches a dispatch;
 6b. the record feed at full width: 4 TFRecord shards of 48 QT-Opt
    examples (seeded 512x640x3 uint8 frames as PNG, actions, 0/1 rewards,
    index sidecars) written into a temporary directory below
@@ -208,11 +232,13 @@ import contextlib
 import functools
 import itertools
 import json
+import os
 import pathlib
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -222,19 +248,23 @@ import torch.nn.functional as F
 from tensor2robot_tpu_torch.data import (example_codec, image_codec,
                                          input_generators, native_io, records,
                                          shard_index)
+from tensor2robot_tpu_torch.export import exporters
 from tensor2robot_tpu_torch.layers import snail
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.models import optimizers
+from tensor2robot_tpu_torch.observability import metrics as metrics_lib
 from tensor2robot_tpu_torch.ops import (_build, _dispatch, conv_s2d,
                                         fused_update, photometric, pool)
 from tensor2robot_tpu_torch.ops import flash_attention as fa
 from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.policies import CEMPolicy
-from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+from tensor2robot_tpu_torch.predictors import (CheckpointPredictor,
+                                               ExportedModelPredictor)
 from tensor2robot_tpu_torch.research.qtopt import GraspingModelWrapper
 from tensor2robot_tpu_torch.research.qtopt import networks
 from tensor2robot_tpu_torch.research.vrgripper import (
     VRGripperEnvLongHorizonModel, VRGripperEnvSequentialModel)
+from tensor2robot_tpu_torch.serving import DynamicBatcher
 from tensor2robot_tpu_torch.train import (Trainer, TrainerCallback,
                                           TrainerConfig, train_eval_model)
 from tensor2robot_tpu_torch.train import checkpoints as ckpt_lib
@@ -1374,6 +1404,479 @@ def checkpoint_paths(seed, card, root):
   # 7. The trainer binary.
   run_trainer_binary(root / 'binary')
   return total
+
+
+# The export and serving path: the critic exported as a torch.export program
+# (the pool and conv1 kernels as custom ops), loaded without the model,
+# driving CEM and the batching plane.
+EXPORT_ACTIONS = 5  # actions a block; two blocks a predictor, in turns
+BATCHER_CLIENTS = 8
+BATCHER_EXAMPLES = 8  # a request: one frame and 8 grasps
+BATCHER_MAX_BATCH = 64
+BATCHER_SECONDS = 6.0
+BATCHER_SWAP_AT = 2.0  # seconds into the load when version 2 is written
+SUBPROCESS_PAIRS = 8
+
+# Loads the exported program in a process that cannot import the model's
+# modules, predicts q for the parent's (frame, grasp) pairs and reports
+# restore-to-first-prediction ms and its launches.
+EXPORT_LOADER = '''
+import importlib.abc, json, sys, time
+class _Blocked(importlib.abc.MetaPathFinder):
+  def find_spec(self, name, path=None, target=None):
+    if name.startswith(('tensor2robot_tpu_torch.research',
+                        'tensor2robot_tpu_torch.models')):
+      raise ImportError('blocked: ' + name)
+    return None
+sys.meta_path.insert(0, _Blocked())
+import numpy as np
+import torch
+from tensor2robot_tpu_torch.ops import conv_s2d, pool
+from tensor2robot_tpu_torch.predictors import ExportedModelPredictor
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+root, features, out = sys.argv[1:4]
+features = dict(np.load(features))
+torch.cuda.synchronize()
+marks = [time.perf_counter()]
+predictor = ExportedModelPredictor(root, device='cuda')
+assert predictor.restore()
+marks.append(time.perf_counter())
+for _ in range(2):
+  q = predictor.predict(features)['q_predicted']
+  torch.cuda.synchronize()
+  marks.append(time.perf_counter())
+np.save(out, q)
+leaked = sorted(m for m in sys.modules if m.startswith((
+    'tensor2robot_tpu_torch.research', 'tensor2robot_tpu_torch.models')))
+assert not leaked, leaked
+from tensor2robot_tpu_torch.export import exporters
+with open(predictor.model_path + '/' + exporters.SERVING_FN_FILENAME,
+          'rb') as f:
+  data = f.read()
+marks.append(time.perf_counter())
+exporters.deserialize_serving_program(data, 'cuda').module()
+marks.append(time.perf_counter())
+exporters.load_state_from_export_dir(predictor.model_path, 'cuda')
+torch.cuda.synchronize()
+marks.append(time.perf_counter())
+ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+print(json.dumps({'restore_to_first_prediction_ms': ms[0] + ms[1],
+                  'restore_ms': ms[0], 'first_predict_ms': ms[1],
+                  'second_predict_ms': ms[2], 'warm_load_ms': ms[4],
+                  'warm_state_ms': ms[5],
+                  'pool_fwd': pool.pool_fwd.launches,
+                  'conv_s2d_fwd': conv_s2d.conv_s2d_fwd.launches,
+                  'research_modules': leaked}))
+'''
+
+
+# Writes version 2 (the seeded weights of ``seed``) into the export root
+# from a process of its own, as a trainer does: it builds the model and its
+# weights, prints 'ready', and exports when a line arrives on its stdin.
+EXPORT_WRITER = '''
+import json, sys, time
+import torch
+from tensor2robot_tpu_torch.export import exporters
+from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+from tensor2robot_tpu_torch.research.qtopt import GraspingModelWrapper
+root, seed = sys.argv[1], int(sys.argv[2])
+model = GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv')
+predictor = CheckpointPredictor(model, device='cuda')
+predictor.init_randomly(torch.Generator().manual_seed(seed))
+torch.cuda.synchronize()
+print('ready', flush=True)
+sys.stdin.readline()
+start = time.perf_counter()
+path = exporters.ModelExporter().export(
+    model, exporters.ServingState(1, predictor.network.state_dict()), root,
+    version=2)
+print(json.dumps({'export_s': time.perf_counter() - start, 'path': path}),
+      flush=True)
+'''
+
+
+def phase_export_serving(seed, card):
+  """Export, the exported predictor and the batching plane on the QT-Opt
+  serving path at full width, under deterministic cuDNN without
+  autotuning (restored after the phase); files under a temporary
+  directory below ``chiprun_out/``, removed at the end. Returns the
+  launch counts of its CEM and batcher parts."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='export_phase_', dir=OUT_DIR))
+  try:
+    with cudnn_settings(deterministic=True, benchmark=False), \
+        _dispatch.force_kernels(True):
+      return export_serving_paths(seed, card, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def frame_shape(model):
+  return tuple(exporters.serving_feature_spec(model)['state/image'].shape)
+
+
+def serving_pairs(model, seed, count):
+  rng = np.random.RandomState(seed)
+  pairs = rng.randn(count, 5).astype(np.float32)
+  return {'state/image': rng.randint(0, 256, (count,) + frame_shape(model),
+                                     dtype=np.uint8),
+          'action/world_vector': pairs[:, :3],
+          'action/vertical_rotation': pairs[:, 3:]}
+
+
+def export_version(model, state_dict, step, root, version):
+  """One export version of ``state_dict`` (its tensors' device traces)."""
+  return pathlib.Path(exporters.ModelExporter().export(
+      model, exporters.ServingState(step, state_dict), str(root),
+      version=version))
+
+
+def program_nodes(path):
+  program = torch.export.load(str(path / exporters.SERVING_FN_FILENAME))
+  counts = exporters.program_op_counts(program)
+  return (counts.get('t2r.pool_fwd.default', 0),
+          counts.get('t2r.conv_s2d_fwd.default', 0), sum(counts.values()))
+
+
+def check_meta(path, trace_device):
+  meta = exporters.read_export_meta(str(path))
+  if meta['self_contained_serving_fn'] is not True or (
+      torch.device(meta['trace_device']).type != trace_device):
+    raise AssertionError(f'export {path.name}: meta {meta}, expected a '
+                         f'self-contained program traced on {trace_device}')
+  return meta
+
+
+def cem_block(policy, frames, seed):
+  """Host-clock ms of one synchronised block of actions, and the actions."""
+  np.random.seed(seed)
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  actions = [policy.SelectAction(frame, None, t)
+             for t, frame in enumerate(frames)]
+  torch.cuda.synchronize()
+  return 1e3 * (time.perf_counter() - start), actions
+
+
+def export_serving_paths(seed, card, root):
+  model = GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv')
+  eager = CheckpointPredictor(model, device='cuda')
+  eager.init_randomly(torch.Generator().manual_seed(seed))
+  total = path_launches()
+
+  def counted(what, fn, want):
+    zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if launches != want:
+      raise AssertionError(f'export phase, {what}: launches {launches}, '
+                           f'expected {want}')
+    for name in total:
+      total[name] += launches[name]
+    return out
+
+  # 1. Export on the card.
+  export_ms, version = synced_ms(lambda: export_version(
+      model, eager.network.state_dict(), 0, root / 'export', 1))
+  meta = check_meta(version, eager.device.type)
+  pools, convs, ops = program_nodes(version)
+  artifact = (version / exporters.SERVING_FN_FILENAME).stat().st_size
+  if (pools, convs) != (3, 1):
+    raise AssertionError(f'exported graph: {pools} t2r.pool_fwd and {convs} '
+                         't2r.conv_s2d_fwd nodes, expected 3 and 1')
+  log(f'export: program traced on {meta["trace_device"]} with {ops} op nodes, '
+      f'{pools} t2r.pool_fwd and {convs} t2r.conv_s2d_fwd; '
+      f'self_contained_serving_fn {meta["self_contained_serving_fn"]}; '
+      f'serving_fn.pt2 {artifact} bytes; export {export_ms:.1f} ms (trace, '
+      f'state, assets, warmup, commit; host clock) on {card}')
+
+  # 2. Load in a process that cannot import the model; q against the eager
+  # predictor on the same weights.
+  features = serving_pairs(model, seed + 7, SUBPROCESS_PAIRS)
+  np.savez(root / 'pairs.npz', **features)
+  repo = pathlib.Path(__file__).resolve().parent
+  proc = subprocess.run(
+      [sys.executable, '-c', EXPORT_LOADER, str(root / 'export'),
+       str(root / 'pairs.npz'), str(root / 'q.npy')],
+      cwd=repo, capture_output=True, text=True, timeout=600, check=False,
+      env=dict(os.environ, T2R_FORCE_PALLAS_KERNELS='1'))
+  if proc.returncode != 0:
+    raise AssertionError(f'export loader: exit {proc.returncode}:\n'
+                         f'{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}')
+  loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+  if (loaded['pool_fwd'], loaded['conv_s2d_fwd']) != (6, 2):
+    raise AssertionError(f'export loader launches {loaded}')
+  want = eager.predict(features)['q_predicted']
+  got = np.load(root / 'q.npy')
+  diff = float(np.abs(got - want).max())
+  log(f'export: a process without the model modules (research_modules '
+      f'{loaded["research_modules"]}) loaded the program and predicted '
+      f'{SUBPROCESS_PAIRS} pairs, restore to first prediction '
+      f'{loaded["restore_to_first_prediction_ms"]:.1f} ms (restore '
+      f'{loaded["restore_ms"]:.1f}: the first torch.export.load with its '
+      f'imports, the move pass, state.pt; first predict '
+      f'{loaded["first_predict_ms"]:.1f}, second '
+      f'{loaded["second_predict_ms"]:.1f}; a second program load and move '
+      f'{loaded["warm_load_ms"]:.1f}, a second state.pt load '
+      f'{loaded["warm_state_ms"]:.1f}), launches over the two '
+      f'pool_fwd {loaded["pool_fwd"]} conv_s2d_fwd {loaded["conv_s2d_fwd"]}; '
+      f'q against the eager CheckpointPredictor: max abs diff {diff:.3e}, '
+      f'bit for bit {np.array_equal(got.view(np.int32), want.view(np.int32))} '
+      f'on {card}')
+  if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+    raise AssertionError(f'exported q {got} differs from eager {want}')
+
+  # 3. CEM through the exported predictor, in turns with the eager one;
+  # then an artifact traced on the CPU and moved to the card.
+  exported = ExportedModelPredictor(str(root / 'export'), device='cuda')
+  if not exported.restore():
+    raise AssertionError('the exported predictor found no version')
+  policies = {name: CEMPolicy(t2r_model=model, predictor=p, action_size=5,
+                              cem_samples=64, cem_iters=3, num_elites=6,
+                              device_resident=True)
+              for name, p in (('eager', eager), ('exported', exported))}
+  frames = np.random.RandomState(seed + 8).randint(
+      0, 256, (EXPORT_ACTIONS,) + frame_shape(model), dtype=np.uint8)
+  for policy in policies.values():
+    cem_block(policy, frames[:1], seed)  # warm-up
+  times = {'eager': [], 'exported': []}
+  chosen = {}
+  for name in ('eager', 'exported', 'exported', 'eager'):
+    ms, actions = counted(
+        f'{name} CEM', lambda name=name: cem_block(policies[name], frames,
+                                                   seed),
+        path_launches(actions=EXPORT_ACTIONS))
+    times[name].append(ms / EXPORT_ACTIONS)
+    chosen.setdefault(name, actions)
+  same = all(np.array_equal(a, b) for a, b in zip(chosen['eager'],
+                                                  chosen['exported']))
+  if not same:
+    raise AssertionError(f'exported CEM actions {chosen["exported"]} differ '
+                         f'from eager {chosen["eager"]}')
+  log(f'export: CEM 64x3 through the exported predictor '
+      f'{np.round(times["exported"], 3).tolist()} ms/action, through the '
+      f'eager CheckpointPredictor {np.round(times["eager"], 3).tolist()} '
+      f'(blocks of {EXPORT_ACTIONS} in turns eager, exported, exported, '
+      f'eager; host clock, synchronised, deterministic cuDNN); the same '
+      f'{EXPORT_ACTIONS} actions from both; launches per action '
+      f'{ACTION_LAUNCHES} on {card}')
+
+  cpu_ms, cpu_version = synced_ms(lambda: export_version(
+      model, {k: v.cpu() for k, v in eager.network.state_dict().items()}, 0,
+      root / 'cpu_export', 1))
+  check_meta(cpu_version, 'cpu')
+  moved = ExportedModelPredictor(str(root / 'cpu_export'), device='cuda')
+  if not moved.restore():
+    raise AssertionError('the CPU-traced export did not load')
+  moved_policy = CEMPolicy(t2r_model=model, predictor=moved, action_size=5,
+                           cem_samples=64, cem_iters=3, num_elites=6,
+                           device_resident=True)
+  _, moved_actions = counted(
+      'CEM on the CPU-traced program',
+      lambda: cem_block(moved_policy, frames, seed),
+      path_launches(actions=EXPORT_ACTIONS))
+  if not all(np.array_equal(a, b) for a, b in zip(moved_actions,
+                                                  chosen['exported'])):
+    raise AssertionError('the CPU-traced program chose other actions')
+  log(f'export: the program traced on the CPU (export {cpu_ms:.1f} ms, the '
+      f'second export of the process; serving_fn.pt2 '
+      f'{(cpu_version / exporters.SERVING_FN_FILENAME).stat().st_size} '
+      f'bytes), moved to the card, launched {ACTION_LAUNCHES} an action over '
+      f'{EXPORT_ACTIONS} actions and chose the card-traced program\'s '
+      f'actions on {card}')
+
+  # 4. The batching plane over the exported predictor, with a second
+  # version (other weights) exported under load.
+  def tally(launches):
+    for name in total:
+      total[name] += launches[name]
+
+  export_batcher(seed, card, model, exported, root, frames, tally)
+  return total
+
+
+def export_batcher(seed, card, model, exported, root, frames, tally):
+  """DynamicBatcher(max_batch=64) over ``exported.stateless_serving_fn()``:
+  8 client threads, each submitting requests of one frame and 8 grasps in
+  a closed loop for BATCHER_SECONDS, while version 2 (other weights) is
+  exported into the root by another process (EXPORT_WRITER) at
+  BATCHER_SWAP_AT and adopted under load; then one full dispatch taken
+  apart. A dispatch runs the program once: one eval batch's launches."""
+  compiles = metrics_lib.counter('serving/bucket_compiles')
+  dispatches = metrics_lib.counter('serving/dispatches')
+  swaps = metrics_lib.counter('serving/model_swaps')
+  rng = np.random.RandomState(seed + 9)
+  requests = []
+  for c in range(BATCHER_CLIENTS):
+    grasps = rng.randn(BATCHER_EXAMPLES, 5).astype(np.float32)
+    requests.append({
+        'state/image': np.repeat(frames[c % len(frames)][None],
+                                 BATCHER_EXAMPLES, axis=0),
+        'action/world_vector': grasps[:, :3],
+        'action/vertical_rotation': grasps[:, 3:]})
+  other = CheckpointPredictor(model, device='cuda')
+  other.init_randomly(torch.Generator().manual_seed(seed + 1))
+  key = exported.stateless_serving_fn().program_key
+  done, errors = [], []  # (completion time, latency ms)
+  stop = threading.Event()
+  batcher = DynamicBatcher(exported, max_batch=BATCHER_MAX_BATCH,
+                           batch_deadline_ms=5.0, reload_interval_secs=0.2)
+
+  def client(c):
+    while not stop.is_set():
+      begin = time.perf_counter()
+      try:
+        batcher.submit(requests[c]).result(timeout=60.0)
+        end = time.perf_counter()
+        done.append((end, 1e3 * (end - begin)))
+      except Exception as e:  # pylint: disable=broad-except
+        errors.append(repr(e))
+
+  def load(writer):
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(BATCHER_CLIENTS)]
+    dispatched, swaps0 = dispatches.value, swaps.value
+    begin = time.perf_counter()
+    for thread in threads:
+      thread.start()
+    time.sleep(BATCHER_SWAP_AT)
+    swap_begin = time.perf_counter()
+    writer.stdin.write('go\n')
+    writer.stdin.flush()
+    line = writer.stdout.readline()
+    if not line:
+      stop.set()
+      writer.wait(timeout=60)
+      raise AssertionError(f'export writer: exit {writer.returncode}:\n'
+                           f'{(root / "writer.err").read_text()[-3000:]}')
+    written = json.loads(line)
+    export_s = time.perf_counter() - swap_begin
+    deadline = time.perf_counter() + 60.0
+    while batcher.model_version != 1 and time.perf_counter() < deadline:
+      time.sleep(0.05)
+    adopted = time.perf_counter() - begin
+    time.sleep(max(0.0, BATCHER_SECONDS - adopted))
+    stop.set()
+    for thread in threads:
+      thread.join(timeout=120.0)
+    return dict(seconds=time.perf_counter() - begin,
+                count=dispatches.value - dispatched,
+                swapped=swaps.value - swaps0, adopted=adopted,
+                export_s=export_s, writer_export_s=written['export_s'],
+                steady_s=swap_begin - begin, swap_begin=swap_begin,
+                adopted_at=begin + adopted)
+
+  repo = pathlib.Path(__file__).resolve().parent
+  with open(root / 'writer.err', 'w') as err:
+    writer = subprocess.Popen(
+        [sys.executable, '-c', EXPORT_WRITER, str(root / 'export'),
+         str(seed + 1)], cwd=repo, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=err, text=True,
+        env=dict(os.environ, T2R_FORCE_PALLAS_KERNELS='1'))
+  try:
+    if writer.stdout.readline().strip() != 'ready':
+      writer.wait(timeout=60)
+      raise AssertionError(f'export writer: exit {writer.returncode}:\n'
+                           f'{(root / "writer.err").read_text()[-3000:]}')
+    start_ms, _ = synced_ms(batcher.start)
+    warm = compiles.value
+    zero_counters()
+    run = load(writer)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = path_launches(eval_batches=run['count'])
+    if launches != want:
+      raise AssertionError(
+          f'export phase, batcher: launches {launches} over {run["count"]} '
+          f'dispatches, expected {want}')
+    tally(launches)
+    end = compiles.value
+    version = batcher.model_version
+    served_key = batcher.current_executor().program_key
+    report = batcher.report()
+    dispatch_ms = metrics_lib.histogram('serving/dispatch_ms').snapshot()
+    lone = batcher.submit(requests[0]).result(timeout=60.0)['q_predicted']
+    parts = dispatch_parts(exported, batcher.current_executor(), requests)
+    if writer.wait(timeout=60) != 0:
+      raise AssertionError(f'export writer: exit {writer.returncode}:\n'
+                           f'{(root / "writer.err").read_text()[-3000:]}')
+  finally:
+    batcher.close()
+    if writer.poll() is None:
+      writer.kill()
+      writer.wait()
+  want = other.predict(requests[0])['q_predicted']
+  if (errors or run['swapped'] < 1 or version != 1 or end != warm or
+      served_key != key or exported.stateless_serving_fn().program_key != key
+      or not np.array_equal(lone.view(np.int32), want.view(np.int32))):
+    raise AssertionError(
+        f'batcher: errors {errors[:3]} ({len(errors)}), swaps '
+        f'{run["swapped"]}, version {version}, bucket_compiles {warm} -> '
+        f'{end}, program key {key} -> {served_key}, q after the swap {lone} '
+        f'against {want}')
+  seconds = run['seconds']
+  latencies = [ms for _, ms in done]
+  steady = [ms for t, ms in done if t < run['swap_begin']]
+  swapping = [ms for t, ms in done
+              if run['swap_begin'] <= t <= run['adopted_at']]
+  p50, p99 = np.percentile(latencies, [50, 99])
+  s50, s99 = np.percentile(steady, [50, 99])
+  w99 = np.percentile(swapping, 99) if swapping else float('nan')
+  log(f'export: DynamicBatcher(max_batch={BATCHER_MAX_BATCH}) over the '
+      f'exported predictor, {BATCHER_CLIENTS} clients x {BATCHER_EXAMPLES} '
+      f'examples a request, {seconds:.2f} s: {len(done)} requests, '
+      f'{len(done) / seconds:.1f} requests/s, '
+      f'{BATCHER_EXAMPLES * len(done) / seconds:.1f} examples/s, latency '
+      f'p50 {p50:.2f} ms p99 {p99:.2f} ms (client clock; the whole window, '
+      f'the swap included); before version 2 was written '
+      f'({run["steady_s"]:.2f} s, {len(steady)} requests, '
+      f'{BATCHER_EXAMPLES * len(steady) / run["steady_s"]:.1f} examples/s) '
+      f'p50 {s50:.2f} ms p99 {s99:.2f} ms; from the writer\'s signal to the '
+      f'adoption {len(swapping)} requests, p99 {w99:.2f} ms; '
+      f'{run["count"]} dispatches (mean '
+      f'batch {report["batch_size"]["mean"]:.1f}, dispatch '
+      f'{dispatch_ms["mean"]:.2f} ms mean, {dispatch_ms["max"]:.2f} max: '
+      f'assembly to outputs on the host), 0 failed; launches '
+      f'{ {k: v for k, v in launches.items() if v} } on {card}')
+  log(f'export: serving/bucket_compiles {warm} after warm-up of buckets '
+      f'{list(batcher.buckets)} ({start_ms:.1f} ms), {end} at the end; '
+      f'version 2 (other weights) exported under load by another process '
+      f'at {BATCHER_SWAP_AT:.1f} s (its export {run["writer_export_s"]:.2f} '
+      f's, committed {run["export_s"]:.2f} s after the signal), adopted by '
+      f'{run["adopted"]:.2f} s, serving/model_swaps +{run["swapped"]}, the '
+      f'program reused (program key {key[0]} {key[1][:12]}...), q after the '
+      f'swap bit for bit the new weights\' eager q on {card}')
+  log(f'export: one dispatch of {BATCHER_MAX_BATCH} examples alone, median '
+      f'of 5 (host clock, synchronised): concatenate '
+      f'{parts["concatenate"]:.2f} ms, pageable upload {parts["upload"]:.2f} '
+      f'ms ({parts["upload_mb"]:.1f} MB), program {parts["program"]:.2f} ms, '
+      f'outputs to the host {parts["download"]:.2f} ms; the executor\'s '
+      f'execute {parts["execute"]:.2f} ms on {card}')
+
+
+def dispatch_parts(exported, executor, requests):
+  """Median host ms of one full dispatch's parts, timed one at a time."""
+  serving = exported.stateless_serving_fn()
+  times = collections.defaultdict(list)
+  for _ in range(5):
+    ms, batch = synced_ms(lambda: {
+        k: np.concatenate([r[k] for r in requests]) for k in requests[0]})
+    times['concatenate'].append(ms)
+    ms, device = synced_ms(lambda: {
+        k: torch.from_numpy(v).to(exported.device) for k, v in batch.items()})
+    times['upload'].append(ms)
+    ms, outputs = synced_ms(lambda: serving.fn(serving.params, device))
+    times['program'].append(ms)
+    ms, _ = synced_ms(lambda: {k: v.cpu().numpy()
+                               for k, v in outputs.items()})
+    times['download'].append(ms)
+    ms, _ = synced_ms(lambda: executor.execute(batch, BATCHER_MAX_BATCH))
+    times['execute'].append(ms)
+  parts = {name: float(np.median(v)) for name, v in times.items()}
+  parts['upload_mb'] = sum(v.nbytes for v in batch.values()) / 1e6
+  return parts
 
 
 # The record-fed QT-Opt path: shards of PNG frames (the card's host had no
@@ -3624,6 +4127,8 @@ def main(argv=None):
   ms_per_step, train_launches, trainer = phase_train(args.seed, args.steps)
   checkpoint_launches = phase_checkpoint(args.seed, card)
   torch.cuda.empty_cache()
+  export_launches = phase_export_serving(args.seed, card)
+  torch.cuda.empty_cache()
   record_launches = phase_record_train(args.seed, card, ms_per_step,
                                        args.profile)
   torch.cuda.empty_cache()
@@ -3640,12 +4145,12 @@ def main(argv=None):
   torch.cuda.empty_cache()
   photometric_launches = phase_photometric_path(args.seed)
   # Launches: the pool and conv forward kernels over the QT-Opt serving,
-  # training, checkpoint and record-fed paths, their backward ones over the
-  # training paths, dx over the path that needs it, the flash kernels over the three
-  # SNAIL paths, the fused update over the two fused training paths, the
-  # photometric pass over its branch.
+  # training, checkpoint, export and record-fed paths, their backward ones
+  # over the training paths, dx over the path that needs it, the flash
+  # kernels over the three SNAIL paths, the fused update over the two fused
+  # training paths, the photometric pass over its branch.
   paths = [serve_launches, train_launches, checkpoint_launches,
-           record_launches, fused_launches,
+           export_launches, record_launches, fused_launches,
            *(result[1] for result in snail.values()),
            *(result[1] for result in snail_fused.values()),
            photometric_launches]
@@ -3655,8 +4160,9 @@ def main(argv=None):
     launches[name] = dx_launches[name]
   log(f'launches: serving {serve_launches} over {args.actions} actions; '
       f'training {train_launches} and fused training {fused_launches} over '
-      f'{args.steps} steps; checkpoint phase {checkpoint_launches}; record '
-      f'phase {record_launches}; dx path {dx_launches}; SNAIL '
+      f'{args.steps} steps; checkpoint phase {checkpoint_launches}; export '
+      f'phase {export_launches}; record phase {record_launches}; dx path '
+      f'{dx_launches}; SNAIL '
       f'{ {name: result[1] for name, result in snail.items()} } and fused '
       f'{ {name: result[1] for name, result in snail_fused.items()} } over '
       f'{args.snail_steps} steps each; photometric path '

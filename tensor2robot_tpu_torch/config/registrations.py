@@ -17,10 +17,12 @@ def register() -> None:
   _REGISTERED = True
 
   # pylint: disable=import-outside-toplevel
+  from tensor2robot_tpu_torch import export as export_lib
   from tensor2robot_tpu_torch.data import input_generators as ig
   from tensor2robot_tpu_torch.models import optimizers, warm_start
   from tensor2robot_tpu_torch.policies import CEMPolicy
-  from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+  from tensor2robot_tpu_torch.predictors import (CheckpointPredictor,
+                                                 ExportedModelPredictor)
   from tensor2robot_tpu_torch.research import pose_env, qtopt, vrgripper
   from tensor2robot_tpu_torch.train import callbacks as callbacks_lib
   from tensor2robot_tpu_torch.train import resilience
@@ -56,8 +58,12 @@ def register() -> None:
   reg(callbacks_lib.VariableLoggerCallback, 'VariableLoggerCallback')
   reg(callbacks_lib.ResilienceLoggerCallback, 'ResilienceLoggerCallback')
   reg(resilience.install_graceful_shutdown, 'install_graceful_shutdown')
-  # Serving.
+  # Export and serving.
+  reg(export_lib.create_default_exporters, 'create_default_exporters')
+  reg(export_lib.AsyncExportCallback, 'AsyncExportCallback')
+  reg(export_lib.TD3ExportCallback, 'TD3ExportCallback')
   reg(CheckpointPredictor, 'CheckpointPredictor')
+  reg(ExportedModelPredictor, 'ExportedModelPredictor')
   reg(CEMPolicy, 'CEMPolicy')
   # Models.
   reg(mocks.MockT2RModel, 'MockT2RModel')

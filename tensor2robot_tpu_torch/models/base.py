@@ -55,6 +55,15 @@ class ModelInterface(abc.ABC):
   def get_label_specification(self, mode: str) -> Optional[SpecStruct]:
     """Device-side (post-preprocessing) label specs."""
 
+  def get_feature_specification_for_packing(self, mode: str) -> SpecStruct:
+    """Host-side (pre-preprocessing) feature specs: what a policy packs
+    and what an export's assets declare."""
+    return self.preprocessor.get_in_feature_specification(mode)
+
+  def get_label_specification_for_packing(
+      self, mode: str) -> Optional[SpecStruct]:
+    return self.preprocessor.get_in_label_specification(mode)
+
 
 class AbstractT2RModel(ModelInterface):
   """Base model: spec declaration + the network and its serving outputs.

@@ -10,4 +10,12 @@
 The kernels build from source at first use (``_build``); a CUDA tensor
 launches the kernel and a CPU tensor runs the plain version
 (``_dispatch``).
+
+Importing this package registers the pool and conv1 forwards as the custom
+ops ``t2r::pool_fwd`` and ``t2r::conv_s2d_fwd``, which an exported serving
+program (``export/exporters.py``) holds as nodes: a host that loads such a
+program imports this package, and not the model's code.
 """
+
+from tensor2robot_tpu_torch.ops import pool  # isort: skip
+from tensor2robot_tpu_torch.ops import conv_s2d  # isort: skip

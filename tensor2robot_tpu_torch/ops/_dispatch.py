@@ -24,6 +24,7 @@ import threading
 from typing import Optional
 
 import torch
+from torch._subclasses import fake_tensor
 
 KERNEL_NONE = 'none'
 KERNEL_POOL = 'pool'
@@ -89,6 +90,25 @@ def force_kernels(enabled: bool = True):
     yield
   finally:
     _force_override.value = previous
+
+
+def refuse_export(what: str, x: torch.Tensor) -> None:
+  """Raises when ``x`` is a tensor that ``torch.export`` is tracing: a
+  kernel bound through ``ctypes`` is invisible to the tracer, which would
+  bake its plain version into the artifact. Only ``pool_fwd`` and
+  ``conv_s2d_fwd`` are custom ops that an exported program carries
+  (ROADMAP.md queue 2).
+
+  The call's own input decides, because ``torch.compiler.is_exporting()``
+  is a process-wide flag: while one thread exports (an asynchronous
+  export callback), a real tensor on another thread (the train step) runs
+  as always. A trace hands the function fake tensors."""
+  if torch.compiler.is_exporting() and fake_tensor.is_fake(x):
+    raise NotImplementedError(
+        f'{what} cannot be exported: its kernel is not a custom op, so the '
+        'artifact would hold its plain version in place of the kernel. '
+        'Only t2r::pool_fwd and t2r::conv_s2d_fwd export (ROADMAP.md queue '
+        '2).')
 
 
 def resolve_device(device) -> torch.device:

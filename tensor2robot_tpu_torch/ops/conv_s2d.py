@@ -14,7 +14,10 @@ does. :func:`conv2d` goes through the autograd Function
 :class:`Conv2dS2D` on every device. A CUDA tensor launches
 :func:`conv_s2d_fwd`, :func:`conv_s2d_dw` and :func:`conv_s2d_dx` (the
 kernels in ``csrc/conv_s2d.cu``); a CPU tensor runs :func:`plain_conv2d`,
-:func:`plain_conv2d_dw` and :func:`plain_conv2d_dx`. The backward computes
+:func:`plain_conv2d_dw` and :func:`plain_conv2d_dx`. The forward is the
+custom op ``torch.ops.t2r.conv_s2d_fwd`` (:func:`conv_s2d_fwd_op`), one
+node of an exported program (``export/exporters.py``) that dispatches by
+device where the program runs. The backward computes
 dx only when the input needs a gradient. :func:`conv_s2d_fwd` and
 :func:`conv_s2d_dw` take their route from the dtype (:func:`fwd_plan`,
 :func:`dw_plan`): bfloat16 on the tensor cores, float32 on the CUDA cores;
@@ -32,7 +35,7 @@ optional ``bias``, so weights move between the packages unchanged.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +43,8 @@ from torch import nn
 
 from tensor2robot_tpu_torch.ops import _build
 from tensor2robot_tpu_torch.ops import _dispatch as dispatch
-from tensor2robot_tpu_torch.ops.pool import Pads, resolve_padding
+from tensor2robot_tpu_torch.ops.pool import (Pads, _pads_list, _pads_pairs,
+                                             resolve_padding)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
@@ -549,6 +553,30 @@ def plain_conv2d_dx(g: torch.Tensor, w: torch.Tensor,
   return dxp.to(w.dtype)
 
 
+@torch.library.custom_op('t2r::conv_s2d_fwd', mutates_args=())
+def conv_s2d_fwd_op(x: torch.Tensor, w: torch.Tensor, strides: List[int],
+                    pads: List[int]) -> torch.Tensor:
+  """``torch.ops.t2r.conv_s2d_fwd``: NHWC x HWIO with ``pads`` (lo_h, hi_h,
+  lo_w, hi_w), NHWC-contiguous out. A CUDA tensor launches
+  :func:`conv_s2d_fwd` on contiguous copies of the operands (none is made
+  where one already is), a CPU tensor runs :func:`plain_conv2d`; the gate
+  is ``ops/_dispatch.py``'s. As one op, the conv is one node of an
+  exported program (``torch.export``), which dispatches by device where
+  it runs."""
+  strides, pairs = tuple(strides), _pads_pairs(pads)
+  if dispatch.kernels_enabled(x):
+    return conv_s2d_fwd(x.contiguous(), w.contiguous(), strides, pairs)
+  return plain_conv2d(x, w, strides, pairs).contiguous()
+
+
+@conv_s2d_fwd_op.register_fake
+def _conv_s2d_fwd_fake(x, w, strides, pads):
+  """The output's shape from the geometry alone (the batch may be
+  symbolic); no plan is made."""
+  p = _require_plan(x, w, tuple(strides), _pads_pairs(pads))
+  return x.new_empty((x.shape[0], p['oh'], p['ow'], p['cout']))
+
+
 class Conv2dS2D(torch.autograd.Function):
   """NHWC x HWIO conv with explicit pads, differentiable in x and w.
 
@@ -562,10 +590,7 @@ class Conv2dS2D(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, x, w, strides, pads):  # pylint: disable=arguments-differ
-    if dispatch.kernels_enabled(x):
-      out = conv_s2d_fwd(x.contiguous(), w.contiguous(), strides, pads)
-    else:
-      out = plain_conv2d(x, w, strides, pads)
+    out = torch.ops.t2r.conv_s2d_fwd(x, w, list(strides), _pads_list(pads))
     ctx.save_for_backward(x, w)
     ctx.geometry = (strides, pads)
     return out

@@ -535,6 +535,7 @@ class FlashAttention(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, q, k, v, causal, block_q, block_k):  # pylint: disable=arguments-differ
+    dispatch.refuse_export('flash_attention', q)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check(q, block_q, block_k)
     if dispatch.kernels_enabled(q):

@@ -133,7 +133,9 @@ def fused_brightness_contrast(images: torch.Tensor, delta: torch.Tensor,
                               factor: torch.Tensor) -> torch.Tensor:
   """Brightness + contrast + clip over [B, H, W, C] images with per-image
   ``delta`` and ``factor``: the kernel for a CUDA tensor, the plain version
-  for a CPU tensor."""
+  for a CPU tensor. Raises under ``torch.export``
+  (``_dispatch.refuse_export``)."""
+  dispatch.refuse_export('the fused photometric pass', images)
   if dispatch.kernels_enabled(images):
     return photometric(images, delta, factor)
   return plain_brightness_contrast(images, delta, factor)

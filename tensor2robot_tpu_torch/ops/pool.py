@@ -18,9 +18,12 @@ Semantics are bitwise those of the TPU kernels:
 Entry points take NHWC tensors, as the JAX package does.
 :func:`max_pool_argmax` (and :func:`max_pool` on top of it) goes through
 the autograd Function :class:`MaxPoolArgmax` on every device. Its forward
+is the custom op ``torch.ops.t2r.pool_fwd`` (:func:`pool_fwd_op`), which
 dispatches on the tensor's device (``ops/_dispatch.py``): a CUDA tensor
 launches :func:`pool_fwd` (``csrc/pool.cu``), a CPU tensor runs
-:func:`plain_max_pool_argmax`. Its backward does the same with
+:func:`plain_max_pool_argmax`; as one op it is one node of an exported
+program (``export/exporters.py``), and its fake version gives the shapes
+for a symbolic batch. Its backward dispatches the same way between
 :func:`pool_bwd` and :func:`plain_max_pool_bwd`. :func:`reference_max_pool`
 is the stock ``F.max_pool2d`` form, used by towers whose kernel policy
 leaves pools off the kernel path and as a yardstick; no kernel entry calls
@@ -30,7 +33,7 @@ it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -376,13 +379,48 @@ def plain_max_pool_bwd(g: torch.Tensor, slot: torch.Tensor,
   return acc[:, p['plh']:p['plh'] + p['h'], p['plw']:p['plw'] + p['w']]
 
 
+def _pads_list(pads: Pads) -> List[int]:
+  (plh, phh), (plw, phw) = pads
+  return [int(plh), int(phh), int(plw), int(phw)]
+
+
+def _pads_pairs(pads: Sequence[int]) -> Pads:
+  plh, phh, plw, phw = pads
+  return ((plh, phh), (plw, phw))
+
+
+@torch.library.custom_op('t2r::pool_fwd', mutates_args=())
+def pool_fwd_op(x: torch.Tensor, window: List[int], strides: List[int],
+                pads: List[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+  """``torch.ops.t2r.pool_fwd``: (pooled, slot) of NHWC ``x``, both
+  NHWC-contiguous; ``pads`` is (lo_h, hi_h, lo_w, hi_w). A CUDA tensor
+  launches :func:`pool_fwd` (copied to contiguous first where it is not), a
+  CPU tensor runs :func:`plain_max_pool_argmax`; the gate is
+  ``ops/_dispatch.py``'s. As one op, the pool is one node of an exported
+  program (``torch.export``), which dispatches by device where it runs."""
+  window, strides, pairs = tuple(window), tuple(strides), _pads_pairs(pads)
+  if dispatch.kernels_enabled(x):
+    return pool_fwd(x.contiguous(), window, strides, pairs)
+  out, slot = plain_max_pool_argmax(x, window, strides, pairs)
+  return out.contiguous(), slot.contiguous()
+
+
+@pool_fwd_op.register_fake
+def _pool_fwd_fake(x, window, strides, pads):
+  """The outputs' shapes from the geometry alone (the batch may be
+  symbolic); no launch choice is made."""
+  p = _require_plan(x, tuple(window), tuple(strides), _pads_pairs(pads))
+  shape = (x.shape[0], p['oh'], p['ow'], p['c'])
+  return x.new_empty(shape), x.new_empty(shape, dtype=torch.int32)
+
+
 class MaxPoolArgmax(torch.autograd.Function):
   """(pooled, slot) = max pool of NHWC ``x``, differentiable in ``x``.
 
-  The forward saves the slots; the backward routes the pooled output's
-  cotangent through them. Each direction runs the kernel for a CUDA
-  tensor and the plain version for a CPU tensor. The slot output is not
-  differentiable.
+  The forward (``torch.ops.t2r.pool_fwd``) saves the slots; the backward
+  routes the pooled output's cotangent through them. Each direction runs
+  the kernel for a CUDA tensor and the plain version for a CPU tensor.
+  The slot output is not differentiable.
 
   A cotangent that arrives in another layout than NHWC-contiguous (the
   towers read pooled outputs through NCHW channels-last views, so a
@@ -395,10 +433,8 @@ class MaxPoolArgmax(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, x, window, strides, pads):  # pylint: disable=arguments-differ
-    if dispatch.kernels_enabled(x):
-      out, slot = pool_fwd(x, window, strides, pads)
-    else:
-      out, slot = plain_max_pool_argmax(x, window, strides, pads)
+    out, slot = torch.ops.t2r.pool_fwd(x, list(window), list(strides),
+                                       _pads_list(pads))
     ctx.save_for_backward(slot)
     ctx.geometry = (tuple(x.shape), window, strides, pads)
     ctx.mark_non_differentiable(slot)

@@ -186,5 +186,22 @@ class SpecStruct(collections_abc.MutableMapping):
     items = ', '.join(f'{k!r}: {v!r}' for k, v in self.items())
     return f'SpecStruct({{{items}}})'
 
+  def spec_items(self):
+    """(path, TensorSpec) of every leaf that is not None; an array leaf is
+    described by its spec."""
+    for key, value in self.items():
+      if value is not None:
+        yield key, TensorSpec.to_spec(value)
+
+  def to_json_dict(self) -> dict:
+    """The JAX package's JSON form: path -> the spec's JSON dict."""
+    return {key: spec.to_json_dict() for key, spec in self.spec_items()}
+
+  @classmethod
+  def from_json_dict(cls, d: dict) -> 'SpecStruct':
+    """Paths sorted, as the JAX package loads them."""
+    return cls([(k, TensorSpec.from_json_dict(v)) for k, v in sorted(
+        d.items())])
+
 
 TensorSpecStruct = SpecStruct

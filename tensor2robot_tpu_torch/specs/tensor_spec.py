@@ -144,13 +144,17 @@ class TensorSpec:
 
   @classmethod
   def from_array(cls, array, name: Optional[str] = None) -> 'TensorSpec':
-    """Spec extracted from a concrete numpy array or torch tensor."""
+    """Spec extracted from a concrete numpy array or torch tensor. A
+    symbolic dim (a tensor traced by ``torch.export`` with a dynamic batch)
+    becomes a dynamic one (None), so validating a traced batch never fixes
+    its size."""
     dtype = getattr(array, 'dtype', None)
     if dtype is None:
       array = np.asarray(array)
       dtype = array.dtype
-    return cls(shape=tuple(int(d) for d in array.shape), dtype=dtype,
-               name=name, is_extracted=True)
+    shape = tuple(None if isinstance(d, torch.SymInt) else int(d)
+                  for d in array.shape)
+    return cls(shape=shape, dtype=dtype, name=name, is_extracted=True)
 
   @classmethod
   def to_spec(cls, instance) -> 'TensorSpec':
@@ -158,6 +162,77 @@ class TensorSpec:
     if isinstance(instance, TensorSpec):
       return instance
     return cls.from_array(instance)
+
+  # ------------------------------------------------------------ serialization
+
+  def to_proto_fields(self) -> dict:
+    """The fields of the ``ExtendedTensorSpec`` message
+    (``tensor2robot_tpu/proto/t2r.proto``) that proto3 would write, in
+    field order: -1 for a dynamic dim, the dtype by its numpy name, flags
+    only when set, the varlen default with its presence flag."""
+    fields = {'shape': [-1 if d is None else d for d in self.shape],
+              'dtype': dtype_name(self.dtype)}
+    if self.name:
+      fields['name'] = self.name
+    for field in ('is_optional', 'is_extracted'):
+      if getattr(self, field):
+        fields[field] = True
+    if self.data_format:
+      fields['data_format'] = self.data_format
+    if self.dataset_key:
+      fields['dataset_key'] = self.dataset_key
+    if self.varlen_default_value is not None:
+      fields['varlen_default_value'] = self.varlen_default_value
+      fields['has_varlen_default_value'] = True
+    if self.is_sequence:
+      fields['is_sequence'] = True
+    return fields
+
+  @classmethod
+  def from_proto_fields(cls, fields: dict) -> 'TensorSpec':
+    """The spec of an ``ExtendedTensorSpec``'s fields (absent = default)."""
+    return cls(
+        shape=tuple(None if d < 0 else d for d in fields.get('shape', ())),
+        dtype=fields.get('dtype') or 'float32',
+        name=fields.get('name') or None,
+        is_optional=fields.get('is_optional', False),
+        is_sequence=fields.get('is_sequence', False),
+        is_extracted=fields.get('is_extracted', False),
+        data_format=fields.get('data_format') or None,
+        dataset_key=fields.get('dataset_key') or None,
+        varlen_default_value=(fields.get('varlen_default_value', 0.0)
+                              if fields.get('has_varlen_default_value')
+                              else None))
+
+  def to_json_dict(self) -> dict:
+    """The JAX package's JSON form (``t2r_assets.json``)."""
+    d = {'shape': [-1 if s is None else s for s in self.shape],
+         'dtype': dtype_name(self.dtype)}
+    if self.name is not None:
+      d['name'] = self.name
+    for field in ('is_optional', 'is_sequence', 'is_extracted'):
+      if getattr(self, field):
+        d[field] = True
+    if self.data_format is not None:
+      d['data_format'] = self.data_format
+    if self.dataset_key:
+      d['dataset_key'] = self.dataset_key
+    if self.varlen_default_value is not None:
+      d['varlen_default_value'] = self.varlen_default_value
+    return d
+
+  @classmethod
+  def from_json_dict(cls, d: dict) -> 'TensorSpec':
+    return cls(
+        shape=tuple(None if s < 0 else s for s in d['shape']),
+        dtype=d['dtype'],
+        name=d.get('name'),
+        is_optional=d.get('is_optional', False),
+        is_sequence=d.get('is_sequence', False),
+        is_extracted=d.get('is_extracted', False),
+        data_format=d.get('data_format'),
+        dataset_key=d.get('dataset_key'),
+        varlen_default_value=d.get('varlen_default_value'))
 
   def __eq__(self, other) -> bool:
     if not isinstance(other, TensorSpec):

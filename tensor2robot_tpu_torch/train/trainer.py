@@ -75,9 +75,14 @@ pass through untouched. ``checkpoint_input_state`` saves the input
 stream's position as that of the trained batches, the staged one not
 counted (``train/input_state.py``).
 
+Exporters (``export/exporters.py``): ``train_eval_model(
+create_exporters_fn=...)`` runs each exporter with the final metrics after
+training, and after each evaluated checkpoint of an eval-only job, as the
+JAX trainer does.
+
 Not ported yet, and raising rather than ignored: several steps a dispatch,
-microbatch accumulation and device prefetch (ROADMAP queue 1 item 8), the
-distributed checkpoint protocol (item 10) and exporters (item 5).
+microbatch accumulation and device prefetch (ROADMAP queue 1 item 8) and
+the distributed checkpoint protocol (item 10).
 """
 
 from __future__ import annotations
@@ -671,14 +676,15 @@ def train_eval_model(model=None,
     Each step is evaluated from a backup copy in the evaluator's own
     directory, and ``<model_dir>/eval_state.json`` keeps the last step
     evaluated, so a restarted evaluator skips it. A requested shutdown
-    between steps raises ``PreemptedError``.
+    between steps raises ``PreemptedError``;
+  * ``create_exporters_fn(model)`` returns exporters
+    (``export.create_default_exporters()``), each run as
+    ``exporter.export(trainer, metrics)`` after training and after each
+    evaluated checkpoint of an eval-only job.
   """
   if model is None:
     raise ValueError('train_eval_model requires a model.')
-  if create_exporters_fn is not None:
-    raise NotImplementedError(
-        'create_exporters_fn: export is not ported yet: ROADMAP.md queue 1 '
-        'item 5.')
+  exporters = list(create_exporters_fn(model)) if create_exporters_fn else []
   config = TrainerConfig(
       model_dir=model_dir,
       max_train_steps=max_train_steps,
@@ -727,18 +733,24 @@ def train_eval_model(model=None,
     if spec is not None:
       logging.info('train %s specs:\n%s', kind,
                    '\n'.join(f'  {k}: {v}' for k, v in sorted(spec.items())))
+  def run_exporters(metrics: MetricDict) -> None:
+    for exporter in exporters:
+      exporter.export(trainer, metrics)
+
   try:
     if train_input_generator is not None:
       eval_iter_fn = None
       if eval_input_generator is not None:
         eval_iter_fn = lambda: eval_input_generator.create_iterator(
             ModeKeys.EVAL)
-      return trainer.train(train_iter, eval_iter_fn)
+      metrics = trainer.train(train_iter, eval_iter_fn)
+      run_exporters(metrics)
+      return metrics
     if eval_input_generator is None:
       raise ValueError('Need a train or eval input generator.')
     return _evaluate_checkpoints(trainer, eval_input_generator, model_dir,
                                  max_train_steps, eval_timeout_secs,
-                                 use_continuous_eval)
+                                 use_continuous_eval, run_exporters)
   finally:
     trainer.close()
     close = getattr(train_iter, 'close', None)
@@ -749,7 +761,9 @@ def train_eval_model(model=None,
 def _evaluate_checkpoints(trainer: Trainer, eval_input_generator,
                           model_dir: str, max_train_steps: int,
                           eval_timeout_secs: Optional[float],
-                          use_continuous_eval: bool) -> MetricDict:
+                          use_continuous_eval: bool,
+                          run_exporters: Callable[[MetricDict], None]
+                          ) -> MetricDict:
   """The eval-only job of :func:`train_eval_model`."""
   metrics: MetricDict = {}
   ckpt_dir = os.path.join(model_dir, 'checkpoints')
@@ -786,6 +800,7 @@ def _evaluate_checkpoints(trainer: Trainer, eval_input_generator,
     load_state_dict(trainer.state, ckpt_lib.restore_from_backup(backup))
     metrics = trainer.evaluate(
         eval_input_generator.create_iterator(ModeKeys.EVAL))
+    run_exporters(metrics)
     last_evaluated = step
     if not use_continuous_eval:
       break

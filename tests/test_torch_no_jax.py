@@ -29,12 +29,15 @@ from tensor2robot_tpu_torch.research.qtopt import GraspingModelWrapper
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = pathlib.Path(tensor2robot_tpu_torch.__file__).resolve().parent
 BLOCKED_ROOTS = ('jax', 'flax', 'optax', 'orbax', 'ml_dtypes')
+# Packages blocked by their full name: the card's host has no protobuf, so
+# the export assets are written without it.
+BLOCKED_PACKAGES = ('tensor2robot_tpu', 'google.protobuf')
 
 
 def _is_blocked(name: str) -> bool:
   if name.split('.')[0] in BLOCKED_ROOTS:
     return True
-  return name == 'tensor2robot_tpu' or name.startswith('tensor2robot_tpu.')
+  return any(name == p or name.startswith(p + '.') for p in BLOCKED_PACKAGES)
 
 
 def _imported_names(path: pathlib.Path):
@@ -58,6 +61,8 @@ def test_blocked_name_matching():
   assert _is_blocked('tensor2robot_tpu') and _is_blocked('tensor2robot_tpu.ops')
   assert not _is_blocked('tensor2robot_tpu_torch.ops')
   assert not _is_blocked('jaxtyping')
+  assert _is_blocked('google.protobuf.text_format')
+  assert not _is_blocked('google')
 
 
 def test_static_scan_finds_no_jax_import():
@@ -76,7 +81,7 @@ def test_every_port_module_imports_with_jax_blocked():
       for path in _port_sources())
   script = '\n'.join([
       'import importlib, sys',
-      f'for name in {BLOCKED_ROOTS + ("tensor2robot_tpu",)!r}:',
+      f'for name in {BLOCKED_ROOTS + BLOCKED_PACKAGES!r}:',
       '  sys.modules[name] = None',
       f'for module in {modules!r}:',
       '  importlib.import_module(module)',

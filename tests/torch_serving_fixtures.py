@@ -1,0 +1,127 @@
+"""Shared helpers of the port's export, predictor and batching tests.
+
+* :func:`trained_mock`: the port's ``MockT2RModel`` trained a few steps on
+  the CPU (the JAX suite's ``_trained_trainer``), for the filesystem and
+  serving-plane contracts.
+* :func:`qtopt_predictor`: the tiny QT-Opt config of ``tests/
+  test_qtopt.py`` (96x112 frames, 80x80 crop, ``num_convs=(2, 2, 1)``,
+  ``kernel_policy='pool_conv'``) in a ``CheckpointPredictor`` with seeded
+  weights of std 1/sqrt(fan_in), so that candidate actions score apart.
+* :func:`qtopt_features`: seeded numpy frames and actions for it.
+* :func:`one_thread`: a module fixture, autouse wherever it is imported.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tensor2robot_tpu_torch.export import exporters
+from tensor2robot_tpu_torch.modes import ModeKeys
+from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+from tensor2robot_tpu_torch.research.qtopt import GraspingModelWrapper
+from tensor2robot_tpu_torch.train import Trainer, TrainerConfig
+from tensor2robot_tpu_torch.utils.mocks import MockInputGenerator, MockT2RModel
+
+QT_CONFIG = dict(input_shape=(96, 112, 3), target_shape=(80, 80),
+                 num_convs=(2, 2, 1), kernel_policy='pool_conv')
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+  """One intra-op thread for an importing file's torch work: the suite
+  runs six worker processes on the host's cores, and torch's default of a
+  thread a core oversubscribes them."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
+
+
+def trained_mock(tmp_path, steps=5, callbacks=(), **config_kwargs):
+  """(trainer, model): the mock model trained ``steps`` steps on the CPU
+  with a checkpoint at the end (and every ``save_interval_steps``)."""
+  model = MockT2RModel()
+  config = dict(model_dir=str(tmp_path / 'm'), max_train_steps=steps,
+                save_interval_steps=steps, eval_interval_steps=0,
+                log_interval_steps=0, async_checkpoints=False)
+  config.update(config_kwargs)
+  trainer = Trainer(model, TrainerConfig(**config), device='cpu',
+                    callbacks=callbacks)
+  gen = MockInputGenerator(batch_size=8)
+  gen.set_specification_from_model(model, ModeKeys.TRAIN)
+  trainer.train(gen.create_iterator(ModeKeys.TRAIN))
+  return trainer, model
+
+
+def at_step(trainer, step):
+  """The trainer's serving state re-stamped at ``step`` (the JAX suite's
+  ``state.replace(step=...)``)."""
+  return exporters.ServingState(step, trainer.state.eval_state_dict())
+
+
+def mock_features(value: float, n: int = 1):
+  return {'measured_position': np.full((n, 2), value, np.float32)}
+
+
+def spread_state_dict(network, seed: int):
+  """Kernels of std 1/sqrt(fan_in), BatchNorm scales near 1, variances in
+  [0.5, 1.5), biases and means of std 0.1."""
+  generator = torch.Generator().manual_seed(seed)
+  state = {}
+  for name, value in network.state_dict().items():
+    if name.endswith(('kernel', 'weight')):
+      fan_in = (value[..., 0].numel() if name.endswith('kernel') else
+                value[0].numel())
+      value = torch.randn(value.shape, generator=generator) / fan_in**0.5
+    elif name.endswith('scale'):
+      value = 1.0 + 0.1 * torch.randn(value.shape, generator=generator)
+    elif name.endswith('var'):
+      value = 0.5 + torch.rand(value.shape, generator=generator)
+    else:
+      value = 0.1 * torch.randn(value.shape, generator=generator)
+    state[name] = value
+  return state
+
+
+def qtopt_model(device_type='gpu', kernel_policy='pool_conv'):
+  config = dict(QT_CONFIG, kernel_policy=kernel_policy)
+  return GraspingModelWrapper(device_type=device_type, **config)
+
+
+def qtopt_predictor(device_type='gpu', seed=1, kernel_policy='pool_conv'):
+  """(model, CheckpointPredictor on the CPU with spread weights)."""
+  model = qtopt_model(device_type, kernel_policy)
+  predictor = CheckpointPredictor(model, device='cpu')
+  predictor.load_state_dict(spread_state_dict(model.create_module(), seed),
+                            global_step=seed)
+  return model, predictor
+
+
+def qtopt_features(seed: int, n: int):
+  rng = np.random.RandomState(seed)
+  return {
+      'state/image': rng.randint(0, 256, (n,) + QT_CONFIG['input_shape'],
+                                 dtype=np.uint8),
+      'action/world_vector': rng.randn(n, 3).astype(np.float32),
+      'action/vertical_rotation': rng.randn(n, 2).astype(np.float32),
+  }
+
+
+def export_predictor(model, predictor, root, version=None, **kwargs) -> str:
+  """Exports a ``CheckpointPredictor``'s weights as one version of
+  ``root``; returns the version dir."""
+  state = exporters.ServingState(predictor.global_step,
+                                 predictor.network.state_dict())
+  return exporters.ModelExporter(**kwargs).export(model, state, str(root),
+                                                  version=version)
+
+
+def version_files(path):
+  """Relative paths of every file under a version dir."""
+  out = []
+  for dirpath, _, files in os.walk(path):
+    for name in files:
+      out.append(os.path.relpath(os.path.join(dirpath, name), path))
+  return sorted(out)
