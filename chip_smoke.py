@@ -127,6 +127,30 @@ Run from the repository root. The phases:
    bucket_compiles`` after warm-up and at the end (equal), the swap
    (``serving/model_swaps`` at least 1, no failed request, the program
    key kept) and 3/1 launches a dispatch;
+6c. HTTP serving at full width, under deterministic cuDNN, files under a
+   temporary directory below ``chiprun_out/`` that the phase removes: the
+   seeded critic and a second seeded critic exported on the card; two
+   ``run_serving`` replicas in router mode (``SERVE_WRAPPER``, a ``python
+   -c`` that calls the binary's ``main`` and prints its kernel counters on
+   exit): A serving the critic, B both critics under ``--hbm-budget-mb``
+   of 1.5 critics. One request of one frame and one grasp to A, bit for
+   bit the in-process ``ExportedModelPredictor``'s q at batch 1, its
+   ``X-Request-Id`` echoed; ``loadgen`` from this process, closed loop
+   (4 clients, 12 s) and then open loop at half that rate for 20 s with
+   half the arrivals best-effort (requests/s, examples/s, p50/p99/max and
+   the request count on the client's clock, sheds, errors), and the host
+   ms of ``json.loads`` + ``np.asarray`` of one request body here (a
+   replica decodes such a body in its decoder processes); the two critics
+   in turns on B (``page_ins`` up, ``serving/bucket_compiles`` flat, the
+   critic's q the lone request's); ``run_balancer`` at its default probe
+   and ejection settings over A and B with 2 clients, A SIGTERM'd under
+   traffic (drains, exits 0, ejected), restarted on its port and
+   readmitted, no failed request; full-sample request tracing's cost to
+   the in-process batcher (8 clients over the mock model, 6 rounds of a
+   traced and an untraced slice, every round printed); every replica's
+   launches after its start
+   3 ``pool_fwd`` and 1 ``conv_s2d_fwd`` (tensor cores) a dispatch, no
+   plain-version call, bucket warm-ups flat to exit;
 6b. the record feed at full width: 4 TFRecord shards of 48 QT-Opt
    examples (seeded 512x640x3 uint8 frames as PNG, actions, 0/1 rewards,
    index sidecars) written into a temporary directory below
@@ -230,11 +254,13 @@ import collections
 import concurrent.futures
 import contextlib
 import functools
+import http.client
 import itertools
 import json
 import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -264,12 +290,14 @@ from tensor2robot_tpu_torch.research.qtopt import GraspingModelWrapper
 from tensor2robot_tpu_torch.research.qtopt import networks
 from tensor2robot_tpu_torch.research.vrgripper import (
     VRGripperEnvLongHorizonModel, VRGripperEnvSequentialModel)
-from tensor2robot_tpu_torch.serving import DynamicBatcher
+from tensor2robot_tpu_torch.serving import (DynamicBatcher, default_buckets,
+                                            loadgen, wire)
 from tensor2robot_tpu_torch.train import (Trainer, TrainerCallback,
                                           TrainerConfig, train_eval_model)
 from tensor2robot_tpu_torch.train import checkpoints as ckpt_lib
 from tensor2robot_tpu_torch.train import train_state
 from tensor2robot_tpu_torch.train.trainer import BatchUploader
+from tensor2robot_tpu_torch.utils.mocks import MockT2RModel
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
@@ -1877,6 +1905,486 @@ def dispatch_parts(exported, executor, requests):
   parts = {name: float(np.median(v)) for name, v in times.items()}
   parts['upload_mb'] = sum(v.nbytes for v in batch.values()) / 1e6
   return parts
+
+
+# The HTTP serving path: run_serving replicas in router mode serve the
+# exported critic over the JSON wire, driven by the port's load generator
+# from this process; a second replica pages two critics under a byte
+# budget; run_balancer fronts both while one replica drains on SIGTERM and
+# comes back on its port.
+HTTP_MAX_BATCH = 8
+HTTP_CLIENTS = 4
+HTTP_CLOSED_SECONDS = 12.0
+HTTP_OPEN_SECONDS = 20.0
+HTTP_TRACE_ROUNDS = 6  # untraced and traced slices, the order alternated
+HTTP_TRACE_SLICE_SECONDS = 1.5
+HTTP_ALTERNATIONS = 6  # named requests, the two critics in turn
+HTTP_BUDGET_CRITICS = 1.5  # the paging replica's budget, in critics
+HTTP_DECODES = 5
+
+# Runs the serving binary's main unchanged and prints, as its last stdout
+# line on exit, the kernel launches after the server started (the counters
+# are zeroed there), the plain versions' calls over the whole process, the
+# dispatches, the bucket warm-ups and the page-in times.
+SERVE_WRAPPER = '''
+import json, sys
+import torch
+from tensor2robot_tpu_torch.bin import run_serving
+from tensor2robot_tpu_torch.observability import metrics
+from tensor2robot_tpu_torch.ops import conv_s2d, pool
+from tensor2robot_tpu_torch.serving import server
+if torch.cuda.is_available():
+  torch.backends.cudnn.deterministic = True
+  torch.backends.cudnn.benchmark = False
+plain = {'pool': 0, 'conv': 0}
+def count_calls(module, name, key):
+  fn = getattr(module, name)
+  def counted(*args, **kwargs):
+    plain[key] += 1
+    return fn(*args, **kwargs)
+  setattr(module, name, counted)
+count_calls(pool, 'plain_max_pool_argmax', 'pool')
+count_calls(conv_s2d, 'plain_conv2d', 'conv')
+def sync():
+  if torch.cuda.is_available():
+    torch.cuda.synchronize()
+def dispatches():
+  return sum(v for k, v in metrics.snapshot('serving/').items()
+             if k.endswith('/dispatches'))
+def compiles():
+  return metrics.counter('serving/bucket_compiles').value
+warm = {}
+start = server.ServingServer.start
+def started(self):
+  out = start(self)
+  sync()
+  warm.update(pool_fwd=pool.pool_fwd.launches,
+              conv_s2d_fwd=conv_s2d.conv_s2d_fwd.launches,
+              compiles=compiles(), dispatches=dispatches())
+  pool.pool_fwd.launches = 0
+  conv_s2d.conv_s2d_fwd.launches = 0
+  conv_s2d.conv_s2d_fwd.tensor_core_launches = 0
+  return out
+server.ServingServer.start = started
+code = run_serving.main(sys.argv[1:])
+sync()
+print(json.dumps({
+    'exit': code, 'warm': warm, 'pool_fwd': pool.pool_fwd.launches,
+    'conv_s2d_fwd': conv_s2d.conv_s2d_fwd.launches,
+    'conv_s2d_fwd_tensor_core': conv_s2d.conv_s2d_fwd.tensor_core_launches,
+    'plain': plain, 'dispatches': dispatches() - warm.get('dispatches', 0),
+    'compiles': compiles(),
+    'page_ins': metrics.counter('serving/page_ins').value,
+    'page_in_ms': metrics.histogram('serving/page_in_ms').snapshot()}),
+    flush=True)
+run_serving.exit_without_finalizing(code)
+'''
+
+
+class Replica:
+  """One ``run_serving`` process under SERVE_WRAPPER (or the balancer
+  binary), its stderr in ``log``; ``ready`` is its ready-line document."""
+
+  def __init__(self, args, log, device, wrapped=True):
+    repo = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ)
+    if device == 'cuda':
+      env['T2R_FORCE_PALLAS_KERNELS'] = '1'
+    head = (['-c', SERVE_WRAPPER] if wrapped else
+            ['-m', 'tensor2robot_tpu_torch.bin.run_balancer'])
+    with open(log, 'a') as err:
+      self.process = subprocess.Popen(
+          [sys.executable] + head + [str(a) for a in args], cwd=repo,
+          stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+    self.log = log
+    self.ready = None
+
+  def wait_ready(self):
+    line = self.process.stdout.readline()
+    if not line:
+      self.process.wait(timeout=60)
+      raise AssertionError(f'replica exited {self.process.returncode}:\n'
+                           f'{pathlib.Path(self.log).read_text()[-3000:]}')
+    self.ready = json.loads(line)
+    return self
+
+  @property
+  def port(self):
+    return self.ready['port']
+
+  def stop(self):
+    """SIGTERM; (seconds to exit, the last stdout document or None)."""
+    begin = time.perf_counter()
+    self.process.send_signal(signal.SIGTERM)
+    out, _ = self.process.communicate(timeout=120)
+    seconds = time.perf_counter() - begin
+    if self.process.returncode != 0:
+      raise AssertionError(f'exit {self.process.returncode} after SIGTERM:\n'
+                           f'{pathlib.Path(self.log).read_text()[-3000:]}')
+    lines = out.strip().splitlines()
+    return seconds, (json.loads(lines[-1]) if lines else None)
+
+  def kill(self):
+    if self.process.poll() is None:
+      self.process.kill()
+    self.process.wait(timeout=60)
+
+
+def http_call(port, path, body=None, headers=None):
+  """(status, headers, JSON body) on a fresh connection (GET without a
+  body)."""
+  conn = http.client.HTTPConnection('127.0.0.1', port, timeout=120)
+  try:
+    conn.request('GET' if body is None else 'POST', path, body=body,
+                 headers=dict(headers or {}))
+    response = conn.getresponse()
+    return (response.status, dict(response.getheaders()),
+            json.loads(response.read() or b'{}'))
+  finally:
+    conn.close()
+
+
+def wait_for(predicate, seconds):
+  deadline = time.perf_counter() + seconds
+  while time.perf_counter() < deadline:
+    if predicate():
+      return True
+    time.sleep(0.05)
+  return predicate()
+
+
+def http_replica_launches(name, doc):
+  """A replica's launches after its start, held to 3 pool_fwd and 1
+  conv_s2d_fwd (on the tensor cores) a dispatch, with no plain-version
+  call over its whole life."""
+  count = doc['dispatches']
+  want = path_launches(eval_batches=count)
+  got = {key: doc.get(key, 0) for key in want}
+  if got != want or doc['plain'] != {'pool': 0, 'conv': 0} or count < 1:
+    raise AssertionError(f'HTTP phase, replica {name}: launches {got} and '
+                         f'plain calls {doc["plain"]} over {count} '
+                         f'dispatches, expected {want} and none')
+  return got
+
+
+def tracing_overhead(device, clients=8):
+  """Full-sample request tracing's cost to the batcher: HTTP_TRACE_ROUNDS
+  rounds of two slices, one on a plane untraced and one on a plane with
+  ``request_trace_sample=1.0`` (the flight ring's lifecycle events for
+  every request), the order alternated each round, 8 in-process clients
+  over the mock model. Returns each round's (untraced, traced)
+  examples/s."""
+  predictor = CheckpointPredictor(MockT2RModel(), device=device)
+  predictor.init_randomly(torch.Generator().manual_seed(0))
+  features = {'measured_position': np.full((1, 2), 0.5, np.float32)}
+  planes = [DynamicBatcher(predictor, max_batch=64, batch_deadline_ms=0.2,
+                           request_trace_sample=sample, register_report=False,
+                           metrics_prefix=f'serving/trace_cost_{name}')
+            for name, sample in (('untraced', 0.0), ('traced', 1.0))]
+  rounds = []
+  with planes[0], planes[1]:
+    for i in range(HTTP_TRACE_ROUNDS):
+      rates = {}
+      for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+        rates[j] = loadgen.run_load(
+            loadgen.inproc_submit_fn(planes[j]), lambda c: features,
+            num_clients=clients,
+            duration_secs=HTTP_TRACE_SLICE_SECONDS).actions_per_sec
+      rounds.append((rates[0], rates[1]))
+  return rounds
+
+
+def timed_submit(submit, latencies):
+  """``submit`` with each call's ms on the client's clock appended to
+  ``latencies``."""
+
+  def call(body):
+    start = time.perf_counter()
+    out = submit(body)
+    latencies.append(1e3 * (time.perf_counter() - start))
+    return out
+
+  return call
+
+
+def latency_line(latencies):
+  values = np.asarray(latencies)
+  return (f'p50 {np.percentile(values, 50):.1f} ms, p99 '
+          f'{np.percentile(values, 99):.1f} ms, max {values.max():.1f} ms '
+          f'over {values.size} requests')
+
+
+def phase_http_serving(seed, card, device='cuda', model=None):
+  """The exported critic served over HTTP at full width by ``run_serving``
+  replicas, behind ``run_balancer``, under deterministic cuDNN (restored
+  after the phase); files under a temporary directory below
+  ``chiprun_out/``, removed at the end. Returns the replicas' launch
+  counts."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='http_phase_', dir=OUT_DIR))
+  try:
+    with cudnn_settings(deterministic=True, benchmark=False), \
+        _dispatch.force_kernels(device == 'cuda'):
+      return http_serving_paths(seed, card, device, model, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def http_serving_paths(seed, card, device, model, root):
+  begin = time.perf_counter()
+  model = model or GraspingModelWrapper(device_type='gpu',
+                                        kernel_policy='pool_conv')
+  for name, weights_seed in (('critic', seed), ('other', seed + 1)):
+    # Spread weights: a fresh critic scores every pair near 0.5, and the
+    # bit checks below must see two critics that answer apart.
+    predictor = CheckpointPredictor(model, device=device)
+    predictor.load_state_dict(spread_weights(
+        model.create_module(), torch.Generator().manual_seed(weights_seed)))
+    export_version(model, predictor.network.state_dict(), 0, root / name, 1)
+  exported = ExportedModelPredictor(str(root / 'critic'), device=device)
+  if not exported.restore():
+    raise AssertionError('the exported critic did not load')
+  critic_bytes = sum(v.numel() * v.element_size() for v in
+                     exported.stateless_serving_fn().params.values())
+  common = ['--device', device, '--max-batch', HTTP_MAX_BATCH,
+            '--batch-deadline-ms', 5, '--reload-interval-secs', 0]
+  serving_a = ['--model', f'critic={root / "critic"}'] + common
+  paging = (['--model', f'critic={root / "critic"}',
+             '--model', f'other={root / "other"}', '--hbm-budget-mb',
+             HTTP_BUDGET_CRITICS * critic_bytes / 1e6] + common)
+  live = []
+  try:
+    start_s = time.perf_counter()
+    live += [Replica(serving_a + ['--port', 0], root / 'a.log', device),
+             Replica(paging + ['--port', 0], root / 'b.log', device)]
+    replica_a, replica_b = (r.wait_ready() for r in live)
+    start_s = time.perf_counter() - start_s
+
+    # 1. One request of one frame and one grasp, bit for bit the
+    # in-process exported predictor's q at batch 1.
+    one = serving_pairs(model, seed + 11, 1)
+    body = loadgen.encode_request(one)
+    decode_ms, encode_ms = [], []
+    for _ in range(HTTP_DECODES):
+      ms, _ = synced_ms(lambda: loadgen.encode_request(one))
+      encode_ms.append(ms)
+      t0 = time.perf_counter()
+      doc = json.loads(body)
+      {k: np.asarray(v) for k, v in doc['features'].items()}
+      decode_ms.append(1e3 * (time.perf_counter() - t0))
+    want = exported.predict(one)['q_predicted']
+    status, headers, reply = http_call(replica_a.port, '/v1/predict', body,
+                                       {'X-Request-Id': 'chip-lone-1'})
+    got = np.asarray(reply.get('outputs', {}).get('q_predicted'), np.float32)
+    if (status != 200 or headers.get('X-Request-Id') != 'chip-lone-1' or
+        reply['request_id'] != 'chip-lone-1' or
+        not np.array_equal(got.view(np.int32), want.view(np.int32))):
+      raise AssertionError(f'lone HTTP request: status {status}, headers '
+                           f'{headers}, q {got} against in-process {want}')
+    log(f'http: one {model.__class__.__name__} request over JSON '
+        f'({len(body) / 1e6:.2f} MB body), q {got.tolist()} bit for bit the '
+        f'in-process ExportedModelPredictor\'s at batch 1, X-Request-Id '
+        f'echoed; replicas up {start_s:.1f} s after launch (imports, program '
+        f'load, {len(default_buckets(HTTP_MAX_BATCH))} bucket warm-ups); '
+        f'host ms in this process (median of {HTTP_DECODES}): json.loads + '
+        f'np.asarray of the body {np.median(decode_ms):.1f} (min '
+        f'{min(decode_ms):.1f}), its encoding {np.median(encode_ms):.1f} on '
+        f'{card}')
+
+    # 2. Closed loop, then open loop at half the closed-loop rate with half
+    # the arrivals best-effort.
+    bodies = [loadgen.encode_request(serving_pairs(model, seed + 12 + c, 1))
+              for c in range(HTTP_CLIENTS)]
+    closed_ms, probe_ms = [], []
+    probing = threading.Event()
+
+    def probe():
+      # What a balancer's health probe waits for under this load.
+      while not probing.wait(0.25):
+        start = time.perf_counter()
+        status = http_call(replica_a.port, '/healthz')[0]
+        probe_ms.append(1e3 * (time.perf_counter() - start)
+                        if status == 200 else float('inf'))
+
+    prober = threading.Thread(target=probe, daemon=True)
+    prober.start()
+    try:
+      closed = loadgen.run_load(
+          timed_submit(loadgen.http_submit_fn('127.0.0.1', replica_a.port),
+                       closed_ms),
+          lambda c: bodies[c], num_clients=HTTP_CLIENTS,
+          duration_secs=HTTP_CLOSED_SECONDS)
+    finally:
+      probing.set()
+      prober.join(timeout=130)
+    rate = 0.5 * closed.requests / closed.duration_s
+    opened = loadgen.run_open_loop(
+        loadgen.http_open_submit_fn('127.0.0.1', replica_a.port),
+        lambda i: bodies[i % HTTP_CLIENTS], rate_rps=rate,
+        duration_secs=HTTP_OPEN_SECONDS, workers=2 * HTTP_CLIENTS,
+        seed=seed, best_effort_fraction=0.5, warmup_requests=0)
+    if closed.errors or opened.errors or not closed.requests:
+      raise AssertionError(f'HTTP load: closed {closed}, open {opened}')
+    log(f'http: closed loop, {HTTP_CLIENTS} clients x 1 example, '
+        f'{closed.duration_s:.2f} s: {closed.requests} requests, '
+        f'{closed.requests / closed.duration_s:.2f} requests/s = '
+        f'{closed.actions_per_sec:.2f} examples/s, latency '
+        f'{latency_line(closed_ms)} (client clock), {closed.errors} errors, '
+        f'/healthz meanwhile p50 {np.median(probe_ms):.1f} ms max '
+        f'{max(probe_ms):.1f} ms over {len(probe_ms)} probes; '
+        f'open loop (Poisson) at {rate:.2f} requests/s offered for '
+        f'{HTTP_OPEN_SECONDS:.0f} s, half best-effort: {opened.arrivals} '
+        f'arrivals, {opened.achieved_rps:.2f} ok/s, p50 '
+        f'{opened.latency_ms_p50:.1f} ms p99 {opened.latency_ms_p99:.1f} ms '
+        f'max {opened.latency_ms_max:.1f} ms from the scheduled arrival, '
+        f'{opened.shed} shed, {opened.errors} errors, classes '
+        f'{opened.classes}; the replica\'s decoder processes '
+        f'{wire.DECODERS} at most, for bodies of {wire.MIN_BYTES} bytes or '
+        f'more, on {card}')
+
+    # 3. Router paging: the two critics in turns under a budget of 1.5.
+    before = http_call(replica_b.port, '/statz')[2]
+    other = ExportedModelPredictor(str(root / 'other'), device=device)
+    if not other.restore():
+      raise AssertionError('the second exported critic did not load')
+    expected = {'critic': got.tolist(),
+                'other': other.predict(one)['q_predicted'].tolist()}
+    answers = {}
+    for i in range(HTTP_ALTERNATIONS):
+      name = ('critic', 'other')[i % 2]
+      status, _, reply = http_call(replica_b.port,
+                                   f'/v1/models/{name}/predict', body)
+      if status != 200:
+        raise AssertionError(f'paging replica, {name}: {status} {reply}')
+      answers.setdefault(name, reply['outputs']['q_predicted'])
+    after = http_call(replica_b.port, '/statz')[2]
+    compiles = [doc['models']['critic']['bucket_compiles']
+                for doc in (before, after)]
+    if (after['page_ins'] <= before['page_ins'] or after['page_ins'] < 1 or
+        compiles[0] != compiles[1] or len(after['models_resident']) != 1 or
+        answers != expected or answers['critic'] == answers['other']):
+      raise AssertionError(f'paging replica: page_ins {before["page_ins"]} '
+                           f'-> {after["page_ins"]}, bucket_compiles '
+                           f'{compiles}, resident {after["models_resident"]},'
+                           f' answers {answers}')
+    log(f'http: router replica with 2 critics of {critic_bytes / 1e6:.2f} MB '
+        f'under --hbm-budget-mb {HTTP_BUDGET_CRITICS * critic_bytes / 1e6:.2f}'
+        f': {HTTP_ALTERNATIONS} named requests in turns, page_ins '
+        f'{before["page_ins"]} -> {after["page_ins"]}, page_outs '
+        f'{before["page_outs"]} -> {after["page_outs"]}, resident '
+        f'{after["models_resident"]}, serving/bucket_compiles {compiles[0]} '
+        f'-> {compiles[1]}; each critic\'s q over the router bit for bit its '
+        f'in-process ExportedModelPredictor\'s on {card}')
+
+    # 4. The balancer over both, at run_balancer's default probe interval,
+    # probe timeout and ejection; replica A drained by SIGTERM under
+    # traffic, then restarted on its port.
+    balancer = Replica(['--backend', f'127.0.0.1:{replica_a.port}',
+                        '--backend', f'127.0.0.1:{replica_b.port}', '--port',
+                        0], root / 'lb.log', device, wrapped=False)
+    live.append(balancer)
+    balancer.wait_ready()
+    if http_call(balancer.port, '/statz')[2]['backends_healthy'] != 2:
+      raise AssertionError('balancer: both replicas should be healthy')
+    submit = loadgen.http_submit_fn('127.0.0.1', balancer.port)
+    done, failures = [], []
+    stop = threading.Event()
+
+    def client(c):
+      while not stop.is_set():
+        try:
+          submit(bodies[c])
+          done.append(c)
+        except Exception as e:  # pylint: disable=broad-except
+          failures.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(2)]
+    for thread in threads:
+      thread.start()
+    try:
+      if not wait_for(lambda: len(done) >= 4, 60):
+        raise AssertionError(f'balancer: no traffic ({failures[:3]})')
+      drain_s, doc_a = replica_a.stop()
+      live.remove(replica_a)
+
+      def healthy():
+        return http_call(balancer.port, '/statz')[2]['backends_healthy']
+
+      ejected = wait_for(lambda: healthy() == 1, 15)
+      served = len(done)
+      wait_for(lambda: len(done) >= served + 2, 60)
+      restart_s = time.perf_counter()
+      replica_a2 = Replica(serving_a + ['--port', replica_a.port],
+                           root / 'a.log', device)
+      live.append(replica_a2)
+      replica_a2.wait_ready()
+      readmitted = wait_for(lambda: healthy() == 2, 15)
+      restart_s = time.perf_counter() - restart_s
+      served = len(done)
+      wait_for(lambda: len(done) >= served + 3, 60)
+    finally:
+      stop.set()
+      for thread in threads:
+        thread.join(timeout=120)
+    report = http_call(balancer.port, '/statz')[2]
+    if (failures or not ejected or not readmitted or
+        report['ejections'] < 1 or report['readmissions'] < 1 or
+        replica_a2.port != replica_a.port):
+      raise AssertionError(f'balancer drill: {len(failures)} failed '
+                           f'({failures[:3]}), ejected {ejected}, readmitted '
+                           f'{readmitted}, report {report}')
+    docs = {'a': doc_a}
+    for name, replica in (('b', replica_b), ('a2', replica_a2),
+                          ('balancer', balancer)):
+      docs[name] = replica.stop()[1]
+      live.remove(replica)
+    log(f'http: run_balancer over both replicas at its defaults (probe '
+        f'every {report["health_interval_secs"]} s, eject after '
+        f'{report["eject_after"]} failed), 2 closed-loop clients: '
+        f'{len(done)} requests, 0 failed; replica A took SIGTERM under '
+        f'traffic, drained and exited 0 in {drain_s:.2f} s, ejected '
+        f'(ejections {report["ejections"]}); restarted on port '
+        f'{replica_a.port} and readmitted {restart_s:.1f} s after its launch '
+        f'(readmissions {report["readmissions"]}, retries '
+        f'{report["retries"]}, transport errors '
+        f'{report["transport_errors"]}) on {card}')
+  finally:
+    for replica in live:
+      replica.kill()
+
+  # 5. Full-sample tracing's cost, with no replica left on the host.
+  rounds = tracing_overhead(device)
+  ratios = [traced / untraced for untraced, traced in rounds]
+  log(f'http: full-sample request tracing (request_trace_sample=1.0, the '
+      f'flight ring\'s 4 lifecycle events a request) in the batcher, 8 '
+      f'in-process clients over the mock model, {HTTP_TRACE_ROUNDS} rounds '
+      f'of {HTTP_TRACE_SLICE_SECONDS} s slices, (untraced, traced) '
+      f'examples/s: {[(round(u, 1), round(t, 1)) for u, t in rounds]}; '
+      f'traced/untraced {[round(r, 4) for r in ratios]}, median '
+      f'{np.median(ratios):.4f}, spread {max(ratios) - min(ratios):.4f} on '
+      f'{card}')
+
+  # 6. The replicas' launches: 3 pool_fwd and 1 conv_s2d_fwd a dispatch.
+  total = path_launches()
+  for name in ('a', 'b', 'a2'):
+    doc = docs[name]
+    if doc['compiles'] != doc['warm']['compiles']:
+      raise AssertionError(f'replica {name}: serving/bucket_compiles '
+                           f'{doc["warm"]["compiles"]} after warm-up, '
+                           f'{doc["compiles"]} at exit')
+    for key, value in http_replica_launches(name, doc).items():
+      total[key] += value
+  page_in = docs['b']['page_in_ms']
+  log(f'http: replica launches after start, per replica (dispatches, '
+      f'pool_fwd, conv_s2d_fwd): '
+      f'{ {n: (docs[n]["dispatches"], docs[n]["pool_fwd"], docs[n]["conv_s2d_fwd"]) for n in ("a", "b", "a2")} }'
+      f', plain-version calls 0; bucket warm-ups '
+      f'{ {n: docs[n]["warm"]["compiles"] for n in ("a", "b", "a2")} }, flat '
+      f'to exit; page-ins {docs["b"]["page_ins"]}, page_in_ms mean '
+      f'{page_in.get("mean", 0.0):.2f} max {page_in.get("max", 0.0):.2f}; '
+      f'phase {time.perf_counter() - begin:.1f} s on {card}')
+  return total
 
 
 # The record-fed QT-Opt path: shards of PNG frames (the card's host had no
@@ -4129,6 +4637,7 @@ def main(argv=None):
   torch.cuda.empty_cache()
   export_launches = phase_export_serving(args.seed, card)
   torch.cuda.empty_cache()
+  http_launches = phase_http_serving(args.seed, card)
   record_launches = phase_record_train(args.seed, card, ms_per_step,
                                        args.profile)
   torch.cuda.empty_cache()
@@ -4145,12 +4654,12 @@ def main(argv=None):
   torch.cuda.empty_cache()
   photometric_launches = phase_photometric_path(args.seed)
   # Launches: the pool and conv forward kernels over the QT-Opt serving,
-  # training, checkpoint, export and record-fed paths, their backward ones
+  # training, checkpoint, export, HTTP serving and record-fed paths, their backward ones
   # over the training paths, dx over the path that needs it, the flash
   # kernels over the three SNAIL paths, the fused update over the two fused
   # training paths, the photometric pass over its branch.
   paths = [serve_launches, train_launches, checkpoint_launches,
-           export_launches, record_launches, fused_launches,
+           export_launches, http_launches, record_launches, fused_launches,
            *(result[1] for result in snail.values()),
            *(result[1] for result in snail_fused.values()),
            photometric_launches]
@@ -4161,7 +4670,8 @@ def main(argv=None):
   log(f'launches: serving {serve_launches} over {args.actions} actions; '
       f'training {train_launches} and fused training {fused_launches} over '
       f'{args.steps} steps; checkpoint phase {checkpoint_launches}; export '
-      f'phase {export_launches}; record phase {record_launches}; dx path '
+      f'phase {export_launches}; HTTP serving replicas {http_launches}; '
+      f'record phase {record_launches}; dx path '
       f'{dx_launches}; SNAIL '
       f'{ {name: result[1] for name, result in snail.items()} } and fused '
       f'{ {name: result[1] for name, result in snail_fused.items()} } over '

@@ -59,6 +59,7 @@ from torch import nn
 import tensor2robot_tpu_torch.ops  # pylint: disable=unused-import  # the t2r:: ops
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.observability import metrics as metrics_lib
+from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 from tensor2robot_tpu_torch.specs import SpecStruct, algebra, numpy_gen
 from tensor2robot_tpu_torch.specs import assets as assets_lib
 from tensor2robot_tpu_torch.train import checkpoints as ckpt_lib
@@ -172,14 +173,16 @@ def serialize_serving_fn(model, serving_params: Mapping[str, torch.Tensor],
   return buffer.getvalue()
 
 
-def deserialize_serving_program(data: bytes, device='cpu'):
+def deserialize_serving_program(data: bytes, device='cuda'):
   """The ``ExportedProgram`` of :func:`serialize_serving_fn`'s bytes, moved
-  to ``device`` (``move_to_device_pass``). Needs only this package's
-  ``ops`` (the custom ops), never the model."""
+  to ``device`` (``move_to_device_pass``; the card unless the caller asks
+  for ``'cpu'``, and a CUDA request with no card raises). Needs only this
+  package's ``ops`` (the custom ops), never the model."""
   from torch.export.passes import move_to_device_pass  # pylint: disable=import-outside-toplevel
 
+  device = dispatch.resolve_device(device)
   program = torch.export.load(io.BytesIO(data))
-  return move_to_device_pass(program, str(torch.device(device)))
+  return move_to_device_pass(program, str(device))
 
 
 def serving_program_fingerprint(program) -> str:
@@ -459,10 +462,12 @@ def load_state_from_export_dir(export_dir: str,
 
 
 def load_serving_fn_from_export_dir(export_dir: str,
-                                    device='cpu') -> Optional[Callable]:
+                                    device='cuda') -> Optional[Callable]:
   """The self-contained serving program as ``fn(params, features) ->
-  outputs`` on ``device``, or None when the version has none. Needs only
-  torch and this package's ``ops``."""
+  outputs`` on ``device`` (the card unless the caller asks for ``'cpu'``;
+  a CUDA request with no card raises), or None when the version has none.
+  Needs only torch and this package's ``ops``."""
+  device = dispatch.resolve_device(device)
   path = os.path.join(export_dir, SERVING_FN_FILENAME)
   if not os.path.exists(path):
     return None

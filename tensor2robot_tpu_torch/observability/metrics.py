@@ -1,35 +1,37 @@
 """Process-global, thread-safe metrics registry: the port's counterpart of
-``tensor2robot_tpu/observability/metrics.py``, limited to what export,
-the predictors and the batching plane call.
+``tensor2robot_tpu/observability/metrics.py``, with its contract and its
+documents unchanged. Pure stdlib.
 
 * :func:`counter`, :func:`gauge` and :func:`histogram` create or get a
   named metric in the process registry (flat slash-scoped names such as
   ``'serving/bucket_compiles'``); :func:`scope` prefixes a path segment.
 * A :class:`Histogram` keeps exact count, sum, min and max and
   percentiles (p50, p90, p99) from power-of-two buckets, each the upper
-  edge of its bucket clamped into the observed range; ``observe`` may
-  attach one exemplar label per bucket (the batcher's request ids).
-* :func:`snapshot` reads every metric under a prefix; :func:`report` adds
-  the sections of :func:`register_report_provider`'s providers (the
-  batcher's).
-
-Not ported here (ROADMAP queue 1 item 10): ``delta``, ``dump_report``,
-the exposition formats and the rest of the observability plane (tracing,
-the flight recorder, the program ledger).
+  edge of its bucket clamped into the observed range. ``observe`` may
+  attach one exemplar label per bucket (the latest: label, value, wall
+  time); a snapshot carries the raw bucket counts, which windowed
+  consumers (the SLO engine, the anomaly watch) difference.
+* :func:`snapshot` reads every metric under a prefix, :func:`delta` the
+  change since an earlier snapshot; :func:`report` adds the sections of
+  :func:`register_report_provider`'s providers, :func:`dump_report`
+  writes it as JSON. The Prometheus/OpenMetrics text exposition is
+  ``metricsz.prom_exposition``.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 __all__ = [
     'Counter', 'Gauge', 'Histogram', 'Registry', 'Scope', 'counter',
-    'gauge', 'histogram', 'scope', 'snapshot', 'report', 'reset',
-    'registry', 'register_report_provider', 'unregister_report_provider',
+    'gauge', 'histogram', 'scope', 'snapshot', 'delta', 'report',
+    'dump_report', 'reset', 'registry', 'register_report_provider',
+    'unregister_report_provider',
 ]
 
 _ZERO_BUCKET = -1075  # frexp exponent below every positive float
@@ -37,6 +39,8 @@ _ZERO_BUCKET = -1075  # frexp exponent below every positive float
 
 class Counter:
   """Monotonically increasing integer count."""
+
+  kind = 'counter'
 
   def __init__(self, name: str):
     self.name = name
@@ -59,6 +63,8 @@ class Counter:
 class Gauge:
   """Last-written float value."""
 
+  kind = 'gauge'
+
   def __init__(self, name: str):
     self.name = name
     self._lock = threading.Lock()
@@ -67,6 +73,10 @@ class Gauge:
   def set(self, value: float) -> None:
     with self._lock:
       self._value = float(value)
+
+  def add(self, value: float) -> None:
+    with self._lock:
+      self._value += float(value)
 
   @property
   def value(self) -> float:
@@ -79,8 +89,11 @@ class Gauge:
 
 class Histogram:
   """Streaming distribution: exact count, sum, min and max; percentiles
-  from power-of-two buckets (``math.frexp``'s exponent), within 2x of the
+  from power-of-two buckets (``math.frexp``'s exponent: bucket e covers
+  (2**(e-1), 2**e]; zero and negatives share one bucket), within 2x of the
   truth at any scale."""
+
+  kind = 'histogram'
 
   def __init__(self, name: str):
     self.name = name
@@ -90,37 +103,58 @@ class Histogram:
     self._min = math.inf  # GUARDED_BY(self._lock)
     self._max = -math.inf  # GUARDED_BY(self._lock)
     self._buckets: Dict[int, int] = {}  # GUARDED_BY(self._lock)
-    self._exemplars: Dict[int, str] = {}  # GUARDED_BY(self._lock)
+    # exponent -> (label, observed value, wall time), the latest per bucket
+    self._exemplars: Dict[int, tuple] = {}  # GUARDED_BY(self._lock)
 
   def observe(self, value: float, exemplar: Optional[str] = None) -> None:
     value = float(value)
-    exponent = math.frexp(value)[1] if value > 0.0 else _ZERO_BUCKET
     with self._lock:
       self._count += 1
       self._sum += value
-      self._min = min(self._min, value)
-      self._max = max(self._max, value)
+      if value < self._min:
+        self._min = value
+      if value > self._max:
+        self._max = value
+      exponent = math.frexp(value)[1] if value > 0.0 else _ZERO_BUCKET
       self._buckets[exponent] = self._buckets.get(exponent, 0) + 1
       if exemplar is not None:
-        self._exemplars[exponent] = str(exemplar)
+        self._exemplars[exponent] = (str(exemplar), value, time.time())
 
   @staticmethod
-  def _upper(exponent: int) -> float:
+  def bucket_upper(exponent: int) -> float:
+    """The inclusive upper edge of a frexp-exponent bucket."""
     return 0.0 if exponent == _ZERO_BUCKET else math.ldexp(1.0, exponent)
 
   def _percentile_locked(self, fraction: float) -> float:  # HOLDS(self._lock)
+    if self._count == 0:
+      return 0.0
     target = fraction * self._count
     seen = 0
     for exponent in sorted(self._buckets):
       seen += self._buckets[exponent]
       if seen >= target:
-        return min(max(self._upper(exponent), self._min), self._max)
+        return min(max(self.bucket_upper(exponent), self._min), self._max)
     return self._max
 
   @property
   def count(self) -> int:
     with self._lock:
       return self._count
+
+  @property
+  def mean(self) -> float:
+    with self._lock:
+      return self._sum / self._count if self._count else 0.0
+
+  def bucket_counts(self) -> Dict[int, int]:
+    """Raw ``{frexp exponent: count}`` (for exposition formats)."""
+    with self._lock:
+      return dict(self._buckets)
+
+  def bucket_exemplars(self) -> Dict[int, tuple]:
+    """``{frexp exponent: (label, value, wall_time)}``."""
+    with self._lock:
+      return dict(self._exemplars)
 
   def snapshot(self):
     with self._lock:
@@ -133,10 +167,12 @@ class Histogram:
           'p50': self._percentile_locked(0.50),
           'p90': self._percentile_locked(0.90),
           'p99': self._percentile_locked(0.99),
+          # String exponents: stable across a JSON round trip.
+          'buckets': {str(e): c for e, c in sorted(self._buckets.items())},
       }
       if self._exemplars:
-        out['exemplars'] = {repr(self._upper(e)): label for e, label in
-                            sorted(self._exemplars.items())}
+        out['exemplars'] = {repr(self.bucket_upper(e)): entry[0]
+                            for e, entry in sorted(self._exemplars.items())}
       return out
 
 
@@ -171,12 +207,45 @@ class Registry:
   def scope(self, prefix: str) -> 'Scope':
     return Scope(self, prefix)
 
+  def names(self, prefix: str = '') -> List[str]:
+    with self._lock:
+      return sorted(n for n in self._metrics if n.startswith(prefix))
+
+  def items(self, prefix: str = '') -> List:
+    """Sorted ``(name, metric)`` pairs (the exposition formats read the
+    metric objects' buckets)."""
+    with self._lock:
+      return sorted((n, m) for n, m in self._metrics.items()
+                    if n.startswith(prefix))
+
   def snapshot(self, prefix: str = '') -> Dict[str, object]:
     """Counters as ints, gauges as floats, histograms as stats dicts."""
     with self._lock:
       metrics = [(n, m) for n, m in self._metrics.items()
                  if n.startswith(prefix)]
     return {name: metric.snapshot() for name, metric in sorted(metrics)}
+
+  def delta(self, previous: Dict[str, object],
+            prefix: str = '') -> Dict[str, object]:
+    """The change since ``previous`` (an earlier :meth:`snapshot`):
+    counters and histogram count/sum differenced (the mean recomputed over
+    the window), gauges at their current value; a metric born after
+    ``previous`` differences against zero."""
+    out: Dict[str, object] = {}
+    for name, value in self.snapshot(prefix).items():
+      prev = previous.get(name)
+      if isinstance(value, dict):
+        pcount = prev.get('count', 0) if isinstance(prev, dict) else 0
+        psum = prev.get('sum', 0.0) if isinstance(prev, dict) else 0.0
+        dcount = value['count'] - pcount
+        dsum = value['sum'] - psum
+        out[name] = {'count': dcount, 'sum': dsum,
+                     'mean': dsum / dcount if dcount else 0.0}
+      elif isinstance(value, int):
+        out[name] = value - (prev if isinstance(prev, int) else 0)
+      else:
+        out[name] = value
+    return out
 
   def report(self) -> Dict[str, object]:
     """Every metric, the process's id and uptime, and one section per
@@ -196,6 +265,16 @@ class Registry:
       except Exception as e:  # pylint: disable=broad-except
         out[name] = {'error': repr(e)}
     return out
+
+  def dump_report(self, path: str) -> str:
+    """Writes :meth:`report` as JSON to ``path`` (directories created)."""
+    dirname = os.path.dirname(path)
+    if dirname:
+      os.makedirs(dirname, exist_ok=True)
+    with open(path, 'w') as f:
+      json.dump(self.report(), f, indent=2, sort_keys=True)
+      f.write('\n')
+    return path
 
   def reset(self) -> None:
     """Drops every metric (tests only: live code holds metric handles)."""
@@ -269,8 +348,16 @@ def snapshot(prefix: str = '') -> Dict[str, object]:
   return registry.snapshot(prefix)
 
 
+def delta(previous: Dict[str, object], prefix: str = '') -> Dict[str, object]:
+  return registry.delta(previous, prefix)
+
+
 def report() -> Dict[str, object]:
   return registry.report()
+
+
+def dump_report(path: str) -> str:
+  return registry.dump_report(path)
 
 
 def reset() -> None:

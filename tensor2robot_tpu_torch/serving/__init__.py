@@ -1,9 +1,14 @@
-"""Serving plane: the batching core (``batching``): deadline-aware
+"""Serving plane: the batching core (``batching``: deadline-aware
 cross-client batch assembly, bucketed dispatch over a stateless predictor
-core, hot model swap between dispatches and paging hooks. The router, the
-HTTP server, the balancer and the load generator wait for ROADMAP queue 1
-item 6."""
+core, hot model swap between dispatches, paging hooks), multi-model
+routing with paging under a byte budget and priority-class admission
+(``router``), the stdlib HTTP front door (``server``) and its request
+decode, off the interpreter lock for large bodies (``wire``), the
+balancer over serving replicas (``balancer``) and closed- and open-loop
+load generation (``loadgen``). Quantized serving waits for ROADMAP queue
+1 item 8."""
 
+from tensor2robot_tpu_torch.serving.balancer import Balancer
 from tensor2robot_tpu_torch.serving.batching import (
     DynamicBatcher,
     OverloadedError,
@@ -17,3 +22,5 @@ from tensor2robot_tpu_torch.serving.batching import (
     default_buckets,
     pad_to_bucket,
 )
+from tensor2robot_tpu_torch.serving.router import ModelRouter
+from tensor2robot_tpu_torch.serving.server import ServingServer

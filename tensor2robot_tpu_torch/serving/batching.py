@@ -27,16 +27,29 @@ StatelessServingFn` and split back per request.
 * **One dispatcher thread** does all device work; client threads only
   queue and wait. The queue is bounded (:class:`OverloadedError`).
 
-Metrics live in the process registry under ``serving/`` and ``report()``
-is registered as the report section ``serving``. ``queue_depth`` and
+* **Request tracing.** Every request gets an ID at submit (the HTTP
+  edge's ``X-Request-Id``, else generated), which labels its latency
+  exemplar and its slow-request log entry. A sampled request
+  (``request_trace_sample``), and every request submitted with a
+  ``trace=`` context, records its lifecycle (queued, assembled,
+  dispatched, returned) in the flight ring, one lock per phase per
+  dispatch; a ``trace=`` request also records request, queued and
+  dispatch spans into the ``/tracez`` index under its fleet trace id.
+* **Incidents.** A reload that fails, or that the predictor absorbed by
+  keeping its last good generation (``predictor/load_fallbacks``), writes
+  a postmortem bundle into ``postmortem_dir``.
+
+Metrics live in the process registry under ``metrics_prefix`` (default
+``serving/``; a :class:`~tensor2robot_tpu_torch.serving.router.ModelRouter`
+scopes each model's batcher to ``serving/model/<name>/``), and ``report()``
+is registered as the report section of that name. ``queue_depth`` and
 ``submit(..., on_done=...)`` are the router's hooks; the executor's
 ``page_out()`` keeps a host copy of the params, so a page-in is one
 host-to-device copy.
 
 Not ported here: quantized serving (``quantize``, ROADMAP queue 1 item 8;
-a value other than 'off' raises), the request tracing, flight-recorder,
-program-ledger and postmortem hooks (item 10), and the HTTP server,
-router, balancer and load generator (item 6).
+a value other than 'off' raises) and the program-ledger hook
+(``observability/programs.py``, item 10).
 """
 
 from __future__ import annotations
@@ -54,7 +67,9 @@ from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch.observability import flight
 from tensor2robot_tpu_torch.observability import metrics as metrics_lib
+from tensor2robot_tpu_torch.observability import postmortem, tracing
 from tensor2robot_tpu_torch.specs.tensor_spec import to_numpy_dtype
 
 
@@ -117,11 +132,14 @@ class _Request:
   """One client's queued examples and its completion signal."""
 
   __slots__ = ('features', 'n', 'enqueue_time', 'event', 'outputs', 'error',
-               'model_version', 'request_id', 'on_done')
+               'model_version', 'request_id', 'traced', 'queued_wall',
+               'on_done', 'trace')
 
   def __init__(self, features: Dict[str, np.ndarray], n: int,
                enqueue_time: float, request_id: str = '',
-               on_done: Optional[Callable[['_Request'], None]] = None):
+               traced: bool = False,
+               on_done: Optional[Callable[['_Request'], None]] = None,
+               trace: Optional[tracing.TraceContext] = None):
     self.features = features
     self.n = n
     self.enqueue_time = enqueue_time
@@ -130,9 +148,15 @@ class _Request:
     self.error: Optional[BaseException] = None
     self.model_version: int = -1
     self.request_id = request_id
+    self.traced = traced
+    # The fleet trace context (trace id, upstream span id), if any.
+    self.trace = trace
     # Called on the dispatcher thread after the result is published,
     # holding no batcher lock.
     self.on_done = on_done
+    # Wall-clock submit time of a traced request: the dispatcher records
+    # its 'queued' event with it, so client threads never touch the ring.
+    self.queued_wall: float = 0.0
 
 
 class ServingFuture:
@@ -177,8 +201,9 @@ class TorchBucketExecutor:
   """
 
   def __init__(self, serving, buckets: Sequence[int],
-               compiled: Iterable[int] = ()):
+               compiled: Iterable[int] = (), label: str = 'serving'):
     self._fn = serving.fn
+    self._label = label
     self._feature_spec = serving.feature_spec
     self._buckets = tuple(buckets)
     self.program_key = serving.program_key
@@ -247,6 +272,8 @@ class TorchBucketExecutor:
                            for k, v in self._device_params.items()}
       self._device_params = None
       metrics_lib.counter('serving/page_outs').inc()
+      flight.event('router', f'{self._label}/page_out',
+                   f'version={self.version} bytes={self.param_bytes}')
       return self.param_bytes
 
   def page_in(self) -> bool:
@@ -265,6 +292,8 @@ class TorchBucketExecutor:
     metrics_lib.counter('serving/page_ins').inc()
     metrics_lib.histogram('serving/page_in_ms').observe(
         1e3 * (time.perf_counter() - start))
+    flight.event('router', f'{self._label}/page_in',
+                 f'version={self.version} bytes={self.param_bytes}')
 
   # ------------------------------------------------------------ dispatch
 
@@ -329,6 +358,10 @@ class DynamicBatcher:
   executes; an optional reload thread prepares new generations.
   :meth:`close` drains: queued requests complete, new submits raise
   :class:`OverloadedError`.
+
+  ``metrics_prefix`` scopes the metrics; ``register_report=False`` leaves
+  ``report()`` out of ``metrics.report()`` (a router reports its batchers
+  itself).
   """
 
   def __init__(self,
@@ -337,7 +370,11 @@ class DynamicBatcher:
                batch_deadline_ms: float = 5.0,
                max_queue: int = 1024,
                reload_interval_secs: Optional[float] = None,
-               quantize: str = 'off'):
+               quantize: str = 'off',
+               request_trace_sample: float = 0.0,
+               postmortem_dir: Optional[str] = None,
+               metrics_prefix: str = 'serving',
+               register_report: bool = True):
     if max_batch < 1:
       raise ValueError(f'max_batch must be >= 1, got {max_batch}')
     if quantize not in (None, '', 'off'):
@@ -350,8 +387,19 @@ class DynamicBatcher:
     self._max_queue = int(max_queue)
     self._buckets = default_buckets(self._max_batch)
     self._reload_interval = reload_interval_secs
+    if not 0.0 <= float(request_trace_sample) <= 1.0:
+      raise ValueError(f'request_trace_sample must be in [0, 1], got '
+                       f'{request_trace_sample!r}')
+    self._trace_sample = float(request_trace_sample)
+    # Every N-th request is traced.
+    self._trace_every = (int(round(1.0 / self._trace_sample))
+                         if self._trace_sample > 0 else 0)
     self._req_seq = itertools.count(1)
     self._id_prefix = f'r{os.getpid():x}'
+    self._postmortem_dir = postmortem_dir
+    # The span label of this batcher (the server sets 'replica-<port>');
+    # None: the process's tracing.service().
+    self.service_label: Optional[str] = None
     self._slow_lock = threading.Lock()
     self._slow_log: List[Tuple[float, int, Dict[str, Any]]] = []  # GUARDED_BY(self._slow_lock)
 
@@ -363,13 +411,18 @@ class DynamicBatcher:
     self._model = None  # GUARDED_BY(self._cond)
     self._pending_model = None  # GUARDED_BY(self._cond)
     self._feature_spec = None
+    # The spec's numpy dtypes, resolved once at start: a request is
+    # validated on its client's thread, which then never calls into torch.
+    self._numpy_dtypes: Dict[str, np.dtype] = {}
     self._dispatcher: Optional[threading.Thread] = None
     self._reloader: Optional[threading.Thread] = None
     self._reload_stop = threading.Event()
     self._rate_window: collections.deque = collections.deque()
     self._rate_span_s = 5.0
 
-    s = metrics_lib.scope('serving')
+    self._metrics_prefix = metrics_prefix.rstrip('/')
+    self._register_report = bool(register_report)
+    s = metrics_lib.scope(self._metrics_prefix)
     self._m_requests = s.counter('requests')
     self._m_actions = s.counter('actions')
     self._m_errors = s.counter('request_errors')
@@ -384,6 +437,10 @@ class DynamicBatcher:
     self._m_actions_per_sec = s.gauge('actions_per_sec')
     self._m_version = s.gauge('model_version')
     self._m_param_bytes = s.gauge('param_bytes')
+    # A committed but broken export that the predictor absorbed (it keeps
+    # its last good generation) is seen only as this counter moving.
+    self._m_predictor_fallbacks = metrics_lib.counter(
+        'predictor/load_fallbacks')
 
   # ------------------------------------------------------------- lifecycle
 
@@ -398,6 +455,8 @@ class DynamicBatcher:
     with self._cond:
       self._model = model
     self._feature_spec = self._predictor.get_feature_specification()
+    self._numpy_dtypes = {key: to_numpy_dtype(spec.dtype)
+                          for key, spec in self._feature_spec.items()}
     self._m_version.set(float(model.version))
     self._m_param_bytes.set(float(model.param_bytes))
     self._dispatcher = threading.Thread(
@@ -407,7 +466,8 @@ class DynamicBatcher:
       self._reloader = threading.Thread(
           target=self._reload_loop, daemon=True, name='t2r-serving-reload')
       self._reloader.start()
-    metrics_lib.register_report_provider('serving', self.report)
+    if self._register_report:
+      metrics_lib.register_report_provider(self._metrics_prefix, self.report)
     return self
 
   def close(self) -> None:
@@ -422,7 +482,9 @@ class DynamicBatcher:
       self._reloader.join(timeout=30.0)
     if self._dispatcher is not None:
       self._dispatcher.join(timeout=60.0)
-      metrics_lib.unregister_report_provider('serving')
+      # Only a started batcher owns its report section.
+      if self._register_report:
+        metrics_lib.unregister_report_provider(self._metrics_prefix)
 
   def __enter__(self) -> 'DynamicBatcher':
     return self.start()
@@ -451,6 +513,10 @@ class DynamicBatcher:
     return self._max_queue
 
   @property
+  def metrics_prefix(self) -> str:
+    return self._metrics_prefix
+
+  @property
   def queue_depth(self) -> int:
     """Live pending-request count (the router's admission signal)."""
     with self._cond:
@@ -462,13 +528,18 @@ class DynamicBatcher:
 
   def submit(self, features: Dict[str, np.ndarray],
              request_id: Optional[str] = None,
-             on_done: Optional[Callable[[_Request], None]] = None
+             on_done: Optional[Callable[[_Request], None]] = None,
+             trace: Optional[tracing.TraceContext] = None
              ) -> ServingFuture:
     """Queues one client's examples; returns a future for the batched
     dispatch. Values carry a leading batch dim and share it (a single
     example may omit it); a request larger than ``max_batch`` is
-    rejected. ``request_id`` labels the request in the latency exemplars
-    and the slow-request log (generated when omitted)."""
+    rejected. ``request_id`` labels the request in the latency exemplars,
+    the slow-request log and its lifecycle events (generated when
+    omitted). ``on_done(request)`` runs on the dispatcher thread once the
+    result is published. ``trace`` (an ingress ``traceparent`` context)
+    records the request's spans under the fleet trace id and traces its
+    lifecycle whatever ``request_trace_sample`` is."""
     features = self._validate(features)
     sizes = {np.shape(v)[0] if np.ndim(v) else 1 for v in features.values()}
     if len(sizes) != 1:
@@ -478,9 +549,13 @@ class DynamicBatcher:
       raise RequestError(
           f'request batch {n} outside [1, max_batch={self._max_batch}]')
     seq = next(self._req_seq)
+    traced = (trace is not None or
+              (bool(self._trace_every) and seq % self._trace_every == 0))
     request = _Request(features, int(n), time.monotonic(),
                        request_id=request_id or f'{self._id_prefix}-{seq}',
-                       on_done=on_done)
+                       traced=traced, on_done=on_done, trace=trace)
+    if traced:
+      request.queued_wall = time.time()
     with self._cond:
       if self._closed:
         raise OverloadedError('serving plane is shut down')
@@ -506,8 +581,7 @@ class DynamicBatcher:
     out = {}
     for key, tensor_spec in spec.items():
       try:
-        value = np.asarray(features[key],
-                           dtype=to_numpy_dtype(tensor_spec.dtype))
+        value = np.asarray(features[key], dtype=self._numpy_dtypes[key])
       except (TypeError, ValueError) as e:
         raise RequestError(f'feature {key!r} not coercible to '
                            f'{tensor_spec.dtype}: {e}') from e
@@ -578,6 +652,8 @@ class DynamicBatcher:
         self._m_swaps.inc()
         self._m_version.set(float(pending.version))
         self._m_param_bytes.set(float(pending.param_bytes))
+        flight.event('swap', f'{self._metrics_prefix}/model_swap',
+                     f'version={pending.version}')
         logging.info('Serving hot-swapped to model version %d',
                      pending.version)
       if batch:
@@ -587,7 +663,21 @@ class DynamicBatcher:
     total = sum(r.n for r in batch)
     with self._cond:
       model = self._model
+    prefix = self._metrics_prefix
+    traced = [r for r in batch if r.traced]
+    ctx_traced = [r for r in batch if r.trace is not None]
+    assembled_wall = time.time() if traced else 0.0
+    if traced:
+      assembled = f' batch={len(batch)} total={total}'
+      entries = [('request', f'{prefix}/queued',
+                  f'id={r.request_id} n={r.n}'
+                  + (f' trace={r.trace.trace_id}' if r.trace else ''),
+                  r.queued_wall) for r in traced]
+      entries.extend(('request', f'{prefix}/assembled',
+                      'id=' + r.request_id + assembled) for r in traced)
+      flight.events_many(entries)
     start = time.monotonic()
+    bucket = total
     try:
       if len(batch) == 1:
         features = batch[0].features
@@ -595,11 +685,14 @@ class DynamicBatcher:
         features = {k: np.concatenate([np.asarray(r.features[k])
                                        for r in batch], axis=0)
                     for k in batch[0].features}
-      bucket = total
       if isinstance(model, TorchBucketExecutor):
         bucket = bucket_for(total, self._buckets)
         features = pad_to_bucket(features, total, bucket)
         self._m_padded.inc(bucket - total)
+      if traced:
+        flight.events_many([('request', f'{prefix}/dispatched',
+                             f'id={r.request_id} bucket={bucket}')
+                            for r in traced])
       outputs = model.execute(features, bucket)
       offset = 0
       for request in batch:
@@ -618,10 +711,20 @@ class DynamicBatcher:
       self._m_batch_size.observe(total)
       self._m_actions.inc(total)
       self._note_rate(now, total)
+      returned = []
       for request in batch:
         latency_ms = 1e3 * (now - request.enqueue_time)
         self._m_latency.observe(latency_ms, exemplar=request.request_id)
         self._note_slow(request, latency_ms)
+        if request.traced:
+          returned.append(
+              ('request', f'{prefix}/returned',
+               f'id={request.request_id} latency_ms={latency_ms:.3f} '
+               f'error={int(request.error is not None)}'))
+      flight.events_many(returned)
+      if ctx_traced:
+        self._record_spans(ctx_traced, len(batch), total, bucket,
+                           assembled_wall)
       for request in batch:
         request.event.set()
         if request.on_done is not None:
@@ -629,6 +732,32 @@ class DynamicBatcher:
             request.on_done(request)
           except Exception:  # pylint: disable=broad-except
             logging.exception('serving on_done callback failed')
+
+  def _record_spans(self, requests: List[_Request], size: int, total: int,
+                    bucket: int, assembled_wall: float) -> None:
+    """A request span parented on the upstream hop, with its queued and
+    dispatch children, for each of ``requests``; one ring lock."""
+    prefix = self._metrics_prefix
+    now_wall = time.time()
+    span_dicts = []
+    for request in requests:
+      request_span = tracing.mint_span_id()
+      common = {'trace_id': request.trace.trace_id, 'kind': 'serving',
+                'request_id': request.request_id}
+      span_dicts.append(dict(
+          common, span_id=request_span, parent_id=request.trace.span_id,
+          name=f'{prefix}/request', start=request.queued_wall, end=now_wall,
+          detail=(f'n={request.n} version={request.model_version} '
+                  f'error={int(request.error is not None)}')))
+      span_dicts.append(dict(
+          common, span_id=tracing.mint_span_id(), parent_id=request_span,
+          name=f'{prefix}/queued', start=request.queued_wall,
+          end=assembled_wall, detail=f'batch={size} total={total}'))
+      span_dicts.append(dict(
+          common, span_id=tracing.mint_span_id(), parent_id=request_span,
+          name=f'{prefix}/dispatch', start=assembled_wall, end=now_wall,
+          detail=f'bucket={bucket}'))
+    tracing.record_spans(span_dicts, service_label=self.service_label)
 
   def _note_slow(self, request: _Request, latency_ms: float) -> None:
     """The bounded top-k-by-latency request log."""
@@ -671,21 +800,27 @@ class DynamicBatcher:
     compiled = (reuse_from.compatible_cache(serving)
                 if reuse_from is not None else None)
     return TorchBucketExecutor(serving, self._buckets,
-                               compiled=compiled or ())
+                               compiled=compiled or (),
+                               label=self._metrics_prefix)
 
   def maybe_reload(self) -> bool:
     """One reload poll: restore the predictor and, when a new generation
     loaded, prepare it (params placed, buckets warmed) and stage it for
     adoption between dispatches. Returns True when a swap was staged.
     Never raises: the last good generation keeps serving
-    (``serving/reload_errors``)."""
+    (``serving/reload_errors``). A reload that raises here, and a broken
+    export the predictor absorbed, each write a postmortem bundle into
+    ``postmortem_dir`` (rate-limited)."""
+    fallbacks = self._m_predictor_fallbacks.value
     try:
       if not self._predictor.restore():
+        self._note_predictor_fallback(fallbacks)
         return False
       with self._cond:
         current = self._pending_model or self._model
       if (int(self._predictor.model_version) == current.version and
           self._same_generation(current)):
+        self._note_predictor_fallback(fallbacks)
         return False
       new_model = self._build_executor(reuse_from=current)
       new_model.warm()
@@ -695,9 +830,23 @@ class DynamicBatcher:
       return True
     except Exception as e:  # pylint: disable=broad-except
       self._m_reload_errors.inc()
+      flight.event('error', f'{self._metrics_prefix}/reload_failed', repr(e))
       logging.warning('Serving reload failed (%r); continuing on model '
                       'version %d.', e, self.model_version)
+      postmortem.dump(self._postmortem_dir, 'serving_reload_failure',
+                      error=e, extra={'model_version': self.model_version})
       return False
+
+  def _note_predictor_fallback(self, fallbacks_before: int) -> None:
+    """Bundles a reload that the predictor degraded to its last good
+    generation internally."""
+    if self._m_predictor_fallbacks.value <= fallbacks_before:
+      return
+    flight.event('error', f'{self._metrics_prefix}/reload_fallback',
+                 f'predictor kept last-good version={self.model_version}')
+    postmortem.dump(self._postmortem_dir, 'serving_reload_failure',
+                    extra={'model_version': self.model_version,
+                           'predictor_fallback': True})
 
   def _same_generation(self, current) -> bool:
     if not isinstance(current, TorchBucketExecutor):
@@ -716,11 +865,13 @@ class DynamicBatcher:
   # ------------------------------------------------------------- reporting
 
   def report(self) -> Dict[str, Any]:
-    """The plane's section of ``metrics.report()``."""
-    p = 'serving'
+    """The plane's section of ``metrics.report()`` (keyed by
+    ``metrics_prefix``)."""
+    p = self._metrics_prefix
     snap = metrics_lib.snapshot(p + '/')
     latency = snap.get(f'{p}/request_latency_ms', {}) or {}
     return {
+        'request_trace_sample': self._trace_sample,
         'request_latency_exemplars': latency.get('exemplars', {}),
         'slow_requests': self.slow_requests(),
         'max_batch': self._max_batch,

@@ -10,9 +10,10 @@ on the mock model and on the tiny QT-Opt program; a hot swap under load
 with no failed request; an idle plane adopting a staged swap; the program
 key across weights-only exports; the predict/reload race and the
 reader-writer lock; the drain under backpressure and the atomic
-generation handoff; paging. The JAX suite's HTTP, metricsz, compilation
-cache and restart-gauge cases belong to the server and the observability
-plane (ROADMAP queue 1 items 6 and 10), which are not ported.
+generation handoff; paging. The JAX suite's HTTP and metricsz cases are
+in ``tests/test_torch_serving_http.py`` and
+``tests/test_torch_observability.py``; the compilation cache is not
+ported (an exported program has no compiled form to keep).
 """
 
 import os

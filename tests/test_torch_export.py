@@ -266,7 +266,7 @@ def test_fingerprint_equal_across_weights_and_differs_across_programs():
 def test_batch_one_and_five_run_from_one_artifact(tmp_path):
   model, predictor = qtopt_predictor()
   path = export_predictor(model, predictor, tmp_path / 'export')
-  fn = exporters.load_serving_fn_from_export_dir(path)
+  fn = exporters.load_serving_fn_from_export_dir(path, device='cpu')
   params = exporters.load_state_from_export_dir(path)
   for batch in (1, 5):
     features = {k: torch.from_numpy(v)

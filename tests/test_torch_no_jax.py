@@ -8,7 +8,11 @@
 * Runtime: a subprocess blocks those packages in ``sys.modules`` and
   imports every module of the port.
 * Dispatch: a CPU tensor takes the plain path and bumps no launch counter;
-  a forced-kernel run and a CUDA request on a host with no card raise.
+  a forced-kernel run and a CUDA request on a host with no card raise,
+  the export loaders and the serving binary included (they default to the
+  card).
+* The serving front door's and observability plane's modules are among
+  those scanned and imported.
 """
 
 import ast
@@ -22,6 +26,8 @@ import pytest
 import torch
 
 import tensor2robot_tpu_torch
+from tensor2robot_tpu_torch.bin import run_serving
+from tensor2robot_tpu_torch.export import exporters
 from tensor2robot_tpu_torch.ops import _dispatch, conv_s2d, pool
 from tensor2robot_tpu_torch.predictors import CheckpointPredictor
 from tensor2robot_tpu_torch.research.qtopt import GraspingModelWrapper
@@ -32,6 +38,18 @@ BLOCKED_ROOTS = ('jax', 'flax', 'optax', 'orbax', 'ml_dtypes')
 # Packages blocked by their full name: the card's host has no protobuf, so
 # the export assets are written without it.
 BLOCKED_PACKAGES = ('tensor2robot_tpu', 'google.protobuf')
+
+
+# The serving front door and the observability plane it needs.
+SERVING_MODULES = (
+    'observability/metrics.py', 'observability/flight.py',
+    'observability/timeseries.py', 'observability/tracing.py',
+    'observability/postmortem.py', 'observability/slo.py',
+    'observability/anomaly.py', 'observability/memory.py',
+    'observability/metricsz.py', 'serving/batching.py', 'serving/loadgen.py',
+    'serving/router.py', 'serving/server.py', 'serving/balancer.py',
+    'bin/run_serving.py', 'bin/run_balancer.py',
+)
 
 
 def _is_blocked(name: str) -> bool:
@@ -72,6 +90,14 @@ def test_static_scan_finds_no_jax_import():
                for path in sources for name in _imported_names(path)
                if _is_blocked(name)]
   assert not offenders
+
+
+@pytest.mark.parametrize('relative', SERVING_MODULES)
+def test_serving_modules_are_scanned_and_mirror_the_jax_layout(relative):
+  path = PACKAGE / relative
+  assert path in _port_sources()
+  assert (REPO / 'tensor2robot_tpu' / relative).exists()
+  assert not [name for name in _imported_names(path) if _is_blocked(name)]
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -154,3 +180,19 @@ def test_kernel_policy_validation():
   assert _dispatch.policy_enables_conv('pool_conv')
   with pytest.raises(ValueError):
     _dispatch.validate_kernel_policy('all')
+
+
+def test_export_loaders_default_to_the_card(monkeypatch, tmp_path):
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='no CUDA card'):
+    exporters.deserialize_serving_program(b'unused')
+  with pytest.raises(RuntimeError, match='no CUDA card'):
+    exporters.load_serving_fn_from_export_dir(str(tmp_path))
+  assert exporters.load_serving_fn_from_export_dir(
+      str(tmp_path), device='cpu') is None
+
+
+def test_serving_binary_defaults_to_the_card(monkeypatch, tmp_path):
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='no CUDA card'):
+    run_serving.main(['--export_dir', str(tmp_path), '--port', '0'])

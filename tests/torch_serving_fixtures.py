@@ -8,6 +8,9 @@
   ``kernel_policy='pool_conv'``) in a ``CheckpointPredictor`` with seeded
   weights of std 1/sqrt(fan_in), so that candidate actions score apart.
 * :func:`qtopt_features`: seeded numpy frames and actions for it.
+* :func:`paired_qtopt_exports`: one seeded variables tree exported by the
+  JAX package (``jax.export``) and by the port (``torch.export``, through
+  ``utils/convert``), float32 on the CPU, for the HTTP parity tests.
 * :func:`one_thread`: a module fixture, autouse wherever it is imported.
 """
 
@@ -125,3 +128,35 @@ def version_files(path):
     for name in files:
       out.append(os.path.relpath(os.path.join(dirpath, name), path))
   return sorted(out)
+
+
+def paired_qtopt_exports(root, seed: int = 1, step: int = 3):
+  """(model, eager port predictor, JAX export root, port export root) of
+  one seeded variables tree of the float32 tiny QT-Opt config."""
+  import types  # pylint: disable=import-outside-toplevel
+
+  import jax  # pylint: disable=import-outside-toplevel
+  from torch_port_weights import random_variables  # pylint: disable=import-outside-toplevel
+
+  from tensor2robot_tpu.export import exporters as jax_exporters  # pylint: disable=import-outside-toplevel
+  from tensor2robot_tpu.ops import _pallas_dispatch  # pylint: disable=import-outside-toplevel
+  from tensor2robot_tpu.predictors import (  # pylint: disable=import-outside-toplevel
+      CheckpointPredictor as JaxCheckpointPredictor)
+  from tensor2robot_tpu.research.qtopt import (  # pylint: disable=import-outside-toplevel
+      GraspingModelWrapper as JaxGraspingModelWrapper)
+
+  jax_model = JaxGraspingModelWrapper(device_type='cpu', **QT_CONFIG)
+  jax_predictor = JaxCheckpointPredictor(jax_model, model_dir='unused')
+  with _pallas_dispatch.force_kernels(True):
+    jax_predictor.init_randomly()
+  variables = random_variables(jax.device_get(jax_predictor._variables),  # pylint: disable=protected-access
+                               seed=seed)
+  jax_root, port_root = str(root / 'jax'), str(root / 'port')
+  jax_exporters.ModelExporter().export(
+      jax_model, types.SimpleNamespace(eval_variables=variables, step=step),
+      jax_root)
+  model = GraspingModelWrapper(device_type='cpu', **QT_CONFIG)
+  eager = CheckpointPredictor(model, device='cpu')
+  eager.load_variables(variables, global_step=step)
+  export_predictor(model, eager, root / 'port')
+  return model, eager, jax_root, port_root
