@@ -215,6 +215,29 @@ Run from the repository root. The phases:
    random_brightness=True, random_contrast=True, use_fused_kernel=True)``,
    on QT-Opt's training images at batch 32 against the stock chain on the
    same generator (1e-6), with its launches counted;
+12a. K steps a dispatch (``phase_dispatch``) at full width, batch 32,
+   bf16, ``pool_conv``, under deterministic cuDNN without autotuning
+   (restored after the phase), no plain-version call in the phase:
+   ``Trainer(TrainerConfig(steps_per_dispatch=8))`` over 19 batches (two
+   captured CUDA graph replays and a 3-batch eager tail), every counter
+   set to 0 just before and read just after (its warm-up, capture and
+   tail: 19 steps' launches), bit for bit a K=1 trainer over the same
+   batches (parameters, batch statistics, momentum, optimizer groups,
+   EMA, generator, step); the fused arm (tagged Adam under a decaying
+   rate, EMA, ``fused_update``, ``skip_update``) the same with a NaN batch
+   at slot 3 of dispatch 2 (step 18, one skip); ``remat_policy=
+   'conv_towers'`` one step bit for bit ``'none'`` at batch 32, with the
+   peak device memory of both at batch 32 and 96;
+   ``grad_accum_microbatches=2`` at batch 64 against the eager
+   accumulation written out (``DISPATCH_ACCUM_BAND``); K=1 eager, K=8
+   graph and K=8 graph with ``device_feed`` in turns, 3 runs of 16 steps
+   each on the same pre-decoded batches: host ms/step, host ms a dispatch
+   outside the replay, the superbatch upload's ms (CUDA events) and the
+   copies a dispatch, the capture's one-off ms; and the trainer binary on
+   the port's ``train_qtopt.gin`` (``steps_per_dispatch = 8`` live; cut to
+   208 of its 1000 steps and a save interval of 100, because the host's
+   random generator bounds it, with one batch's draw time printed) in a
+   subprocess, which must exit 0 and commit steps [104, 200, 208];
 13. timings with CUDA events (each call after an L2 flush and a spin
    kernel that keeps the card busy while the host enqueues it): each
    kernel, its plain version, one library
@@ -236,6 +259,14 @@ Run from the repository root. The phases:
    flash_fwd, flash_dq and flash_dkv at each SNAIL shape and at bench.py's
    and the streamed bf16 shapes with their routes, listed under
    ``per_shape`` in their records;
+13a. after the timings (``phase_dispatch_profile``, torch.profiler): over
+   two replays of a K=8 trainer, 24 ``pool_fwd_kernel``, 24
+   ``pool_bwd_scatter_kernel``, 8 ``conv_fwd_mma_kernel``, 8
+   ``conv_dw_mma_kernel`` and 8 ``conv_dw_reduce_kernel`` rows a dispatch,
+   8 ``fused_update_kernel`` rows on the fused arm (0 on the stock one),
+   one ``cudaGraphLaunch`` a dispatch and no Python launch count; the
+   device ms a step of K=1 eager, K=8 graph, K=8 with the device feed and
+   the fused K=8 arm;
    ``--profile`` adds ``torch.profiler`` breakdowns of two actions, a
    stock and a fused QT-Opt training step and one stock and one fused step
    of each SNAIL path, written to
@@ -261,6 +292,7 @@ import os
 import pathlib
 import shutil
 import signal
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -4598,6 +4630,463 @@ def phase_profile_train(trainer, seed, label=''):
     log('  ' + line)
 
 
+# ------------------------------------------------- K steps per dispatch
+
+DISPATCH_K = 8
+DISPATCH_BATCHES = 19     # two graph dispatches and a 3-batch ragged tail
+DISPATCH_NAN_AT = 8 + 3   # slot 3 of the second dispatch
+DISPATCH_TIMED = 48       # steps a timed run: six dispatches of 8
+DISPATCH_TURNS = 3
+DISPATCH_ACCUM_BATCH = 64
+# The binary's run, cut from the config's 1000 steps (run_dispatch_binary),
+# and the steps it must commit: the boundaries on or after 100 and 200,
+# and the final step.
+DISPATCH_BINARY_STEPS = 208
+DISPATCH_BINARY_SAVES = (104, 200, 208)
+DISPATCH_MEMORY_BATCHES = (32, 96)
+# The M=2 step against the eager accumulation written out: every parameter
+# within 1e-6 of its leaf's largest magnitude (the same operations in the
+# same order, so bit for bit is expected; the band is stated, not needed).
+DISPATCH_ACCUM_BAND = 1e-6
+# Kernel rows a replayed dispatch of 8 steps must show in the profiler.
+DISPATCH_ROWS = {'pool_fwd_kernel': 24, 'pool_bwd_scatter_kernel': 24,
+                 'conv_fwd_mma_kernel': 8, 'conv_dw_mma_kernel': 8,
+                 'conv_dw_reduce_kernel': 8}
+PLAIN_VERSIONS = ((pool, 'plain_max_pool_argmax'), (pool, 'plain_max_pool_bwd'),
+                  (conv_s2d, 'plain_conv2d'), (conv_s2d, 'plain_conv2d_dw'),
+                  (conv_s2d, 'plain_conv2d_dx'),
+                  (fused_update, 'plain_fused_update'))
+
+
+@contextlib.contextmanager
+def counted_plain_calls():
+  """Counts calls of every kernel's plain version within the context (a
+  card run must make none)."""
+  calls = collections.Counter()
+  saved = []
+  for module, name in PLAIN_VERSIONS:
+    fn = getattr(module, name)
+    saved.append((module, name, fn))
+
+    def counting(*args, __fn=fn, __name=name, **kwargs):
+      calls[__name] += 1
+      return __fn(*args, **kwargs)
+
+    setattr(module, name, counting)
+  try:
+    yield calls
+  finally:
+    for module, name, fn in saved:
+      setattr(module, name, fn)
+
+
+def dispatch_trainer(seed, k, fused=False, **cfg):
+  """A full-width QT-Opt trainer (batch 32, bf16, pool_conv); ``fused``:
+  tagged Adam under a decaying rate, the EMA, fused_update and
+  skip_update, as the fused training path."""
+  kwargs = {}
+  if fused:
+    kwargs['create_optimizer_fn'] = (
+        lambda: optimizers.create_adam_optimizer(
+            optimizers.create_exp_decaying_learning_rate_fn(
+                1e-3, decay_steps=10, staircase=True)))
+    cfg.update(fused_update=True, nonfinite_mode='skip_update')
+  model = GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv',
+                               **kwargs)
+  cfg.setdefault('max_train_steps', DISPATCH_BATCHES)
+  return Trainer(model, TrainerConfig(model_dir='', log_interval_steps=0,
+                                      seed=seed, steps_per_dispatch=k,
+                                      **cfg))
+
+
+def state_mismatches(a, b):
+  """Names of the state's parts where two trainers differ bit for bit:
+  parameters and batch statistics, optimizer slots and groups, EMA,
+  generator, step."""
+  bad = [name for (name, x), y in zip(a.state.network.state_dict().items(),
+                                      b.state.network.state_dict().values())
+         if not same_bits(x, y)]
+  bad += [f'ema {name}' for name in a.state.ema
+          if not same_bits(a.state.ema[name], b.state.ema[name])]
+  sa, sb = a.state.optimizer.state_dict(), b.state.optimizer.state_dict()
+  if sa['param_groups'] != sb['param_groups']:
+    bad.append('optimizer groups')
+  bad += [f'slot {i} {slot}' for i, slots in sa['state'].items()
+          for slot, value in slots.items()
+          if not same_bits(value, sb['state'][i][slot])]
+  if not torch.equal(a.state.generator.get_state(),
+                     b.state.generator.get_state()):
+    bad.append('generator')
+  if a.step != b.step:
+    bad.append(f'step {a.step} != {b.step}')
+  return bad
+
+
+def phase_dispatch(seed, card):
+  """K=8 steps per dispatch at full width, under deterministic cuDNN
+  without autotuning (restored after the phase), files under a temporary
+  directory below ``chiprun_out/`` that the phase removes. Returns the
+  launch counts of its main run (the stock K=8 trainer over 19 batches)."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='dispatch_phase_',
+                                       dir=OUT_DIR))
+  try:
+    with cudnn_settings(deterministic=True, benchmark=False), \
+        _dispatch.force_kernels(True), counted_plain_calls() as plain:
+      launches = dispatch_paths(seed, card, root)
+    if sum(plain.values()):
+      raise AssertionError(f'dispatch phase: plain versions ran {plain}')
+    log('dispatch: 0 plain-version calls in the phase')
+    return launches
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def dispatch_paths(seed, card, root):
+  start = time.perf_counter()
+  batches = train_batches(seed + 20, DISPATCH_BATCHES, TRAIN_BATCH)
+  timed = train_batches(seed + 25, DISPATCH_TIMED, TRAIN_BATCH)
+  # The stock arm: QT-Opt's momentum optimizer and EMA.
+  zero_counters()
+  grouped = dispatch_trainer(seed, DISPATCH_K)
+  grouped.train(iter(batches))
+  torch.cuda.synchronize()
+  launches = read_counters()
+  single = dispatch_trainer(seed, 1)
+  single.train(iter(batches))
+  torch.cuda.synchronize()
+  (captured,) = grouped.captured_dispatches.values()
+  bad = state_mismatches(single, grouped)
+  if bad or captured.replays != 2 or grouped.step != DISPATCH_BATCHES:
+    raise AssertionError(
+        f'dispatch stock arm: K=8 against K=1 differs in {bad[:8]} '
+        f'({len(bad)} parts); {captured.replays} replays, step '
+        f'{grouped.step}')
+  # Counted at the warm-up and the capture (8 steps each), and on the
+  # eager ragged tail (3): a replay runs no Python.
+  want = {k: v * (2 * DISPATCH_K + 3) for k, v in TRAIN_LAUNCHES.items()}
+  check_launches('dispatch stock K=8 (warm-up + capture + tail)', launches,
+                 want)
+  log(f'dispatch: stock arm, K=8 over {DISPATCH_BATCHES} batches (2 graph '
+      f'replays + a 3-batch eager tail) bit for bit K=1: parameters, batch '
+      f'statistics, momentum, groups, EMA, generator, step '
+      f'{grouped.step}; capture {captured.capture_ms:.1f} ms one-off '
+      f'(warm-up + restore + capture); launch counters {launches}')
+  del single, grouped, captured
+  torch.cuda.empty_cache()
+
+  # The fused arm: Adam + EMA + skip_update, a NaN batch at slot 3 of
+  # dispatch 2.
+  fused_batches = train_batches(seed + 21, DISPATCH_BATCHES, TRAIN_BATCH)
+  fused_batches[DISPATCH_NAN_AT][0]['action/world_vector'][0, 0] = np.nan
+  grouped = dispatch_trainer(seed, DISPATCH_K, fused=True)
+  grouped.train(iter(fused_batches))
+  single = dispatch_trainer(seed, 1, fused=True)
+  single.train(iter(fused_batches))
+  torch.cuda.synchronize()
+  bad = state_mismatches(single, grouped)
+  if (bad or grouped.fused_plan is None or
+      grouped.step != DISPATCH_BATCHES - 1 or
+      grouped.nonfinite_policy.bad_steps != 1 or
+      single.nonfinite_policy.bad_steps != 1):
+    raise AssertionError(
+        f'dispatch fused arm: K=8 against K=1 differs in {bad[:8]}; step '
+        f'{grouped.step}, skips {grouped.nonfinite_policy.bad_steps}')
+  log(f'dispatch: fused arm (Adam + EMA + skip_update, a NaN batch at slot '
+      f'3 of dispatch 2), K=8 bit for bit K=1: step {grouped.step} of '
+      f'{DISPATCH_BATCHES} batches, 1 update skipped, its crop draws taken '
+      'by slot 4 (the generator states agree)')
+  del single, grouped
+  torch.cuda.empty_cache()
+
+  dispatch_remat_and_accum(seed)
+  del batches, fused_batches
+  dispatch_timings(seed, timed, card)
+  del timed
+  run_dispatch_binary(root)
+  log(f'dispatch: phase {time.perf_counter() - start:.1f} s')
+  return launches
+
+
+def one_step_trainer(seed, batch, **kwargs):
+  model = GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv',
+                               **kwargs.pop('model', {}))
+  trainer = Trainer(model, TrainerConfig(model_dir='', max_train_steps=1,
+                                         log_interval_steps=0, seed=seed,
+                                         **kwargs))
+  trainer.train(iter([batch]))
+  torch.cuda.synchronize()
+  return trainer
+
+
+def forward_activation_gib(trainer, batch):
+  """Device memory that a TRAIN forward of ``batch`` holds for its
+  backward: memory allocated after the forward and the loss, less
+  before (the tensors remat trades against recompute)."""
+  model, state = trainer.model, trainer.state
+  features, labels = model.preprocessor.preprocess(
+      {k: torch.from_numpy(v).cuda() for k, v in batch[0].items()},
+      {k: torch.from_numpy(v).cuda() for k, v in batch[1].items()},
+      ModeKeys.TRAIN, torch.Generator().manual_seed(0))
+  torch.cuda.synchronize()
+  before = torch.cuda.memory_allocated()
+  outputs = model.inference_network_fn(state.network, features, labels,
+                                       ModeKeys.TRAIN)
+  loss, _ = model.model_train_fn(features, labels, outputs, ModeKeys.TRAIN)
+  torch.cuda.synchronize()
+  held = torch.cuda.memory_allocated() - before
+  del loss, outputs
+  return held / 2**30
+
+
+def dispatch_remat_and_accum(seed):
+  """Remat against none (one step bit for bit, batch statistics moved
+  once; a one-step run's peak memory and the memory a forward holds for
+  its backward, at two batches), and M=2 at batch 64 against the eager
+  accumulation written out."""
+  peaks, held = {}, {}
+  for batch_size in DISPATCH_MEMORY_BATCHES:
+    batch = train_batches(seed + 22, 1, batch_size)[0]
+    trainers = {}
+    for policy in ('none', 'conv_towers'):
+      torch.cuda.empty_cache()
+      torch.cuda.reset_peak_memory_stats()
+      trainers[policy] = one_step_trainer(
+          seed, batch, model=dict(remat_policy=policy))
+      peaks[(batch_size, policy)] = torch.cuda.max_memory_allocated() / 2**30
+    if batch_size == TRAIN_BATCH:
+      bad = state_mismatches(trainers['none'], trainers['conv_towers'])
+      if bad:
+        raise AssertionError(f'remat conv_towers differs from none in {bad}')
+    for policy, trainer in trainers.items():
+      held[(batch_size, policy)] = forward_activation_gib(trainer, batch)
+    del trainers
+  log('dispatch: remat_policy=conv_towers one step bit for bit none at '
+      'batch 32 (batch statistics included: moved once); peak device memory '
+      'of a one-step run ' + ', '.join(
+          f'batch {b} {p}: {gib:.3f} GiB' for (b, p), gib in peaks.items()) +
+      '; held by a forward for its backward ' + ', '.join(
+          f'batch {b} {p}: {gib:.3f} GiB' for (b, p), gib in held.items()))
+  torch.cuda.empty_cache()
+
+  batch = train_batches(seed + 23, 1, DISPATCH_ACCUM_BATCH)[0]
+  trainer = one_step_trainer(seed, batch, grad_accum_microbatches=2)
+  model = GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv')
+  reference = Trainer(model, TrainerConfig(model_dir='', max_train_steps=0,
+                                           seed=seed))
+  state = reference.initialize(batch[0])
+  features, labels = model.preprocessor.preprocess(
+      {k: torch.from_numpy(v).cuda() for k, v in batch[0].items()},
+      {k: torch.from_numpy(v).cuda() for k, v in batch[1].items()},
+      ModeKeys.TRAIN, state.generator)
+  half = DISPATCH_ACCUM_BATCH // 2
+  for part in (slice(0, half), slice(half, None)):
+    f = {k: v[part] for k, v in features.items()}
+    l = {k: v[part] for k, v in labels.items()}
+    outputs = model.inference_network_fn(state.network, f, l, ModeKeys.TRAIN)
+    loss, _ = model.model_train_fn(f, l, outputs, ModeKeys.TRAIN)
+    loss.backward()
+  for p in state.network.parameters():
+    p.grad.div_(2.0)
+  state.optimizer.step()
+  torch.cuda.synchronize()
+  worst, exact = 0.0, True
+  for (name, got), want in zip(trainer.state.network.state_dict().items(),
+                               state.network.state_dict().values()):
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    exact &= same_bits(got, want)
+    if err > DISPATCH_ACCUM_BAND * max(scale, 1e-12):
+      raise AssertionError(f'grad_accum_microbatches=2: {name} off by {err}')
+    worst = max(worst, err)
+  log(f'dispatch: grad_accum_microbatches=2 at batch '
+      f'{DISPATCH_ACCUM_BATCH}, one step against the eager accumulation: '
+      f'max abs error {worst:.3g} (band {DISPATCH_ACCUM_BAND:g} of each '
+      f'leaf\'s largest magnitude), bit for bit: {exact}')
+  del trainer, reference, state
+  torch.cuda.empty_cache()
+
+
+class _HostClock:
+  """Host time spent in a wrapped callable, per call."""
+
+  def __init__(self, fn):
+    self.fn, self.ms = fn, []
+
+  def __call__(self, *args, **kwargs):
+    begin = time.perf_counter()
+    out = self.fn(*args, **kwargs)
+    self.ms.append(1e3 * (time.perf_counter() - begin))
+    return out
+
+
+def dispatch_timings(seed, timed, card):
+  """K=1 eager, K=8 graph and K=8 graph with the device feed, in turns on
+  the same pre-decoded batches: host ms/step, host ms a dispatch outside
+  the replay, the superbatch upload's ms and copies a dispatch."""
+  arms = {'K=1 eager': dispatch_trainer(seed, 1),
+          'K=8 graph': dispatch_trainer(seed, DISPATCH_K),
+          'K=8 graph + device_feed': dispatch_trainer(seed, DISPATCH_K,
+                                                      device_feed=True)}
+  for trainer in arms.values():  # builds the state, captures
+    trainer.config.max_train_steps = DISPATCH_K
+    trainer.train(iter(timed[:DISPATCH_K]))
+  torch.cuda.synchronize()
+  clocks = {}
+  for name, trainer in arms.items():
+    if trainer.config.steps_per_dispatch > 1:
+      (captured,) = trainer.captured_dispatches.values()
+      clocks[name] = (_HostClock(trainer._dispatch_group),  # pylint: disable=protected-access
+                      _HostClock(captured.replay), [])
+      trainer._dispatch_group = clocks[name][0]  # pylint: disable=protected-access
+      captured.replay = clocks[name][1]
+      feed = trainer._feed  # pylint: disable=protected-access
+      finish, uploads = feed.finish, clocks[name][2]
+
+      def timed_finish(staged, release, __finish=finish, __uploads=uploads):
+        __finish(staged, release)
+        if staged.start is not None:
+          __uploads.append(staged.start.elapsed_time(staged.ready))
+
+      feed.finish = timed_finish
+  puts = metrics_lib.counter('trainer/h2d/device_puts')
+  ms = collections.defaultdict(list)
+  copies = {}
+  for _ in range(DISPATCH_TURNS):
+    for name, trainer in arms.items():
+      trainer.config.max_train_steps = trainer.step + DISPATCH_TIMED
+      before = puts.value
+      torch.cuda.synchronize()
+      begin = time.perf_counter()
+      trainer.train(iter(timed))
+      torch.cuda.synchronize()
+      ms[name].append(1e3 * (time.perf_counter() - begin) / DISPATCH_TIMED)
+      copies[name] = (puts.value - before) / (DISPATCH_TIMED / DISPATCH_K)
+  for name, values in ms.items():
+    line = (f'dispatch timing: {name}: host ms/step median '
+            f'{statistics.median(values):.3f}, spread {min(values):.3f}-'
+            f'{max(values):.3f} over {DISPATCH_TURNS} runs of '
+            f'{DISPATCH_TIMED} steps')
+    if name in clocks:
+      dispatch_ms, replay_ms, uploads = clocks[name]
+      outside = statistics.median(dispatch_ms.ms) - statistics.median(
+          replay_ms.ms)
+      leaves = 4
+      line += (f'; host ms a dispatch outside the replay {outside:.3f} '
+               f'(the replay call {statistics.median(replay_ms.ms):.3f}); '
+               f'superbatch upload {statistics.median(uploads):.3f} ms '
+               f'({min(uploads):.3f}-{max(uploads):.3f}, 251.7 MB pinned); '
+               + (f'{copies[name]:g} trainer/h2d/device_puts a dispatch'
+                  if 'feed' in name else
+                  f'{leaves} leaf copies a dispatch') +
+               ' (+ the rates and draws, 2 small copies)')
+    log(line + f' on {card}')
+  del arms, clocks
+  torch.cuda.empty_cache()
+  return ms
+
+
+def run_dispatch_binary(root):
+  """The trainer binary on the port's train_qtopt.gin, steps_per_dispatch
+  = 8 live, in a subprocess; it must exit 0, commit the final step and
+  save at dispatch boundaries: the first on or after each multiple of the
+  save interval (104, 200), then the final step (208). The config's own
+  1000 steps are bound by the host's random input generator (it draws
+  31.5 MB of uint8 a batch; the phase prints the seconds one draw takes),
+  not by depth, so the run is cut by binding ``DISPATCH_BINARY_STEPS`` and
+  a save interval of 100."""
+  repo = pathlib.Path(__file__).resolve().parent
+  model = GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv')
+  generator = input_generators.DefaultRandomInputGenerator(
+      batch_size=TRAIN_BATCH)
+  generator.set_specification_from_model(model, ModeKeys.TRAIN)
+  draws = generator.create_iterator(ModeKeys.TRAIN)
+  next(draws)
+  begin = time.perf_counter()
+  next(draws)
+  draw_s = time.perf_counter() - begin
+  model_dir = root / 'binary'
+  cmd = [sys.executable, '-m', 'tensor2robot_tpu_torch.bin.run_t2r_trainer',
+         '--gin_configs', str(repo / QTOPT_GIN),
+         '--gin_bindings',
+         f'train_eval_model.max_train_steps = {DISPATCH_BINARY_STEPS}',
+         '--gin_bindings', 'train_eval_model.save_interval_steps = 100',
+         '--gin_bindings', f"train_eval_model.model_dir = '{model_dir}'"]
+  start = time.perf_counter()
+  proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                        timeout=900, check=False)
+  seconds = time.perf_counter() - start
+  manager_dir = str(model_dir / 'checkpoints')
+  step = ckpt_lib.latest_checkpoint_step(manager_dir)
+  steps = sorted(int(n.split('_')[1]) for n in os.listdir(manager_dir)
+                 if n.startswith('ckpt_') and '.' not in n) if (
+                     os.path.isdir(manager_dir)) else []
+  if (proc.returncode != 0 or step != DISPATCH_BINARY_STEPS or
+      steps != list(DISPATCH_BINARY_SAVES)):
+    raise AssertionError(
+        f'dispatch binary: exit {proc.returncode}, newest committed step '
+        f'{step}, steps {steps}; its output ended:\n{proc.stdout[-3000:]}\n'
+        f'{proc.stderr[-3000:]}')
+  log(f'dispatch: python -m tensor2robot_tpu_torch.bin.run_t2r_trainer '
+      f'--gin_configs {QTOPT_GIN} (steps_per_dispatch = 8; cut: '
+      f'max_train_steps {DISPATCH_BINARY_STEPS} of the config\'s 1000, '
+      'save_interval_steps 100: the host\'s DefaultRandomInputGenerator '
+      f'takes {draw_s:.3f} s to draw one batch, so 1000 steps would take '
+      f'{1000 * draw_s:.0f} s or more) exited 0 in {seconds:.1f} s, '
+      f'committed steps {steps}')
+
+
+def phase_dispatch_profile(seed):
+  """Kernel rows over two replays (torch.profiler) of the stock and the
+  fused K=8 trainers, with the device ms a step of K=1 eager, K=8 graph
+  and K=8 graph with the device feed. Runs after the timing phase: a
+  profiler session early in a process left later sessions empty."""
+  from torch.profiler import ProfilerActivity, profile
+
+  batches = train_batches(seed + 24, 3 * DISPATCH_K, TRAIN_BATCH)
+  arms = (('K=1 eager', 1, {}), ('K=8 graph', DISPATCH_K, {}),
+          ('K=8 graph + device_feed', DISPATCH_K, dict(device_feed=True)),
+          ('K=8 graph, fused', DISPATCH_K, dict(fused=True)))
+  with cudnn_settings(deterministic=True, benchmark=False), \
+      _dispatch.force_kernels(True), counted_plain_calls() as plain:
+    for name, k, cfg in arms:
+      trainer = dispatch_trainer(seed, k, max_train_steps=DISPATCH_K, **cfg)
+      trainer.train(iter(batches[:DISPATCH_K]))
+      trainer.config.max_train_steps = 3 * DISPATCH_K
+      torch.cuda.synchronize()
+      zero_counters()
+      with profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+        trainer.train(iter(batches[DISPATCH_K:]))
+        torch.cuda.synchronize()
+      python_launches = read_counters()
+      averages = prof.key_averages()
+      steps = 2 * DISPATCH_K
+      device_ms = device_time_us(averages) / 1e3 / steps
+      rows = {kernel: sum(e.count for e in averages if kernel in e.key)
+              for kernel in (*DISPATCH_ROWS, 'fused_update_kernel')}
+      graph_launches = sum(e.count for e in averages
+                           if e.key.startswith('cudaGraphLaunch'))
+      h2d = sum(e.count for e in averages if e.key.startswith('Memcpy HtoD'))
+      log(f'dispatch profile: {name}: device {device_ms:.3f} ms/step; over '
+          f'2 dispatches of 8 steps: kernel rows {rows}, cudaGraphLaunch '
+          f'{graph_launches}, host-to-device copies {h2d}; Python launch '
+          f'counters {python_launches}')
+      if k > 1:
+        want = {kernel: 2 * n for kernel, n in DISPATCH_ROWS.items()}
+        want['fused_update_kernel'] = 2 * DISPATCH_K if cfg.get('fused') else 0
+        if rows != want or graph_launches != 2 or any(
+            python_launches.values()):
+          raise AssertionError(
+              f'dispatch profile {name}: rows {rows}, expected {want}; '
+              f'{graph_launches} cudaGraphLaunch; Python counters '
+              f'{python_launches} (a replay runs no Python)')
+      del trainer, prof
+      torch.cuda.empty_cache()
+  if sum(plain.values()):
+    raise AssertionError(f'dispatch profile: plain versions ran {plain}')
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -4653,16 +5142,22 @@ def main(argv=None):
   phase_snail_reference(args.seed)
   torch.cuda.empty_cache()
   photometric_launches = phase_photometric_path(args.seed)
+  torch.cuda.empty_cache()
+  dispatch_launches = phase_dispatch(args.seed, card)
+  torch.cuda.empty_cache()
   # Launches: the pool and conv forward kernels over the QT-Opt serving,
-  # training, checkpoint, export, HTTP serving and record-fed paths, their backward ones
-  # over the training paths, dx over the path that needs it, the flash
-  # kernels over the three SNAIL paths, the fused update over the two fused
-  # training paths, the photometric pass over its branch.
+  # training, checkpoint, export, HTTP serving, record-fed and K-step
+  # paths, their backward ones over the training paths, dx over the path
+  # that needs it, the flash kernels over the three SNAIL paths, the fused
+  # update over the two fused training paths, the photometric pass over
+  # its branch. The K-step path counts its warm-up, its capture and its
+  # eager tail (a replay runs no Python); its replays' kernels are counted
+  # from the profiler by phase_dispatch_profile.
   paths = [serve_launches, train_launches, checkpoint_launches,
            export_launches, http_launches, record_launches, fused_launches,
            *(result[1] for result in snail.values()),
            *(result[1] for result in snail_fused.values()),
-           photometric_launches]
+           photometric_launches, dispatch_launches]
   launches = {name: sum(path[name] for path in paths)
               for name in serve_launches}
   for name in ('conv_s2d_dx', 'conv_s2d_dx_tensor_core'):
@@ -4676,11 +5171,13 @@ def main(argv=None):
       f'{ {name: result[1] for name, result in snail.items()} } and fused '
       f'{ {name: result[1] for name, result in snail_fused.items()} } over '
       f'{args.snail_steps} steps each; photometric path '
-      f'{photometric_launches}')
+      f'{photometric_launches}; K-step path {dispatch_launches}')
   if tf32_flags() != defaults:
     raise AssertionError(f'TF32 flags {tf32_flags()} before the timings, '
                          f'{defaults} at the start')
   kernels = phase_timing(generator, errors, launches)
+  torch.cuda.empty_cache()
+  phase_dispatch_profile(args.seed)
   if args.profile:
     phase_profile_reference(args.seed)
     phase_profile(policy, frames)

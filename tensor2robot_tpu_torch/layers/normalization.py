@@ -12,7 +12,9 @@ differ from torch's defaults:
 * :class:`BatchNorm` keeps running averages updated as ``momentum * old +
   (1 - momentum) * new`` (flax's ``momentum=0.99`` is torch's 0.01) in the
   ``mean`` / ``var`` buffers, and normalises with the batch statistics in
-  train mode (``self.training``), with the running ones otherwise.
+  train mode (``self.training``), with the running ones otherwise; the
+  averages are not updated again while a recompute region replays the
+  forward (:func:`update_running_stats`).
 
 Both take the feature dimension as an argument, so NHWC and NCHW tensors
 normalise alike. The output is cast to ``dtype`` when given, else it
@@ -26,6 +28,8 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from tensor2robot_tpu_torch.layers import remat
 
 
 def batch_stats(x: torch.Tensor, dims: Sequence[int]):
@@ -41,6 +45,20 @@ def feature_shape(x: torch.Tensor, feature_dim: int):
   shape = [1] * x.dim()
   shape[feature_dim] = x.shape[feature_dim]
   return shape
+
+
+@torch.no_grad()
+def update_running_stats(module: nn.Module, mean: torch.Tensor,
+                         var: torch.Tensor) -> None:
+  """``momentum * old + (1 - momentum) * new`` into ``module.mean`` and
+  ``module.var``, in place; skipped while a recompute region replays the
+  forward (``layers/remat.py``), so the averages move once a step."""
+  if remat.recomputing():
+    return
+  module.mean.copy_(module.momentum * module.mean +
+                    (1.0 - module.momentum) * mean)
+  module.var.copy_(module.momentum * module.var +
+                   (1.0 - module.momentum) * var)
 
 
 class BatchNorm(nn.Module):
@@ -63,10 +81,7 @@ class BatchNorm(nn.Module):
     if self.training:
       dims = [d for d in range(x.dim()) if d != feature_dim]
       mean, var = batch_stats(x, dims)
-      with torch.no_grad():
-        self.mean.copy_(self.momentum * self.mean +
-                        (1.0 - self.momentum) * mean)
-        self.var.copy_(self.momentum * self.var + (1.0 - self.momentum) * var)
+      update_running_stats(self, mean, var)
     else:
       mean, var = self.mean, self.var
     shape = feature_shape(x, feature_dim)

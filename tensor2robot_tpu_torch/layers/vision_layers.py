@@ -18,10 +18,13 @@ Layout: the tower takes NHWC images, as the JAX module does, and runs its
 convs on the NCHW view of the same storage (channels-last memory). Its
 parameter names follow the flax tree (``conv2``..``conv6``, ``norm2``..,
 ``final_conv_1x1``, ``final_norm``; ``utils/convert.py`` maps the leaves).
+Under a ``remat_policy`` other than 'none' each conv block is a recompute
+region (``layers/remat.py``); the names do not change.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.layers import remat
 from tensor2robot_tpu_torch.layers.normalization import BatchNorm, LayerNorm
 from tensor2robot_tpu_torch.layers.spatial_softmax import spatial_softmax
 
@@ -128,9 +132,10 @@ class ImagesToFeaturesModel(nn.Module):
 
   def __init__(self, filter_size: int = 3, num_blocks: int = 5,
                num_output_maps: int = 32, use_batch_norm: bool = False,
-               in_channels: int = 3):
+               in_channels: int = 3, remat_policy: str = 'none'):
     super().__init__()
     self.num_blocks = num_blocks
+    self.remat_policy = remat.validate_remat_policy(remat_policy)
     self.use_batch_norm = use_batch_norm
     channels = _NUM_CHANNELS_PER_BLOCK
     for i in range(num_blocks):
@@ -160,6 +165,18 @@ class ImagesToFeaturesModel(nn.Module):
             module.mean.zero_()
             module.var.fill_(1.0)
 
+  def _conv_block(self, i: int, net: torch.Tensor,
+                  gamma: Optional[torch.Tensor] = None,
+                  beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One conv -> norm -> FiLM -> relu block: the recompute region under
+    a ``remat_policy`` other than 'none' (``layers/remat.py``)."""
+    net = getattr(self, f'conv{i + 2}')(net)
+    net = getattr(self, f'norm{i + 2}')(net, feature_dim=1)
+    if gamma is not None:
+      net = film_modulation(net.permute(0, 2, 3, 1), gamma,
+                            beta).permute(0, 3, 1, 2)
+    return F.relu(net)
+
   def forward(self, images: torch.Tensor,
               film_output_params: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -177,12 +194,9 @@ class ImagesToFeaturesModel(nn.Module):
 
     net = images.permute(0, 3, 1, 2)  # NCHW view of the NHWC storage
     for i in range(self.num_blocks):
-      net = getattr(self, f'conv{i + 2}')(net)
-      net = getattr(self, f'norm{i + 2}')(net, feature_dim=1)
-      if gammas is not None:
-        net = film_modulation(net.permute(0, 2, 3, 1), gammas[i],
-                              betas[i]).permute(0, 3, 1, 2)
-      net = F.relu(net)
+      film = () if gammas is None else (gammas[i], betas[i])
+      net = remat.checkpointed(functools.partial(self._conv_block, i),
+                               self.remat_policy, net, *film)
     net = self.final_conv_1x1(net)
     net = self.final_norm(net, feature_dim=1)
     points, softmax = spatial_softmax(net.permute(0, 2, 3, 1))

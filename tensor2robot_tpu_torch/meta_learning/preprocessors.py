@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from tensor2robot_tpu_torch.meta_learning import meta_tfdata
-from tensor2robot_tpu_torch.preprocessors.base import AbstractPreprocessor
+from tensor2robot_tpu_torch.preprocessors.base import (AbstractPreprocessor,
+                                                     refuse_device_draws)
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec, algebra
 
 
@@ -103,6 +104,7 @@ class MAMLPreprocessorV2(AbstractPreprocessor):
     flat_labels = (None if labels is None else
                    meta_tfdata.flatten_batch_examples(labels))
 
+    refuse_device_draws(generator, type(self).__name__)
     state = None if generator is None else generator.get_state()
     flat_cond_f, flat_cond_l = self._base_preprocessor._preprocess_fn(  # pylint: disable=protected-access
         flat_cond_f, flat_cond_l, mode, generator)

@@ -39,7 +39,11 @@
 // Each thread moves four neighbouring elements, with 16-byte accesses
 // where all of the leaf's pointers are 16-byte aligned. The scalars (lr,
 // the bias corrections, the betas, eps and the decay) are passed by value:
-// no upload, no per-leaf launch. The Adam/SGD, EMA and guard switches are
+// no upload, no per-leaf launch. A launch that a CUDA graph captures keeps
+// its arguments for every replay, so there lr, c1 and c2, which follow the
+// optimizer's count, come from a device buffer of three floats (rates) that
+// the trainer fills before each replay; every thread reads the same three
+// words. The Adam/SGD, EMA and guard switches are
 // template parameters, so each of the 8 variants compiles to its own
 // kernel without dead loads.
 
@@ -69,7 +73,7 @@ struct Scalars {
       one_minus_decay;
 };
 
-static_assert(sizeof(Table) + sizeof(Scalars) + sizeof(void*) <= 32764,
+static_assert(sizeof(Table) + sizeof(Scalars) + 2 * sizeof(void*) <= 32764,
               "kernel arguments must stay within Hopper's 32,764 bytes");
 
 template <bool kAdam, bool kEma>
@@ -92,10 +96,15 @@ __device__ __forceinline__ void update_one(const Scalars& s, float& p,
 
 template <bool kAdam, bool kEma, bool kGuard>
 __global__ void __launch_bounds__(kThreads)
-    fused_update_kernel(__grid_constant__ const Table t, const Scalars s,
-                        const unsigned char* ok) {
+    fused_update_kernel(__grid_constant__ const Table t, Scalars s,
+                        const unsigned char* ok, const float* rates) {
   if constexpr (kGuard) {
     if (*ok == 0) return;
+  }
+  if (rates != nullptr) {  // lr, c1, c2 from the device buffer
+    s.lr = rates[0];
+    s.c1 = rates[1];
+    s.c2 = rates[2];
   }
   const int bid = blockIdx.x;
   // The leaf whose blocks hold this one: the last start <= bid.
@@ -168,17 +177,18 @@ __global__ void __launch_bounds__(kThreads)
 
 template <bool kAdam, bool kEma, bool kGuard>
 int launch(const Table& t, int blocks, const Scalars& s,
-           const unsigned char* ok, cudaStream_t stream) {
+           const unsigned char* ok, const float* rates, cudaStream_t stream) {
   fused_update_kernel<kAdam, kEma, kGuard>
-      <<<blocks, kThreads, 0, stream>>>(t, s, ok);
+      <<<blocks, kThreads, 0, stream>>>(t, s, ok, rates);
   return (int)cudaGetLastError();
 }
 
 template <bool kAdam, bool kEma>
 int launch_guard(bool guard, const Table& t, int blocks, const Scalars& s,
-                 const unsigned char* ok, cudaStream_t stream) {
-  return guard ? launch<kAdam, kEma, true>(t, blocks, s, ok, stream)
-               : launch<kAdam, kEma, false>(t, blocks, s, ok, stream);
+                 const unsigned char* ok, const float* rates,
+                 cudaStream_t stream) {
+  return guard ? launch<kAdam, kEma, true>(t, blocks, s, ok, rates, stream)
+               : launch<kAdam, kEma, false>(t, blocks, s, ok, rates, stream);
 }
 
 }  // namespace
@@ -190,9 +200,12 @@ extern "C" {
 // and ema (0 where the variant does not read it) and the element count.
 // Every tensor is float32 and dense, with one layout per leaf. adam, ema and
 // guard are 0 or 1; ok is the device byte the guard reads (ignored without
-// the guard). Returns cudaGetLastError().
+// the guard); rates, when not null, is a device buffer of three floats (lr,
+// c1, c2) that the kernel reads in place of the lr, c1 and c2 arguments.
+// Returns cudaGetLastError().
 int t2r_fused_update(const int64_t* leaves, int n_leaves, int adam, int ema,
-                     int guard, const void* ok, float lr, float c1, float c2,
+                     int guard, const void* ok, const void* rates, float lr,
+                     float c1, float c2,
                      float b1, float b2, float one_minus_b1,
                      float one_minus_b2, float eps, float decay,
                      float one_minus_decay, void* stream) {
@@ -219,15 +232,16 @@ int t2r_fused_update(const int64_t* leaves, int n_leaves, int adam, int ema,
   const Scalars s{lr, c1, c2, b1, b2, one_minus_b1, one_minus_b2, eps,
                   decay, one_minus_decay};
   const unsigned char* okp = static_cast<const unsigned char*>(ok);
+  const float* rp = static_cast<const float*>(rates);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool g = guard != 0;
   const int nb = (int)blocks;
   if (adam) {
-    return ema ? launch_guard<true, true>(g, t, nb, s, okp, st)
-               : launch_guard<true, false>(g, t, nb, s, okp, st);
+    return ema ? launch_guard<true, true>(g, t, nb, s, okp, rp, st)
+               : launch_guard<true, false>(g, t, nb, s, okp, rp, st);
   }
-  return ema ? launch_guard<false, true>(g, t, nb, s, okp, st)
-             : launch_guard<false, false>(g, t, nb, s, okp, st);
+  return ema ? launch_guard<false, true>(g, t, nb, s, okp, rp, st)
+             : launch_guard<false, false>(g, t, nb, s, okp, rp, st);
 }
 
 const char* t2r_error_string(int status) {

@@ -30,7 +30,9 @@ element is read once and written once.
 The kernel reads its leaves' pointers from a table passed by value, one
 launch for up to :data:`LEAVES_PER_LAUNCH` parameters (every path's in one
 launch a step); the learning rate and the bias corrections are host floats
-passed by value, and the guard's flag is the one value read on the device.
+passed by value, or, for a step that a CUDA graph replays, read from a
+small device buffer (``rates``) that the trainer fills before each replay;
+the guard's flag is read on the device.
 :func:`fused_update` is the one-shot entry: it validates its leaves and
 packs their table at every call. The trainer's :func:`apply_update` packs
 the table from each step's addresses too, but validates the leaves once (a
@@ -48,7 +50,7 @@ import logging
 import math
 import operator
 from typing import (Callable, List, Mapping, NamedTuple, Optional, Sequence,
-                    Union)
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -69,7 +71,7 @@ _G_COLUMN = 1
 
 _SIGNATURES = {
     't2r_fused_update': [ctypes.c_void_p] + [ctypes.c_int] * 4 +
-                        [ctypes.c_void_p] + [ctypes.c_float] * 10 +
+                        [ctypes.c_void_p] * 2 + [ctypes.c_float] * 10 +
                         [ctypes.c_void_p],
 }
 
@@ -134,6 +136,18 @@ def host_bias_correction(decay: float, count: int) -> float:
   power = (base * base * base if count == 3 else
            np.float32(math.pow(float(base), count)))
   return float(np.float32(1.0) - power)
+
+
+def host_rates(spec: FusedSpec, count: int) -> Tuple[float, float, float]:
+  """(lr, c1, c2) of the update applied at ``count`` (optax's
+  pre-increment count): the rate, and for Adam the bias corrections at
+  ``count + 1`` (1.0 for SGD), as the kernel takes them."""
+  rate = spec.learning_rate
+  lr = float(rate(count) if callable(rate) else rate)
+  if spec.kind != 'adam':
+    return lr, 1.0, 1.0
+  return (lr, host_bias_correction(spec.b1, count + 1),
+          host_bias_correction(spec.b2, count + 1))
 
 
 def supports_state(spec: FusedSpec, optimizer) -> bool:
@@ -256,11 +270,21 @@ def _check_ok(ok: torch.Tensor, device: torch.device) -> None:
                      "parameters' device.")
 
 
+def _check_rates(rates: torch.Tensor, device: torch.device) -> None:
+  if (rates.device != device or rates.dtype != torch.float32 or
+      rates.shape != (3,) or not rates.is_contiguous()):
+    raise ValueError('fused_update: rates must be a contiguous float32 '
+                     "tensor of three (lr, c1, c2) on the parameters' "
+                     'device.')
+
+
 def _launch(table: np.ndarray, device: torch.device, kind: str, lr: float,
             c1: float, c2: float, b1: float, b2: float, eps: float,
-            decay: Optional[float], ok: Optional[torch.Tensor]) -> None:
+            decay: Optional[float], ok: Optional[torch.Tensor],
+            rates: Optional[torch.Tensor] = None) -> None:
   """Launches the kernel over a packed ``table`` on the current stream:
-  one launch per :data:`LEAVES_PER_LAUNCH` rows."""
+  one launch per :data:`LEAVES_PER_LAUNCH` rows. With ``rates`` the kernel
+  reads lr, c1 and c2 from that device buffer and ignores the floats."""
   adam, has_ema, guard = kind == 'adam', decay is not None, ok is not None
   decay = 0.0 if decay is None else float(decay)
   table = np.ascontiguousarray(table, np.int64)
@@ -272,7 +296,8 @@ def _launch(table: np.ndarray, device: torch.device, kind: str, lr: float,
       count = min(LEAVES_PER_LAUNCH, len(table) - start)
       status = lib.t2r_fused_update(
           address + start * table.strides[0], count, int(adam), int(has_ema),
-          int(guard), ok.data_ptr() if guard else None, lr, c1, c2, b1, b2,
+          int(guard), ok.data_ptr() if guard else None,
+          None if rates is None else rates.data_ptr(), lr, c1, c2, b1, b2,
           1.0 - b1, 1.0 - b2, eps, decay, 1.0 - decay, stream)
       _build.check(lib, status, 'fused_update')
       fused_update.launches += 1
@@ -281,7 +306,8 @@ def _launch(table: np.ndarray, device: torch.device, kind: str, lr: float,
 def fused_update(leaves: Sequence[Leaf], kind: str, lr: float, c1: float,
                  c2: float, b1: float, b2: float, eps: float,
                  decay: Optional[float],
-                 ok: Optional[torch.Tensor] = None) -> None:
+                 ok: Optional[torch.Tensor] = None,
+                 rates: Optional[torch.Tensor] = None) -> None:
   """Launches the CUDA kernel (``csrc/fused_update.cu``) over ``leaves`` on
   the current stream, in place: one launch per
   :data:`LEAVES_PER_LAUNCH` leaves. The one-shot entry: it validates the
@@ -290,8 +316,10 @@ def fused_update(leaves: Sequence[Leaf], kind: str, lr: float, c1: float,
 
   ``kind`` is 'adam' or 'sgd'; ``decay`` None leaves the EMA off; ``ok``
   (a one-element CUDA bool tensor) turns the guard on: where it holds
-  False nothing is written. Raises on CPU tensors, on a tensor whose dtype,
-  shape or strides differ from its parameter's, and on a launch error.
+  False nothing is written. ``rates`` (a float32 CUDA tensor of three)
+  makes the kernel read lr, c1 and c2 from the device in place of the
+  floats. Raises on CPU tensors, on a tensor whose dtype, shape or strides
+  differ from its parameter's, and on a launch error.
   """
   if kind not in KINDS:
     raise ValueError(f'fused_update kind must be one of {KINDS}, got {kind!r}')
@@ -305,10 +333,13 @@ def fused_update(leaves: Sequence[Leaf], kind: str, lr: float, c1: float,
   _check_leaves(leaves, adam, has_ema, device)
   if ok is not None:
     _check_ok(ok, device)
+  if rates is not None:
+    _check_rates(rates, device)
   columns = [list(column) for column in zip(*leaves)]
   for column, used in ((2, adam), (3, adam), (4, has_ema)):
     columns[column] = columns[column] if used else None
-  _launch(_pack(columns), device, kind, lr, c1, c2, b1, b2, eps, decay, ok)
+  _launch(_pack(columns), device, kind, lr, c1, c2, b1, b2, eps, decay, ok,
+          rates)
 
 
 fused_update.launches = 0
@@ -318,15 +349,21 @@ fused_update.launches = 0
 def plain_fused_update(leaves: Sequence[Leaf], kind: str, lr: float,
                        c1: float, c2: float, b1: float, b2: float,
                        eps: float, decay: Optional[float],
-                       ok: Optional[torch.Tensor] = None) -> None:
+                       ok: Optional[torch.Tensor] = None,
+                       rates: Optional[torch.Tensor] = None) -> None:
   """The kernel's function in plain PyTorch, on any device, in place.
 
   Transcribes the JAX package's ``_make_kernel`` term for term: the
   moments, the bias-corrected update with eps outside the root, the apply,
-  the EMA blend, then ``where(ok, new, old)`` for every output.
+  the EMA blend, then ``where(ok, new, old)`` for every output. With
+  ``rates`` (float32 lr, c1, c2 on the leaves' device, the kernel's
+  device buffer) it reads those in place of the floats: the same float32
+  values give the same bits.
   """
   if kind not in KINDS:
     raise ValueError(f'fused_update kind must be one of {KINDS}, got {kind!r}')
+  if rates is not None:
+    lr, c1, c2 = rates.unbind(0)
   for leaf in leaves:
     p, g, mu, nu, ema = leaf
     if kind == 'adam':
@@ -490,7 +527,8 @@ def prepare(plan: FusedPlan, optimizer,
 @torch.no_grad()
 def apply_update(plan: FusedPlan, optimizer,
                  ema: Optional[Mapping[torch.Tensor, torch.Tensor]] = None,
-                 ok: Optional[torch.Tensor] = None) -> bool:
+                 ok: Optional[torch.Tensor] = None,
+                 rates: Optional[torch.Tensor] = None) -> bool:
   """The fused replacement of ``optimizer.step()`` + the EMA update + the
   guard's select, in place on the parameters, the optimizer's state and
   ``ema`` (float32 EMA tensors keyed by their parameter): the kernel for
@@ -503,6 +541,13 @@ def apply_update(plan: FusedPlan, optimizer,
   (a one-byte copy) to advance the host-side counts; without the guard
   nothing is read back. Returns whether the update was applied.
 
+  ``rates`` (a float32 tensor of three on the parameters' device: lr, c1,
+  c2, from :func:`host_rates`) is the form a captured CUDA graph replays:
+  the kernel reads the rates from that buffer, nothing is read back, the
+  host counts stay (the caller advances them once it knows how many
+  updates applied) and the function returns True. The table is packed
+  from this call's gradients, which a graph keeps at fixed addresses.
+
   Parameters without a gradient are skipped, as the stock optimizer skips
   them; their EMA still takes its blend, as the stock EMA does. Adam's
   moments are created as zeros at the first step, as the stock ``Adam``
@@ -510,14 +555,7 @@ def apply_update(plan: FusedPlan, optimizer,
   """
   spec = plan.spec
   groups = optimizer.param_groups
-  count = groups[0].get('count', 0)
-  # The rate at the pre-increment count, as optax's scale_by_schedule.
-  rate = spec.learning_rate
-  lr = float(rate(count) if callable(rate) else rate)
-  c1 = c2 = 1.0
-  if spec.kind == 'adam':
-    c1 = host_bias_correction(spec.b1, count + 1)
-    c2 = host_bias_correction(spec.b2, count + 1)
+  lr, c1, c2 = host_rates(spec, groups[0].get('count', 0))
   prepared, operands = prepare(plan, optimizer, ema)
   decay = plan.ema_decay if operands.columns[4] is not None else None
   params = operands.columns[0]
@@ -527,11 +565,23 @@ def apply_update(plan: FusedPlan, optimizer,
       if len(table):
         if ok is not None:
           _check_ok(ok, params[0].device)
+        if rates is not None:
+          _check_rates(rates, params[0].device)
         _launch(table, params[0].device, spec.kind, lr, c1, c2, spec.b1,
-                spec.b2, spec.eps, decay, ok)
+                spec.b2, spec.eps, decay, ok, rates)
     else:
       plain_fused_update(operands.leaves(), spec.kind, lr, c1, c2, spec.b1,
-                         spec.b2, spec.eps, decay, ok)
+                         spec.b2, spec.eps, decay, ok, rates)
+  if rates is not None:
+    if operands.idle and operands.idle[0]:
+      idle_params, idle_emas = operands.idle
+      blended = torch._foreach_add(  # pylint: disable=protected-access
+          torch._foreach_mul(idle_emas, decay), idle_params,  # pylint: disable=protected-access
+          alpha=1.0 - decay)
+      for old, new in zip(idle_emas, blended):
+        old.copy_(new if ok is None else torch.where(ok.reshape(()), new,
+                                                     old))
+    return True
   applied = True if ok is None else bool(ok)
   if applied:
     if operands.idle and operands.idle[0]:

@@ -11,16 +11,47 @@ spec contract is unchanged:
 ``_preprocess_fn`` works on torch tensors on whatever device they lie on,
 so crops and casts run on the card next to the model. Randomness is
 explicit: a ``torch.Generator`` is threaded in.
+
+A step that runs inside a captured CUDA graph cannot draw on the host at
+each replay. There the trainer asks :meth:`AbstractPreprocessor.host_draws`
+for the values one TRAIN preprocess draws (in the order it draws them),
+hands them over on the device as :class:`DeviceDraws` in place of the
+generator, and ``_preprocess_fn`` uses them instead of drawing. A
+preprocessor that draws without declaring it fails loudly there: a
+``DeviceDraws`` is no ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
+
+import torch
 
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec, algebra
 
 SpecGetter = Callable[[str], SpecStruct]
+
+
+class DeviceDraws:
+  """The values one TRAIN preprocess would draw, as an int64 tensor on the
+  device (``values``), passed to ``preprocess`` in place of a generator."""
+
+  __slots__ = ('values',)
+
+  def __init__(self, values: torch.Tensor):
+    self.values = values
+
+
+def refuse_device_draws(generator, what: str) -> None:
+  """Raises for a preprocessor that draws within its step and has no
+  :meth:`AbstractPreprocessor.host_draws` yet, when handed
+  :class:`DeviceDraws` (``steps_per_dispatch`` > 1)."""
+  if isinstance(generator, DeviceDraws):
+    raise NotImplementedError(
+        f'{what} draws its random values within the step; '
+        'steps_per_dispatch > 1 is not ported for it yet: ROADMAP.md queue '
+        '1 item 11.')
 
 
 class AbstractPreprocessor(abc.ABC):
@@ -59,6 +90,13 @@ class AbstractPreprocessor(abc.ABC):
   @abc.abstractmethod
   def get_out_label_specification(self, mode: str) -> Optional[SpecStruct]:
     ...
+
+  def host_draws(self, generator: torch.Generator) -> Optional[List[int]]:
+    """The integers one TRAIN preprocess draws from ``generator``, drawn
+    now in the order it would draw them; None when it draws nothing (the
+    default). ``_preprocess_fn`` takes them back as :class:`DeviceDraws`."""
+    del generator
+    return None
 
   def _preprocess_fn(self, features: SpecStruct,
                      labels: Optional[SpecStruct], mode: str,

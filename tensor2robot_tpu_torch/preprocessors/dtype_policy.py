@@ -47,6 +47,9 @@ class DtypePolicyPreprocessor(AbstractPreprocessor):
         algebra.filter_required_flat_tensor_spec(
             algebra.flatten_spec_structure(spec)))
 
+  def host_draws(self, generator):
+    return self._preprocessor.host_draws(generator)
+
   def _preprocess_fn(self, features, labels, mode,
                      generator) -> Tuple[SpecStruct, Optional[SpecStruct]]:
     features, labels = self._preprocessor._preprocess_fn(  # pylint: disable=protected-access

@@ -9,7 +9,9 @@ crop is a view, so it costs no copy until the next op reads it.
 Randomness comes from an explicit ``torch.Generator`` where the JAX
 package takes a key. The two give different numbers from one seed, so a
 test that needs both packages to agree injects the crop offsets
-(``offsets=``) or leaves the distortions off.
+(``offsets=``) or leaves the distortions off. A step inside a captured
+CUDA graph cannot draw on the host: it crops at offsets drawn beforehand
+and handed over on the device (:func:`crop_at_device_offsets`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,20 @@ def _check_crop(input_shape, target_shape) -> None:
         f'Crop {target_shape} larger than image {tuple(input_shape[-3:-1])}')
 
 
+def random_crop_offsets(generator: Optional[torch.Generator],
+                        image_shape: Sequence[int],
+                        target_shape: Sequence[int]) -> Tuple[int, int]:
+  """The (row, column) offsets of one random crop, drawn on the host from
+  ``generator`` (a CPU generator): the row first, then the column."""
+  _check_crop(image_shape, target_shape)
+  h, w = image_shape[-3], image_shape[-2]
+  oh = int(torch.randint(0, h - int(target_shape[0]) + 1, (),
+                         generator=generator))
+  ow = int(torch.randint(0, w - int(target_shape[1]) + 1, (),
+                         generator=generator))
+  return oh, ow
+
+
 def random_crop_images(images: torch.Tensor,
                        target_shape: Sequence[int],
                        generator: Optional[torch.Generator] = None,
@@ -39,15 +55,15 @@ def random_crop_images(images: torch.Tensor,
   """Random spatial crop with ONE offset shared across the batch.
 
   The offsets (row, column) are drawn on the host from ``generator``
-  (a CPU generator), so the crop itself is a view with no device round
-  trip; ``offsets`` injects them instead, and must lie in range.
+  (:func:`random_crop_offsets`), so the crop itself is a view with no
+  device round trip; ``offsets`` injects them instead, and must lie in
+  range.
   """
   _check_crop(images.shape, target_shape)
   th, tw = int(target_shape[0]), int(target_shape[1])
   h, w = images.shape[-3], images.shape[-2]
   if offsets is None:
-    oh = int(torch.randint(0, h - th + 1, (), generator=generator))
-    ow = int(torch.randint(0, w - tw + 1, (), generator=generator))
+    oh, ow = random_crop_offsets(generator, images.shape, target_shape)
   else:
     oh, ow = (int(o) for o in offsets)
     if not (0 <= oh <= h - th and 0 <= ow <= w - tw):
@@ -55,6 +71,24 @@ def random_crop_images(images: torch.Tensor,
           f'Crop offsets {offsets} out of range for a {target_shape} crop '
           f'of {(h, w)}')
   return images[..., oh:oh + th, ow:ow + tw, :]
+
+
+def crop_at_device_offsets(images: torch.Tensor,
+                           target_shape: Sequence[int],
+                           offsets: torch.Tensor) -> torch.Tensor:
+  """The crop of :func:`random_crop_images` at offsets that lie on the
+  images' device: ``offsets`` is an int64 tensor (row, column), in range
+  (they come from :func:`random_crop_offsets`). One gather by index
+  arithmetic (the JAX package's crop is XLA's ``dynamic_slice``), so no
+  value is read back to the host and a captured CUDA graph takes new
+  offsets at each replay. The same elements as the view, in a contiguous
+  tensor."""
+  _check_crop(images.shape, target_shape)
+  th, tw = int(target_shape[0]), int(target_shape[1])
+  offsets = offsets.to(images.device)
+  rows = offsets[0] + torch.arange(th, device=images.device)
+  cols = offsets[1] + torch.arange(tw, device=images.device)
+  return images[..., rows[:, None], cols[None, :], :]
 
 
 def center_crop_images(images: torch.Tensor,

@@ -27,6 +27,11 @@ Numerics follow flax's modules:
 * With ``dtype=torch.bfloat16``, convs and dense layers run in bfloat16,
   batch-norm statistics stay float32 and the logits leave in float32.
 
+Under a ``remat_policy`` other than 'none' each ``_ConvBN`` tower block is
+a recompute region (``layers/remat.py``): its activations are recomputed
+in the backward, its batch statistics move once, and the parameter and
+buffer names do not change.
+
 Under ``kernel_policy='pool'`` the three max-pools go through
 ``ops.pool`` (the CUDA kernel on the card); ``'pool_conv'`` also routes
 ``conv1_1`` through ``ops.conv_s2d``. The other convs and the dense
@@ -48,11 +53,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.layers import remat
 from tensor2robot_tpu_torch.layers.normalization import BatchNorm as _BatchNorm
 from tensor2robot_tpu_torch.layers.normalization import \
     batch_stats as _batch_stats
 from tensor2robot_tpu_torch.layers.normalization import \
     feature_shape as _feature_shape
+from tensor2robot_tpu_torch.layers.normalization import \
+    update_running_stats as _update_running_stats
 from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 from tensor2robot_tpu_torch.ops import pool as pool_ops
 from tensor2robot_tpu_torch.ops.conv_s2d import SpaceToDepthConv
@@ -82,10 +90,7 @@ class _PooledBatchNormRelu(nn.Module):
     if self.training:
       dims = [d for d in range(x.dim()) if d != feature_dim]
       mean, var = _batch_stats(x, dims)
-      with torch.no_grad():
-        self.mean.copy_(self.momentum * self.mean +
-                        (1.0 - self.momentum) * mean)
-        self.var.copy_(self.momentum * self.var + (1.0 - self.momentum) * var)
+      _update_running_stats(self, mean, var)
     else:
       mean, var = self.mean, self.var
     shape = _feature_shape(pooled, feature_dim)
@@ -120,17 +125,23 @@ class _Conv(nn.Module):
 
 
 class _ConvBN(nn.Module):
-  """conv -> BatchNorm(scale) -> relu, no conv bias (BatchNorm cancels it)."""
+  """conv -> BatchNorm(scale) -> relu, no conv bias (BatchNorm cancels it);
+  one recompute region under a ``remat_policy`` other than 'none'
+  (``layers/remat.py``)."""
 
   def __init__(self, in_features: int, features: int, kernel: int,
                padding: str, decay: float, epsilon: float,
-               dtype: Optional[torch.dtype]):
+               dtype: Optional[torch.dtype], remat_policy: str = 'none'):
     super().__init__()
+    self.remat_policy = remat.validate_remat_policy(remat_policy)
     self.conv = _Conv(in_features, features, kernel, 1, padding, dtype)
     self.bn = _BatchNorm(features, True, decay, epsilon, dtype)
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
+  def _block(self, x: torch.Tensor) -> torch.Tensor:
     return F.relu(self.bn(self.conv(x), feature_dim=1))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return remat.checkpointed(self._block, self.remat_policy, x)
 
 
 class _Dense(nn.Module):
@@ -179,14 +190,18 @@ class Grasping44(nn.Module):
                batch_norm_decay: float = 0.9997,
                batch_norm_epsilon: float = 0.001,
                dtype: Optional[torch.dtype] = None,
-               kernel_policy: str = 'none'):
+               kernel_policy: str = 'none',
+               remat_policy: str = 'none'):
     super().__init__()
     self.num_convs = tuple(num_convs)
     self.hid_layers = hid_layers
     self.num_classes = num_classes
     self.dtype = dtype
     self.kernel_policy = dispatch.validate_kernel_policy(kernel_policy)
+    self.remat_policy = remat.validate_remat_policy(remat_policy)
     decay, eps = batch_norm_decay, batch_norm_epsilon
+    tower = dict(decay=decay, epsilon=eps, dtype=dtype,
+                 remat_policy=self.remat_policy)
 
     self.conv1_1 = SpaceToDepthConv(
         3, 64, (6, 6), strides=(2, 2), padding='SAME', use_bias=False,
@@ -198,11 +213,11 @@ class Grasping44(nn.Module):
     self._tower2 = [f'conv{l}' for l in range(2 + n0, 2 + n0 + n1)]
     self._tower3 = [f'conv{l}' for l in range(2 + n0 + n1, 2 + n0 + n1 + n2)]
     for name in self._tower1:
-      self.add_module(name, _ConvBN(64, 64, 5, 'SAME', decay, eps, dtype))
+      self.add_module(name, _ConvBN(64, 64, 5, 'SAME', **tower))
     for name in self._tower2:
-      self.add_module(name, _ConvBN(64, 64, 3, 'SAME', decay, eps, dtype))
+      self.add_module(name, _ConvBN(64, 64, 3, 'SAME', **tower))
     for name in self._tower3:
-      self.add_module(name, _ConvBN(64, 64, 3, 'VALID', decay, eps, dtype))
+      self.add_module(name, _ConvBN(64, 64, 3, 'VALID', **tower))
 
     self.fcgrasp = _Dense(grasp_param_size, 256, False, dtype)
     self.fcgrasp_bn = _BatchNorm(256, False, decay, eps, dtype)

@@ -8,7 +8,8 @@
   PREDICT/EVAL take the center crop.
 * :class:`GraspingModelWrapper`: the critic over Grasping44 with the JAX
   wrapper's state/action specs, log loss, QT-Opt's momentum optimizer and
-  parameter averaging (``optimizer_builder``), ``grasp_params``,
+  parameter averaging (``optimizer_builder``), ``remat_policy`` (recompute
+  of the conv tower blocks, ``layers/remat.py``), ``grasp_params``,
   ``inference_network_fn`` (TRAIN mode updates the batch statistics in
   place) and ``pack_features``.
 """
@@ -20,13 +21,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch.layers import remat
 from tensor2robot_tpu_torch.models import critic_model
 from tensor2robot_tpu_torch.models.base import set_mode
 from tensor2robot_tpu_torch.models.critic_model import log_loss
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.preprocessors.base import (
-    SpecTransformationPreprocessor)
+    DeviceDraws, SpecTransformationPreprocessor)
 from tensor2robot_tpu_torch.research.qtopt import networks, optimizer_builder
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec
 
@@ -38,7 +40,9 @@ class DefaultGrasping44ImagePreprocessor(SpecTransformationPreprocessor):
   """Crop + scale (+ distortions in TRAIN) of the grasp image.
 
   TRAIN draws from the ``generator`` that ``preprocess`` threads in: the
-  crop offsets first, then the distortions' parameters.
+  crop offsets first, then the distortions' parameters. Handed
+  :class:`DeviceDraws` instead (a step inside a CUDA graph), it crops at
+  those offsets, the two that :meth:`host_draws` drew.
   """
 
   def __init__(self, input_shape=INPUT_SHAPE, target_shape=TARGET_SHAPE,
@@ -52,9 +56,19 @@ class DefaultGrasping44ImagePreprocessor(SpecTransformationPreprocessor):
                      dtype=np.uint8, data_format='JPEG')
     return spec_struct
 
+  def host_draws(self, generator):
+    return list(image_transformations.random_crop_offsets(
+        generator, self._input_shape, self._target_shape))
+
   def _preprocess_fn(self, features, labels, mode, generator):
     image = features['state/image']
-    if mode == ModeKeys.TRAIN:
+    if mode == ModeKeys.TRAIN and isinstance(generator, DeviceDraws):
+      image = image_transformations.crop_at_device_offsets(
+          image, self._target_shape, generator.values[:2])
+      image = image.to(torch.float32) / 255.0
+      image = image_transformations.apply_photometric_image_distortions(
+          image, generator)
+    elif mode == ModeKeys.TRAIN:
       image = image_transformations.random_crop_images(
           image, self._target_shape, generator)
       image = image.to(torch.float32) / 255.0
@@ -81,6 +95,7 @@ class GraspingModelWrapper(critic_model.CriticModel):
                input_shape=INPUT_SHAPE,
                target_shape=TARGET_SHAPE,
                num_convs=(6, 6, 3),
+               remat_policy: str = 'none',
                **kwargs):
     self.hparams = optimizer_builder.default_hparams()
     self.hparams.update(
@@ -92,6 +107,8 @@ class GraspingModelWrapper(critic_model.CriticModel):
     self._input_shape = tuple(input_shape)
     self._target_shape = tuple(target_shape)
     self._num_convs = tuple(num_convs)
+    # Recompute of the conv tower blocks in the backward (layers/remat.py).
+    self.remat_policy = remat.validate_remat_policy(remat_policy)
     kwargs.setdefault('create_optimizer_fn',
                       lambda: optimizer_builder.build_opt(self.hparams))
     super().__init__(
@@ -119,7 +136,7 @@ class GraspingModelWrapper(critic_model.CriticModel):
     return networks.Grasping44(
         image_size=self._target_shape, grasp_param_size=action_size,
         num_convs=self._num_convs, dtype=self.compute_dtype,
-        kernel_policy=self.kernel_policy)
+        kernel_policy=self.kernel_policy, remat_policy=self.remat_policy)
 
   def get_state_specification(self) -> SpecStruct:
     spec = SpecStruct()

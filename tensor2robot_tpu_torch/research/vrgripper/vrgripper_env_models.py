@@ -18,7 +18,8 @@ import torch
 
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.preprocessors import image_transformations
-from tensor2robot_tpu_torch.preprocessors.base import AbstractPreprocessor
+from tensor2robot_tpu_torch.preprocessors.base import (AbstractPreprocessor,
+                                                     refuse_device_draws)
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec, algebra
 
 
@@ -76,6 +77,7 @@ class DefaultVRGripperPreprocessor(AbstractPreprocessor):
     return (h - ch) // 2, (w - cw) // 2
 
   def _preprocess_fn(self, features, labels, mode, generator):
+    refuse_device_draws(generator, type(self).__name__)
     if 'image' in features:
       image = features['image']
       lead_shape = tuple(image.shape[:-3])

@@ -13,12 +13,16 @@ counterpart of ``tensor2robot_tpu/train/resilience.py``.
   gradients on the device and guards the update with it, so a NaN or Inf
   batch never reaches the parameters: the policy counts and skips it
   (halting after a run of ``halt_after`` bad steps), or raises. The counts
-  are attributes; the JAX package's metrics registry and flight recorder
-  are not ported.
+  are attributes, mirrored, as in the JAX package, into the metrics
+  registry (``resilience/nonfinite_skipped_steps``,
+  ``resilience/consecutive_bad_dispatches``) and the flight recorder (a
+  ``'nonfinite'`` event a skip), before any raise.
 
-The port reads the flag once per step (a one-byte copy, only with the guard
-on), so ``'raise'`` raises at the bad step itself, where the JAX trainer
-raises one dispatch later. Either way the bad step changed nothing.
+At one step a dispatch the port reads the flag once per step (a one-byte
+copy, only with the guard on), so ``'raise'`` raises at the bad step
+itself; at K steps a dispatch the trainer observes a dispatch's count one
+dispatch later, as the JAX trainer does. Either way the bad step changed
+nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ import logging
 import signal
 import threading
 from typing import Optional, Tuple
+
+from tensor2robot_tpu_torch.observability import flight
+from tensor2robot_tpu_torch.observability import metrics as metrics_lib
 
 # The resumable exit status of a preempted trainer binary: a scheduler
 # restarts the job, and the restarted run restores the forced checkpoint.
@@ -73,6 +80,12 @@ class NonFinitePolicy:
     self.halt_after = int(halt_after)
     self.bad_steps = 0        # total non-finite steps skipped
     self.consecutive_bad = 0  # consecutive steps that were skipped
+    # The registry's series exist from the first step whenever the guard
+    # is on.
+    self._m_bad_steps = metrics_lib.counter(
+        'resilience/nonfinite_skipped_steps')
+    self._m_consecutive = metrics_lib.gauge(
+        'resilience/consecutive_bad_dispatches')
 
   @property
   def enabled(self) -> bool:
@@ -85,9 +98,16 @@ class NonFinitePolicy:
     count = int(nonfinite_count)
     if count == 0:
       self.consecutive_bad = 0
+      self._m_consecutive.set(0)
       return
     self.bad_steps += count
     self.consecutive_bad += 1
+    self._m_bad_steps.inc(count)
+    self._m_consecutive.set(self.consecutive_bad)
+    flight.event(
+        'nonfinite', 'resilience/nonfinite_skip',
+        f'count={count} step={step} consecutive={self.consecutive_bad} '
+        f'mode={self.mode}')
     if self.mode == 'raise':
       raise NonFiniteError(
           f'non-finite loss/grads at step {step} (policy=raise); the update '

@@ -19,7 +19,11 @@ the network's batch statistics are updated in place by the forward pass and
 the generator advances with every draw, so a guarded step takes a
 :func:`snapshot` of both before it starts and :func:`restore` puts them back
 when the step is skipped. The step count and the optimizer's counts are
-host integers that a skipped step does not advance.
+host integers that a skipped step does not advance. A step that a captured
+CUDA graph replays cannot read its flag on the host: it copies what it may
+change on the device (:func:`guarded_tensors`, :func:`device_snapshot`)
+and selects old against new there (:func:`device_select`), JAX's
+``where(ok, new, old)``.
 
 :func:`state_dict` and :func:`load_state_dict` carry the whole state to a
 checkpoint payload and back: the step, the network's ``state_dict``
@@ -34,7 +38,7 @@ serving function keeps its network, so both go on with the loaded values.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -86,6 +90,38 @@ def restore(state: TrainState, snap: StepSnapshot) -> None:
   for name, b in state.network.named_buffers():
     b.copy_(snap.buffers[name])
   state.generator.set_state(snap.generator_state)
+
+
+def guarded_tensors(state: TrainState,
+                    with_update: bool = True) -> List[torch.Tensor]:
+  """What a guarded step changes in place: the batch statistics and, with
+  ``with_update``, the parameters, the optimizer's slot tensors and the
+  EMA (the fused kernel guards those itself)."""
+  tensors = list(state.network.buffers())
+  if with_update:
+    tensors += list(state.network.parameters())
+    for slots in state.optimizer.state.values():
+      tensors += [v for v in slots.values() if isinstance(v, torch.Tensor)]
+    tensors += list((state.ema or {}).values())
+  return tensors
+
+
+def device_snapshot(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+  """Copies of ``tensors`` on their devices: the old side of a device-side
+  select (:func:`device_select`). Nothing is read back to the host, so a
+  step inside a captured CUDA graph can take one."""
+  return [t.detach().clone() for t in tensors]
+
+
+@torch.no_grad()
+def device_select(tensors: List[torch.Tensor], snap: List[torch.Tensor],
+                  ok: torch.Tensor) -> None:
+  """``where(ok, new, old)`` in place over ``tensors`` (JAX's guarded state
+  transition): where the one-element flag ``ok`` is False, each tensor
+  gets its :func:`device_snapshot` copy back, bit for bit."""
+  flag = ok.reshape(())
+  for live, old in zip(tensors, snap):
+    live.copy_(torch.where(flag, live, old))
 
 
 def create_train_state(model, generator: torch.Generator,

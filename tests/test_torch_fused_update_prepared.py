@@ -71,7 +71,9 @@ def test_hands_the_plain_version_the_leaves_and_scalars(
   calls = []
   plain = fused_update.plain_fused_update
 
-  def record(leaves, kind, lr, c1, c2, b1, b2, eps, decay, ok=None):
+  def record(leaves, kind, lr, c1, c2, b1, b2, eps, decay, ok=None,
+             rates=None):
+    assert rates is None  # the host-scalar form outside a CUDA graph
     calls.append((list(leaves), (kind, lr, c1, c2, b1, b2, eps, decay, ok)))
     plain(leaves, kind, lr, c1, c2, b1, b2, eps, decay, ok)
 

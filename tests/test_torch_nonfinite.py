@@ -131,6 +131,33 @@ def test_raise_leaves_the_state_of_the_last_good_step():
 
 
 @pytest.mark.parametrize('arm', ('momentum', 'fused'))
+def test_raise_fires_one_dispatch_behind_at_k_steps_per_dispatch(arm):
+  """At steps_per_dispatch=3 the guard's count is read one dispatch
+  behind, as in the JAX trainer: a NaN batch in the first dispatch raises
+  after the second, and the state is that of the last good step, bit for
+  bit a run over the good batches alone."""
+  b = _batches(9, seed=5)
+  poisoned = [b[0], _nanify(b[1])] + b[2:]
+  model_kwargs = {}
+  if arm != 'momentum':
+    model_kwargs['create_optimizer_fn'] = (
+        lambda: optimizers.create_adam_optimizer(
+            optimizers.create_exp_decaying_learning_rate_fn(
+                1e-3, decay_steps=2, decay_rate=0.5)))
+  model = GraspingModelWrapper(device_type='cpu', input_shape=(88, 88, 3),
+                               target_shape=(80, 80), num_convs=(2, 2, 1),
+                               **model_kwargs)
+  trainer = Trainer(model, TrainerConfig(
+      max_train_steps=9, log_interval_steps=0, steps_per_dispatch=3,
+      fused_update=arm == 'fused', nonfinite_mode='raise'), device='cpu')
+  with pytest.raises(resilience.NonFiniteError, match='at step 3 '):
+    trainer.train(iter(poisoned))
+  assert trainer.step == 5  # dispatches 1 and 2 ran, one update skipped
+  reference = _train([b[0]] + b[2:6], arm, nonfinite_mode='raise')
+  _assert_state_bitwise(trainer, reference)
+
+
+@pytest.mark.parametrize('arm', ('momentum', 'fused'))
 def test_all_nan_stream_halts_after_consecutive_budget(arm):
   poisoned = [_nanify(x) for x in _batches(5, seed=3)]
   with pytest.raises(resilience.NonFiniteError, match='3 consecutive'):

@@ -704,7 +704,8 @@ def test_the_qtopt_config_parses_to_the_port_model(tmp_path):
                                        resolve=True)
     assert isinstance(model, GraspingModelWrapper)
     assert model.kernel_policy == 'pool_conv'
-    with pytest.raises(t2r_config.ConfigError):
-      t2r_config.query_parameter('train_eval_model.steps_per_dispatch')
+    # The reference config's production dispatch mode is live in the port.
+    assert t2r_config.query_parameter(
+        'train_eval_model.steps_per_dispatch') == 8
   finally:
     t2r_config.clear_config()

@@ -416,12 +416,14 @@ def test_trainer_matches_jax(jax_run, steps):
 
 def test_trainer_refuses_what_is_not_ported_yet():
   """Each knob the port does not honour yet raises, citing its ROADMAP
-  queue 1 item, instead of being ignored."""
+  queue 1 item, instead of being ignored; the dispatch knobs (queue 1 item
+  8) are ported and taken."""
   model = GraspingModelWrapper(device_type='cpu')
-  for knob, item in ((dict(steps_per_dispatch=2), 8),
-                     (dict(grad_accum_microbatches=2), 8),
-                     (dict(prefetch_batches=2), 8),
-                     (dict(distributed_coordination=True), 10),
+  for knob in (dict(steps_per_dispatch=2), dict(grad_accum_microbatches=2),
+               dict(prefetch_batches=2), dict(device_feed=True),
+               dict(step_breakdown=False)):
+    Trainer(model, TrainerConfig(**knob), device='cpu')
+  for knob, item in ((dict(distributed_coordination=True), 10),
                      (dict(checkpoint_sharded_payloads='on'), 10),
                      (dict(checkpoint_async_commit=True), 10)):
     with pytest.raises(NotImplementedError, match=f'queue 1 item {item}'):
