@@ -235,9 +235,34 @@ Run from the repository root. The phases:
    outside the replay, the superbatch upload's ms (CUDA events) and the
    copies a dispatch, the capture's one-off ms; and the trainer binary on
    the port's ``train_qtopt.gin`` (``steps_per_dispatch = 8`` live; cut to
-   208 of its 1000 steps and a save interval of 100, because the host's
+   112 of its 1000 steps and a save interval of 50, because the host's
    random generator bounds it, with one batch's draw time printed) in a
-   subprocess, which must exit 0 and commit steps [104, 200, 208];
+   subprocess, which must exit 0 and commit steps [56, 104, 112];
+12b. Grasp2Vec at the reference config's full width (``phase_grasp2vec``,
+   after the K-step path): 4 TFRecord shards of 12 examples, each three
+   seeded 512x640x3 uint8 frames as PNG under the spec names ``image``,
+   ``postgrasp_image`` and ``present_image``, in a temporary directory
+   below ``chiprun_out/`` that the phase removes;
+   ``Trainer`` steps of ``Grasp2VecModel(kernel_policy='pool')``
+   (ResNet-50 v2 towers, 472x472 crops, bfloat16 activations, float32
+   parameters, Adam at 1e-4) at batch 16 from
+   ``DefaultRecordInputGenerator``, a warm-up step and 3 counted ones
+   (per step 2 ``pool_fwd`` and 2 ``pool_bwd`` on the gather route, 0
+   plain calls), ms/step and the peak device memory printed beside the
+   card; the same model with ``fused_update=True`` for 4 steps (1
+   ``fused_update`` a step), each update held within FUSED_BAND to the
+   stock ``Adam.step`` on copies of the same parameters, gradients and
+   moments; the trainer binary on the port's ``train_grasp2vec.gin``
+   (cut to 4 steps, saves every 2, one eval batch) in a subprocess that
+   prints its launches, plain calls, step times and peak memory (it must
+   exit 0 and commit steps 2 and 4); ``CheckpointPredictor`` restores the
+   binary's step 4 and, under deterministic cuDNN, its embeddings and
+   spatial maps and the ``heatmap_keypoints`` on 2 frame triples are bit
+   for bit the in-process network's in eval mode. The stem pool's kernels
+   are held bitwise to their plain versions at [32, 236, 236, 64] and
+   [16, 236, 236, 64] bfloat16 with the check phases, timed there with the
+   other kernels (rows ``pool_fwd_stem`` and ``pool_bwd_gather``), and the
+   step's device time by op is profiled after the other profile phases;
 13. timings with CUDA events (each call after an L2 flush and a spin
    kernel that keeps the card busy while the host enqueues it): each
    kernel, its plain version, one library
@@ -284,6 +309,7 @@ import argparse
 import collections
 import concurrent.futures
 import contextlib
+import copy
 import functools
 import http.client
 import itertools
@@ -4373,6 +4399,52 @@ def fwd_logged_timing(generator, patch):
     del x, w, x_cl, w_cl
 
 
+def stem_pool_timing(record, generator):
+  """The stem pool's kernels at both Grasp2Vec towers' shapes (a step's
+  work), bfloat16: pool_fwd with its plain version and F.max_pool2d
+  (padding 1, return_indices) on the channels-last view, and the gather
+  route of pool_bwd with its plain version and
+  aten.max_pool2d_with_indices_backward; the bytes bound reads the input
+  (or the cotangent and the int32 slots) once and writes the output once."""
+  for name, shape in STEM_SHAPES:
+    x = tied_normal(shape, torch.bfloat16, generator, 'cuda')
+    out, slot = pool.pool_fwd(x, STEM_WINDOW, STEM_STRIDES, STEM_PADS)
+    lib_vals, indices = library_pool(x, STEM_WINDOW, STEM_STRIDES, STEM_PADS)
+    if not torch.equal(lib_vals.permute(0, 2, 3, 1), out):
+      raise AssertionError(f'library pool at the {name} stem computes '
+                           'another function')
+    g = tied_normal(tuple(out.shape), torch.bfloat16, generator, 'cuda')
+    windows = out.numel() * STEM_WINDOW[0] * STEM_WINDOW[1]
+    nbytes = x.numel() * 2 + out.numel() * (2 + 4)
+    fwd = (lambda: pool.pool_fwd(x, STEM_WINDOW, STEM_STRIDES, STEM_PADS),
+           lambda: pool.plain_max_pool_argmax(x, STEM_WINDOW, STEM_STRIDES,
+                                              STEM_PADS),
+           lambda: library_pool(x, STEM_WINDOW, STEM_STRIDES, STEM_PADS))
+    bwd = (lambda: pool.pool_bwd(g, slot, shape, STEM_WINDOW, STEM_STRIDES,
+                                 STEM_PADS),
+           lambda: pool.plain_max_pool_bwd(g, slot, shape, STEM_WINDOW,
+                                           STEM_STRIDES, STEM_PADS),
+           lambda: library_pool_bwd(g, x, indices, STEM_WINDOW, STEM_STRIDES,
+                                    STEM_PADS))
+    for entry, (kernel_fn, plain_fn, lib_fn), lib_name in (
+        ('pool_fwd_stem', fwd, 'F.max_pool2d'),
+        ('pool_bwd_gather', bwd, 'max_pool2d_with_indices_backward')):
+      ms = cuda_ms(kernel_fn)
+      plain = cuda_ms(plain_fn, iters=5)
+      lib = cuda_ms(lib_fn)
+      log(f'time {entry} {name} {shape} bf16 window {STEM_WINDOW} strides '
+          f'{STEM_STRIDES} pads {STEM_PADS}: kernel {ms:.4f} ms, plain '
+          f'{plain:.4f} ms, {lib_name} {lib:.4f} ms, '
+          f'{bound_text(nbytes, windows)}')
+      timing_entry(record, entry, ms, plain, lib, nbytes, windows)
+    del x, out, slot, lib_vals, indices, g
+  for entry in ('pool_fwd_stem', 'pool_bwd_gather'):
+    e = record[entry]
+    log(f'time {entry} both towers (a step): kernel {e["ms"]:.4f} ms, plain '
+        f'{e["plain_ms"]:.4f} ms, library {e["library_ms"]:.4f} ms, bytes '
+        f'bound {e["bytes_ms"]:.4f} ms')
+
+
 def phase_timing(generator, errors, launches):
   record = {}
   for name, shape, window, strides in POOLS:
@@ -4473,6 +4545,7 @@ def phase_timing(generator, errors, launches):
   dw_float32_timing(generator, ops)
   dx_float32_timing(generator, ops)
 
+  stem_pool_timing(record, generator)
   flash_timing(record, generator)
   fused_update_timing(record, generator)
   photometric_timing(record, generator)
@@ -4483,6 +4556,12 @@ def phase_timing(generator, errors, launches):
                    'tensor2robot_tpu/ops/pool.py:258'),
       'pool_bwd': ('tensor2robot_tpu_torch/ops/csrc/pool.cu',
                    'tensor2robot_tpu/ops/pool.py:284'),
+      # The Grasp2Vec stem's overlapping 3x3/s2 pool: the forward's padded
+      # 3x3 instantiation and the backward's gather route (pool_bwd_kernel).
+      'pool_fwd_stem': ('tensor2robot_tpu_torch/ops/csrc/pool.cu',
+                        'tensor2robot_tpu/ops/pool.py:258'),
+      'pool_bwd_gather': ('tensor2robot_tpu_torch/ops/csrc/pool.cu',
+                          'tensor2robot_tpu/ops/pool.py:284'),
       'conv_s2d_fwd': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
                        'tensor2robot_tpu/ops/conv_s2d.py:223'),
       'conv_s2d_dw': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
@@ -4639,10 +4718,11 @@ DISPATCH_TIMED = 48       # steps a timed run: six dispatches of 8
 DISPATCH_TURNS = 3
 DISPATCH_ACCUM_BATCH = 64
 # The binary's run, cut from the config's 1000 steps (run_dispatch_binary),
-# and the steps it must commit: the boundaries on or after 100 and 200,
-# and the final step.
-DISPATCH_BINARY_STEPS = 208
-DISPATCH_BINARY_SAVES = (104, 200, 208)
+# and the steps it must commit: the dispatch boundaries on or after 50 and
+# 100, and the final step.
+DISPATCH_BINARY_STEPS = 112
+DISPATCH_BINARY_SAVE_INTERVAL = 50
+DISPATCH_BINARY_SAVES = (56, 104, 112)
 DISPATCH_MEMORY_BATCHES = (32, 96)
 # The M=2 step against the eager accumulation written out: every parameter
 # within 1e-6 of its leaf's largest magnitude (the same operations in the
@@ -4990,11 +5070,11 @@ def run_dispatch_binary(root):
   """The trainer binary on the port's train_qtopt.gin, steps_per_dispatch
   = 8 live, in a subprocess; it must exit 0, commit the final step and
   save at dispatch boundaries: the first on or after each multiple of the
-  save interval (104, 200), then the final step (208). The config's own
+  save interval (56, 104), then the final step (112). The config's own
   1000 steps are bound by the host's random input generator (it draws
   31.5 MB of uint8 a batch; the phase prints the seconds one draw takes),
   not by depth, so the run is cut by binding ``DISPATCH_BINARY_STEPS`` and
-  a save interval of 100."""
+  a save interval of ``DISPATCH_BINARY_SAVE_INTERVAL``."""
   repo = pathlib.Path(__file__).resolve().parent
   model = GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv')
   generator = input_generators.DefaultRandomInputGenerator(
@@ -5010,7 +5090,8 @@ def run_dispatch_binary(root):
          '--gin_configs', str(repo / QTOPT_GIN),
          '--gin_bindings',
          f'train_eval_model.max_train_steps = {DISPATCH_BINARY_STEPS}',
-         '--gin_bindings', 'train_eval_model.save_interval_steps = 100',
+         '--gin_bindings', 'train_eval_model.save_interval_steps = '
+         f'{DISPATCH_BINARY_SAVE_INTERVAL}',
          '--gin_bindings', f"train_eval_model.model_dir = '{model_dir}'"]
   start = time.perf_counter()
   proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
@@ -5030,7 +5111,8 @@ def run_dispatch_binary(root):
   log(f'dispatch: python -m tensor2robot_tpu_torch.bin.run_t2r_trainer '
       f'--gin_configs {QTOPT_GIN} (steps_per_dispatch = 8; cut: '
       f'max_train_steps {DISPATCH_BINARY_STEPS} of the config\'s 1000, '
-      'save_interval_steps 100: the host\'s DefaultRandomInputGenerator '
+      f'save_interval_steps {DISPATCH_BINARY_SAVE_INTERVAL}: the host\'s '
+      'DefaultRandomInputGenerator '
       f'takes {draw_s:.3f} s to draw one batch, so 1000 steps would take '
       f'{1000 * draw_s:.0f} s or more) exited 0 in {seconds:.1f} s, '
       f'committed steps {steps}')
@@ -5087,6 +5169,478 @@ def phase_dispatch_profile(seed):
     raise AssertionError(f'dispatch profile: plain versions ran {plain}')
 
 
+# ------------------------------------------------------------- Grasp2Vec
+
+GRASP2VEC_GIN = (
+    'tensor2robot_tpu_torch/research/grasp2vec/configs/train_grasp2vec.gin')
+GRASP2VEC_BATCH = 16
+GRASP2VEC_KEYS = ('pregrasp_image', 'postgrasp_image', 'goal_image')
+GRASP2VEC_SHARDS = 4
+GRASP2VEC_PER_SHARD = 12
+GRASP2VEC_STEPS = 3
+GRASP2VEC_FUSED_STEPS = 3
+# The binary: its steps and save interval (saves at 2 and 4), one eval
+# batch at the end.
+GRASP2VEC_BINARY_STEPS = 4
+GRASP2VEC_BINARY_SAVES = (2, 4)
+GRASP2VEC_FRAMES = 2  # frame triples served from the checkpoint
+# The ResNet stem's 3x3/s2 max pool with (1, 1) padding (windows overlap:
+# the backward's gather route), at the two towers' shapes in bfloat16.
+STEM_WINDOW, STEM_STRIDES, STEM_PADS = (3, 3), (2, 2), ((1, 1), (1, 1))
+STEM_SHAPES = (('scene', (2 * GRASP2VEC_BATCH, 236, 236, 64)),
+               ('goal', (GRASP2VEC_BATCH, 236, 236, 64)))
+# Launches a Grasp2Vec training step: each tower's stem pool forward and
+# its backward on the gather route; an eval or serving batch runs both
+# forwards.
+GRASP2VEC_STEP_LAUNCHES = {**NO_QTOPT, **NO_FLASH, **NO_FUSED,
+                           'pool_fwd': 2, 'pool_bwd': 2}
+GRASP2VEC_FORWARD_LAUNCHES = {**NO_QTOPT, **NO_FLASH, **NO_FUSED,
+                              'pool_fwd': 2}
+
+# Runs the trainer binary's main unchanged and prints, as its last stdout
+# line, the pool kernels' launches, the plain versions' calls, the host ms
+# of each training step (synchronised, from a callback added to every
+# Trainer) and the peak device memory.
+GRASP2VEC_BINARY = '''
+import json, sys, time
+import torch
+from tensor2robot_tpu_torch.bin import run_t2r_trainer
+from tensor2robot_tpu_torch.ops import pool
+from tensor2robot_tpu_torch.train import trainer as trainer_lib
+plain = {'pool': 0}
+for name in ('plain_max_pool_argmax', 'plain_max_pool_bwd'):
+  def counted(*args, fn=getattr(pool, name), **kwargs):
+    plain['pool'] += 1
+    return fn(*args, **kwargs)
+  setattr(pool, name, counted)
+def sync():
+  if torch.cuda.is_available():
+    torch.cuda.synchronize()
+class StepClock(trainer_lib.TrainerCallback):
+  def __init__(self):
+    self.ms, self.last = [], None
+  def begin(self, trainer):
+    sync()
+    self.last = time.perf_counter()
+  def after_step(self, trainer, step, scalars):
+    sync()
+    now = time.perf_counter()
+    self.ms.append(1e3 * (now - self.last))
+    self.last = now
+clock = StepClock()
+init = trainer_lib.Trainer.__init__
+def with_clock(self, *args, **kwargs):
+  init(self, *args, **kwargs)
+  self._callbacks.append(clock)
+trainer_lib.Trainer.__init__ = with_clock
+run_t2r_trainer.main(sys.argv[1:])
+peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+print(json.dumps({'pool_fwd': pool.pool_fwd.launches,
+                  'pool_bwd': pool.pool_bwd.launches,
+                  'pool_bwd_scatter': pool.pool_bwd.scatter_launches,
+                  'plain': plain['pool'], 'step_ms': clock.ms,
+                  'peak_gib': peak / 2**30}))
+'''
+
+
+def write_grasp2vec_shards(root, seed):
+  """GRASP2VEC_SHARDS TFRecord shards of GRASP2VEC_PER_SHARD Grasp2Vec
+  examples at the model's in-specs (three seeded 512x640x3 uint8 frames
+  under the spec names 'image', 'postgrasp_image' and 'present_image', as
+  PNG at zlib level 1), each with its index sidecar. Returns the paths, the
+  bytes written and the seconds taken."""
+  from tensor2robot_tpu_torch.research.grasp2vec import Grasp2VecModel
+
+  pre = Grasp2VecModel().preprocessor
+  spec = dict(pre.get_in_feature_specification(ModeKeys.TRAIN).items())
+  rng = np.random.RandomState(seed + 31)
+  values = [[{key: rng.randint(0, 256, spec[key].shape, dtype=np.uint8)
+              for key in GRASP2VEC_KEYS}
+             for _ in range(GRASP2VEC_PER_SHARD)]
+            for _ in range(GRASP2VEC_SHARDS)]
+  start = time.perf_counter()
+
+  def write(shard):
+    path = str(root / f'grasp2vec-{shard:05d}-of-{GRASP2VEC_SHARDS:05d}'
+               '.tfrecord')
+    records.write_examples(path, [
+        example_codec.encode_example(spec, value, png_level=1)
+        for value in values[shard]])
+    shard_index.write_index(path)
+    return path
+
+  with concurrent.futures.ThreadPoolExecutor(GRASP2VEC_SHARDS) as pool_:
+    paths = list(pool_.map(write, range(GRASP2VEC_SHARDS)))
+  return (paths, sum(pathlib.Path(p).stat().st_size for p in paths),
+          time.perf_counter() - start)
+
+
+def phase_check_stem_pool(generator):
+  """The stem pool's kernels at the Grasp2Vec towers' shapes in bfloat16
+  against their plain versions, bit for bit: the forward's values and
+  slots, and the backward (the gather route) with NaN, -0.0 and infinite
+  cotangents planted."""
+  for name, shape in STEM_SHAPES:
+    x = tied_normal(shape, torch.bfloat16, generator, 'cuda')
+    out, slot = pool.pool_fwd(x, STEM_WINDOW, STEM_STRIDES, STEM_PADS)
+    want = pool.plain_max_pool_argmax(x, STEM_WINDOW, STEM_STRIDES,
+                                      STEM_PADS)
+    g = tied_normal(tuple(out.shape), torch.bfloat16, generator, 'cuda')
+    g.view(-1)[::97] = float('nan')
+    g.view(-1)[5::101] = -0.0
+    g.view(-1)[7::103] = float('-inf')
+    dx = pool.pool_bwd(g, slot, shape, STEM_WINDOW, STEM_STRIDES, STEM_PADS)
+    want_dx = pool.plain_max_pool_bwd(g, slot, shape, STEM_WINDOW,
+                                      STEM_STRIDES, STEM_PADS)
+    torch.cuda.synchronize()
+    launch = pool.bwd_launch(shape, STEM_WINDOW, STEM_STRIDES, STEM_PADS)
+    if not (same_bits(out, want[0]) and torch.equal(slot, want[1])):
+      raise AssertionError(f'pool_fwd at the {name} stem {shape} differs')
+    if not same_bits(dx, want_dx) or launch['route'] != pool.ROUTE_GATHER:
+      raise AssertionError(f'pool_bwd at the {name} stem {shape} differs '
+                           f'(route {launch["route"]})')
+    log(f'check stem pool {name} {shape} bf16 window {STEM_WINDOW} strides '
+        f'{STEM_STRIDES} pads {STEM_PADS}: pool_fwd bitwise (values and '
+        f'slots), pool_bwd bit for bit on the {launch["route"]} route '
+        f'({launch["vec"]} channels a thread)')
+    del x, out, slot, want, g, dx, want_dx
+  return 0.0
+
+
+def grasp2vec_model(**kwargs):
+  """The port's train_grasp2vec.gin model: ResNet-50 v2 towers, 472x472
+  crops, bfloat16 activations, float32 parameters, Adam at 1e-4, the stem
+  pools on the kernels."""
+  from tensor2robot_tpu_torch.research.grasp2vec import Grasp2VecModel
+
+  return Grasp2VecModel(scene_size=(472, 472), goal_size=(472, 472),
+                        kernel_policy='pool', **kwargs)
+
+
+def grasp2vec_generator(paths, seed, **kwargs):
+  gen = input_generators.DefaultRecordInputGenerator(
+      file_patterns=','.join(paths), batch_size=GRASP2VEC_BATCH, seed=seed,
+      **kwargs)
+  gen.set_specification_from_model(grasp2vec_model(), ModeKeys.TRAIN)
+  return gen
+
+
+@contextlib.contextmanager
+def stock_adam_shadow(model, worst):
+  """Within the context, every fused update (``fused_update.apply_update``)
+  is held to the stock ``Adam.step`` on copies of the same parameters,
+  gradients and moments: parameters and both moments within FUSED_BAND
+  (atol, rtol). ``worst`` collects each update's largest error."""
+  real = fused_update.apply_update
+  atol, rtol = FUSED_BAND
+
+  def checked(plan, optimizer, *args, **kwargs):
+    params = [p for group in optimizer.param_groups for p in group['params']]
+    shadow = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    for twin, param in zip(shadow, params):
+      twin.grad = None if param.grad is None else param.grad.clone()
+    stock = model.create_optimizer()(shadow)
+    # A deep copy: load_state_dict keeps the very moment tensors it is
+    # given where device and dtype agree, and the stock step updates them
+    # in place.
+    stock.load_state_dict(copy.deepcopy(optimizer.state_dict()))
+    stock.step()
+    applied = real(plan, optimizer, *args, **kwargs)
+    err = 0.0
+    for index, (twin, param) in enumerate(zip(shadow, params)):
+      pairs = [('param', param.detach(), twin.detach())]
+      pairs += [(slot, optimizer.state[param][slot], stock.state[twin][slot])
+                for slot in ('mu', 'nu')]
+      for what, got, want in pairs:
+        diff = (got - want).abs()
+        if not bool((diff <= atol + rtol * want.abs()).all()):
+          worst_at = int(diff.argmax())
+          raise AssertionError(
+              f'fused update {len(worst) + 1}, leaf {index} {what}: outside '
+              f'(atol {atol}, rtol {rtol}) of the stock Adam.step, '
+              f'{float(diff.max())} at {float(got.flatten()[worst_at])} '
+              f'against {float(want.flatten()[worst_at])} (gradient '
+              f'{float(twin.grad.flatten()[worst_at])})')
+        err = max(err, float(diff.max()))
+    worst.append(err)
+    return applied
+
+  fused_update.apply_update = checked
+  try:
+    yield
+  finally:
+    fused_update.apply_update = real
+
+
+def run_grasp2vec_binary(root, paths):
+  """The trainer binary on the port's train_grasp2vec.gin through
+  GRASP2VEC_BINARY, cut to GRASP2VEC_BINARY_STEPS steps with saves every 2
+  and one eval batch at the end; it must exit 0, commit the saves, launch
+  the stem kernels for every step and eval batch and call no plain
+  version. Returns its model_dir, its report and its seconds."""
+  repo = pathlib.Path(__file__).resolve().parent
+  model_dir = root / 'binary'
+  patterns = ','.join(paths)
+  bindings = [
+      f"train_eval_model.model_dir = '{model_dir}'",
+      f"train/DefaultRecordInputGenerator.file_patterns = '{patterns}'",
+      f"eval/DefaultRecordInputGenerator.file_patterns = '{patterns}'",
+      f'train_eval_model.max_train_steps = {GRASP2VEC_BINARY_STEPS}',
+      'train_eval_model.save_interval_steps = 2',
+      'train_eval_model.eval_steps = 1']
+  cmd = [sys.executable, '-c', GRASP2VEC_BINARY,
+         '--gin_configs', str(repo / GRASP2VEC_GIN)]
+  for binding in bindings:
+    cmd += ['--gin_bindings', binding]
+  start = time.perf_counter()
+  proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                        timeout=900, check=False)
+  seconds = time.perf_counter() - start
+  manager_dir = model_dir / 'checkpoints'
+  steps = sorted(int(n.split('_')[1]) for n in os.listdir(manager_dir)
+                 if n.startswith('ckpt_') and '.' not in n) if (
+                     manager_dir.is_dir()) else []
+  report = {}
+  if proc.returncode == 0 and proc.stdout.strip():
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+  want = {'pool_fwd': 2 * GRASP2VEC_BINARY_STEPS + 2,
+          'pool_bwd': 2 * GRASP2VEC_BINARY_STEPS, 'pool_bwd_scatter': 0,
+          'plain': 0}
+  got = {key: report.get(key) for key in want}
+  if (proc.returncode != 0 or steps != list(GRASP2VEC_BINARY_SAVES) or
+      got != want or
+      ckpt_lib.latest_checkpoint_step(str(manager_dir)) !=
+      GRASP2VEC_BINARY_STEPS):
+    raise AssertionError(
+        f'grasp2vec binary: exit {proc.returncode}, committed steps {steps}, '
+        f'launches {got} (expected {want}); its output ended:\n'
+        f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+  return model_dir, report, seconds
+
+
+def phase_grasp2vec(seed, card, device='cuda'):
+  """Grasp2Vec at the reference config's full width from record shards
+  (see the module docstring, 12b). Returns the path's launch counts, the
+  in-process trainer and a batch for the profile phase."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='grasp2vec_phase_',
+                                       dir=OUT_DIR))
+  try:
+    with _dispatch.force_kernels(True):
+      return grasp2vec_paths(seed, card, root, device)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def grasp2vec_paths(seed, card, root, device):
+  from tensor2robot_tpu_torch.research.grasp2vec import visualization
+
+  begin = time.perf_counter()
+  paths, nbytes, write_s = write_grasp2vec_shards(root, seed)
+  log(f'grasp2vec: {GRASP2VEC_SHARDS} shards of {GRASP2VEC_PER_SHARD} '
+      f'examples (3 frames of 512x640x3 uint8 PNG each, zlib level 1), '
+      f'{nbytes / 1e6:.1f} MB, written in {write_s:.2f} s')
+  total = {name: 0 for name in read_counters()}
+
+  def add(launches):
+    for name, value in launches.items():
+      total[name] += value
+
+  # 1. In process: Trainer steps at batch 16 from the record feed, the
+  # counters zeroed just before and read just after, no plain call.
+  gen = grasp2vec_generator(paths, seed)
+  it = gen.create_iterator(ModeKeys.TRAIN)
+  model = grasp2vec_model()
+  trainer = Trainer(model, TrainerConfig(model_dir='', max_train_steps=1,
+                                         log_interval_steps=0, seed=seed),
+                    device=device)
+  try:
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    trainer.train(it, None)  # builds the state; warm-up step
+    torch.cuda.synchronize()
+    add(read_counters())
+    state = trainer.state
+    params = dict(state.network.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    trainer.config.max_train_steps = 1 + GRASP2VEC_STEPS
+    copies = pool.MaxPoolArgmax.cotangent_copies
+    with counted_plain_calls() as plain:
+      zero_counters()
+      start = time.perf_counter()
+      scalars = trainer.train(it, None)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - start
+      launches = read_counters()
+  finally:
+    it.close()
+  copies = pool.MaxPoolArgmax.cotangent_copies - copies
+  peak = torch.cuda.max_memory_allocated()
+  add(launches)
+  want = {k: v * GRASP2VEC_STEPS for k, v in GRASP2VEC_STEP_LAUNCHES.items()}
+  if launches != want or sum(plain.values()) or (
+      trainer.step != 1 + GRASP2VEC_STEPS):
+    raise AssertionError(f'grasp2vec: launches over {GRASP2VEC_STEPS} steps '
+                         f'{launches}, expected {want}; plain calls {plain}')
+  if not all(np.isfinite(v) for v in scalars.values()):
+    raise AssertionError(f'grasp2vec: non-finite summaries {scalars}')
+  for name, param in params.items():
+    if param.grad is None or not bool(torch.isfinite(param.grad).all()):
+      raise AssertionError(f'grasp2vec {name}: gradient {param.grad!r}')
+  moved = sum(not torch.equal(p.detach(), before[k])
+              for k, p in params.items())
+  ms_per_step = 1e3 * seconds / GRASP2VEC_STEPS
+  log(f'grasp2vec: {GRASP2VEC_STEPS} steps at batch {GRASP2VEC_BATCH} '
+      f'(ResNet-50 v2 towers, 472x472, bf16, Adam 1e-4, record-fed), '
+      f'{ms_per_step:.3f} ms/step (host clock, synchronised), embed_loss '
+      f'{scalars["embed_loss"]:.4f}, {len(params)} parameters with finite '
+      f'gradients, {moved} moved; launches {launches} (per step 2 pool_fwd, '
+      f'2 pool_bwd on the gather route), plain calls 0; cotangent layout '
+      f'copies {copies / GRASP2VEC_STEPS:g} per step; peak device memory '
+      f'{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the '
+      f'{base / 2**30:.3f} GiB held before the phase) on {card}')
+
+  # 2. The fused arm: the same model with fused_update=True over pre-read
+  # batches, each update held to the stock Adam.step on the same inputs.
+  plain_it = grasp2vec_generator(paths, seed + 1, engine_workers=0)
+  decoded = plain_it.create_iterator(ModeKeys.TRAIN)
+  try:
+    batches = list(itertools.islice(decoded, 1 + GRASP2VEC_FUSED_STEPS))
+  finally:
+    decoded.close()
+  fused_model = grasp2vec_model()
+  fused = Trainer(fused_model, TrainerConfig(
+      model_dir='', max_train_steps=1 + GRASP2VEC_FUSED_STEPS,
+      log_interval_steps=0, seed=seed, fused_update=True), device=device)
+  worst = []
+  with stock_adam_shadow(fused_model, worst), counted_plain_calls() as plain:
+    zero_counters()
+    fused.train(iter(batches), None)
+    torch.cuda.synchronize()
+    fused_launches = read_counters()
+  add(fused_launches)
+  leaves = len(list(fused.state.network.parameters()))
+  steps = 1 + GRASP2VEC_FUSED_STEPS
+  want = {k: v * steps for k, v in GRASP2VEC_STEP_LAUNCHES.items()}
+  want['fused_update'] = steps * -(-leaves // fused_update.LEAVES_PER_LAUNCH)
+  if (fused.fused_plan is None or fused_launches != want or
+      len(worst) != steps or sum(plain.values())):
+    raise AssertionError(f'grasp2vec fused: launches {fused_launches}, '
+                         f'expected {want}; {len(worst)} updates checked; '
+                         f'plain calls {plain}')
+  log(f'grasp2vec fused: {steps} steps with fused_update=True over '
+      f'{leaves} leaves, {want["fused_update"] // steps} fused_update launch '
+      f'a step; each update within (atol, rtol) {FUSED_BAND} of the stock '
+      f'Adam.step on copies of the same parameters, gradients and moments '
+      f'(largest error a step {[f"{e:.3g}" for e in worst]}; no leaf left '
+      f'out: every update is compared on its own gradients); launches '
+      f'{fused_launches}')
+  del fused
+
+  # 3. The binary on the port's gin.
+  model_dir, report, binary_s = run_grasp2vec_binary(root, paths)
+  add({'pool_fwd': report['pool_fwd'], 'pool_bwd': report['pool_bwd']})
+  step_ms = report['step_ms']
+  log(f'grasp2vec: python -m tensor2robot_tpu_torch.bin.run_t2r_trainer '
+      f'--gin_configs {GRASP2VEC_GIN} (batch {GRASP2VEC_BATCH}, ResNet-50, '
+      f'472x472, bf16, kernel_policy pool; cut: max_train_steps '
+      f'{GRASP2VEC_BINARY_STEPS} of the config\'s 100000, saves every 2, '
+      f'eval_steps 1) exited 0 in {binary_s:.1f} s, committed steps '
+      f'{list(GRASP2VEC_BINARY_SAVES)}; its steps '
+      f'{[round(ms, 3) for ms in step_ms]} ms (host clock, synchronised; the '
+      f'first builds the state and picks cuDNN\'s algorithms); launches '
+      f'pool_fwd {report["pool_fwd"]}, pool_bwd {report["pool_bwd"]} '
+      f'(scatter {report["pool_bwd_scatter"]}), plain calls '
+      f'{report["plain"]}; peak device memory {report["peak_gib"]:.3f} GiB; '
+      f'{card}')
+
+  # 4. Serving from the binary's checkpoint, deterministic cuDNN: the
+  # embeddings and heatmap keypoints of CheckpointPredictor bit for bit the
+  # in-process network's in eval mode.
+  serve_model = grasp2vec_model()
+  rng = np.random.RandomState(seed + 37)
+  frames = {key: rng.randint(0, 256, (GRASP2VEC_FRAMES, 512, 640, 3),
+                             dtype=np.uint8) for key in GRASP2VEC_KEYS}
+  with cudnn_settings(deterministic=True, benchmark=False):
+    predictor = CheckpointPredictor(serve_model, model_dir=str(model_dir),
+                                    device=device)
+    if not predictor.restore():
+      raise AssertionError('grasp2vec: CheckpointPredictor restored nothing')
+    zero_counters()
+    served = predictor.predict(frames)
+    torch.cuda.synchronize()
+    serve_launches = read_counters()
+    add(serve_launches)
+    network = serve_model.create_module().to(device)
+    payload = torch.load(ckpt_lib.state_path(str(
+        model_dir / 'checkpoints' / f'ckpt_{GRASP2VEC_BINARY_STEPS}')),
+                         map_location=device, weights_only=True)
+    network.load_state_dict(payload['network'])
+    with torch.no_grad():
+      features, _ = serve_model.preprocessor.preprocess(
+          {k: torch.from_numpy(v).to(device) for k, v in frames.items()},
+          None, ModeKeys.PREDICT)
+      outputs = serve_model.inference_network_fn(network, features, None,
+                                                  ModeKeys.PREDICT)
+      want_points = visualization.heatmap_keypoints(outputs['goal_vector'],
+                                                    outputs['pre_spatial'])
+      got_points = visualization.heatmap_keypoints(
+          torch.from_numpy(served['goal_vector']).to(device),
+          torch.from_numpy(served['pre_spatial']).to(device))
+    torch.cuda.synchronize()
+  if serve_launches != GRASP2VEC_FORWARD_LAUNCHES:
+    raise AssertionError(f'grasp2vec serving: launches {serve_launches}, '
+                         f'expected {GRASP2VEC_FORWARD_LAUNCHES}')
+  for name, value in outputs.items():
+    if not same_bits(torch.from_numpy(served[name]),
+                     value.float().cpu()):
+      raise AssertionError(f'grasp2vec serving: {name} differs from the '
+                           'in-process network')
+  if not same_bits(got_points.cpu(), want_points.cpu()):
+    raise AssertionError('grasp2vec serving: heatmap keypoints differ')
+  if not np.isfinite(served['pre_vector']).all():
+    raise AssertionError('grasp2vec serving: non-finite embeddings')
+  log(f'grasp2vec serving: CheckpointPredictor restored step '
+      f'{GRASP2VEC_BINARY_STEPS} of the binary\'s model_dir; on '
+      f'{GRASP2VEC_FRAMES} frame triples its {sorted(served)} and the '
+      f'heatmap keypoints {np.array2string(got_points.cpu().numpy(), precision=4)}'
+      f' bit for bit the in-process network\'s in eval mode; launches '
+      f'{serve_launches}')
+  log(f'grasp2vec: phase took {time.perf_counter() - begin:.1f} s')
+  return total, ms_per_step, trainer, batches[0]
+
+
+def phase_grasp2vec_profile(trainer, batch):
+  """Device time by op over two Grasp2Vec training steps (torch.profiler),
+  on the phase's trainer and one pre-read batch; after the other profile
+  phases, since an early profiler session left later ones empty."""
+  from torch.profiler import ProfilerActivity, profile
+
+  with _dispatch.force_kernels(True):
+    trainer.config.max_train_steps = trainer.step + 1
+    trainer.train(iter([batch]), None)
+    torch.cuda.synchronize()
+    trainer.config.max_train_steps = trainer.step + 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      trainer.train(iter([batch, batch]), None)
+      torch.cuda.synchronize()
+  averages = prof.key_averages()
+  table = averages.table(sort_by='self_cuda_time_total', row_limit=40)
+  OUT_DIR.mkdir(exist_ok=True)
+  (OUT_DIR / 'chip_smoke_profile_grasp2vec.txt').write_text(table)
+  device_us = device_time_us(averages) / 2
+  log(f'grasp2vec profile: {device_us / 1e3:.3f} ms of device time a '
+      f'training step (2 steps, batch {GRASP2VEC_BATCH}); table in '
+      'chiprun_out/chip_smoke_profile_grasp2vec.txt')
+  log_activity_row(' grasp2vec', averages)
+  for line in table.splitlines()[:28]:
+    log('  ' + line)
+  return device_us / 1e3
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -5111,6 +5665,8 @@ def main(argv=None):
   errors.update(phase_check_flash(generator))
   errors['fused_update'] = phase_check_fused_update(generator)
   errors['photometric'] = phase_check_photometric(generator)
+  errors['pool_fwd_stem'] = errors['pool_bwd_gather'] = (
+      phase_check_stem_pool(generator))
   if tf32_flags() != defaults:
     raise AssertionError(f'TF32 flags {tf32_flags()} after the checks, '
                          f'{defaults} before')
@@ -5145,6 +5701,9 @@ def main(argv=None):
   torch.cuda.empty_cache()
   dispatch_launches = phase_dispatch(args.seed, card)
   torch.cuda.empty_cache()
+  (grasp2vec_launches, grasp2vec_ms, grasp2vec_trainer,
+   grasp2vec_batch) = phase_grasp2vec(args.seed, card)
+  torch.cuda.empty_cache()
   # Launches: the pool and conv forward kernels over the QT-Opt serving,
   # training, checkpoint, export, HTTP serving, record-fed and K-step
   # paths, their backward ones over the training paths, dx over the path
@@ -5157,9 +5716,13 @@ def main(argv=None):
            export_launches, http_launches, record_launches, fused_launches,
            *(result[1] for result in snail.values()),
            *(result[1] for result in snail_fused.values()),
-           photometric_launches, dispatch_launches]
+           photometric_launches, dispatch_launches, grasp2vec_launches]
   launches = {name: sum(path[name] for path in paths)
               for name in serve_launches}
+  # The Grasp2Vec stem's routes have rows of their own.
+  launches['pool_fwd_stem'] = grasp2vec_launches['pool_fwd']
+  launches['pool_bwd_gather'] = (grasp2vec_launches['pool_bwd'] -
+                                 grasp2vec_launches['pool_bwd_scatter'])
   for name in ('conv_s2d_dx', 'conv_s2d_dx_tensor_core'):
     launches[name] = dx_launches[name]
   log(f'launches: serving {serve_launches} over {args.actions} actions; '
@@ -5171,13 +5734,17 @@ def main(argv=None):
       f'{ {name: result[1] for name, result in snail.items()} } and fused '
       f'{ {name: result[1] for name, result in snail_fused.items()} } over '
       f'{args.snail_steps} steps each; photometric path '
-      f'{photometric_launches}; K-step path {dispatch_launches}')
+      f'{photometric_launches}; K-step path {dispatch_launches}; Grasp2Vec '
+      f'path {grasp2vec_launches}')
   if tf32_flags() != defaults:
     raise AssertionError(f'TF32 flags {tf32_flags()} before the timings, '
                          f'{defaults} at the start')
   kernels = phase_timing(generator, errors, launches)
   torch.cuda.empty_cache()
   phase_dispatch_profile(args.seed)
+  grasp2vec_device_ms = phase_grasp2vec_profile(grasp2vec_trainer,
+                                                grasp2vec_batch)
+  del grasp2vec_trainer
   if args.profile:
     phase_profile_reference(args.seed)
     phase_profile(policy, frames)
@@ -5193,7 +5760,8 @@ def main(argv=None):
       f'{ {name: round(result[0], 3) for name, result in snail.items()} }, '
       f'fused '
       f'{ {name: round(result[0], 3) for name, result in snail_fused.items()} }'
-      f' on {card}')
+      f'; Grasp2Vec ms/step {grasp2vec_ms:.3f} (device '
+      f'{grasp2vec_device_ms:.3f}) at batch {GRASP2VEC_BATCH} on {card}')
   log(json.dumps({'kernels': kernels}))
   log(card)
   log(json.dumps({'ok': True, 'device': {

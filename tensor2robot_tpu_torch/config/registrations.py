@@ -23,7 +23,8 @@ def register() -> None:
   from tensor2robot_tpu_torch.policies import CEMPolicy
   from tensor2robot_tpu_torch.predictors import (CheckpointPredictor,
                                                  ExportedModelPredictor)
-  from tensor2robot_tpu_torch.research import pose_env, qtopt, vrgripper
+  from tensor2robot_tpu_torch.research import (grasp2vec, pose_env, qtopt,
+                                               vrgripper)
   from tensor2robot_tpu_torch.train import callbacks as callbacks_lib
   from tensor2robot_tpu_torch.train import resilience
   from tensor2robot_tpu_torch.train import trainer as trainer_lib
@@ -53,6 +54,8 @@ def register() -> None:
   # Warm start, callbacks and the preemption handler.
   reg(warm_start.default_init_from_checkpoint_fn,
       'default_init_from_checkpoint_fn')
+  reg(warm_start.create_resnet_init_from_checkpoint_fn,
+      'create_resnet_init_from_checkpoint_fn')
   reg(callbacks_lib.TensorBoardCallback, 'TensorBoardCallback')
   reg(callbacks_lib.MetricsLoggerCallback, 'MetricsLoggerCallback')
   reg(callbacks_lib.VariableLoggerCallback, 'VariableLoggerCallback')
@@ -73,3 +76,4 @@ def register() -> None:
   reg(pose_env.PoseEnvContinuousMCModel, 'PoseEnvContinuousMCModel')
   reg(vrgripper.VRGripperEnvSequentialModel, 'VRGripperEnvSequentialModel')
   reg(vrgripper.VRGripperEnvLongHorizonModel, 'VRGripperEnvLongHorizonModel')
+  reg(grasp2vec.Grasp2VecModel, 'Grasp2VecModel')

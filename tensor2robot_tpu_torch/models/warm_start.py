@@ -6,6 +6,8 @@
 initialised network, before the optimizer and the EMA are built: every
 entry of the network's ``state_dict`` whose name (and shape) the source
 holds is copied from it, the rest keeps its fresh initialisation.
+:func:`create_resnet_init_from_checkpoint_fn` restores a ResNet backbone
+and leaves the FiLM generator and the classifier head fresh.
 """
 
 from __future__ import annotations
@@ -96,3 +98,23 @@ def default_init_from_checkpoint_fn(
                  matched, state_matched, checkpoint_path)
 
   return init_fn
+
+
+def create_resnet_init_from_checkpoint_fn(
+    checkpoint_path: str,
+    restore_film: bool = False,
+    restore_head: bool = False,
+    **kwargs) -> Callable[[nn.Module], None]:
+  """Pretrained-ResNet partial restore: the backbone (convs and norms) of
+  a ``layers/resnet.py`` ``ResNet`` / ``FilmResNet`` checkpoint, keeping
+  the FiLM generator (names containing ``film``) and the classifier head
+  (``final_dense``) freshly initialised unless ``restore_film`` /
+  ``restore_head`` ask for them. Other arguments go to
+  :func:`default_init_from_checkpoint_fn`."""
+  exclude = list(kwargs.pop('exclude', ()))
+  if not restore_film:
+    exclude.append('film')
+  if not restore_head:
+    exclude.append('final_dense')
+  return default_init_from_checkpoint_fn(
+      checkpoint_path, exclude=tuple(exclude), **kwargs)

@@ -55,6 +55,7 @@ from tensor2robot_tpu_torch.observability import metrics as metrics_lib
 from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 from tensor2robot_tpu_torch.specs import SpecStruct, algebra
 from tensor2robot_tpu_torch.specs import assets as assets_lib
+from tensor2robot_tpu_torch.specs.dtypes import to_host_numpy
 from tensor2robot_tpu_torch.train import checkpoints as ckpt_lib
 from tensor2robot_tpu_torch.train import train_state
 from tensor2robot_tpu_torch.utils import convert
@@ -303,7 +304,7 @@ class CheckpointPredictor(AbstractPredictor):
     self.assert_is_loaded()
     features = _expand_to_spec_rank(features, self._feature_spec)
     outputs = self._chain(self._to_device(features))
-    return {k: v.cpu().numpy() for k, v in outputs.items()}
+    return {k: to_host_numpy(v) for k, v in outputs.items()}
 
   def device_serving_fn(self) -> Callable:
     """The PREDICT chain over device tensors, under inference mode; the
@@ -477,7 +478,7 @@ class ExportedModelPredictor(AbstractPredictor):
   def _predict_locked(self, features) -> Dict[str, Any]:  # HOLDS(self._reload_lock)
     features = _expand_to_spec_rank(features, self._feature_spec)
     outputs = self._fn(self._params, self._to_device(features))
-    return {k: v.cpu().numpy() for k, v in outputs.items()}
+    return {k: to_host_numpy(v) for k, v in outputs.items()}
 
   def predict(self, features: Dict[str, np.ndarray]) -> Dict[str, Any]:
     self.assert_is_loaded()

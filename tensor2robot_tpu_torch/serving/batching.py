@@ -71,6 +71,7 @@ from tensor2robot_tpu_torch.observability import flight
 from tensor2robot_tpu_torch.observability import metrics as metrics_lib
 from tensor2robot_tpu_torch.observability import postmortem, tracing
 from tensor2robot_tpu_torch.specs.tensor_spec import to_numpy_dtype
+from tensor2robot_tpu_torch.specs.dtypes import to_host_numpy
 
 
 class ServingError(Exception):
@@ -307,7 +308,7 @@ class TorchBucketExecutor:
         self._page_in_locked()
       with torch.inference_mode():
         outputs = self._fn(self._device_params, batch)
-    return {k: v.cpu().numpy() for k, v in outputs.items()}
+    return {k: to_host_numpy(v) for k, v in outputs.items()}
 
   def execute(self, features: Dict[str, np.ndarray],
               bucket: int) -> Dict[str, np.ndarray]:

@@ -59,3 +59,12 @@ def cast_arrays_to_spec_dtypes(spec_structure, tensors) -> SpecStruct:
     else:
       out[key] = np.asarray(tensor).astype(to_numpy_dtype(spec.dtype))
   return out
+
+
+def to_host_numpy(tensor: torch.Tensor) -> np.ndarray:
+  """A (device) tensor as a host numpy array. numpy has no bfloat16, so a
+  bfloat16 tensor (a tower's activations under the bfloat16 policy)
+  widens to float32, which holds its values exactly."""
+  if tensor.dtype == torch.bfloat16:
+    tensor = tensor.float()
+  return tensor.cpu().numpy()

@@ -1,10 +1,13 @@
-"""JAX variables -> port state_dicts: Grasping44, the SNAIL networks and
-the pose_env networks.
+"""JAX variables -> port state_dicts: Grasping44, the SNAIL networks, the
+pose_env networks, the ResNet towers and Grasp2Vec.
 
 :func:`jax_variables_to_torch` maps the Grasping44 tree;
 :func:`snail_variables_to_torch` maps the SNAIL trees of the vrgripper
 meta models (see its docstring); :func:`pose_env_variables_to_torch`
 maps the pose_env regression and critic trees;
+:func:`resnet_variables_to_torch` maps a ``ResNet`` / ``FilmResNet`` /
+Grasp2Vec ``Embedding`` tree and :func:`grasp2vec_variables_to_torch` the
+Grasp2Vec model's two towers;
 :func:`optax_state_to_torch` carries an optax Adam, momentum or SGD
 state across as the port optimizer's ``state_dict``;
 :func:`jax_train_state_to_torch` maps a whole JAX ``TrainState`` onto the
@@ -100,31 +103,37 @@ def _rule(path: Tuple[str, ...]) -> Optional[Tuple[str, Any]]:
   return None
 
 
-def jax_variables_to_torch(
-    variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-  """The Grasping44 JAX variables tree -> the port's ``state_dict``."""
+def _mapped_state_dict(variables: Mapping[str, Any], rule, what: str
+                       ) -> Dict[str, torch.Tensor]:
+  """Every leaf through ``rule``; an unmapped leaf or two leaves mapping to
+  one name raise."""
   state_dict: Dict[str, torch.Tensor] = {}
   sources: Dict[str, str] = {}
   unmapped = []
   for path, value in _flatten(variables):
-    rule = _rule(path)
     key = '/'.join(path)
-    if rule is None:
+    mapped = rule(path)
+    if mapped is None:
       unmapped.append(key)
       continue
-    name, transform = rule
+    name, transform = mapped
     if name in sources:
-      raise ValueError(
-          f'{key!r} and {sources[name]!r} both map to {name!r}.')
+      raise ValueError(f'{key!r} and {sources[name]!r} both map to {name!r}.')
     array = np.array(value, dtype=np.float32)
     if transform is not None:
       array = transform(array)
     state_dict[name] = torch.from_numpy(np.ascontiguousarray(array))
     sources[name] = key
   if unmapped:
-    raise ValueError(
-        f'Unmapped JAX variables (no Grasping44 counterpart): {unmapped}')
+    raise ValueError(f'Unmapped JAX variables (no {what} counterpart): '
+                     f'{unmapped}')
   return state_dict
+
+
+def jax_variables_to_torch(
+    variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """The Grasping44 JAX variables tree -> the port's ``state_dict``."""
+  return _mapped_state_dict(variables, _rule, 'Grasping44')
 
 
 # ------------------------------------------------------------ SNAIL trees
@@ -246,6 +255,90 @@ def pose_env_variables_to_torch(
     raise ValueError(f'Unmapped JAX variables (no pose_env counterpart): '
                      f'{unmapped}')
   return state_dict
+
+
+# ------------------------------------------------------ ResNet, Grasp2Vec
+
+_RESNET_SCOPE = re.compile(
+    r'(resnet|film_generator|film\d+|initial_conv|final_dense|conv[123]|proj|'
+    r'block_layer\d+_block\d+)$')
+_RESNET_NORM = re.compile(r'_BatchNorm_(\d+)$')
+_GRASP2VEC_TOWERS = ('scene', 'goal')
+
+
+def _resnet_rule(path: Tuple[str, ...]) -> Optional[Tuple[str, Any]]:
+  """(port name, transform) for one leaf of a ResNet-family flax tree, or
+  None: scopes keep their names, flax's ``_BatchNorm_<n>/BatchNorm_0``
+  becomes ``bn<n>``; a conv or dense ``kernel`` becomes ``weight`` in
+  torch's layout; norms carry ``scale``/``bias`` (params) and
+  ``mean``/``var`` (batch_stats), dense layers ``bias``."""
+  collection, *head, leaf = path
+  names = []
+  norm = False
+  i = 0
+  while i < len(head):
+    scope = head[i]
+    match = _RESNET_NORM.match(scope)
+    if match:
+      if head[i + 1:i + 2] != ['BatchNorm_0'] or i + 2 != len(head):
+        return None
+      names.append(f'bn{match.group(1)}')
+      norm = True
+      break
+    if not _RESNET_SCOPE.match(scope):
+      return None
+    names.append(scope)
+    i += 1
+  if not names:
+    return None
+  dense = re.match(r'(final_dense|film\d+)$', names[-1]) is not None
+  if collection == 'params':
+    if norm and leaf in ('scale', 'bias'):
+      return '.'.join(names + [leaf]), None
+    if not norm and leaf == 'kernel':
+      return '.'.join(names + ['weight']), _kernel_to_weight
+    if dense and leaf == 'bias':
+      return '.'.join(names + [leaf]), None
+  elif collection == 'batch_stats' and norm and leaf in ('mean', 'var'):
+    return '.'.join(names + [leaf]), None
+  return None
+
+
+def resnet_variables_to_torch(
+    variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """The JAX variables tree of a ``ResNet``, ``FilmResNet`` or Grasp2Vec
+  ``Embedding`` (``layers/resnet.py``, ``research/grasp2vec/
+  networks.py``) -> the port module's ``state_dict``:
+
+  * scopes keep their names (``resnet``, ``film_generator``, ``film<i>``,
+    ``initial_conv``, ``block_layer<i>_block<j>``, ``conv1..3``, ``proj``,
+    ``final_dense``); flax's ``_BatchNorm_<n>/BatchNorm_0`` -> ``bn<n>``;
+  * conv kernels HWIO -> OIHW and Dense kernels [in, out] -> [out, in]
+    (``weight``); biases and norm scales unchanged; ``batch_stats``
+    ``mean`` / ``var`` -> the norms' buffers.
+
+  Every leaf must map, as for :func:`jax_variables_to_torch`.
+  """
+  return _mapped_state_dict(variables, _resnet_rule, 'ResNet')
+
+
+def _grasp2vec_rule(path: Tuple[str, ...]) -> Optional[Tuple[str, Any]]:
+  collection, *head = path
+  if len(head) < 2 or head[0] not in _GRASP2VEC_TOWERS:
+    return None
+  mapped = _resnet_rule((collection,) + tuple(head[1:]))
+  if mapped is None:
+    return None
+  return f'{head[0]}.{mapped[0]}', mapped[1]
+
+
+def grasp2vec_variables_to_torch(
+    variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """The Grasp2Vec model's JAX variables (each collection split into
+  ``scene`` and ``goal``, one ``Embedding`` tree each) -> the
+  ``state_dict`` of the port's two towers (``scene.*``, ``goal.*``), each
+  by :func:`resnet_variables_to_torch`'s rules. Every leaf must map."""
+  return _mapped_state_dict(variables, _grasp2vec_rule, 'Grasp2Vec')
 
 
 # -------------------------------------------------------- optimizer state

@@ -12,7 +12,7 @@
   the export loaders and the serving binary included (they default to the
   card).
 * The serving front door's and observability plane's modules are among
-  those scanned and imported.
+  those scanned and imported, and so are the Grasp2Vec slice's modules.
 """
 
 import ast
@@ -49,6 +49,17 @@ SERVING_MODULES = (
     'observability/metricsz.py', 'serving/batching.py', 'serving/loadgen.py',
     'serving/router.py', 'serving/server.py', 'serving/balancer.py',
     'bin/run_serving.py', 'bin/run_balancer.py',
+)
+
+
+# The Grasp2Vec slice: the ResNet towers, the model, its losses and
+# visualization, with the warm start and registrations it extends.
+GRASP2VEC_MODULES = (
+    'layers/resnet.py', 'layers/__init__.py', 'research/__init__.py',
+    'research/grasp2vec/__init__.py', 'research/grasp2vec/networks.py',
+    'research/grasp2vec/losses.py', 'research/grasp2vec/grasp2vec_model.py',
+    'research/grasp2vec/visualization.py',
+    'models/warm_start.py', 'config/registrations.py',
 )
 
 
@@ -94,6 +105,14 @@ def test_static_scan_finds_no_jax_import():
 
 @pytest.mark.parametrize('relative', SERVING_MODULES)
 def test_serving_modules_are_scanned_and_mirror_the_jax_layout(relative):
+  path = PACKAGE / relative
+  assert path in _port_sources()
+  assert (REPO / 'tensor2robot_tpu' / relative).exists()
+  assert not [name for name in _imported_names(path) if _is_blocked(name)]
+
+
+@pytest.mark.parametrize('relative', GRASP2VEC_MODULES)
+def test_grasp2vec_modules_are_scanned_and_mirror_the_jax_layout(relative):
   path = PACKAGE / relative
   assert path in _port_sources()
   assert (REPO / 'tensor2robot_tpu' / relative).exists()
