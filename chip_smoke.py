@@ -18,7 +18,8 @@ Run from the repository root. The phases:
    kernels (``flash_fwd_mma_kernel``, ``flash_fwd_kernel``,
    ``flash_dq_mma_kernel``, ``flash_dq_kernel``, ``flash_dkv_mma_kernel``,
    ``flash_dkv_kernel``), of the pool backward's ``pool_bwd_scatter_kernel``
-   and of conv1's ``conv_dx_mma_kernel`` are printed;
+   and of conv1's ``conv_dx_mma_kernel``, ``conv_fwd_ffma_kernel`` and
+   ``conv_dx_ffma_kernel`` are printed;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the pool forward bitwise (values and slots) at the
    three QT-Opt pools in bfloat16 at B=64 and B=32, pool1 in float32, a
@@ -30,14 +31,16 @@ Run from the repository root. The phases:
    unaligned cotangent and a runtime window on the scatter route, odd and
    overlapping cases on the gather route (the route and launch choice
    logged and counted), and a planted tie; conv1 forward at
-   [64, 472, 472, 3] (and in bfloat16 also at the training shape
-   [32, 472, 472, 3]) and its dW and dx at [32, 472, 472, 3] and at an odd
-   geometry ([4, 101, 97, 2], 5x5/s3, Cout 48), in bfloat16 (band: 2**-7
-   relative, one bfloat16 ulp, plus 1e-6 for the forward and 1e-5 of the
-   largest magnitude for the gradients' reassociated sums) and in float32
-   with TF32 off (band 1e-5); the forward, dW and dx (bfloat16 on the
-   tensor cores, float32 on the CUDA cores, the route and plan logged and
-   counted) run twice must agree bit for bit; the flash attention forward
+   [64, 472, 472, 3] and [32, 472, 472, 3] (and in float32 also with x
+   off 16-byte alignment) and its dW and dx at [32, 472, 472, 3], all
+   also at an odd geometry ([4, 101, 97, 2], 5x5/s3, Cout 48), in
+   bfloat16 (band: 2**-7 relative, one bfloat16 ulp, plus 1e-6 for the
+   forward and 1e-5 of the largest magnitude for the gradients'
+   reassociated sums) and in float32 with TF32 off (band 1e-5), and dx in
+   bfloat16 on the CUDA cores at the odd geometry with an unaligned
+   cotangent; the forward, dW and dx (bfloat16 on the tensor cores,
+   float32 on the CUDA cores, the route and plan logged and counted) run
+   twice must agree bit for bit; the flash attention forward
    (out and lse), dq and dk/dv, causal and full, at the SNAIL shapes [2, 1024, 8, 8] and [8, 80, 1, 64]
    (float32), bench.py's [2, 4096, 8, 64] (float32 and bfloat16), the
    streamed-regime shapes [1, 33792, 1, 64] (bfloat16) and
@@ -69,7 +72,8 @@ Run from the repository root. The phases:
    ``predict`` on 8 frame/action pairs, and a float32 check of the full
    network on the card against the same network on the CPU (plain
    versions) on 2 pairs: q, and the end points ``pool2``, ``final_conv``
-   and ``logits``;
+   and ``logits`` (conv1's float32 forward on the CUDA cores, 2 launches
+   counted);
 5. the training path at full width: ``Trainer(GraspingModelWrapper(
    device_type='gpu', kernel_policy='pool_conv'), TrainerConfig(...))
    .train(...)`` on seeded 512x640 uint8 frames, actions and 0/1 rewards
@@ -178,8 +182,9 @@ Run from the repository root. The phases:
    filters 1-4, and under ``--profile`` the record-fed steps' device time
    and idle share;
 7. dx on a path: a full-width conv1, and the odd geometry, whose input
-   requires a gradient launch ``conv_s2d_dx`` once each, on the tensor
-   cores, and dx matches the plain version and repeats bit for bit;
+   requires a gradient launch ``conv_s2d_dx`` once each, in bfloat16 on
+   the tensor cores and in float32 on the CUDA cores (with the forward
+   and dW), and dx matches the plain version and repeats bit for bit;
 8. a float32 training step on the card (kernels) against the same step on
    the CPU (plain versions) at full width and batch 2, TF32 off, both held
    to a float64 CPU gradient of the same step: the losses within 1e-4;
@@ -188,7 +193,9 @@ Run from the repository root. The phases:
    leaf's largest magnitude of the CPU's (see ``REFERENCE_L2_RATIO``); two
    controls printed leaf by leaf against the same float64 gradient, cuDNN
    deterministic without autotuning and the pools and conv1 left to the
-   library, with the cuDNN flags and the card step's kernels by name;
+   library, with the cuDNN flags and the card step's kernels by name; the
+   card step runs conv1's float32 forward and dW once each on the CUDA
+   cores, counted, as the float32 check of phase 4 runs the forward twice;
 9. the SNAIL training paths at full width, each a ``Trainer`` with default
    Adam on seeded 220x300 uint8 episodes: ``VRGripperEnvLongHorizonModel(
    episode_length=512, 8 heads of 8)`` at batch 2 and
@@ -277,9 +284,13 @@ Run from the repository root. The phases:
    printed beside them, profiled after an L2 flush), and each kernel's
    bound on an H100
    SXM (3.35 TB/s;
-   989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones); the float32
-   forward, dW and dx and the bfloat16 forward at the training shape too,
-   the float32 kernels against cuDNN with TF32 on and off (logged only);
+   989 TFLOP/s for bf16 inputs, 67 TFLOP/s for float32 ones); conv1's
+   float32 routes on the CUDA cores have rows of their own
+   (``conv_s2d_fwd_float32`` at [64, 472, 472, 3], ``conv_s2d_dw_float32``
+   and ``conv_s2d_dx_float32`` at [32, 472, 472, 3]: launches over the
+   float32 checks of phases 4 and 8 and the float32 dx path, the FFMA
+   bound, and cuDNN with TF32 off, logged with TF32 on too); the bfloat16
+   forward at the training shape is logged;
    each pool's ``pool_bwd`` with its route;
    flash_fwd, flash_dq and flash_dkv at each SNAIL shape and at bench.py's
    and the streamed bf16 shapes with their routes, listed under
@@ -289,9 +300,11 @@ Run from the repository root. The phases:
    ``pool_bwd_scatter_kernel``, 8 ``conv_fwd_mma_kernel``, 8
    ``conv_dw_mma_kernel`` and 8 ``conv_dw_reduce_kernel`` rows a dispatch,
    8 ``fused_update_kernel`` rows on the fused arm (0 on the stock one),
-   one ``cudaGraphLaunch`` a dispatch and no Python launch count; the
-   device ms a step of K=1 eager, K=8 graph, K=8 with the device feed and
-   the fused K=8 arm;
+   one ``cudaGraphLaunch`` a dispatch and no Python launch count (a pair
+   of replays whose rows the profiler delivered short is profiled again,
+   up to three pairs; a row above the count fails at once); the device
+   ms a step of K=1 eager, K=8 graph, K=8 with the device feed and the
+   fused K=8 arm;
    ``--profile`` adds ``torch.profiler`` breakdowns of two actions, a
    stock and a fused QT-Opt training step and one stock and one fused step
    of each SNAIL path, written to
@@ -651,9 +664,12 @@ def stack_frames(report, kernel):
 FLASH_KERNELS = ('flash_fwd_mma_kernel', 'flash_fwd_kernel',
                  'flash_dq_mma_kernel', 'flash_dq_kernel',
                  'flash_dkv_mma_kernel', 'flash_dkv_kernel')
-# The pool backward's scatter route and conv1's tensor-core dx, by source.
+# The pool backward's scatter route, conv1's tensor-core dx and its
+# float32 forward and CUDA-core dx (each instantiation), by source.
 BWD_KERNELS = (('pool', 'pool_bwd_scatter_kernel'),
-               ('conv_s2d', 'conv_dx_mma_kernel'))
+               ('conv_s2d', 'conv_dx_mma_kernel'),
+               ('conv_s2d', 'conv_fwd_ffma_kernel'),
+               ('conv_s2d', 'conv_dx_ffma_kernel'))
 
 
 def phase_build():
@@ -790,46 +806,76 @@ def phase_check_pool(generator):
 
 @tf32_off()
 def phase_check_conv(generator):
-  """conv1's forward against its plain version, twice bit for bit: bfloat16
-  on the tensor cores at the serving and the training shape (their plans
-  differ), float32 on the CUDA cores at the serving shape."""
-  pads = conv_s2d.resolve_padding('SAME', CONV1_W[:2], (2, 2), CONV1_X[1:3])
+  """conv1's forward against its plain version, twice bit for bit, each
+  plan logged and its route counted: bfloat16 on the tensor cores at the
+  serving and the training shape (their plans differ) and at the odd
+  geometry (ODD_CONV_*); float32 on the CUDA cores (conv_fwd_ffma_kernel)
+  at the serving and the training shape (conv1's templated instantiation,
+  16-byte copies), at the odd geometry (the generic instantiation; x's
+  rows are not whole 16-byte units, so 4-byte copies) and at conv1's
+  geometry with x one element off 16-byte alignment (4-byte copies),
+  within 1e-5 of the plain version with TF32 off. Returns the largest
+  error of the bfloat16 and of the float32 conv1 shapes."""
   errors = {}
-  for shape, dtype, band in ((CONV1_X, torch.bfloat16, 2.0**-7),
-                             (TRAIN_CONV1_X, torch.bfloat16, 2.0**-7),
-                             (CONV1_X, torch.float32, 1e-5)):
+  for label, shape, wshape, strides, dtype, offset in (
+      ('conv1', CONV1_X, CONV1_W, (2, 2), torch.bfloat16, 0),
+      ('conv1', TRAIN_CONV1_X, CONV1_W, (2, 2), torch.bfloat16, 0),
+      ('odd', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES, torch.bfloat16, 0),
+      ('conv1', CONV1_X, CONV1_W, (2, 2), torch.float32, 0),
+      ('conv1', TRAIN_CONV1_X, CONV1_W, (2, 2), torch.float32, 0),
+      ('odd', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES, torch.float32, 0),
+      ('conv1_unaligned', (8,) + CONV1_X[1:], CONV1_W, (2, 2),
+       torch.float32, 1)):
+    band = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+    pads = conv_s2d.resolve_padding('SAME', wshape[:2], strides, shape[1:3])
     x = torch.rand(shape, generator=generator, device='cuda').to(dtype)
-    w = (0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')).to(
+    if offset:
+      buffer = torch.empty(x.numel() + offset, dtype=dtype, device='cuda')
+      buffer[offset:].copy_(x.flatten())
+      x = buffer[offset:].view(shape)
+    w = (0.1 * torch.randn(wshape, generator=generator, device='cuda')).to(
         dtype)
-    plan = conv_s2d.fwd_plan(shape, CONV1_W, (2, 2), pads, dtype)
+    plan = conv_s2d.fwd_plan(shape, wshape, strides, pads, dtype)
     tensor_core = conv_s2d.conv_s2d_fwd.tensor_core_launches
-    got = conv_s2d.conv_s2d_fwd(x, w, (2, 2), pads)
-    again = conv_s2d.conv_s2d_fwd(x, w, (2, 2), pads)
+    got = conv_s2d.conv_s2d_fwd(x, w, strides, pads)
+    again = conv_s2d.conv_s2d_fwd(x, w, strides, pads)
     tensor_core = conv_s2d.conv_s2d_fwd.tensor_core_launches - tensor_core
-    want = conv_s2d.plain_conv2d(x, w, (2, 2), pads).float()
+    want = conv_s2d.plain_conv2d(x, w, strides, pads).float()
     torch.cuda.synchronize()
+    what = f'conv_s2d_fwd {label} {shape} {str(dtype)[6:]}'
     if tensor_core != (2 if plan['route'] == conv_s2d.ROUTE_TENSOR_CORE
                        else 0):
-      raise AssertionError(f'conv_s2d_fwd {shape} {dtype}: route '
-                           f'{plan["route"]} but {tensor_core} tensor-core '
-                           'launches')
+      raise AssertionError(f'{what}: route {plan["route"]} but '
+                           f'{tensor_core} tensor-core launches')
     if not torch.equal(got, again):
-      raise AssertionError(
-          f'conv_s2d_fwd {shape} {dtype} is not deterministic')
+      raise AssertionError(f'{what} is not deterministic')
     err = (got.float() - want).abs()
     limit = band * want.abs() + (1e-6 if dtype == torch.bfloat16 else band)
     if not bool((err <= limit).all()):
       raise AssertionError(
-          f'conv_s2d_fwd {shape} {dtype} outside its band: max err '
-          f'{float(err.max())}')
-    errors[shape, dtype] = float(err.max())
-    log(f'check conv_s2d_fwd {shape} {str(dtype)[6:]}: plan {plan}, max '
-        f'abs err {errors[shape, dtype]:.3e} (band {band:.1e} relative), '
-        f'at most {float((err / limit).max()):.3f} of the band; twice: '
-        'bitwise equal')
+          f'{what} outside its band: max err {float(err.max())}')
+    errors[label, shape, dtype] = float(err.max())
+    same = ''
+    (plh, phh), (plw, phw) = pads
+    if dtype == torch.float32 and (plh, plw) == (phh, phw):
+      # cuDNN's float32 forward (TF32 off here) as the timings call it, on
+      # the channels-last views, logged beside the check.
+      library = F.conv2d(
+          x.permute(0, 3, 1, 2),
+          w.permute(3, 2, 0, 1).contiguous(
+              memory_format=torch.channels_last),
+          stride=strides, padding=(plh, plw)).permute(0, 2, 3, 1)
+      same = (f'; bit for bit F.conv2d (TF32 off): '
+              f'{torch.equal(got, library)}')
+      del library
+    log(f'check {what}: plan {plan}, max abs err {float(err.max()):.3e} '
+        f'(band {band:.1e} relative), at most '
+        f'{float((err / limit).max()):.3f} of the band; twice: bitwise '
+        f'equal{same}')
     del x, w, got, again, want, err, limit
-  return max(errors[CONV1_X, torch.bfloat16],
-             errors[TRAIN_CONV1_X, torch.bfloat16])
+  return tuple(max(err for (label, _, dtype), err in errors.items()
+                   if label == 'conv1' and dtype == want_dtype)
+               for want_dtype in (torch.bfloat16, torch.float32))
 
 
 def phase_main_path(seed, actions):
@@ -897,10 +943,19 @@ def spread_weights(network, generator):
   return state
 
 
+def cuda_core_launches(counts):
+  """conv1's CUDA-core launches (conv_fwd_ffma_kernel, the float32 dW's
+  first pass, conv_dx_ffma_kernel) in a read of the counters."""
+  return {name: counts[name] - counts[name + '_tensor_core']
+          for name in ('conv_s2d_fwd', 'conv_s2d_dw', 'conv_s2d_dx')}
+
+
 @tf32_off()
 def phase_reference(seed):
   """The whole float32 network on the card (kernels) against the CPU
-  (plain versions) on 2 full-width pairs, TF32 off."""
+  (plain versions) on 2 full-width pairs, TF32 off. The card's predict
+  and its end points run conv1's float32 forward on the CUDA cores once
+  each, and nothing else of conv1: returns those launches."""
   model = GraspingModelWrapper(device_type='cpu', kernel_policy='pool_conv')
   on_card = CheckpointPredictor(model, device='cuda')
   on_cpu = CheckpointPredictor(model, device='cpu')
@@ -915,6 +970,7 @@ def phase_reference(seed):
       'action/world_vector': rng.randn(2, 3).astype(np.float32),
       'action/vertical_rotation': rng.randn(2, 2).astype(np.float32),
   }
+  zero_counters()
   with _dispatch.force_kernels(True):
     got = on_card.predict(features)['q_predicted']
   with _dispatch.force_kernels(False):
@@ -936,6 +992,13 @@ def phase_reference(seed):
                                model.grasp_params(inputs))[1]
 
   card_points = end_points(on_card, True)
+  torch.cuda.synchronize()
+  launches = cuda_core_launches(read_counters())
+  if launches != {'conv_s2d_fwd': 2, 'conv_s2d_dw': 0, 'conv_s2d_dx': 0}:
+    raise AssertionError(f'reference: conv1 CUDA-core launches {launches}, '
+                         'expected 2 forwards')
+  log(f'reference: conv1 CUDA-core launches {launches} (a predict and its '
+      'end points)')
   cpu_points = end_points(on_cpu, False)
   for name in ('pool2', 'final_conv', 'logits'):
     want = cpu_points[name]
@@ -945,6 +1008,7 @@ def phase_reference(seed):
       raise AssertionError(f'end point {name}: err {err} at scale {scale}')
     log(f'reference: end point {name} {tuple(want.shape)}: max abs err '
         f'{err:.2e} at max magnitude {scale:.3e} (band 1e-4 relative)')
+  return launches
 
 
 def phase_check_pool_bwd(generator):
@@ -1046,64 +1110,69 @@ def phase_check_conv_grads(generator):
   """conv_s2d_dw and conv_s2d_dx against their plain versions at the
   training conv1 shape and at an odd geometry (ODD_CONV_*), bfloat16 (dW
   and dx on the tensor cores) and float32 (both on the CUDA cores; TF32
-  off for the plain versions); each kernel twice, bit for bit, its route
-  logged and counted."""
+  off for the plain versions), and dx in bfloat16 on the CUDA cores
+  (conv_dx_ffma_kernel) at the odd geometry with g one element off
+  16-byte alignment, which the tensor cores do not take; each kernel
+  twice, bit for bit, its route logged and counted. Returns the errors of
+  conv1's bfloat16 dW and dx and of its float32 dW and dx."""
   errors = {}
-  for label, xshape, wshape, strides in (
-      ('conv1', TRAIN_CONV1_X, CONV1_W, (2, 2)),
-      ('odd', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES)):
+  for label, xshape, wshape, strides, dtype, offset in (
+      ('conv1', TRAIN_CONV1_X, CONV1_W, (2, 2), torch.bfloat16, 0),
+      ('conv1', TRAIN_CONV1_X, CONV1_W, (2, 2), torch.float32, 0),
+      ('odd', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES, torch.bfloat16, 0),
+      ('odd', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES, torch.float32, 0),
+      ('odd_unaligned', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES,
+       torch.bfloat16, 1)):
     pads = conv_s2d.resolve_padding('SAME', wshape[:2], strides, xshape[1:3])
-    for dtype, rel, of_max in ((torch.bfloat16, 2.0**-7, 1e-5),
-                               (torch.float32, 0.0, 1e-5)):
-      x = torch.rand(xshape, generator=generator, device='cuda').to(dtype)
-      w = (0.1 * torch.randn(wshape, generator=generator, device='cuda')).to(
-          dtype)
-      g = torch.randn(conv_out_shape(xshape, wshape, strides, pads),
-                      generator=generator, device='cuda').to(dtype)
-      plans = {'conv_s2d_dw': conv_s2d.dw_plan(xshape, wshape, strides, pads,
-                                               dtype),
-               'conv_s2d_dx': conv_s2d.dx_plan(xshape, wshape, strides, pads,
-                                               dtype)}
-      before = {name: getattr(conv_s2d, name).tensor_core_launches
-                for name in plans}
-      got = {'conv_s2d_dw': [conv_s2d.conv_s2d_dw(x, g, wshape, strides, pads)
-                             for _ in range(2)],
-             'conv_s2d_dx': [conv_s2d.conv_s2d_dx(g, w, xshape, strides, pads)
-                             for _ in range(2)]}
-      want = {'conv_s2d_dw': conv_s2d.plain_conv2d_dw(x, g, wshape, strides,
-                                                      pads),
-              'conv_s2d_dx': conv_s2d.plain_conv2d_dx(g, w, xshape, strides,
-                                                      pads)}
+    rel, of_max = (2.0**-7 if dtype == torch.bfloat16 else 0.0), 1e-5
+    x = torch.rand(xshape, generator=generator, device='cuda').to(dtype)
+    w = (0.1 * torch.randn(wshape, generator=generator, device='cuda')).to(
+        dtype)
+    g = torch.randn(conv_out_shape(xshape, wshape, strides, pads),
+                    generator=generator, device='cuda').to(dtype)
+    if offset:
+      buffer = torch.empty(g.numel() + offset, dtype=dtype, device='cuda')
+      buffer[offset:].copy_(g.flatten())
+      g = buffer[offset:].view(g.shape)
+    plans = {'conv_s2d_dx': conv_s2d.dx_plan(xshape, wshape, strides, pads,
+                                             dtype, aligned=not offset)}
+    runs = {'conv_s2d_dx': lambda: conv_s2d.conv_s2d_dx(g, w, xshape,
+                                                        strides, pads)}
+    want = {'conv_s2d_dx': conv_s2d.plain_conv2d_dx(g, w, xshape, strides,
+                                                    pads)}
+    if not offset:
+      plans['conv_s2d_dw'] = conv_s2d.dw_plan(xshape, wshape, strides, pads,
+                                              dtype)
+      runs['conv_s2d_dw'] = lambda: conv_s2d.conv_s2d_dw(x, g, wshape,
+                                                         strides, pads)
+      want['conv_s2d_dw'] = conv_s2d.plain_conv2d_dw(x, g, wshape, strides,
+                                                     pads)
+    for name, plan in plans.items():
+      before = getattr(conv_s2d, name).tensor_core_launches
+      first, again = runs[name](), runs[name]()
       torch.cuda.synchronize()
-      for name, plan in plans.items():
-        tensor_core = getattr(conv_s2d, name).tensor_core_launches - before[
-            name]
-        if tensor_core != (2 if plan['route'] == conv_s2d.ROUTE_TENSOR_CORE
-                           else 0):
-          raise AssertionError(f'{name} {label} {dtype}: route '
-                               f'{plan["route"]} but {tensor_core} '
-                               'tensor-core launches')
-        first, again = got[name]
-        if not torch.equal(first, again):
-          raise AssertionError(f'{name} {label} {dtype} is not deterministic')
-        err, ok = within(first, want[name], rel, of_max)
-        if not ok:
-          raise AssertionError(
-              f'{name} {label} {dtype} outside its band: max abs err {err} '
-              f'at max magnitude {float(want[name].float().abs().max())}')
-        errors[(name, label, dtype)] = err
-        detail = {key: plan[key] for key in (
-            'route', 'chunks', 'tiles_per_chunk', 'tile_taps', 'num_tiles',
-            'grid', 'halo', 'phases', 'cin_pad', 'n8_tiles', 'passes',
-            'smem') if key in plan}
-        log(f'check {name} {label} {xshape} {str(dtype)[6:]}: max abs err '
-            f'{err:.3e} at max magnitude '
-            f'{float(want[name].float().abs().max()):.3e} (band {rel:.1e} '
-            f'relative + {of_max:.0e} of the max); twice: bitwise equal; '
-            f'plan {detail}')
-      del x, w, g, got, want
-  return (errors[('conv_s2d_dw', 'conv1', torch.bfloat16)],
-          errors[('conv_s2d_dx', 'conv1', torch.bfloat16)])
+      tensor_core = getattr(conv_s2d, name).tensor_core_launches - before
+      what = f'{name} {label} {xshape} {str(dtype)[6:]}'
+      if tensor_core != (2 if plan['route'] == conv_s2d.ROUTE_TENSOR_CORE
+                         else 0):
+        raise AssertionError(f'{what}: route {plan["route"]} but '
+                             f'{tensor_core} tensor-core launches')
+      if not torch.equal(first, again):
+        raise AssertionError(f'{what} is not deterministic')
+      scale = float(want[name].float().abs().max())
+      err, ok = within(first, want[name], rel, of_max)
+      if not ok:
+        raise AssertionError(f'{what} outside its band: max abs err {err} '
+                             f'at max magnitude {scale}')
+      errors[(name, label, dtype)] = err
+      log(f'check {what}: max abs err {err:.3e} at max magnitude '
+          f'{scale:.3e} (band {rel:.1e} relative + {of_max:.0e} of the '
+          f'max); twice: bitwise equal; plan {plan}')
+      del first, again
+    del x, w, g, want
+  return tuple(errors[(name, 'conv1', dtype)]
+               for dtype in (torch.bfloat16, torch.float32)
+               for name in ('conv_s2d_dw', 'conv_s2d_dx'))
 
 
 def train_batches(seed, count, batch, shuffle_rewards=True):
@@ -2863,22 +2932,28 @@ def phase_profile_records(trainer, stream, card):
 
 
 def phase_dx_path(generator):
-  """Full-width conv1 and the odd geometry (ODD_CONV_*) in bfloat16 with
-  an input that requires a gradient: each backward launches dx once, on
-  the tensor cores, within its band of the plain version, and a second
-  backward gives the same dx bit for bit. Returns the launch counts of
-  conv1's first backward, the main path's."""
+  """Full-width conv1 and the odd geometry (ODD_CONV_*) with an input that
+  requires a gradient, in bfloat16 and in float32 (TF32 off for the plain
+  version): each backward launches dx once (bfloat16 on the tensor cores,
+  float32 with the forward and dW on the CUDA cores), within its band of
+  the plain version, and a second backward gives the same dx bit for bit.
+  Returns the launch counts of a bfloat16 backward at conv1, the main
+  path's, and the float32 runs' CUDA-core launches (one backward of each
+  geometry)."""
   launches = None
-  for label, xshape, wshape, strides in (
-      ('conv1', TRAIN_CONV1_X, CONV1_W, (2, 2)),
-      ('odd', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES)):
+  cuda_core = {'conv_s2d_fwd': 0, 'conv_s2d_dw': 0, 'conv_s2d_dx': 0}
+  for label, xshape, wshape, strides, dtype in (
+      ('conv1', TRAIN_CONV1_X, CONV1_W, (2, 2), torch.bfloat16),
+      ('odd', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES, torch.bfloat16),
+      ('conv1', TRAIN_CONV1_X, CONV1_W, (2, 2), torch.float32),
+      ('odd', ODD_CONV_X, ODD_CONV_W, ODD_CONV_STRIDES, torch.float32)):
     x = torch.rand(xshape, generator=generator, device='cuda').to(
-        torch.bfloat16).requires_grad_()
+        dtype).requires_grad_()
     w = (0.1 * torch.randn(wshape, generator=generator, device='cuda')).to(
-        torch.bfloat16).requires_grad_()
+        dtype).requires_grad_()
     pads = conv_s2d.resolve_padding('SAME', wshape[:2], strides, xshape[1:3])
     g = torch.randn(conv_out_shape(xshape, wshape, strides, pads),
-                    generator=generator, device='cuda').to(torch.bfloat16)
+                    generator=generator, device='cuda').to(dtype)
     grads = []
     for _ in range(2):
       x.grad = w.grad = None
@@ -2888,25 +2963,33 @@ def phase_dx_path(generator):
         torch.cuda.synchronize()
         counts = read_counters()
       grads.append(x.grad)
-    want = {**NO_QTOPT, 'conv_s2d_fwd': 1, 'conv_s2d_fwd_tensor_core': 1,
-            'conv_s2d_dw': 1, 'conv_s2d_dw_tensor_core': 1, 'conv_s2d_dx': 1,
-            'conv_s2d_dx_tensor_core': 1, **NO_FLASH, **NO_FUSED}
+    tensor_core = int(dtype == torch.bfloat16)
+    want = {**NO_QTOPT, 'conv_s2d_fwd': 1,
+            'conv_s2d_fwd_tensor_core': tensor_core, 'conv_s2d_dw': 1,
+            'conv_s2d_dw_tensor_core': tensor_core, 'conv_s2d_dx': 1,
+            'conv_s2d_dx_tensor_core': tensor_core, **NO_FLASH, **NO_FUSED}
     if counts != want:
-      raise AssertionError(f'dx path {label} launches {counts}, expected '
-                           f'{want}')
+      raise AssertionError(f'dx path {label} {dtype} launches {counts}, '
+                           f'expected {want}')
     if not torch.equal(grads[0], grads[1]):
-      raise AssertionError(f'dx path {label}: dx differs between two runs')
-    plain = conv_s2d.plain_conv2d_dx(g, w.detach(), xshape, strides, pads)
-    err, ok = within(grads[0], plain, 2.0**-7, 1e-5)
+      raise AssertionError(f'dx path {label} {dtype}: dx differs between '
+                           'two runs')
+    with tf32_off():
+      plain = conv_s2d.plain_conv2d_dx(g, w.detach(), xshape, strides, pads)
+    err, ok = within(grads[0], plain, 2.0**-7 if tensor_core else 0.0, 1e-5)
     if not ok:
-      raise AssertionError(f'dx path {label}: dx outside its band, max abs '
-                           f'err {err}')
-    log(f'dx path: {label} {xshape} bf16 with an input that needs a '
-        f'gradient: launches {counts}; dx max abs err {err:.3e} against '
-        'the plain version; twice: bitwise equal')
-    launches = launches or counts
+      raise AssertionError(f'dx path {label} {dtype}: dx outside its band, '
+                           f'max abs err {err}')
+    log(f'dx path: {label} {xshape} {str(dtype)[6:]} with an input that '
+        f'needs a gradient: launches {counts}; dx max abs err {err:.3e} '
+        'against the plain version; twice: bitwise equal')
+    if tensor_core:
+      launches = launches or counts
+    else:
+      for name, count in cuda_core_launches(counts).items():
+        cuda_core[name] += count
     del x, w, g, grads, plain
-  return launches
+  return launches, cuda_core
 
 
 def float64_gradients(state, batch, seed):
@@ -2997,7 +3080,9 @@ def worst_leaves(l2, count=4):
 @tf32_off()
 def phase_train_reference(seed):
   """One float32 training step on the card (kernels) against the same
-  step on the CPU (plain versions), full width, batch 2, TF32 off.
+  step on the CPU (plain versions), full width, batch 2, TF32 off. The
+  card's step runs conv1's float32 forward and dW on the CUDA cores once
+  each, and no dx (the image needs no gradient): returns those launches.
 
   Card and CPU reduce long float32 sums in different orders (batch norms
   over the batch, relu kinks and pool near-ties amplify that), so both
@@ -3014,8 +3099,14 @@ def phase_train_reference(seed):
   kernels (``phase_profile_reference``)."""
   state, batch = reference_state(seed)
   log(f'reference: {cudnn_flags()}')
+  zero_counters()
   card_loss, card = reference_gradients(state, batch, seed, 'cuda',
                                         'pool_conv')
+  launches = cuda_core_launches(read_counters())
+  if launches != {'conv_s2d_fwd': 1, 'conv_s2d_dw': 1, 'conv_s2d_dx': 0}:
+    raise AssertionError(f'reference step: conv1 CUDA-core launches '
+                         f'{launches}, expected a forward and a dW')
+  log(f'reference step: conv1 CUDA-core launches {launches}')
   with cudnn_settings(deterministic=True, benchmark=False):
     log(f'reference control: {cudnn_flags()}')
     det_loss, det = reference_gradients(state, batch, seed, 'cuda',
@@ -3061,6 +3152,7 @@ def phase_train_reference(seed):
       f'up to {card_worst[0]:.2e} ({card_worst[1]}); card vs cpu max err '
       f'up to {worst_max[0]:.2e} of the leaf\'s largest magnitude '
       f'({worst_max[1]})')
+  return launches
 
 
 def flash_band(got, want, band):
@@ -4302,101 +4394,92 @@ def bound_text(nbytes, ops, ops_rate=BF16_FLOP_PER_S):
           f'{ops_rate / 1e12:g} TFLOP/s)')
 
 
-def dw_float32_timing(generator, ops):
-  """The float32 dW (CUDA-core kernel) at the training conv1 shape, logged
-  beside cuDNN's at torch's default (TF32 on) and with TF32 off; the
-  kernels line keeps the bfloat16 main path's row."""
+def float32_timing(record, card, name, kernel_fn, plain_fn, library_fn,
+                   library_name, nbytes, ops):
+  """One float32 CUDA-core route of conv1 (row ``name`` of the kernels
+  line): the kernel, its plain version (TF32 off) and one cuDNN call at
+  torch's default (TF32 on) and with TF32 off, logged beside the card and
+  the FFMA bound; the row keeps the TF32-off library time, the one that
+  computes the same float32 function."""
+  ms = cuda_ms(kernel_fn)
+  with tf32_off():
+    plain = cuda_ms(plain_fn, iters=5)
+    lib_exact = cuda_ms(library_fn)
+  lib = cuda_ms(library_fn)
+  bound = 1e3 * ops / F32_FLOP_PER_S
+  log(f'time {name}: kernel {ms:.4f} ms ({100 * bound / ms:.1f}% of the '
+      f'FFMA bound), plain {plain:.4f} ms, {library_name} {lib_exact:.4f} '
+      f'ms (TF32 off), {lib:.4f} ms (TF32 '
+      f'{torch.backends.cudnn.allow_tf32}), '
+      f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}; {card}')
+  timing_entry(record, name, ms, plain, lib_exact, nbytes, ops,
+               F32_FLOP_PER_S)
+
+
+def conv_float32_timing(record, card, generator, patch):
+  """conv1's float32 routes on the CUDA cores: the forward at the serving
+  shape [64, 472, 472, 3] (the float32 critic's CEM batch) against
+  F.conv2d, dW and dx at the training shape against
+  torch.nn.grad.conv2d_weight and conv2d_input."""
+  pads = CONV1_PADS
+  x = torch.rand(CONV1_X, generator=generator, device='cuda')
+  w = 0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')
+  x_cl = x.permute(0, 3, 1, 2)
+  w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+  pixels = CONV1_X[0] * 236 * 236
+  float32_timing(
+      record, card, 'conv_s2d_fwd_float32',
+      lambda: conv_s2d.conv_s2d_fwd(x, w, (2, 2), pads),
+      lambda: conv_s2d.plain_conv2d(x, w, (2, 2), pads),
+      lambda: F.conv2d(x_cl, w_cl, stride=2, padding=pads[0][0]),
+      'F.conv2d',
+      4 * (np.prod(CONV1_X) + np.prod(CONV1_W) + pixels * CONV1_W[3]),
+      2 * pixels * patch * CONV1_W[3])
+  del x, x_cl
   x = torch.rand(TRAIN_CONV1_X, generator=generator, device='cuda')
   g = torch.randn((TRAIN_BATCH, 236, 236, 64), generator=generator,
                   device='cuda')
   x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-  oihw = (CONV1_W[3], CONV1_W[2]) + CONV1_W[:2]
-
-  def library():
-    return torch.nn.grad.conv2d_weight(x_cl, oihw, g_cl, stride=2,
-                                       padding=2)
-
-  ms = cuda_ms(lambda: conv_s2d.conv_s2d_dw(x, g, CONV1_W, (2, 2),
-                                            CONV1_PADS))
-  plain = cuda_ms(lambda: conv_s2d.plain_conv2d_dw(x, g, CONV1_W, (2, 2),
-                                                   CONV1_PADS), iters=5)
-  lib = cuda_ms(library)
-  with tf32_off():
-    lib_exact = cuda_ms(library)
+  pixels = TRAIN_BATCH * 236 * 236
   nbytes = 4 * (np.prod(TRAIN_CONV1_X) + np.prod(CONV1_W) + g.numel())
-  log(f'time conv_s2d_dw {TRAIN_CONV1_X} float32 (CUDA cores): kernel '
-      f'{ms:.4f} ms, plain {plain:.4f} ms, torch.nn.grad.conv2d_weight '
-      f'{lib:.4f} ms (TF32 {torch.backends.cudnn.allow_tf32}), '
-      f'{lib_exact:.4f} ms (TF32 off), '
-      f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}')
-
-
-def dx_float32_timing(generator, ops):
-  """The float32 dx (CUDA-core kernel) at the training conv1 shape, logged
-  beside cuDNN's (torch.nn.grad.conv2d_input) at torch's default (TF32 on)
-  and with TF32 off; the kernels line keeps the bfloat16 row."""
-  w = 0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')
-  g = torch.randn((TRAIN_BATCH, 236, 236, 64), generator=generator,
-                  device='cuda')
-  g_cl = g.permute(0, 3, 1, 2)
-  w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-  x_nchw = (TRAIN_BATCH, CONV1_X[3], CONV1_X[1], CONV1_X[2])
-
-  def library():
-    return torch.nn.grad.conv2d_input(x_nchw, w_oihw, g_cl, stride=2,
-                                      padding=2)
-
-  route = conv_s2d.dx_plan(TRAIN_CONV1_X, CONV1_W, (2, 2), CONV1_PADS,
-                           torch.float32)['route']
-  ms = cuda_ms(lambda: conv_s2d.conv_s2d_dx(g, w, TRAIN_CONV1_X, (2, 2),
-                                            CONV1_PADS))
-  plain = cuda_ms(lambda: conv_s2d.plain_conv2d_dx(g, w, TRAIN_CONV1_X,
-                                                   (2, 2), CONV1_PADS),
-                  iters=5)
-  lib = cuda_ms(library)
-  with tf32_off():
-    lib_exact = cuda_ms(library)
-  nbytes = 4 * (np.prod(TRAIN_CONV1_X) + np.prod(CONV1_W) + g.numel())
-  log(f'time conv_s2d_dx {TRAIN_CONV1_X} float32 ({route}): kernel '
-      f'{ms:.4f} ms, plain {plain:.4f} ms, torch.nn.grad.conv2d_input '
-      f'{lib:.4f} ms (TF32 {torch.backends.cudnn.allow_tf32}), '
-      f'{lib_exact:.4f} ms (TF32 off), '
-      f'{bound_text(nbytes, ops, F32_FLOP_PER_S)}')
+  ops = 2 * pixels * patch * CONV1_W[3]
+  float32_timing(
+      record, card, 'conv_s2d_dw_float32',
+      lambda: conv_s2d.conv_s2d_dw(x, g, CONV1_W, (2, 2), pads),
+      lambda: conv_s2d.plain_conv2d_dw(x, g, CONV1_W, (2, 2), pads),
+      lambda: torch.nn.grad.conv2d_weight(x_cl, w_cl.shape, g_cl, stride=2,
+                                          padding=2),
+      'torch.nn.grad.conv2d_weight', nbytes, ops)
+  float32_timing(
+      record, card, 'conv_s2d_dx_float32',
+      lambda: conv_s2d.conv_s2d_dx(g, w, TRAIN_CONV1_X, (2, 2), pads),
+      lambda: conv_s2d.plain_conv2d_dx(g, w, TRAIN_CONV1_X, (2, 2), pads),
+      lambda: torch.nn.grad.conv2d_input(x_cl.shape, w_cl, g_cl, stride=2,
+                                         padding=2),
+      'torch.nn.grad.conv2d_input', nbytes, ops)
+  del x, w, g, x_cl, w_cl, g_cl
 
 
 def fwd_logged_timing(generator, patch):
-  """conv1's forward beside its row of the kernels line, logged only: the
-  bfloat16 tensor-core kernel at the training shape against F.conv2d, and
-  the float32 CUDA-core kernel at the serving shape against F.conv2d at
-  torch's default (TF32 on) and with TF32 off."""
-  for shape, dtype in ((TRAIN_CONV1_X, torch.bfloat16),
-                       (CONV1_X, torch.float32)):
-    x = torch.rand(shape, generator=generator, device='cuda').to(dtype)
-    w = (0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')).to(
-        dtype)
-    x_cl = x.permute(0, 3, 1, 2)
-    w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-
-    def library(x_cl=x_cl, w_cl=w_cl):
-      return F.conv2d(x_cl, w_cl, stride=2, padding=CONV1_PADS[0][0])
-
-    ms = cuda_ms(lambda x=x, w=w: conv_s2d.conv_s2d_fwd(x, w, (2, 2),
-                                                        CONV1_PADS))
-    lib = cuda_ms(library)
-    with tf32_off():
-      lib_exact = cuda_ms(library)
-    pixels = shape[0] * 236 * 236
-    size = x.element_size()
-    nbytes = size * (np.prod(shape) + np.prod(CONV1_W) + pixels * CONV1_W[3])
-    ops = 2 * pixels * patch * CONV1_W[3]
-    route = conv_s2d.fwd_plan(shape, CONV1_W, (2, 2), CONV1_PADS,
-                              dtype)['route']
-    log(f'time conv_s2d_fwd {shape} {str(dtype)[6:]} ({route}): kernel '
-        f'{ms:.4f} ms, F.conv2d {lib:.4f} ms (TF32 '
-        f'{torch.backends.cudnn.allow_tf32}), {lib_exact:.4f} ms (TF32 off), '
-        + bound_text(nbytes, ops, BF16_FLOP_PER_S if dtype == torch.bfloat16
-                     else F32_FLOP_PER_S))
-    del x, w, x_cl, w_cl
+  """conv1's bfloat16 forward at the training shape beside its row of the
+  kernels line (the serving shape), logged only, against F.conv2d."""
+  x = torch.rand(TRAIN_CONV1_X, generator=generator, device='cuda').to(
+      torch.bfloat16)
+  w = (0.1 * torch.randn(CONV1_W, generator=generator, device='cuda')).to(
+      torch.bfloat16)
+  x_cl = x.permute(0, 3, 1, 2)
+  w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+  ms = cuda_ms(lambda: conv_s2d.conv_s2d_fwd(x, w, (2, 2), CONV1_PADS))
+  lib = cuda_ms(lambda: F.conv2d(x_cl, w_cl, stride=2,
+                                 padding=CONV1_PADS[0][0]))
+  pixels = TRAIN_CONV1_X[0] * 236 * 236
+  nbytes = 2 * (np.prod(TRAIN_CONV1_X) + np.prod(CONV1_W) +
+                pixels * CONV1_W[3])
+  ops = 2 * pixels * patch * CONV1_W[3]
+  log(f'time conv_s2d_fwd {TRAIN_CONV1_X} bf16 (tensor_core): kernel '
+      f'{ms:.4f} ms, F.conv2d {lib:.4f} ms, '
+      + bound_text(nbytes, ops, BF16_FLOP_PER_S))
+  del x, w, x_cl, w_cl
 
 
 def stem_pool_timing(record, generator):
@@ -4445,7 +4528,7 @@ def stem_pool_timing(record, generator):
         f'bound {e["bytes_ms"]:.4f} ms')
 
 
-def phase_timing(generator, errors, launches):
+def phase_timing(generator, errors, launches, card):
   record = {}
   for name, shape, window, strides in POOLS:
     x = tied_normal(shape, torch.bfloat16, generator, 'cuda')
@@ -4542,8 +4625,7 @@ def phase_timing(generator, errors, launches):
         f'{bound_text(nbytes, ops)}')
     timing_entry(record, name, ms, plain, lib, nbytes, ops)
   del x, w, g, x_cl, g_cl, w_oihw
-  dw_float32_timing(generator, ops)
-  dx_float32_timing(generator, ops)
+  conv_float32_timing(record, card, generator, patch)
 
   stem_pool_timing(record, generator)
   flash_timing(record, generator)
@@ -4568,6 +4650,15 @@ def phase_timing(generator, errors, launches):
                       'tensor2robot_tpu/ops/conv_s2d.py:246'),
       'conv_s2d_dx': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
                       'tensor2robot_tpu/ops/conv_s2d.py:269'),
+      # conv1's float32 routes on the CUDA cores (conv_fwd_ffma_kernel,
+      # conv_dw_partial_kernel + conv_dw_reduce_kernel,
+      # conv_dx_ffma_kernel), launched by the float32 critic's paths.
+      'conv_s2d_fwd_float32': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
+                               'tensor2robot_tpu/ops/conv_s2d.py:223'),
+      'conv_s2d_dw_float32': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
+                              'tensor2robot_tpu/ops/conv_s2d.py:246'),
+      'conv_s2d_dx_float32': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
+                              'tensor2robot_tpu/ops/conv_s2d.py:269'),
       # The staged TPU kernels' sites; the streamed ones (:424, :491,
       # :510) are the same CUDA kernels, checked at the streamed shapes.
       'flash_fwd': ('tensor2robot_tpu_torch/ops/csrc/flash_attention.cu',
@@ -4732,7 +4823,14 @@ DISPATCH_ACCUM_BAND = 1e-6
 DISPATCH_ROWS = {'pool_fwd_kernel': 24, 'pool_bwd_scatter_kernel': 24,
                  'conv_fwd_mma_kernel': 8, 'conv_dw_mma_kernel': 8,
                  'conv_dw_reduce_kernel': 8}
-PLAIN_VERSIONS = ((pool, 'plain_max_pool_argmax'), (pool, 'plain_max_pool_bwd'),
+# Profiled pairs of replays a K=8 arm may take to show all of its rows.
+# The profiler's device records are best-effort (CUPTI drops records when
+# its buffers run short, as one H100 run lost a step's last backward
+# kernels), while a replayed graph launches the same kernels every time:
+# a graph short of a kernel shows short in every pair, and a row above
+# the count, a missing replay or a Python launch fails at once.
+DISPATCH_PROFILE_ATTEMPTS = 3
+PLAIN_VERSIONS =((pool, 'plain_max_pool_argmax'), (pool, 'plain_max_pool_bwd'),
                   (conv_s2d, 'plain_conv2d'), (conv_s2d, 'plain_conv2d_dw'),
                   (conv_s2d, 'plain_conv2d_dx'),
                   (fused_update, 'plain_fused_update'))
@@ -5121,7 +5219,9 @@ def run_dispatch_binary(root):
 def phase_dispatch_profile(seed):
   """Kernel rows over two replays (torch.profiler) of the stock and the
   fused K=8 trainers, with the device ms a step of K=1 eager, K=8 graph
-  and K=8 graph with the device feed. Runs after the timing phase: a
+  and K=8 graph with the device feed. A pair of replays whose rows the
+  profiler delivered short is profiled again, up to
+  ``DISPATCH_PROFILE_ATTEMPTS`` pairs. Runs after the timing phase: a
   profiler session early in a process left later sessions empty."""
   from torch.profiler import ProfilerActivity, profile
 
@@ -5134,35 +5234,48 @@ def phase_dispatch_profile(seed):
     for name, k, cfg in arms:
       trainer = dispatch_trainer(seed, k, max_train_steps=DISPATCH_K, **cfg)
       trainer.train(iter(batches[:DISPATCH_K]))
-      trainer.config.max_train_steps = 3 * DISPATCH_K
-      torch.cuda.synchronize()
-      zero_counters()
-      with profile(activities=[ProfilerActivity.CPU,
-                               ProfilerActivity.CUDA]) as prof:
-        trainer.train(iter(batches[DISPATCH_K:]))
+      want = {kernel: 2 * n for kernel, n in DISPATCH_ROWS.items()}
+      want['fused_update_kernel'] = 2 * DISPATCH_K if cfg.get('fused') else 0
+      for attempt in range(1, DISPATCH_PROFILE_ATTEMPTS + 1):
+        trainer.config.max_train_steps = trainer.step + 2 * DISPATCH_K
         torch.cuda.synchronize()
-      python_launches = read_counters()
-      averages = prof.key_averages()
-      steps = 2 * DISPATCH_K
-      device_ms = device_time_us(averages) / 1e3 / steps
-      rows = {kernel: sum(e.count for e in averages if kernel in e.key)
-              for kernel in (*DISPATCH_ROWS, 'fused_update_kernel')}
-      graph_launches = sum(e.count for e in averages
-                           if e.key.startswith('cudaGraphLaunch'))
-      h2d = sum(e.count for e in averages if e.key.startswith('Memcpy HtoD'))
-      log(f'dispatch profile: {name}: device {device_ms:.3f} ms/step; over '
-          f'2 dispatches of 8 steps: kernel rows {rows}, cudaGraphLaunch '
-          f'{graph_launches}, host-to-device copies {h2d}; Python launch '
-          f'counters {python_launches}')
-      if k > 1:
-        want = {kernel: 2 * n for kernel, n in DISPATCH_ROWS.items()}
-        want['fused_update_kernel'] = 2 * DISPATCH_K if cfg.get('fused') else 0
-        if rows != want or graph_launches != 2 or any(
-            python_launches.values()):
+        zero_counters()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+          trainer.train(iter(batches[DISPATCH_K:]))
+          torch.cuda.synchronize()
+        python_launches = read_counters()
+        averages = prof.key_averages()
+        steps = 2 * DISPATCH_K
+        device_ms = device_time_us(averages) / 1e3 / steps
+        rows = {kernel: sum(e.count for e in averages if kernel in e.key)
+                for kernel in want}
+        graph_launches = sum(e.count for e in averages
+                             if e.key.startswith('cudaGraphLaunch'))
+        h2d = sum(e.count for e in averages
+                  if e.key.startswith('Memcpy HtoD'))
+        log(f'dispatch profile: {name}: device {device_ms:.3f} ms/step; over '
+            f'2 dispatches of 8 steps: kernel rows {rows}, cudaGraphLaunch '
+            f'{graph_launches}, host-to-device copies {h2d}; Python launch '
+            f'counters {python_launches}')
+        if k == 1:
+          break
+        short = rows != want or graph_launches != 2
+        if (any(python_launches.values()) or graph_launches > 2 or
+            any(rows[kernel] > n for kernel, n in want.items()) or
+            (short and attempt == DISPATCH_PROFILE_ATTEMPTS)):
           raise AssertionError(
               f'dispatch profile {name}: rows {rows}, expected {want}; '
               f'{graph_launches} cudaGraphLaunch; Python counters '
-              f'{python_launches} (a replay runs no Python)')
+              f'{python_launches} (a replay runs no Python); profiled pair '
+              f'{attempt} of {DISPATCH_PROFILE_ATTEMPTS}')
+        if not short:
+          break
+        lost = sum(want.values()) - sum(rows.values())
+        log(f'dispatch profile: {name}: the profiler delivered {lost} fewer '
+            f'kernel rows and {2 - graph_launches} fewer cudaGraphLaunch '
+            f'than 2 replays launch (pair {attempt} of '
+            f'{DISPATCH_PROFILE_ATTEMPTS}); profiling the next 2 dispatches')
       del trainer, prof
       torch.cuda.empty_cache()
   if sum(plain.values()):
@@ -5658,10 +5771,12 @@ def main(argv=None):
   phase_build()
   generator = torch.Generator(device='cuda').manual_seed(args.seed)
   errors = {'pool_fwd': phase_check_pool(generator),
-            'pool_bwd': phase_check_pool_bwd(generator),
-            'conv_s2d_fwd': phase_check_conv(generator)}
-  errors['conv_s2d_dw'], errors['conv_s2d_dx'] = phase_check_conv_grads(
-      generator)
+            'pool_bwd': phase_check_pool_bwd(generator)}
+  errors['conv_s2d_fwd'], errors['conv_s2d_fwd_float32'] = (
+      phase_check_conv(generator))
+  (errors['conv_s2d_dw'], errors['conv_s2d_dx'],
+   errors['conv_s2d_dw_float32'],
+   errors['conv_s2d_dx_float32']) = phase_check_conv_grads(generator)
   errors.update(phase_check_flash(generator))
   errors['fused_update'] = phase_check_fused_update(generator)
   errors['photometric'] = phase_check_photometric(generator)
@@ -5675,7 +5790,7 @@ def main(argv=None):
   torch.cuda.empty_cache()
   ms_per_action, serve_launches, policy, frames = phase_main_path(
       args.seed, args.actions)
-  phase_reference(args.seed)
+  reference_launches = phase_reference(args.seed)
   torch.cuda.empty_cache()
   ms_per_step, train_launches, trainer = phase_train(args.seed, args.steps)
   checkpoint_launches = phase_checkpoint(args.seed, card)
@@ -5688,8 +5803,8 @@ def main(argv=None):
   torch.cuda.empty_cache()
   fused_ms, fused_launches, fused_trainer = phase_train_fused(
       args.seed, args.steps, ms_per_step)
-  dx_launches = phase_dx_path(generator)
-  phase_train_reference(args.seed)
+  dx_launches, dx_float32_launches = phase_dx_path(generator)
+  train_reference_launches = phase_train_reference(args.seed)
   torch.cuda.empty_cache()
   snail = phase_snail_train(args.seed, args.snail_steps)
   snail_fused = phase_snail_fused(
@@ -5725,12 +5840,20 @@ def main(argv=None):
                                  grasp2vec_launches['pool_bwd_scatter'])
   for name in ('conv_s2d_dx', 'conv_s2d_dx_tensor_core'):
     launches[name] = dx_launches[name]
+  # conv1's float32 routes: the float32 critic's reference predict and
+  # training step and the float32 dx path.
+  for name in ('conv_s2d_fwd', 'conv_s2d_dw', 'conv_s2d_dx'):
+    launches[name + '_float32'] = sum(
+        path[name] for path in (reference_launches, train_reference_launches,
+                                dx_float32_launches))
   log(f'launches: serving {serve_launches} over {args.actions} actions; '
       f'training {train_launches} and fused training {fused_launches} over '
       f'{args.steps} steps; checkpoint phase {checkpoint_launches}; export '
       f'phase {export_launches}; HTTP serving replicas {http_launches}; '
       f'record phase {record_launches}; dx path '
-      f'{dx_launches}; SNAIL '
+      f'{dx_launches} (float32: {dx_float32_launches}); float32 '
+      f'reference predict {reference_launches} and step '
+      f'{train_reference_launches}; SNAIL '
       f'{ {name: result[1] for name, result in snail.items()} } and fused '
       f'{ {name: result[1] for name, result in snail_fused.items()} } over '
       f'{args.snail_steps} steps each; photometric path '
@@ -5739,7 +5862,7 @@ def main(argv=None):
   if tf32_flags() != defaults:
     raise AssertionError(f'TF32 flags {tf32_flags()} before the timings, '
                          f'{defaults} at the start')
-  kernels = phase_timing(generator, errors, launches)
+  kernels = phase_timing(generator, errors, launches, card)
   torch.cuda.empty_cache()
   phase_dispatch_profile(args.seed)
   grasp2vec_device_ms = phase_grasp2vec_profile(grasp2vec_trainer,

@@ -48,7 +48,7 @@ from tensor2robot_tpu_torch.ops.pool import (Pads, _pads_list, _pads_pairs,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    't2r_conv_s2d_fwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 +
+    't2r_conv_s2d_fwd': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 +
                         [ctypes.c_void_p],
     't2r_conv_s2d_fwd_mma': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 +
                             [ctypes.c_void_p],
@@ -56,7 +56,7 @@ _SIGNATURES = {
                        [ctypes.c_void_p],
     't2r_conv_s2d_dw_mma': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 +
                            [ctypes.c_void_p],
-    't2r_conv_s2d_dx': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 +
+    't2r_conv_s2d_dx': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 20 +
                        [ctypes.c_void_p],
     't2r_conv_s2d_dx_mma': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 +
                            [ctypes.c_void_p],
@@ -111,6 +111,28 @@ _DX_N8 = 2
 _SMS = 132
 _SM_SHARED_BYTES = 233472
 _BLOCK_RESERVED_BYTES = 1024
+# The float32 forward and the CUDA-core dx (kFfma*, kDxf* in
+# csrc/conv_s2d.cu). Forward: blocks of 128 threads over tiles of up to 16
+# pixel groups x a 64-channel tile; a group is 8 lanes that share 8
+# consecutive output pixels, a lane 8 of the 64 channels; three stages of
+# one window row; three blocks an SM. dx: a phase row a warp, at most 8 a
+# block, 4 phase columns a lane, 12 (phase, input channel) columns a
+# pass, at most 8 output channels a step, two stages, two blocks an SM.
+# conv1's geometry runs instantiations of both that know its taps at
+# compile time (``templated``).
+_FFMA_PIX = 8
+_FFMA_CHANNELS = 64
+_FFMA_GROUPS = 16
+_FFMA_STAGES = 3
+_FFMA_BLOCKS_PER_SM = 3
+_DXF_PIX = 4
+_DXF_COLS = 12
+_DXF_MAX_WARPS = 8
+_DXF_MAX_CHUNK = 8
+_DXF_STAGES = 2
+_DXF_BLOCKS_PER_SM = 2
+_DXF_SMEM_BUDGET = (_SM_SHARED_BYTES // _DXF_BLOCKS_PER_SM -
+                    _BLOCK_RESERVED_BYTES)
 ROUTE_TENSOR_CORE = 'tensor_core'
 ROUTE_CUDA_CORE = 'cuda_core'
 
@@ -140,14 +162,105 @@ def _dw_smem(patch: int, cout: int, dtype: torch.dtype) -> int:
   return 4 * (kp * cp + _TILE_PIXELS * (kp + cp)) + 16 * _TILE_PIXELS + 12 * kp
 
 
-def _fwd_smem(patch: int, cout: int, dtype: torch.dtype) -> int:
-  """Shared memory of a forward block."""
-  if dtype == torch.bfloat16:
-    k_pad = _cdiv(patch, 16) * 16
-    return 2 * (_TILE_PIXELS * _FWD_CHANNELS + (
-        _FWD_STAGES * _TILE_PIXELS + _FWD_CHANNELS) * k_pad) + 16 * k_pad
-  # float32: the weights (padded to 4 floats) and a [K, 64] patch tile.
-  return 4 * (_cdiv(patch * cout, 4) * 4 + patch * _TILE_PIXELS)
+def _fwd_smem(patch: int) -> int:
+  """Shared memory of a bfloat16 forward block (one 64-channel tile)."""
+  k_pad = _cdiv(patch, 16) * 16
+  return 2 * (_TILE_PIXELS * _FWD_CHANNELS + (
+      _FWD_STAGES * _TILE_PIXELS + _FWD_CHANNELS) * k_pad) + 16 * k_pad
+
+
+def _per_sm(smem: int, most: int) -> int:
+  """Blocks of ``smem`` bytes an SM of an H100 holds, at most ``most``."""
+  return min(most, _SM_SHARED_BYTES // (smem + _BLOCK_RESERVED_BYTES))
+
+
+def _fwd_ffma(p: dict, batch: int) -> Optional[dict]:
+  """The float32 forward's plan, as ``fwd_ffma_plan`` in
+  ``csrc/conv_s2d.cu`` makes it (see :func:`fwd_plan`); None where the
+  kernel does not take the problem."""
+  cin, kw, sw, oh, ow = p['cin'], p['kw'], p['sw'], p['oh'], p['ow']
+  groups = _FFMA_GROUPS
+  while groups >= 1:
+    lpr = min(groups, _cdiv(ow, _FFMA_PIX))
+    rows = min(groups // lpr, oh)
+    cols = (_FFMA_PIX * lpr - 1) * sw + kw
+    # Up to 3 floats ahead of the span keep its copies 16-byte aligned.
+    ls = _cdiv(cols * cin + 3, 4) * 4
+    smem = 4 * (p['patch'] * _FFMA_CHANNELS + _FFMA_STAGES * rows * ls)
+    if smem <= _MAX_SMEM_BYTES:
+      break
+    groups //= 2
+  else:
+    return None
+  row_tiles, col_tiles = _cdiv(oh, rows), _cdiv(ow, _FFMA_PIX * lpr)
+  num_tiles = batch * row_tiles * col_tiles
+  return dict(route=ROUTE_CUDA_CORE, num_pixels=batch * oh * ow,
+              templated=(cin, sw, kw) == (3, 2, 6),
+              channel_tiles=_cdiv(p['cout'], _FFMA_CHANNELS), groups=groups,
+              groups_per_row=lpr, tile_rows=rows, tile_cols=_FFMA_PIX * lpr,
+              row_tiles=row_tiles, col_tiles=col_tiles, num_tiles=num_tiles,
+              cols=cols, span=cols * cin, ls=ls, stage_floats=rows * ls,
+              grid=min(num_tiles, _SMS * _per_sm(smem, _FFMA_BLOCKS_PER_SM)),
+              smem=smem)
+
+
+def _dx_ffma(p: dict, batch: int) -> Optional[dict]:
+  """The CUDA-core dx's plan, as ``dx_ffma_plan`` in ``csrc/conv_s2d.cu``
+  makes it (see :func:`dx_plan`); None where the kernel does not take the
+  problem."""
+  kh, kw, sh, sw, cin, cout = (p['kh'], p['kw'], p['sh'], p['sw'], p['cin'],
+                               p['cout'])
+  halo = (_cdiv(kh, sh) - 1, _cdiv(kw, sw) - 1)
+  taps = (halo[0] + 1) * (halo[1] + 1)
+  live = (min(sh, kh), min(sw, kw))
+  passes = _cdiv(live[0] * live[1] * cin, _DXF_COLS)
+  m_lo, n_lo = p['plh'] // sh, p['plw'] // sw
+  rows = (p['plh'] + p['h'] - 1) // sh - m_lo + 1
+  cols = (p['plw'] + p['w'] - 1) // sw - n_lo + 1
+  tile_rows = min(_DXF_MAX_WARPS, rows)
+  lanes = min(32, _cdiv(cols, _DXF_PIX))
+  # Per pass and tap the weights' offset of each column; per column its
+  # phase row, phase column and input channel.
+  tables = 4 * passes * _DXF_COLS * (taps + 3)
+  chosen = None
+  while chosen is None:
+    slen = _DXF_PIX * lanes + halo[1]
+    out_floats = tile_rows * sh * _DXF_PIX * lanes * sw * cin
+    for chunk in (_DXF_MAX_CHUNK >> i
+                  for i in range(_DXF_MAX_CHUNK.bit_length())):
+      if chunk > 1 and chunk // 2 >= cout:
+        continue
+      cpad = max(chunk, 4)
+      # A staged row: slen pixels of cpad floats, 16 bytes of padding
+      # after every 128 (padded_row in csrc/conv_s2d.cu).
+      gls = slen * cpad + 4 * _cdiv(slen * cpad, 32)
+      g_floats = (tile_rows + halo[0]) * gls
+      stage = g_floats + taps * chunk * _DXF_COLS
+      smem = 4 * (_DXF_STAGES * stage + out_floats) + tables
+      if smem <= _DXF_SMEM_BUDGET:
+        chosen = chunk, gls, g_floats, stage, smem
+        break
+    if chosen is None:
+      if lanes > 1:
+        lanes = _cdiv(lanes, 2)
+      elif tile_rows > 1:
+        tile_rows = _cdiv(tile_rows, 2)
+      else:
+        return None
+  chunk, gls, g_floats, stage, smem = chosen
+  row_tiles = _cdiv(rows, tile_rows)
+  col_tiles = _cdiv(cols, _DXF_PIX * lanes)
+  num_tiles = batch * row_tiles * col_tiles
+  return dict(route=ROUTE_CUDA_CORE, halo=halo, taps=taps,
+              templated=halo == (2, 2) and chunk == 4, live_phases=live,
+              passes=passes, tile_rows=tile_rows, lanes=lanes, chunk=chunk,
+              cpad=max(chunk, 4), chunks=_cdiv(cout, chunk), slen=slen,
+              gls=gls, g_floats=g_floats,
+              stage_floats=stage, out_cols=_DXF_PIX * lanes * sw, m_lo=m_lo,
+              n_lo=n_lo, row_tiles=row_tiles, col_tiles=col_tiles,
+              num_tiles=num_tiles,
+              grid=min(num_tiles, _SMS * _per_sm(smem, _DXF_BLOCKS_PER_SM)),
+              smem=smem)
 
 
 def _plan(xshape, wshape, strides, pads, x_dtype, w_dtype) -> Optional[dict]:
@@ -170,14 +283,20 @@ def _plan(xshape, wshape, strides, pads, x_dtype, w_dtype) -> Optional[dict]:
   ow = (w + plw + phw - kw) // sw + 1
   if oh < 1 or ow < 1:
     return None
-  # Shared memory of the forward and of dW's first pass for this dtype,
-  # and of dx (the weights alone, as float32).
-  smem = max(_fwd_smem(patch, cout, x_dtype), _dw_smem(patch, cout, x_dtype),
-             4 * patch * cout)
+  # Shared memory of the bfloat16 forward and of dW's first pass for this
+  # dtype; the CUDA-core forward and dx plan their own tiles to fit.
+  smem = max(_fwd_smem(patch) if x_dtype == torch.bfloat16 else 0,
+             _dw_smem(patch, cout, x_dtype))
   if smem > _MAX_SMEM_BYTES:
     return None
-  return dict(h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw, sh=sh, sw=sw,
-              plh=plh, phh=phh, plw=plw, phw=phw, oh=oh, ow=ow, patch=patch)
+  p = dict(h=h, w=w, cin=cin, cout=cout, kh=kh, kw=kw, sh=sh, sw=sw,
+           plh=plh, phh=phh, plw=plw, phw=phw, oh=oh, ow=ow, patch=patch)
+  # Whether the CUDA-core kernels take it does not depend on the batch,
+  # which may be symbolic here (an exported program's).
+  if _dx_ffma(p, 1) is None or (x_dtype == torch.float32 and
+                                _fwd_ffma(p, 1) is None):
+    return None
+  return p
 
 
 def is_supported(xshape: Sequence[int], wshape: Sequence[int],
@@ -197,13 +316,24 @@ def is_supported(xshape: Sequence[int], wshape: Sequence[int],
 def fwd_plan(xshape: Sequence[int], wshape: Sequence[int],
              strides: Tuple[int, int], pads: Pads, dtype: torch.dtype) -> dict:
   """How :func:`conv_s2d_fwd` runs a problem, from the shapes and dtype
-  alone: the route (bfloat16 -> the tensor-core kernel, float32 -> the
-  CUDA-core kernel), the pixels and their 64-pixel tiles and ``smem``, a
-  block's shared memory in bytes; on the tensor-core route also the runs
-  (``chunks`` blocks of ``tiles_per_chunk`` tiles, the last one ragged),
-  the taps padded to ``k_pad`` and the ``channel_tiles`` of 64 channels.
-  The CUDA-core kernel sizes its own grid of persistent blocks. Raises for
-  a problem the kernels do not take."""
+  alone, as the C planners decide it (each C entry refuses any other).
+
+  The route: bfloat16 -> the tensor-core kernel, float32 -> the CUDA-core
+  one. Both give the pixels (``num_pixels``), their tiles (``num_tiles``)
+  and ``smem``, a block's shared memory in bytes. The tensor-core route
+  also gives its 64-pixel tiles' runs (``chunks`` blocks of
+  ``tiles_per_chunk`` tiles, the last one ragged), the taps padded to
+  ``k_pad`` and the ``channel_tiles`` of 64 channels. The CUDA-core route
+  (``fwd_ffma_plan``) gives its tiles of ``tile_rows`` output rows x
+  ``tile_cols`` (8 x ``groups_per_row``) output columns of one image, of
+  the block's 16 pixel groups ``groups`` in use, ``row_tiles`` x
+  ``col_tiles`` an image; the ``channel_tiles`` of 64; whether Cin, sw
+  and kw are conv1's (3, 2, 6), which runs an instantiation that knows
+  them at compile time (``templated``); the
+  ``cols`` input columns (``span`` floats) a tile row's window row reads,
+  staged ``ls`` floats a row, ``stage_floats`` a stage; and the
+  persistent ``grid`` (x; y is the channel tiles).
+  Raises for a problem the kernels do not take."""
   p = _plan(tuple(xshape), tuple(wshape), tuple(strides), pads, dtype, dtype)
   if p is None:
     raise ValueError(
@@ -214,20 +344,18 @@ def fwd_plan(xshape: Sequence[int], wshape: Sequence[int],
 
 def _fwd_split(p: dict, batch: int, dtype: torch.dtype) -> dict:
   """:func:`fwd_plan` of a problem that ``_plan`` has taken."""
-  tensor_core = dtype == torch.bfloat16
+  if dtype != torch.bfloat16:
+    return _fwd_ffma(p, batch)
   num_pixels = batch * p['oh'] * p['ow']
   num_tiles = _cdiv(num_pixels, _TILE_PIXELS)
-  plan = dict(route=ROUTE_TENSOR_CORE if tensor_core else ROUTE_CUDA_CORE,
-              num_pixels=num_pixels, tile_pixels=_TILE_PIXELS,
-              num_tiles=num_tiles, smem=_fwd_smem(p['patch'], p['cout'],
-                                                  dtype))
-  if tensor_core:
-    tiles_per_chunk = _cdiv(num_tiles, _FWD_MMA_CHUNKS)
-    plan.update(tiles_per_chunk=tiles_per_chunk,
-                chunks=_cdiv(num_tiles, tiles_per_chunk),
-                k_pad=_cdiv(p['patch'], 16) * 16,
-                channel_tiles=_cdiv(p['cout'], _FWD_CHANNELS))
-  return plan
+  tiles_per_chunk = _cdiv(num_tiles, _FWD_MMA_CHUNKS)
+  return dict(route=ROUTE_TENSOR_CORE, num_pixels=num_pixels,
+              tile_pixels=_TILE_PIXELS, num_tiles=num_tiles,
+              smem=_fwd_smem(p['patch']),
+              tiles_per_chunk=tiles_per_chunk,
+              chunks=_cdiv(num_tiles, tiles_per_chunk),
+              k_pad=_cdiv(p['patch'], 16) * 16,
+              channel_tiles=_cdiv(p['cout'], _FWD_CHANNELS))
 
 
 def dw_plan(xshape: Sequence[int], wshape: Sequence[int],
@@ -287,8 +415,21 @@ def dx_plan(xshape: Sequence[int], wshape: Sequence[int],
   ``n_lo``) and its ``row_tiles`` x ``col_tiles`` tiles an image,
   ``num_tiles``, the persistent ``grid``, ``o_stride`` (a dx row of the
   tile in shared memory) and ``smem``, a block's shared memory in bytes.
-  On the CUDA-core route ``smem`` is the float32 weights'; that kernel
-  sizes its own grid. Raises for a problem the kernels do not take.
+
+  On the CUDA-core route (``dx_ffma_plan``): the same ``halo``, ``taps``,
+  phase grid origin and tiles, with tiles of ``tile_rows`` phase rows (a
+  warp each) x 4 * ``lanes`` phase columns; whether a phase's taps (3 x
+  3) and the channels a step (4) are conv1's, which runs an instantiation
+  that knows them at compile time (``templated``); the ``live_phases``
+  (phase
+  rows and columns with a tap: min(sh, kh), min(sw, kw)), whose
+  (phase, input channel) columns go 12 to each of the ``passes``; the
+  output channels a step stages (``chunk``, held as ``cpad`` = max(chunk,
+  4) floats a pixel) and the ``chunks``; a staged row's ``slen`` pixels
+  in ``gls`` floats (16 bytes of padding after every 128), a stage's
+  ``g_floats`` of cotangent and ``stage_floats`` in all; the tile's dx
+  rows' ``out_cols`` pixels;
+  ``grid`` and ``smem``. Raises for a problem the kernels do not take.
   """
   p = _plan(tuple(xshape), tuple(wshape), tuple(strides), pads, dtype, dtype)
   if p is None:
@@ -300,7 +441,7 @@ def dx_plan(xshape: Sequence[int], wshape: Sequence[int],
 
 def _dx_split(p: dict, batch: int, dtype: torch.dtype, aligned: bool) -> dict:
   """:func:`dx_plan` of a problem that ``_plan`` has taken."""
-  cuda_core = dict(route=ROUTE_CUDA_CORE, smem=4 * p['patch'] * p['cout'])
+  cuda_core = _dx_ffma(p, batch)
   sh, sw, cin, cout = p['sh'], p['sw'], p['cin'], p['cout']
   phases = sh * sw
   if (dtype != torch.bfloat16 or not aligned or cout % 16 != 0 or
@@ -356,7 +497,8 @@ def conv_s2d_fwd(x: torch.Tensor, w: torch.Tensor, strides: Tuple[int, int],
   ``x``: contiguous NHWC, ``w``: contiguous HWIO, both float32 or both
   bfloat16 on one CUDA device. Returns NHWC in the input dtype. The dtype
   picks the kernel (:func:`fwd_plan`): bfloat16 runs on the tensor cores
-  (counted in ``tensor_core_launches`` too), float32 on the CUDA cores.
+  (counted in ``tensor_core_launches`` too), float32 on the CUDA cores
+  (``conv_fwd_ffma_kernel``).
   Raises on any other input, and when the launch reports an error.
   """
   _cuda_operands('conv_s2d_fwd', x, w)
@@ -377,7 +519,9 @@ def conv_s2d_fwd(x: torch.Tensor, w: torch.Tensor, strides: Tuple[int, int],
           *operands, plan['tiles_per_chunk'], plan['chunks'], plan['k_pad'],
           plan['channel_tiles'], stream)
     else:
-      status = lib.t2r_conv_s2d_fwd(*operands, stream)
+      status = lib.t2r_conv_s2d_fwd(*operands, plan['groups'],
+                                    int(plan['templated']), plan['grid'],
+                                    plan['smem'], stream)
   _build.check(lib, status, 'conv_s2d_fwd')
   conv_s2d_fwd.launches += 1
   conv_s2d_fwd.tensor_core_launches += tensor_core
@@ -507,7 +651,8 @@ def conv_s2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],
     else:
       status = lib.t2r_conv_s2d_dx(
           g.data_ptr(), w.data_ptr(), dx.data_ptr(), _DTYPE_CODES[w.dtype],
-          *geometry, stream)
+          *geometry, plan['tile_rows'], plan['lanes'], plan['chunk'],
+          int(plan['templated']), plan['grid'], plan['smem'], stream)
   _build.check(lib, status, 'conv_s2d_dx')
   conv_s2d_dx.launches += 1
   conv_s2d_dx.tensor_core_launches += tensor_core

@@ -427,11 +427,61 @@ def test_conv_dx_entries_refuse_another_plan(device):
     status = lib.t2r_conv_s2d_dx_mma(g.data_ptr(), w.data_ptr(),
                                      dx.data_ptr(), *geometry, *bad, stream)
     assert status == 1, (i, bad, status)  # cudaErrorInvalidValue
-  status = lib.t2r_conv_s2d_dx(g.data_ptr(), w.data_ptr(), dx.data_ptr(), 1,
-                               *geometry, stream)
+  # The CUDA-core route's own plan for the problem, which is the same for
+  # both dtypes: refused all the same in bfloat16.
+  ffma = conv_s2d.dx_plan(xshape, wshape, strides, pads, torch.float32)
+  status = lib.t2r_conv_s2d_dx(
+      g.data_ptr(), w.data_ptr(), dx.data_ptr(), 1, *geometry,
+      ffma['tile_rows'], ffma['lanes'], ffma['chunk'],
+      int(ffma['templated']), ffma['grid'], ffma['smem'], stream)
   assert status == 1, status
   torch.cuda.synchronize()
   assert bool((dx == 7.0).all())
+
+
+def test_conv_ffma_entries_refuse_another_plan(device):
+  """t2r_conv_s2d_fwd and t2r_conv_s2d_dx launch only fwd_plan's and
+  dx_plan's CUDA-core plans: any other pixel groups, templated flag, grid
+  or shared memory (forward), tile rows, lanes, chunk, templated flag,
+  grid or shared memory (dx) returns cudaErrorInvalidValue and leaves the
+  output unwritten; the planners' own plans launch."""
+  lib = _build.load('conv_s2d', conv_s2d._SIGNATURES)  # pylint: disable=protected-access
+  stream = torch.cuda.current_stream(device).cuda_stream
+  xshape, wshape, strides = (2, 48, 48, 3), (6, 6, 3, 64), (2, 2)
+  pads = conv_s2d.resolve_padding('SAME', wshape[:2], strides, xshape[1:3])
+  x = _tied(xshape, torch.float32, device)
+  w = _tied(wshape, torch.float32, device)
+  g = _tied((2, 24, 24, 64), torch.float32, device)
+  geometry = (*xshape, 6, 6, *strides, pads[0][0], pads[1][0], 24, 24, 64)
+  fwd = conv_s2d.fwd_plan(xshape, wshape, strides, pads, torch.float32)
+  dxp = conv_s2d.dx_plan(xshape, wshape, strides, pads, torch.float32)
+  out = torch.full((2, 24, 24, 64), 7.0, device=device)
+  dx = torch.full(xshape, 7.0, device=device)
+  good = (fwd['groups'], int(fwd['templated']), fwd['grid'], fwd['smem'])
+  for i, delta in ((0, -8), (1, -1), (2, -1), (3, 16)):
+    bad = list(good)
+    bad[i] += delta
+    status = lib.t2r_conv_s2d_fwd(x.data_ptr(), w.data_ptr(),
+                                  out.data_ptr(), *geometry, *bad, stream)
+    assert status == 1, (i, bad, status)  # cudaErrorInvalidValue
+  good = (dxp['tile_rows'], dxp['lanes'], dxp['chunk'],
+          int(dxp['templated']), dxp['grid'], dxp['smem'])
+  for i, delta in ((0, -1), (1, -1), (2, 4), (3, -1), (4, -1), (5, 16)):
+    bad = list(good)
+    bad[i] += delta
+    status = lib.t2r_conv_s2d_dx(g.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                                 0, *geometry, *bad, stream)
+    assert status == 1, (i, bad, status)
+  torch.cuda.synchronize()
+  assert bool((out == 7.0).all()) and bool((dx == 7.0).all())
+  assert lib.t2r_conv_s2d_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                              *geometry, fwd['groups'], 1, fwd['grid'],
+                              fwd['smem'], stream) == 0
+  assert lib.t2r_conv_s2d_dx(g.data_ptr(), w.data_ptr(), dx.data_ptr(), 0,
+                             *geometry, *good, stream) == 0
+  torch.cuda.synchronize()
+  torch.testing.assert_close(out, conv_s2d.plain_conv2d(x, w, strides, pads),
+                             rtol=1e-5, atol=1e-5)
 
 
 def test_autograd_functions_launch_the_backward_kernels(device):
