@@ -664,11 +664,13 @@ def stack_frames(report, kernel):
 FLASH_KERNELS = ('flash_fwd_mma_kernel', 'flash_fwd_kernel',
                  'flash_dq_mma_kernel', 'flash_dq_kernel',
                  'flash_dkv_mma_kernel', 'flash_dkv_kernel')
-# The pool backward's scatter route, conv1's tensor-core dx and its
-# float32 forward and CUDA-core dx (each instantiation), by source.
+# The pool backward's scatter and gather routes, conv1's tensor-core dx and
+# its float32 forward, dW and CUDA-core dx (each instantiation), by source.
 BWD_KERNELS = (('pool', 'pool_bwd_scatter_kernel'),
+               ('pool', 'pool_bwd_gather_kernel'),
                ('conv_s2d', 'conv_dx_mma_kernel'),
                ('conv_s2d', 'conv_fwd_ffma_kernel'),
+               ('conv_s2d', 'conv_dw_ffma_kernel'),
                ('conv_s2d', 'conv_dx_ffma_kernel'))
 
 
@@ -1017,11 +1019,15 @@ def phase_check_pool_bwd(generator):
   (B=32) and serving (B=64) shapes and pool1 in float32, a VALID case
   whose tail rows and columns no window covers, C=3 and a storage-offset
   (unaligned) case (one channel a thread), a runtime window (3x2 with
-  stride 3x2), all on the scatter route; an odd and two overlapping cases
-  on the gather route; NaN, -0.0 and infinite cotangents; a planted tie
-  whose cotangent must go to the first slot. Each case logs its launch
-  choice (ops/pool.bwd_launch, which the C entry refuses to differ from)
-  and the scatter count must move exactly on the scatter cases."""
+  stride 3x2), all on the scatter route; on the gather route the
+  Grasp2Vec stem's exact geometry at full width (3x3/s2, pads (1, 1), both
+  towers' batches, bf16; the templated instantiation), an odd window
+  (runtime), two more overlapping cases, a tile ragged in rows and columns
+  and C=3 (one channel a thread); NaN, -0.0 and infinite cotangents; a
+  planted tie whose cotangent must go to the first slot. Each case logs
+  its launch choice (ops/pool.bwd_launch, which the C entry refuses to
+  differ from) and the scatter count must move exactly on the scatter
+  cases."""
   cases = [(f'{name}_b{shape[0]}', shape, window, strides, 'SAME',
             torch.bfloat16, 0)
            for pools in (TRAIN_POOLS, POOLS)
@@ -1041,6 +1047,14 @@ def phase_check_pool_bwd(generator):
             ('overlap_f32', (4, 23, 23, 64), (3, 3), (2, 2), 'SAME',
              torch.float32, 0),
             ('overlap_bf16', (8, 79, 79, 64), (3, 3), (2, 2), 'SAME',
+             torch.bfloat16, 0),
+            ('stem_b16_bf16', (GRASP2VEC_BATCH, 236, 236, 64), STEM_WINDOW,
+             STEM_STRIDES, STEM_PADS, torch.bfloat16, 0),
+            ('stem_b32_bf16', (2 * GRASP2VEC_BATCH, 236, 236, 64),
+             STEM_WINDOW, STEM_STRIDES, STEM_PADS, torch.bfloat16, 0),
+            ('gather_ragged_f32', (3, 27, 37, 64), (3, 3), (2, 2), 'SAME',
+             torch.float32, 0),
+            ('gather_c3_bf16', (2, 13, 11, 3), (3, 3), (2, 2), 'SAME',
              torch.bfloat16, 0)]
   routes = set()
   for name, shape, window, strides, padding, dtype, offset in cases:
@@ -1056,7 +1070,7 @@ def phase_check_pool_bwd(generator):
       buffer[offset:].copy_(g.flatten())
       g = buffer[offset:].view(g.shape)
     launch = pool.bwd_launch(shape, window, strides, pads,
-                             aligned=g.data_ptr() % 16 == 0)
+                             aligned=g.data_ptr() % 16 == 0, dtype=dtype)
     scatter = pool.pool_bwd.scatter_launches
     got = pool.pool_bwd(g, slot, shape, window, strides, pads)
     scatter = pool.pool_bwd.scatter_launches - scatter
@@ -1072,11 +1086,15 @@ def phase_check_pool_bwd(generator):
         f'strides {strides} {padding}: bit for bit (route '
         f'{launch["route"]}, {launch["vec"]} channel(s) a thread, '
         f'{64 if launch["wide"] else 32}-bit offsets'
-        + (f', {"templated" if launch["templated"] else "runtime"} window'
-           if launch['route'] == pool.ROUTE_SCATTER else '') + ')')
+        + f', {"templated" if launch["templated"] else "runtime"} window'
+        + (f', tiles {launch["tile"]} x {launch["groups_per_span"]} channel '
+           f'groups, halo {launch["halo"]}, grid {launch["grid"]}, '
+           f'{launch["smem"]} bytes of shared memory'
+           if launch['route'] == pool.ROUTE_GATHER else '') + ')')
     del x, slot, g, got, want
   if not {(pool.ROUTE_SCATTER, 8, 1), (pool.ROUTE_SCATTER, 1, 1),
-          (pool.ROUTE_SCATTER, 8, 0), (pool.ROUTE_GATHER, 8, 0)} <= routes:
+          (pool.ROUTE_SCATTER, 8, 0), (pool.ROUTE_GATHER, 8, 0),
+          (pool.ROUTE_GATHER, 8, 1), (pool.ROUTE_GATHER, 1, 1)} <= routes:
     raise AssertionError(f'pool_bwd checks took only {routes}')
   for dtype in (torch.bfloat16, torch.float32):
     tie = torch.zeros((1, 4, 4, 8), dtype=dtype, device='cuda')
@@ -4443,13 +4461,24 @@ def conv_float32_timing(record, card, generator, patch):
   pixels = TRAIN_BATCH * 236 * 236
   nbytes = 4 * (np.prod(TRAIN_CONV1_X) + np.prod(CONV1_W) + g.numel())
   ops = 2 * pixels * patch * CONV1_W[3]
+  dw = lambda: conv_s2d.conv_s2d_dw(x, g, CONV1_W, (2, 2), pads)
   float32_timing(
-      record, card, 'conv_s2d_dw_float32',
-      lambda: conv_s2d.conv_s2d_dw(x, g, CONV1_W, (2, 2), pads),
+      record, card, 'conv_s2d_dw_float32', dw,
       lambda: conv_s2d.plain_conv2d_dw(x, g, CONV1_W, (2, 2), pads),
       lambda: torch.nn.grad.conv2d_weight(x_cl, w_cl.shape, g_cl, stride=2,
                                           padding=2),
       'torch.nn.grad.conv2d_weight', nbytes, ops)
+  # The two passes apart (profiler rows, L2 flushed before the call).
+  first = kernel_device_ms(dw, ('conv_dw_ffma_kernel',))
+  second = kernel_device_ms(dw, ('conv_dw_reduce_kernel',))
+  bound = 1e3 * ops / F32_FLOP_PER_S
+  runs = conv_s2d.dw_plan(TRAIN_CONV1_X, CONV1_W, (2, 2), pads,
+                          torch.float32)['chunks']
+  log(f'time conv_s2d_dw_float32 by pass (profiler): conv_dw_ffma_kernel '
+      f'{device_text(first)}'
+      + (f' ({100 * bound / first:.1f}% of the FFMA bound)' if first else '')
+      + f', conv_dw_reduce_kernel {device_text(second)} over {runs} '
+      f'partials; {card}')
   float32_timing(
       record, card, 'conv_s2d_dx_float32',
       lambda: conv_s2d.conv_s2d_dx(g, w, TRAIN_CONV1_X, (2, 2), pads),
@@ -4519,6 +4548,11 @@ def stem_pool_timing(record, generator):
           f'{STEM_STRIDES} pads {STEM_PADS}: kernel {ms:.4f} ms, plain '
           f'{plain:.4f} ms, {lib_name} {lib:.4f} ms, '
           f'{bound_text(nbytes, windows)}')
+      if entry == 'pool_bwd_gather':
+        device = kernel_device_ms(kernel_fn, ('pool_bwd_gather_kernel',))
+        log(f'time {entry} {name} by kernel (profiler, L2 flushed): '
+            f'pool_bwd_gather_kernel {device_text(device)}'
+            + (f', {nbytes / device / 1e6:.1f} GB/s' if device else ''))
       timing_entry(record, entry, ms, plain, lib, nbytes, windows)
     del x, out, slot, lib_vals, indices, g
   for entry in ('pool_fwd_stem', 'pool_bwd_gather'):
@@ -4639,7 +4673,8 @@ def phase_timing(generator, errors, launches, card):
       'pool_bwd': ('tensor2robot_tpu_torch/ops/csrc/pool.cu',
                    'tensor2robot_tpu/ops/pool.py:284'),
       # The Grasp2Vec stem's overlapping 3x3/s2 pool: the forward's padded
-      # 3x3 instantiation and the backward's gather route (pool_bwd_kernel).
+      # 3x3 instantiation and the backward's gather route
+      # (pool_bwd_gather_kernel, its 3x3/s2 instantiation).
       'pool_fwd_stem': ('tensor2robot_tpu_torch/ops/csrc/pool.cu',
                         'tensor2robot_tpu/ops/pool.py:258'),
       'pool_bwd_gather': ('tensor2robot_tpu_torch/ops/csrc/pool.cu',
@@ -4651,8 +4686,8 @@ def phase_timing(generator, errors, launches, card):
       'conv_s2d_dx': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
                       'tensor2robot_tpu/ops/conv_s2d.py:269'),
       # conv1's float32 routes on the CUDA cores (conv_fwd_ffma_kernel,
-      # conv_dw_partial_kernel + conv_dw_reduce_kernel,
-      # conv_dx_ffma_kernel), launched by the float32 critic's paths.
+      # conv_dw_ffma_kernel + conv_dw_reduce_kernel, conv_dx_ffma_kernel),
+      # launched by the float32 critic's paths.
       'conv_s2d_fwd_float32': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',
                                'tensor2robot_tpu/ops/conv_s2d.py:223'),
       'conv_s2d_dw_float32': ('tensor2robot_tpu_torch/ops/csrc/conv_s2d.cu',

@@ -52,7 +52,7 @@ _SIGNATURES = {
                         [ctypes.c_void_p],
     't2r_conv_s2d_fwd_mma': [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 +
                             [ctypes.c_void_p],
-    't2r_conv_s2d_dw': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 +
+    't2r_conv_s2d_dw': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 +
                        [ctypes.c_void_p],
     't2r_conv_s2d_dw_mma': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 +
                            [ctypes.c_void_p],
@@ -73,10 +73,10 @@ _TILE_PIXELS = 64
 # one block each, and its second pass adds the runs' float32 partials in
 # order. The split depends on the shapes alone, never on the card, so dW
 # repeats bit for bit. The most runs fill one wave of an H100's 132 SMs:
-# float32 (CUDA cores, 74 KB of shared memory at conv1) fits three blocks
-# on an SM, bfloat16 (tensor cores, 50 KB) four. :func:`dw_plan` makes the
-# split for both kernels, and each C entry point checks it.
-_DW_CHUNKS = 396
+# both kernels run four blocks on an SM (bfloat16 on the tensor cores, 50
+# KB of shared memory at conv1; float32 on the CUDA cores, 40 KB and its
+# registers). :func:`dw_plan` makes the split for both kernels, and each C
+# entry point checks it.
 _DW_MMA_CHUNKS = 528
 # The bfloat16 dW block (kMma* in csrc/conv_s2d.cu): an output tile of up
 # to 128 taps x 64 channels; per stage a [64, taps + 8] patch tile and a
@@ -133,6 +133,17 @@ _DXF_STAGES = 2
 _DXF_BLOCKS_PER_SM = 2
 _DXF_SMEM_BUDGET = (_SM_SHARED_BYTES // _DXF_BLOCKS_PER_SM -
                     _BLOCK_RESERVED_BYTES)
+# The float32 dW (kDwf* in csrc/conv_s2d.cu): blocks of 12 tap groups x 8
+# lanes; a group owns up to 9 taps of one window row and phase, a lane 8 of
+# the block's 64 channels; tiles of up to 32 pixels of one output row,
+# three stages of the tile's kh window rows of x and its cotangent; four
+# blocks an SM.
+_DWF_GROUPS = 12
+_DWF_CHANNELS = 64
+_DWF_TAPS = 9
+_DWF_PIX = 32
+_DWF_STAGES = 3
+_DWF_BLOCKS_PER_SM = 4
 ROUTE_TENSOR_CORE = 'tensor_core'
 ROUTE_CUDA_CORE = 'cuda_core'
 
@@ -151,13 +162,16 @@ def _dw_mma_tiles(patch: int, cout: int) -> Tuple[int, int, int]:
 
 
 def _dw_smem(patch: int, cout: int, dtype: torch.dtype) -> int:
-  """Shared memory of a dW first-pass block."""
+  """The shared memory by which ``_plan`` budgets dW: a bfloat16 first-pass
+  block's; for float32 a fixed rule, 4 * (Kp * Cp + 64 * (Kp + Cp)) + 1024
+  + 12 * Kp bytes with the taps and channels rounded up to 4, which sets
+  which problems (and so which models' convs) take the kernels. The
+  float32 kernel's own tiles (:func:`_dw_ffma`) fit every problem under
+  it."""
   if dtype == torch.bfloat16:
     taps = _dw_mma_tiles(patch, cout)[0]
     return 2 * _MMA_STAGES * _TILE_PIXELS * (
         taps + _MMA_ROW_PAD + _MMA_CHANNELS + _MMA_ROW_PAD) + 16 * taps
-  # float32: the accumulator and the staging tiles, rows padded to 4, then
-  # the pixel and tap tables.
   kp, cp = _cdiv(patch, 4) * 4, _cdiv(cout, 4) * 4
   return 4 * (kp * cp + _TILE_PIXELS * (kp + cp)) + 16 * _TILE_PIXELS + 12 * kp
 
@@ -202,6 +216,45 @@ def _fwd_ffma(p: dict, batch: int) -> Optional[dict]:
               cols=cols, span=cols * cin, ls=ls, stage_floats=rows * ls,
               grid=min(num_tiles, _SMS * _per_sm(smem, _FFMA_BLOCKS_PER_SM)),
               smem=smem)
+
+
+def _dw_groups_per_row(cin: int, kw: int, sw: int) -> int:
+  """A window row's tap groups: each phase's taps, 9 a group."""
+  return sum(_cdiv(cin * _cdiv(kw - ph, sw), _DWF_TAPS)
+             for ph in range(min(sw, kw)))
+
+
+def _dw_ffma(p: dict, batch: int) -> dict:
+  """The float32 dW's plan, as ``dw_ffma_plan`` in ``csrc/conv_s2d.cu``
+  makes it (see :func:`dw_plan`)."""
+  cin, kh, kw, sw, oh, ow, cout = (p['cin'], p['kh'], p['kw'], p['sw'],
+                                   p['oh'], p['ow'], p['cout'])
+  groups = kh * _dw_groups_per_row(cin, kw, sw)
+  group_tiles, channel_tiles = (_cdiv(groups, _DWF_GROUPS),
+                                _cdiv(cout, _DWF_CHANNELS))
+  pix = _DWF_PIX
+  while True:
+    # Up to 3 floats ahead of the span keep its copies 16-byte aligned.
+    ls = _cdiv(((pix - 1) * sw + kw) * cin + 3, 4) * 4
+    stage = kh * ls + pix * _DWF_CHANNELS
+    smem = 4 * _DWF_STAGES * stage
+    # One pixel a tile always fits: kh * kw * Cin <= 512.
+    if smem <= _MAX_SMEM_BYTES or pix == 1:
+      break
+    pix //= 2
+  segs = _cdiv(ow, pix)
+  num_tiles = batch * oh * segs
+  runs = max(1, _SMS * _per_sm(smem, _DWF_BLOCKS_PER_SM) //
+             (group_tiles * channel_tiles))
+  tiles_per_chunk = _cdiv(num_tiles, runs)
+  chunks = _cdiv(num_tiles, tiles_per_chunk)
+  return dict(route=ROUTE_CUDA_CORE, num_pixels=batch * oh * ow,
+              tile_pixels=pix, segs=segs, num_tiles=num_tiles,
+              tiles_per_chunk=tiles_per_chunk, chunks=chunks,
+              templated=(cin, sw, kw) == (3, 2, 6) and pix % 4 == 0,
+              groups=groups, group_tiles=group_tiles,
+              channel_tiles=channel_tiles, ls=ls, stage_floats=stage,
+              grid=(chunks, group_tiles, channel_tiles), smem=smem)
 
 
 def _dx_ffma(p: dict, batch: int) -> Optional[dict]:
@@ -361,13 +414,25 @@ def _fwd_split(p: dict, batch: int, dtype: torch.dtype) -> dict:
 def dw_plan(xshape: Sequence[int], wshape: Sequence[int],
             strides: Tuple[int, int], pads: Pads, dtype: torch.dtype) -> dict:
   """How :func:`conv_s2d_dw` splits a problem, from the shapes and dtype
-  alone: the route (bfloat16 -> the tensor-core kernel, float32 -> the
-  CUDA-core kernel), the pixels, their 64-pixel tiles, the runs (``chunks``
-  blocks of ``tiles_per_chunk`` tiles, the last one ragged) and, on the
-  tensor-core route, the output tiles (``tap_tiles`` of ``tile_taps`` taps
-  x ``channel_tiles`` of 64 channels, with the taps padded to ``k_pad`` and
-  the channels' MMA tiles to ``cout_pad``). ``smem`` is a block's shared
-  memory in bytes. Raises for a problem the kernels do not take."""
+  alone, as the C planners decide it (each C entry refuses any other): the
+  route (bfloat16 -> the tensor-core kernel, float32 -> the CUDA-core
+  kernel), the pixels, their tiles of ``tile_pixels`` (``num_tiles``), the
+  runs (``chunks`` blocks of ``tiles_per_chunk`` tiles, the last one
+  ragged) and ``smem``, a block's shared memory in bytes.
+
+  On the tensor-core route a tile is 64 consecutive pixels, and the plan
+  also gives the output tiles (``tap_tiles`` of ``tile_taps`` taps x
+  ``channel_tiles`` of 64 channels, with the taps padded to ``k_pad`` and
+  the channels' MMA tiles to ``cout_pad``). On the CUDA-core route
+  (``dw_ffma_plan``) a tile is a segment of up to ``tile_pixels`` pixels of
+  one output row, ``segs`` a row; the taps fall into ``groups`` tap groups
+  (a window row's phase, at most 9 taps a group), 12 a block over
+  ``group_tiles``, the channels into ``channel_tiles`` of 64; a stage holds
+  kh rows of ``ls`` floats of x and the tile's cotangent
+  (``stage_floats`` in all); ``templated`` says whether Cin, sw and kw are
+  conv1's (3, 2, 6), which runs an instantiation that knows them at
+  compile time; ``grid`` is (runs, group tiles, channel tiles). Raises for
+  a problem the kernels do not take."""
   p = _plan(tuple(xshape), tuple(wshape), tuple(strides), pads, dtype, dtype)
   if p is None:
     raise ValueError(
@@ -378,22 +443,21 @@ def dw_plan(xshape: Sequence[int], wshape: Sequence[int],
 
 def _dw_split(p: dict, batch: int, dtype: torch.dtype) -> dict:
   """:func:`dw_plan` of a problem that ``_plan`` has taken."""
-  tensor_core = dtype == torch.bfloat16
+  if dtype != torch.bfloat16:
+    return _dw_ffma(p, batch)
   num_pixels = batch * p['oh'] * p['ow']
   num_tiles = _cdiv(num_pixels, _TILE_PIXELS)
-  tiles_per_chunk = _cdiv(num_tiles,
-                          _DW_MMA_CHUNKS if tensor_core else _DW_CHUNKS)
-  plan = dict(route=ROUTE_TENSOR_CORE if tensor_core else ROUTE_CUDA_CORE,
-              num_pixels=num_pixels, tile_pixels=_TILE_PIXELS,
-              num_tiles=num_tiles, tiles_per_chunk=tiles_per_chunk,
+  tiles_per_chunk = _cdiv(num_tiles, _DW_MMA_CHUNKS)
+  tile_taps, tap_tiles, channel_tiles = _dw_mma_tiles(p['patch'], p['cout'])
+  return dict(route=ROUTE_TENSOR_CORE, num_pixels=num_pixels,
+              tile_pixels=_TILE_PIXELS, num_tiles=num_tiles,
+              tiles_per_chunk=tiles_per_chunk,
               chunks=_cdiv(num_tiles, tiles_per_chunk),
-              smem=_dw_smem(p['patch'], p['cout'], dtype))
-  if tensor_core:
-    tile_taps, tap_tiles, channel_tiles = _dw_mma_tiles(p['patch'], p['cout'])
-    plan.update(tile_taps=tile_taps, tap_tiles=tap_tiles,
-                channel_tiles=channel_tiles, k_pad=_cdiv(p['patch'], 16) * 16,
-                cout_pad=_cdiv(p['cout'], 8) * 8)
-  return plan
+              smem=_dw_smem(p['patch'], p['cout'], dtype),
+              tile_taps=tile_taps, tap_tiles=tap_tiles,
+              channel_tiles=channel_tiles,
+              k_pad=_cdiv(p['patch'], 16) * 16,
+              cout_pad=_cdiv(p['cout'], 8) * 8)
 
 
 def dx_plan(xshape: Sequence[int], wshape: Sequence[int],
@@ -584,8 +648,8 @@ def conv_s2d_dw(x: torch.Tensor, g: torch.Tensor, w_shape: Sequence[int],
   shape ``w_shape`` (HWIO) in their dtype: the float32 sum rounded once.
   The dtype picks the first pass (:func:`dw_plan`): bfloat16 runs on the
   tensor cores (counted in ``tensor_core_launches`` too), float32 on the
-  CUDA cores. Raises on any other input, and when a launch reports an
-  error.
+  CUDA cores (``conv_dw_ffma_kernel``). Raises on any other input, and
+  when a launch reports an error.
   """
   _cuda_operands('conv_s2d_dw', x, g)
   p = _require_grad_plan('conv_s2d_dw', x.shape, w_shape, g.shape, strides,
@@ -609,7 +673,9 @@ def conv_s2d_dw(x: torch.Tensor, g: torch.Tensor, w_shape: Sequence[int],
           *operands, plan['tile_taps'], plan['tap_tiles'],
           plan['channel_tiles'], stream)
     else:
-      status = lib.t2r_conv_s2d_dw(*operands, stream)
+      status = lib.t2r_conv_s2d_dw(*operands, plan['tile_pixels'],
+                                   int(plan['templated']), plan['smem'],
+                                   stream)
   _build.check(lib, status, 'conv_s2d_dw')
   conv_s2d_dw.launches += 1
   conv_s2d_dw.tensor_core_launches += tensor_core

@@ -62,7 +62,9 @@
 // What bounds it on an H100: bytes. It reads g and the int32 slots once
 // and writes dx once. At the QT-Opt pool1 shape (g [32,79,79,64] bf16 ->
 // dx [32,236,236,64]) that is 25.6 MB + 51.1 MB read and 228.1 MB written:
-// about 0.091 ms at 3.35 TB/s, most of it dx's stores.
+// about 0.091 ms at 3.35 TB/s, most of it dx's stores. At the Grasp2Vec
+// stem (g [32,118,118,64] bf16 -> dx [32,236,236,64], 3x3/s2) it is 57.0
+// MB + 114.1 MB read and 228.1 MB written: 0.1192 ms.
 //
 // Two routes, chosen by launch_bwd (mirrored by ops/pool.py bwd_launch,
 // which the C entry refuses to differ from):
@@ -79,14 +81,25 @@
 //   run time. Padded positions are skipped. Image rows and columns that no
 //   window covers (VALID tails, which the TPU kernel zero-pads) are
 //   written as +0 by the threads of the last window row and column.
-// - Gather (overlapping windows). One thread per input pixel and 8
-//   neighbouring channels: it finds the windows that cover it from the
-//   geometry, reads their slots, reads a cotangent only when a slot names
-//   its position, and adds in (oh, ow) order. Every dx element is written
-//   once: no atomics, no zero-fill pass. The TPU kernel interleaved whole
-//   routed planes in VMEM instead; here the window search is a few integer
-//   ops per thread and the neighbouring input pixels of one window hit the
-//   same g and slot lines in L1.
+// - Gather (overlapping windows; the Grasp2Vec stem's 3x3/s2). The input
+//   pixels fall into sh x sw phase blocks, and the pixels of one block are
+//   covered only by the same ceil(kh/sh) x ceil(kw/sw) windows (2 x 2 at
+//   the stem). A thread owns one block x 8 channels: it reads those
+//   windows' slots and cotangent once, adds each into the pixels whose
+//   position its slot names, in ascending (oh, ow) order, and stores its
+//   pixels in 16-byte vectors, every dx element once, no atomics, no
+//   zero-fill pass. Persistent blocks on a 2-D grid (x: a tile column and
+//   channel span, y: strided over the batch's tile rows, no 64-bit
+//   division in the narrow instantiations) walk tiles of 4 x 8 blocks x 64
+//   channels at the stem; each tile's windows, with a halo of
+//   ceil(kh/sh) - 1 rows and ceil(kw/sw) - 1 columns, are staged with
+//   16-byte cp.async into shared memory (each window's slots and g leave
+//   device memory about once, not once a covered pixel), two stages, the
+//   next tile's copies issued before this tile's adds. The 3x3/s2 window
+//   is a template parameter; other windows run the same loops at run
+//   time, and a window whose halo would not fit a block is read from
+//   device memory instead. The TPU kernel interleaved whole routed planes
+//   in VMEM.
 // Both routes take channel counts that are not a multiple of 8, or
 // unaligned tensors, one channel a thread, and 64-bit offsets past 2**31
 // elements.
@@ -353,58 +366,6 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
-template <typename T, typename Index, int kVec>
-__global__ void pool_bwd_kernel(const T* __restrict__ g,
-                                const int32_t* __restrict__ slot,
-                                T* __restrict__ dx, int H, int W, int C,
-                                int kh, int kw, int sh, int sw, int plh,
-                                int plw, int OH, int OW, Index total) {
-  const int groups = C / kVec;
-  for (Index idx = blockIdx.x * (Index)blockDim.x + threadIdx.x; idx < total;
-       idx += (Index)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % groups) * kVec;
-    Index t = idx / groups;
-    const int iw = (int)(t % W);
-    t /= W;
-    const int ih = (int)(t % H);
-    const Index b = t / H;
-    // Position in the padded extent; window (oh, ow) covers rows
-    // [oh*sh, oh*sh + kh) and columns [ow*sw, ow*sw + kw) of it.
-    const int ph = ih + plh;
-    const int pw = iw + plw;
-    const int lo_h = ph - kh + 1;
-    const int lo_w = pw - kw + 1;
-    const int oh0 = lo_h <= 0 ? 0 : (lo_h + sh - 1) / sh;
-    const int ow0 = lo_w <= 0 ? 0 : (lo_w + sw - 1) / sw;
-    const int oh1 = min(ph / sh, OH - 1);
-    const int ow1 = min(pw / sw, OW - 1);
-    const Index gb = b * OH * OW * C + c;
-    float acc[kVec];
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
-    for (int oh = oh0; oh <= oh1; ++oh) {
-      const int dy = ph - oh * sh;
-      for (int ow = ow0; ow <= ow1; ++ow) {
-        const int s = dy * kw + (pw - ow * sw);
-        const Index o = gb + ((Index)oh * OW + ow) * C;
-        int sl[kVec];
-        load_vec<kVec>(slot + o, sl);
-        bool any = false;
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) any |= sl[i] == s;
-        if (!any) continue;
-        float v[kVec];
-        load_vec<kVec>(g + o, v);
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) {
-          if (sl[i] == s) acc[i] = round_to(acc[i] + v[i], g);
-        }
-      }
-    }
-    store_vec<kVec>(dx + idx * kVec, acc);
-  }
-}
-
 // A window's cotangent, kVec channels as loaded, kept as raw bits: the
 // scatter route stores them unchanged (NaN payloads and -0.0 included) in
 // the lanes whose slot names a position, and +0 (all bits clear) in the
@@ -592,38 +553,373 @@ int launch_scatter_window(const void* g, const void* slot, void* dx, int B,
       g, slot, dx, B, H, W, C, kh, kw, plh, plw, OH, OW, stream);
 }
 
-// Threads of a gather-route block, and its 1-D grid's cap.
+// The gather route's block and tile (pool_bwd_gather_kernel); ops/pool.py
+// bwd_launch mirrors these numbers. A block's threads cover a tile of
+// phase blocks (an sh x sw block of input pixels, the pixels whose
+// covering windows lie in the same (hr + 1) x (hc + 1) windows) x a span
+// of channel groups.
 constexpr int kGatherThreads = 256;
-constexpr int kGatherMaxBlocksLog2 = 30;
+constexpr int kGatherGroups = 8;       // channel groups a span
+constexpr int kGatherTileCols = 8;     // phase-block columns of a tile
+constexpr int kGatherStages = 2;
+constexpr int kGatherBlocksPerSm = 3;  // __launch_bounds__ minimum
+constexpr int kGatherMaxGridY = 65535;
+constexpr int kSms = 132;              // an H100 SXM
+constexpr int kSmSharedBytes = 233472;
+constexpr int kBlockReservedBytes = 1024;
+constexpr int kMaxBlockSharedBytes = 232448;
+constexpr int kGatherStageBudget =
+    kSmSharedBytes / kGatherBlocksPerSm - kBlockReservedBytes;
 
-template <typename T, typename Index, int kVec>
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// How pool_bwd_gather_kernel runs a problem. Phase block (m, n) holds the
+// padded rows m * sh .. m * sh + sh - 1 and columns n * sw .. (the input
+// pixel (ih, iw) lies in block ((ih + plh) / sh, (iw + plw) / sw)); its
+// pixels are covered only by windows (oh, ow) with oh in [m - hr, m] and
+// ow in [n - hc, n], hr = ceil(kh / sh) - 1, hc = ceil(kw / sw) - 1. The
+// blocks of the image, rows m_lo .. and columns n_lo .., go in tiles of tr
+// x tc blocks; thread t of a block owns block t / cgs of the tile and
+// channel group t % cgs of its span. A stage holds the tile's windows
+// with their halo, (tr + hr) x (tc + hc), the span's cotangent (g_bytes,
+// rounded up to 16) and then its int32 slots. Where even a 1 x 1 tile's
+// stage would not fit a block, nothing is staged (staged = 0) and the
+// windows are read from global memory.
+struct GatherPlan {
+  int cgs, spans, hr, hc, m_lo, n_lo, block_rows, block_cols, tr, tc,
+      row_tiles, col_tiles, staged, g_bytes, stage_bytes, smem, grid_x,
+      grid_y;
+};
+
+GatherPlan gather_plan(int B, int H, int W, int C, int kh, int kw, int sh,
+                       int sw, int plh, int plw, int vec, int elem_bytes) {
+  GatherPlan p = {};
+  const int groups = C / vec;
+  p.cgs = groups < kGatherGroups ? groups : kGatherGroups;
+  p.spans = cdiv(groups, p.cgs);
+  p.hr = cdiv(kh, sh) - 1;
+  p.hc = cdiv(kw, sw) - 1;
+  p.m_lo = plh / sh;
+  p.n_lo = plw / sw;
+  p.block_rows = (plh + H - 1) / sh - p.m_lo + 1;
+  p.block_cols = (plw + W - 1) / sw - p.n_lo + 1;
+  p.tc = p.block_cols < kGatherTileCols ? p.block_cols : kGatherTileCols;
+  p.tr = kGatherThreads / p.cgs / p.tc;
+  if (p.tr > p.block_rows) p.tr = p.block_rows;
+  // The tile shrinks (rows, then columns) until two stages fit a third of
+  // an SM's shared memory.
+  int64_t g_bytes, stage;
+  for (;;) {
+    const int64_t elems =
+        (int64_t)(p.tr + p.hr) * (p.tc + p.hc) * p.cgs * vec;
+    g_bytes = (elems * elem_bytes + 15) / 16 * 16;
+    stage = g_bytes + elems * 4;
+    if (kGatherStages * stage <= kGatherStageBudget) break;
+    if (p.tr > 1) {
+      p.tr = cdiv(p.tr, 2);
+    } else if (p.tc > 1) {
+      p.tc = cdiv(p.tc, 2);
+    } else {
+      break;
+    }
+  }
+  p.staged = kGatherStages * stage <= kMaxBlockSharedBytes;
+  if (p.staged) {
+    p.g_bytes = (int)g_bytes;
+    p.stage_bytes = (int)stage;
+    p.smem = kGatherStages * (int)stage;
+  }
+  p.row_tiles = cdiv(p.block_rows, p.tr);
+  p.col_tiles = cdiv(p.block_cols, p.tc);
+  p.grid_x = p.col_tiles * p.spans;
+  int per_sm = kSmSharedBytes / (p.smem + kBlockReservedBytes);
+  if (per_sm > kGatherBlocksPerSm) per_sm = kGatherBlocksPerSm;
+  int64_t grid_y = (int64_t)kSms * per_sm / p.grid_x;
+  if (grid_y < 1) grid_y = 1;
+  if (grid_y > (int64_t)B * p.row_tiles) grid_y = (int64_t)B * p.row_tiles;
+  if (grid_y > kGatherMaxGridY) grid_y = kGatherMaxGridY;
+  p.grid_y = (int)grid_y;
+  return p;
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// src_bytes = 0 writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+// Waits until at most n of this thread's newest copy groups are pending.
+template <int n>
+__device__ __forceinline__ void cp_async_wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// The gather route, for overlapping windows. kStem: the window is 3x3 with
+// stride 2x2 (the Grasp2Vec stem's) at compile time; else (kh, kw, sh,
+// sw) at run time. Blocks walk the tile rows blockIdx.y, + gridDim.y, ...
+// of their tile column and channel span (blockIdx.x), the next tile's
+// copies issued before this tile's adds.
+template <typename T, typename Index, int kVec, bool kStem>
+__global__ void __launch_bounds__(kGatherThreads, kGatherBlocksPerSm)
+    pool_bwd_gather_kernel(const T* __restrict__ g,
+                           const int32_t* __restrict__ slot,
+                           T* __restrict__ dx, int B, int H, int W, int C,
+                           int kh, int kw, int sh, int sw, int plh, int plw,
+                           int OH, int OW, GatherPlan p) {
+  extern __shared__ __align__(16) unsigned char gather_s[];
+  if constexpr (kStem) {
+    kh = kw = 3;
+    sh = sw = 2;
+  }
+  const int hr = kStem ? 1 : p.hr;
+  const int hc = kStem ? 1 : p.hc;
+  const int groups = C / kVec;
+  const int span = blockIdx.x / p.col_tiles;
+  const int n0 = p.n_lo + (blockIdx.x - span * p.col_tiles) * p.tc;
+  const int span_elems = p.cgs * kVec;
+  const int wcols = p.tc + hc;
+  const int windows = (p.tr + hr) * wcols;
+  const int c_span = span * span_elems;  // the span's first channel
+  const int tid = threadIdx.x;
+  const int cg = tid % p.cgs;
+  const int ur = tid / p.cgs / p.tc;
+  const int uc = tid / p.cgs - ur * p.tc;
+  const int c = c_span + cg * kVec;
+  const bool live = ur < p.tr && span * p.cgs + cg < groups &&
+                    n0 + uc < p.n_lo + p.block_cols;
+  const Index tiles = (Index)B * p.row_tiles;
+
+  // Stages tile row `row`'s windows: window (a, bc) of the stage is (m0 -
+  // hr + a, n0 - hc + bc); outside the output it stages zeros, which no
+  // add reads.
+  auto stage = [&](Index row, int st) {
+    const Index b = row / p.row_tiles;
+    const int m0 = p.m_lo + (int)(row - b * p.row_tiles) * p.tr;
+    T* gs = reinterpret_cast<T*>(gather_s + st * p.stage_bytes);
+    int32_t* ss =
+        reinterpret_cast<int32_t*>(gather_s + st * p.stage_bytes + p.g_bytes);
+    auto at = [&](int w, int& oh, int& ow) {
+      const int a = w / wcols;
+      oh = m0 - hr + a;
+      ow = n0 - hc + (w - a * wcols);
+      return (((Index)b * OH + oh) * OW + ow) * C + c_span;
+    };
+    if constexpr (kVec == 8) {
+      constexpr int kPer = 16 / sizeof(T);  // elements a 16-byte copy
+      const int g_chunks = span_elems / kPer;
+      for (int e = tid; e < windows * g_chunks; e += kGatherThreads) {
+        const int w = e / g_chunks;
+        const int k = e - w * g_chunks;
+        int oh, ow;
+        const Index o = at(w, oh, ow) + k * kPer;
+        const bool ok = (unsigned)oh < (unsigned)OH &&
+                        (unsigned)ow < (unsigned)OW &&
+                        span * p.cgs + k * kPer / kVec < groups;
+        cp_async16(gs + w * span_elems + k * kPer, ok ? g + o : g,
+                   ok ? 16 : 0);
+      }
+      const int s_chunks = span_elems / 4;
+      for (int e = tid; e < windows * s_chunks; e += kGatherThreads) {
+        const int w = e / s_chunks;
+        const int k = e - w * s_chunks;
+        int oh, ow;
+        const Index o = at(w, oh, ow) + 4 * k;
+        const bool ok = (unsigned)oh < (unsigned)OH &&
+                        (unsigned)ow < (unsigned)OW &&
+                        span * p.cgs + 4 * k / kVec < groups;
+        cp_async16(ss + w * span_elems + 4 * k, ok ? slot + o : slot,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < windows * span_elems; e += kGatherThreads) {
+        const int w = e / span_elems;
+        const int k = e - w * span_elems;
+        int oh, ow;
+        const Index o = at(w, oh, ow) + k;
+        const bool ok = (unsigned)oh < (unsigned)OH &&
+                        (unsigned)ow < (unsigned)OW &&
+                        span * p.cgs + k < groups;
+        if (ok) {
+          gs[e] = g[o];
+          ss[e] = slot[o];
+        }
+      }
+    }
+  };
+
+  // The adds of tile row `row`: each live thread's sh x sw pixels, each
+  // summing, from +0, the cotangents of the windows whose slot names it, in
+  // ascending (oh, ow) order, rounded to T after every add; then one store
+  // of its channels per pixel inside the image.
+  auto gather = [&](Index row, int st) {
+    const Index b = row / p.row_tiles;
+    const int m = p.m_lo + (int)(row - b * p.row_tiles) * p.tr + ur;
+    const int n = n0 + uc;
+    if (!live || m >= p.m_lo + p.block_rows) return;
+    // Window (oh, ow) = (m - hr + a, n - hc + bc) at offset base + a * rs +
+    // bc * cs of gw and sl.
+    const T* gw = g;
+    const int32_t* sl_w = slot;
+    Index base, rs, cs;
+    if (kStem || p.staged) {
+      gw = reinterpret_cast<const T*>(gather_s + st * p.stage_bytes);
+      sl_w = reinterpret_cast<const int32_t*>(gather_s + st * p.stage_bytes +
+                                              p.g_bytes);
+      base = (ur * wcols + uc) * span_elems + cg * kVec;
+      rs = wcols * span_elems;
+      cs = span_elems;
+    } else {
+      base = (((Index)b * OH + m - hr) * OW + n - hc) * C + c;
+      rs = (Index)OW * C;
+      cs = C;
+    }
+    auto out = [&](int r, int q, const float* acc) {
+      const int ih = m * sh + r - plh;
+      const int iw = n * sw + q - plw;
+      if ((unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W) {
+        store_vec<kVec>(dx + (((Index)b * H + ih) * W + iw) * C + c, acc);
+      }
+    };
+    if constexpr (kStem) {
+      // 2 x 2 pixels, 2 x 2 windows: each window's slots and cotangent read
+      // once, added to the pixels it covers.
+      float acc[4][kVec];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[i][j] = 0.f;
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int oh = m - 1 + a;
+#pragma unroll
+        for (int bc = 0; bc < 2; ++bc) {
+          const int ow = n - 1 + bc;
+          if ((unsigned)oh >= (unsigned)OH || (unsigned)ow >= (unsigned)OW) {
+            continue;
+          }
+          const Index o = base + a * rs + bc * cs;
+          int sl[kVec];
+          float v[kVec];
+          load_vec<kVec>(sl_w + o, sl);
+          load_vec<kVec>(gw + o, v);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int dy = r + 2 * (1 - a);
+              const int dxx = q + 2 * (1 - bc);
+              if (dy >= 3 || dxx >= 3) continue;
+#pragma unroll
+              for (int i = 0; i < kVec; ++i) {
+                if (sl[i] == dy * 3 + dxx) {
+                  acc[2 * r + q][i] = round_to(acc[2 * r + q][i] + v[i], g);
+                }
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) out(r, q, acc[2 * r + q]);
+      }
+    } else {
+      for (int r = 0; r < sh; ++r) {
+        for (int q = 0; q < sw; ++q) {
+          float acc[kVec];
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
+          for (int a = 0; a <= hr; ++a) {
+            const int oh = m - hr + a;
+            const int dy = r + (hr - a) * sh;
+            if (dy >= kh || (unsigned)oh >= (unsigned)OH) continue;
+            for (int bc = 0; bc <= hc; ++bc) {
+              const int ow = n - hc + bc;
+              const int dxx = q + (hc - bc) * sw;
+              if (dxx >= kw || (unsigned)ow >= (unsigned)OW) continue;
+              const int s = dy * kw + dxx;
+              const Index o = base + a * rs + bc * cs;
+              int sl[kVec];
+              load_vec<kVec>(sl_w + o, sl);
+              bool any = false;
+#pragma unroll
+              for (int i = 0; i < kVec; ++i) any |= sl[i] == s;
+              if (!any) continue;
+              float v[kVec];
+              load_vec<kVec>(gw + o, v);
+#pragma unroll
+              for (int i = 0; i < kVec; ++i) {
+                if (sl[i] == s) acc[i] = round_to(acc[i] + v[i], g);
+              }
+            }
+          }
+          out(r, q, acc);
+        }
+      }
+    }
+  };
+
+  const bool staged = kStem || p.staged;
+  Index row = blockIdx.y;
+  if (staged && row < tiles) stage(row, 0);
+  cp_async_commit();
+  for (int st = 0; row < tiles; row += gridDim.y, st ^= 1) {
+    // The next tile's copies go out first; this tile's have landed once
+    // at most the newest group is pending.
+    if (staged && row + gridDim.y < tiles) stage(row + gridDim.y, st ^ 1);
+    cp_async_commit();
+    cp_async_wait_pending<1>();
+    __syncthreads();
+    gather(row, st);
+    // Every thread is done with this stage before it is refilled.
+    __syncthreads();
+  }
+  cp_async_wait_all();
+}
+
+template <typename T, typename Index, int kVec, bool kStem>
 int launch_gather_as(const void* g, const void* slot, void* dx, int B, int H,
                      int W, int C, int kh, int kw, int sh, int sw, int plh,
                      int plw, int OH, int OW, cudaStream_t stream) {
-  const int64_t total = (int64_t)B * H * W * C / kVec;
-  int64_t blocks = (total + kGatherThreads - 1) / kGatherThreads;
-  if (blocks > (int64_t)1 << kGatherMaxBlocksLog2) {
-    blocks = (int64_t)1 << kGatherMaxBlocksLog2;
-  }
-  pool_bwd_kernel<T, Index, kVec>
-      <<<(unsigned)blocks, kGatherThreads, 0, stream>>>(
+  const GatherPlan p = gather_plan(B, H, W, C, kh, kw, sh, sw, plh, plw,
+                                   kVec, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      pool_bwd_gather_kernel<T, Index, kVec, kStem>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  pool_bwd_gather_kernel<T, Index, kVec, kStem>
+      <<<dim3(p.grid_x, p.grid_y), kGatherThreads, p.smem, stream>>>(
           static_cast<const T*>(g), static_cast<const int32_t*>(slot),
-          static_cast<T*>(dx), H, W, C, kh, kw, sh, sw, plh, plw, OH, OW,
-          (Index)total);
+          static_cast<T*>(dx), B, H, W, C, kh, kw, sh, sw, plh, plw, OH, OW,
+          p);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename Index, int kVec>
 int launch_bwd_route(const void* g, const void* slot, void* dx, int B, int H,
                      int W, int C, int kh, int kw, int sh, int sw, int plh,
-                     int plw, int OH, int OW, bool scatter,
+                     int plw, int OH, int OW, bool scatter, bool templated,
                      cudaStream_t stream) {
   if (scatter) {
     return launch_scatter_window<T, Index, kVec>(g, slot, dx, B, H, W, C, kh,
                                                  kw, plh, plw, OH, OW, stream);
   }
-  return launch_gather_as<T, Index, kVec>(g, slot, dx, B, H, W, C, kh, kw, sh,
-                                          sw, plh, plw, OH, OW, stream);
+  if (templated) {
+    return launch_gather_as<T, Index, kVec, true>(
+        g, slot, dx, B, H, W, C, kh, kw, sh, sw, plh, plw, OH, OW, stream);
+  }
+  return launch_gather_as<T, Index, kVec, false>(
+      g, slot, dx, B, H, W, C, kh, kw, sh, sw, plh, plw, OH, OW, stream);
 }
 
 // scatter, vec, wide and templated are the caller's launch choice
@@ -639,29 +935,32 @@ int launch_bwd(const void* g, const void* slot, void* dx, int B, int H,
                       aligned16(dx);
   const bool narrow =
       (int64_t)B * H * W * C < limit && (int64_t)B * OH * OW * C < limit;
+  // The windows with an instantiation of their own: the scatter route's
+  // fixed windows, and the gather route's 3x3 at stride 2.
+  const bool fixed = disjoint ? fixed_window(kh, kw)
+                              : kh == 3 && kw == 3 && sh == 2 && sw == 2;
   if (scatter != (disjoint ? 1 : 0) || vec != (vector ? kFwdVec : 1) ||
-      wide != (narrow ? 0 : 1) ||
-      templated != (disjoint && fixed_window(kh, kw) ? 1 : 0) ||
+      wide != (narrow ? 0 : 1) || templated != (fixed ? 1 : 0) ||
       (disjoint && ((int64_t)B * OH >= limit || (int64_t)OW * C >= limit))) {
     return (int)cudaErrorInvalidValue;
   }
   if (vector && narrow) {
     return launch_bwd_route<T, int32_t, kFwdVec>(g, slot, dx, B, H, W, C, kh,
                                                  kw, sh, sw, plh, plw, OH, OW,
-                                                 disjoint, stream);
+                                                 disjoint, fixed, stream);
   }
   if (vector) {
     return launch_bwd_route<T, int64_t, kFwdVec>(g, slot, dx, B, H, W, C, kh,
                                                  kw, sh, sw, plh, plw, OH, OW,
-                                                 disjoint, stream);
+                                                 disjoint, fixed, stream);
   }
   if (narrow) {
     return launch_bwd_route<T, int32_t, 1>(g, slot, dx, B, H, W, C, kh, kw,
                                            sh, sw, plh, plw, OH, OW, disjoint,
-                                           stream);
+                                           fixed, stream);
   }
   return launch_bwd_route<T, int64_t, 1>(g, slot, dx, B, H, W, C, kh, kw, sh,
-                                         sw, plh, plw, OH, OW, disjoint,
+                                         sw, plh, plw, OH, OW, disjoint, fixed,
                                          stream);
 }
 

@@ -46,15 +46,28 @@ Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 # The forward kernel's launch constants (kFwdThreads, kFwdMaxGridY, kFwdVec
 # and kNarrowIndexBits in csrc/pool.cu) and the windows it instantiates
 # with all taps in flight (fixed_window there). The backward's scatter
-# route shares them; its gather route has 1-D blocks of kGatherThreads, at
-# most 2**kGatherMaxBlocksLog2 of them.
+# route shares them. Its gather route (kGather* there) runs blocks of 256
+# threads over tiles of up to 8 phase-block columns x 64 channels (8
+# channel groups), two stages of the tile's windows, three blocks an SM of
+# an H100 (132 SMs, 233,472 bytes of shared memory, 1,024 reserved a
+# block, 232,448 at most a block); the 3x3/s2 window has an instantiation
+# of its own.
 _FWD_THREADS = 128
 _FWD_MAX_GRID_Y = 65535
 _FWD_VEC = 8
 _NARROW_INDEX_BITS = 31
 _FWD_WINDOWS = ((3, 3), (2, 2))
 _GATHER_THREADS = 256
-_GATHER_MAX_BLOCKS = 2**30
+_GATHER_GROUPS = 8
+_GATHER_TILE_COLS = 8
+_GATHER_STAGES = 2
+_GATHER_BLOCKS_PER_SM = 3
+_GATHER_MAX_GRID_Y = 65535
+_GATHER_WINDOW = ((3, 3), (2, 2))
+_SMS = 132
+_SM_SHARED_BYTES = 233472
+_BLOCK_RESERVED_BYTES = 1024
+_MAX_BLOCK_SHARED_BYTES = 232448
 ROUTE_SCATTER = 'scatter'
 ROUTE_GATHER = 'gather'
 
@@ -163,25 +176,84 @@ def fwd_launch(shape: Sequence[int], window: Tuple[int, int],
       grid=(-(-cols // _FWD_THREADS), min(b * oh, _FWD_MAX_GRID_Y)))
 
 
+def _gather_tiles(b: int, h: int, w: int, c: int, window, strides, pads,
+                  vec: int, itemsize: int) -> dict:
+  """The gather route's tiles, as ``gather_plan`` in ``csrc/pool.cu``
+  makes them (see :func:`bwd_launch`)."""
+  (kh, kw), (sh, sw) = window, strides
+  (plh, _), (plw, _) = pads
+  groups = c // vec
+  cgs = min(_GATHER_GROUPS, groups)
+  hr, hc = -(-kh // sh) - 1, -(-kw // sw) - 1
+  m_lo, n_lo = plh // sh, plw // sw
+  rows = (plh + h - 1) // sh - m_lo + 1
+  cols = (plw + w - 1) // sw - n_lo + 1
+  tc = min(_GATHER_TILE_COLS, cols)
+  tr = min(_GATHER_THREADS // cgs // tc, rows)
+  budget = (_SM_SHARED_BYTES // _GATHER_BLOCKS_PER_SM -
+            _BLOCK_RESERVED_BYTES)
+  while True:
+    elems = (tr + hr) * (tc + hc) * cgs * vec
+    g_bytes = -(-elems * itemsize // 16) * 16
+    stage = g_bytes + 4 * elems
+    if _GATHER_STAGES * stage <= budget:
+      break
+    if tr > 1:
+      tr = -(-tr // 2)
+    elif tc > 1:
+      tc = -(-tc // 2)
+    else:
+      break
+  staged = _GATHER_STAGES * stage <= _MAX_BLOCK_SHARED_BYTES
+  smem = _GATHER_STAGES * stage if staged else 0
+  row_tiles, col_tiles = -(-rows // tr), -(-cols // tc)
+  spans = -(-groups // cgs)
+  grid_x = col_tiles * spans
+  per_sm = min(_GATHER_BLOCKS_PER_SM,
+               _SM_SHARED_BYTES // (smem + _BLOCK_RESERVED_BYTES))
+  grid_y = min(max(1, _SMS * per_sm // grid_x), b * row_tiles,
+               _GATHER_MAX_GRID_Y)
+  return dict(tile=(tr, tc), halo=(hr, hc), groups_per_span=cgs,
+              spans=spans, block_origin=(m_lo, n_lo), blocks=(rows, cols),
+              tiles=(row_tiles, col_tiles), staged=int(staged),
+              g_bytes=g_bytes if staged else 0,
+              stage_bytes=stage if staged else 0, smem=smem,
+              grid=(grid_x, grid_y))
+
+
 def bwd_launch(shape: Sequence[int], window: Tuple[int, int],
                strides: Tuple[int, int], pads: Pads,
-               aligned: bool = True) -> dict:
+               aligned: bool = True,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
   """The backward kernel's launch choice, as ``launch_bwd`` in
   ``csrc/pool.cu`` makes it (the C entry refuses any other).
 
   ``shape`` is the pool's input (dx) shape; ``aligned``: whether the
-  cotangent, slot and dx pointers are all 16-byte aligned. Returns the
-  ``route`` (``'scatter'`` where windows do not overlap, stride ==
-  window: a thread per window stores its kh*kw positions; else
-  ``'gather'``: a thread per input pixel sums the windows that cover it),
-  ``vec`` (8 channels a thread in 16-byte accesses, or 1), ``wide``
-  (64-bit offsets, for tensors of 2**31 elements or more), ``templated``
-  (a scatter window with its own instantiation, all stores unrolled), the
-  block's ``threads`` and the ``grid``: on the scatter route the
-  forward's (x over a window row's (ow, channel group) pairs, y over the
-  B*OH window rows, striding past the cap), on the gather route 1-D over
-  the (pixel, channel group) pairs, capped. Raises where the pool is
-  undefined.
+  cotangent, slot and dx pointers are all 16-byte aligned; ``dtype``: the
+  cotangent's (it sizes the gather route's stages). Returns the ``route``
+  (``'scatter'`` where windows do not overlap, stride == window: a thread
+  per window stores its kh*kw positions; else ``'gather'``), ``vec`` (8
+  channels a thread in 16-byte accesses, or 1), ``wide`` (64-bit offsets,
+  for tensors of 2**31 elements or more), ``templated`` (a window with its
+  own instantiation: 3x3 and 2x2 on the scatter route, all stores
+  unrolled; 3x3 at stride 2 on the gather route), the block's ``threads``
+  and the ``grid``. On the scatter route the grid is the forward's (x over
+  a window row's (ow, channel group) pairs, y over the B*OH window rows,
+  striding past the cap).
+
+  On the gather route the input pixels fall into sh x sw phase blocks,
+  block (m, n) holding padded rows m*sh .. and columns n*sw ..; a block's
+  pixels are covered only by windows (m - hr .. m, n - hc .. n), ``halo``
+  = (hr, hc) = (ceil(kh/sh) - 1, ceil(kw/sw) - 1). A thread owns one
+  block x ``vec`` channels; the image's ``blocks`` (rows, columns, from
+  ``block_origin``) go in tiles of ``tile`` blocks (``tiles`` an image) x
+  a span of ``groups_per_span`` channel groups (``spans`` of them). A
+  stage holds a tile's windows with the halo: ``g_bytes`` of cotangent,
+  then the int32 slots, ``stage_bytes`` in all, two stages, ``smem`` a
+  block; ``staged`` is 0 where even a 1 x 1 tile would not fit a block
+  (the windows are then read from device memory). The ``grid`` is (tile
+  columns x spans, persistent blocks striding over the B x tile rows).
+  Raises where the pool is undefined.
   """
   b, h, w, c = (int(d) for d in shape)
   plan = _plan((b, h, w, c), tuple(window), tuple(strides), pads,
@@ -200,17 +272,17 @@ def bwd_launch(shape: Sequence[int], window: Tuple[int, int],
   launch = dict(
       route=ROUTE_SCATTER if scatter else ROUTE_GATHER, vec=vec,
       wide=int(b * h * w * c >= limit or b * oh * ow * c >= limit),
-      templated=int(scatter and tuple(window) in _FWD_WINDOWS))
+      templated=int(tuple(window) in _FWD_WINDOWS if scatter else
+                    (tuple(window), tuple(strides)) == _GATHER_WINDOW))
   if scatter:
     cols = ow * (c // vec)
     launch.update(threads=_FWD_THREADS,
                   grid=(-(-cols // _FWD_THREADS), min(b * oh,
                                                       _FWD_MAX_GRID_Y)))
   else:
-    total = b * h * w * c // vec
     launch.update(threads=_GATHER_THREADS,
-                  grid=(min(-(-total // _GATHER_THREADS),
-                            _GATHER_MAX_BLOCKS),))
+                  **_gather_tiles(b, h, w, c, window, strides, pads, vec,
+                                  dtype.itemsize))
   return launch
 
 
@@ -322,7 +394,7 @@ def pool_bwd(g: torch.Tensor, slot: torch.Tensor, x_shape: Sequence[int],
         f'window {window} strides {strides} pads {pads}.')
   dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
   launch = bwd_launch(x_shape, window, strides, pads,
-                      aligned=_aligned(g, slot, dx))
+                      aligned=_aligned(g, slot, dx), dtype=g.dtype)
   scatter = launch['route'] == ROUTE_SCATTER
   lib = _build.load('pool', _SIGNATURES)
   with torch.cuda.device(g.device):

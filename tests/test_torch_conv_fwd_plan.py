@@ -168,10 +168,10 @@ def test_plan_does_not_ask_the_device(monkeypatch):
 
 
 def test_is_supported_budgets_the_forward_for_its_dtype():
-  """A 10x10 conv of 5 channels (K = 500) to 64: float32 needs 279,408
-  bytes for its dW block (the [500, 64] accumulator, the staging tiles and
-  tables) and is refused; bfloat16 stages 512 padded taps in 212,992 bytes
-  and is taken."""
+  """A 10x10 conv of 5 channels (K = 500) to 64: float32's dW budget
+  (``_dw_smem``'s fixed rule: a [500, 64] accumulator, staging tiles and
+  tables) is 279,408 bytes and the problem is refused; bfloat16 stages 512
+  padded taps in 212,992 bytes and is taken."""
   args = ((1, 40, 40, 5), (10, 10, 5, 64), (2, 2), 'SAME')
   assert conv_s2d.is_supported(*args, torch.bfloat16)
   assert not conv_s2d.is_supported(*args, torch.float32)

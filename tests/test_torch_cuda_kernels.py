@@ -67,6 +67,9 @@ CONV_CASES = [
     # 35,340 pixels: a ragged last 64-pixel tile, and more tiles than dW
     # has runs, so runs of 2 tiles with a ragged last run of 1.
     ('ragged_runs', (4, 186, 190, 3), (6, 6, 3, 64), (2, 2), 'SAME'),
+    # float32 dW: 3 tiles a row, the last of 31 pixels, and 837 tiles in
+    # runs of 2 with a ragged last run of 1.
+    ('ragged_runs_f32', (3, 186, 190, 3), (6, 6, 3, 64), (2, 2), 'SAME'),
     # Cout not a multiple of 8 and an odd Cin*W: bf16 dW stages both the
     # cotangent and the patch element by element.
     ('cout5', (2, 13, 11, 3), (4, 4, 3, 5), (2, 2), 'SAME'),
@@ -311,6 +314,47 @@ def test_pool_bwd_scatter_instantiations_bitwise(device, name, shape, window,
   assert _same_bits(got, want)
 
 
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('name,shape,window,strides,pads,offset', [
+    ('stem_vector', (2, 236, 236, 64), (3, 3), (2, 2), ((1, 1), (1, 1)), 0),
+    ('stem_ragged_vector', (3, 27, 37, 64), (3, 3), (2, 2), 'SAME', 0),
+    ('stem_unaligned', (2, 41, 43, 64), (3, 3), (2, 2), 'SAME', 1),
+    ('stem_c3', (2, 41, 43, 3), (3, 3), (2, 2), 'SAME', 0),
+    ('runtime_vector', (2, 23, 29, 16), (3, 2), (1, 2), 'SAME', 0),
+    ('runtime_c5', (2, 23, 29, 5), (5, 4), (2, 3), 'SAME', 0),
+    ('runtime_c200', (2, 40, 40, 200), (5, 4), (2, 3), 'SAME', 0),
+], ids=str)
+def test_pool_bwd_gather_instantiations_bitwise(device, name, shape, window,
+                                                strides, pads, offset,
+                                                dtype):
+  """The gather route's vector and scalar instantiations, with the
+  templated 3x3/s2 window and runtime windows (tiles ragged in rows and
+  columns, more channels than one span), bit for bit with NaN, -0.0 and
+  infinite cotangents; a storage offset of the cotangent that breaks
+  16-byte alignment takes the scalar one."""
+  x = _tied(shape, dtype, device)
+  pads = pool.resolve_padding(pads, window, strides, shape[1:3])
+  _, slot = pool.pool_fwd(x, window, strides, pads)
+  g = _tied(tuple(slot.shape), dtype, device, seed=6)
+  g.view(-1)[::13] = float('nan')
+  g.view(-1)[5::17] = -0.0
+  g.view(-1)[7::19] = float('inf')
+  if offset:
+    buffer = torch.empty(g.numel() + offset, dtype=dtype, device=device)
+    buffer[offset:].copy_(g.flatten())
+    g = buffer[offset:].view(g.shape)
+  launch = pool.bwd_launch(shape, window, strides, pads,
+                           aligned=g.data_ptr() % 16 == 0, dtype=dtype)
+  assert launch['route'] == pool.ROUTE_GATHER
+  assert launch['vec'] == (8 if 'vector' in name or 'c200' in name else 1)
+  assert launch['templated'] == name.startswith('stem')
+  got = pool.pool_bwd(g, slot, shape, window, strides, pads)
+  again = pool.pool_bwd(g, slot, shape, window, strides, pads)
+  want = pool.plain_max_pool_bwd(g, slot, shape, window, strides, pads)
+  torch.cuda.synchronize()
+  assert _same_bits(got, want) and _same_bits(again, want)
+
+
 def test_pool_bwd_past_2_31_elements(device):
   """dx of [1, 8200, 8200, 32] bf16 (2.15e9 elements) takes the scatter
   route's 64-bit instantiation and stays bit for bit."""
@@ -482,6 +526,40 @@ def test_conv_ffma_entries_refuse_another_plan(device):
   torch.cuda.synchronize()
   torch.testing.assert_close(out, conv_s2d.plain_conv2d(x, w, strides, pads),
                              rtol=1e-5, atol=1e-5)
+
+
+def test_conv_dw_ffma_entry_refuses_another_plan(device):
+  """t2r_conv_s2d_dw launches only dw_plan's float32 plan: another run
+  length, run count, tile pixels, templated flag or shared memory returns
+  cudaErrorInvalidValue and leaves dW unwritten; the planner's own plan
+  launches, within 1e-5 of the plain version."""
+  lib = _build.load('conv_s2d', conv_s2d._SIGNATURES)  # pylint: disable=protected-access
+  stream = torch.cuda.current_stream(device).cuda_stream
+  xshape, wshape, strides = (2, 48, 70, 3), (6, 6, 3, 64), (2, 2)
+  pads = conv_s2d.resolve_padding('SAME', wshape[:2], strides, xshape[1:3])
+  x = _tied(xshape, torch.float32, device)
+  g = _tied((2, 24, 35, 64), torch.float32, device)
+  plan = conv_s2d.dw_plan(xshape, wshape, strides, pads, torch.float32)
+  partial = torch.empty((plan['chunks'], 108, 64), device=device)
+  dw = torch.full(wshape, 7.0, device=device)
+  geometry = (*xshape, 6, 6, *strides, pads[0][0], pads[1][0], 24, 35, 64)
+  good = (plan['tiles_per_chunk'], plan['chunks'], plan['tile_pixels'],
+          int(plan['templated']), plan['smem'])
+  for i, delta in ((0, 1), (1, -1), (2, -16), (3, -1), (4, 16)):
+    bad = list(good)
+    bad[i] += delta
+    status = lib.t2r_conv_s2d_dw(x.data_ptr(), g.data_ptr(),
+                                 partial.data_ptr(), dw.data_ptr(),
+                                 *geometry, *bad, stream)
+    assert status == 1, (i, bad, status)  # cudaErrorInvalidValue
+  torch.cuda.synchronize()
+  assert bool((dw == 7.0).all())
+  assert lib.t2r_conv_s2d_dw(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                             dw.data_ptr(), *geometry, *good, stream) == 0
+  torch.cuda.synchronize()
+  want = conv_s2d.plain_conv2d_dw(x, g, wshape, strides, pads)
+  scale = float(want.abs().max())
+  torch.testing.assert_close(dw / scale, want / scale, rtol=1e-5, atol=1e-5)
 
 
 def test_autograd_functions_launch_the_backward_kernels(device):
