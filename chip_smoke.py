@@ -305,6 +305,25 @@ Run from the repository root. The phases:
    up to three pairs; a row above the count fails at once); the device
    ms a step of K=1 eager, K=8 graph, K=8 with the device feed and the
    fused K=8 arm;
+13b. SNAIL and Grasp2Vec at ``steps_per_dispatch=8``
+   (``phase_dispatch_models``, after the profile phases, deterministic
+   cuDNN, no plain-version call): SNAIL long-horizon (episode 512, 8 heads
+   of 8, batch 2) and sequential (episode 40, batch 8) on seeded 220x300
+   episodes, and Grasp2Vec (ResNet-50 v2 towers, batch 16, 472x472) fed
+   from 4 freshly written record shards, each with the stock Adam and the
+   fused update: 2 dispatches of 8 (the first warms up, captures and
+   replays; every counter zeroed just before and read just after: 16
+   steps' launches) bit for bit 16 K=1 steps on the same batches
+   (parameters, batch statistics, Adam moments, groups, generator, step);
+   on the stock arms K=1 and K=8 in turns on the host clock (K=1, K=8,
+   K=8, K=1; 16 steps each on SNAIL, 8 on Grasp2Vec), the superbatch's
+   host assembly and upload ms against one batch's pageable upload, the
+   peak device memory of both; then two replays profiled: 16
+   ``flash_fwd_kernel``, ``flash_dq_kernel`` and ``flash_dkv_kernel``
+   rows a replay (SNAIL) or 16 ``pool_fwd_kernel`` and
+   ``pool_bwd_gather_kernel`` (Grasp2Vec), 8 ``fused_update_kernel`` on
+   the fused arms, one ``cudaGraphLaunch`` a replay and no Python launch,
+   with the device ms a step of K=8 and of 4 K=1 steps;
    ``--profile`` adds ``torch.profiler`` breakdowns of two actions, a
    stock and a fused QT-Opt training step and one stock and one fused step
    of each SNAIL path, written to
@@ -367,6 +386,7 @@ from tensor2robot_tpu_torch.train import (Trainer, TrainerCallback,
                                           TrainerConfig, train_eval_model)
 from tensor2robot_tpu_torch.train import checkpoints as ckpt_lib
 from tensor2robot_tpu_torch.train import train_state
+from tensor2robot_tpu_torch.train import trainer as trainer_lib
 from tensor2robot_tpu_torch.train.trainer import BatchUploader
 from tensor2robot_tpu_torch.utils.mocks import MockT2RModel
 
@@ -4865,9 +4885,12 @@ DISPATCH_ROWS = {'pool_fwd_kernel': 24, 'pool_bwd_scatter_kernel': 24,
 # a graph short of a kernel shows short in every pair, and a row above
 # the count, a missing replay or a Python launch fails at once.
 DISPATCH_PROFILE_ATTEMPTS = 3
-PLAIN_VERSIONS =((pool, 'plain_max_pool_argmax'), (pool, 'plain_max_pool_bwd'),
+PLAIN_VERSIONS = ((pool, 'plain_max_pool_argmax'),
+                  (pool, 'plain_max_pool_bwd'),
                   (conv_s2d, 'plain_conv2d'), (conv_s2d, 'plain_conv2d_dw'),
                   (conv_s2d, 'plain_conv2d_dx'),
+                  (fa, 'plain_flash_fwd'), (fa, 'plain_flash_dq'),
+                  (fa, 'plain_flash_dkv'),
                   (fused_update, 'plain_fused_update'))
 
 
@@ -4919,7 +4942,9 @@ def state_mismatches(a, b):
   bad = [name for (name, x), y in zip(a.state.network.state_dict().items(),
                                       b.state.network.state_dict().values())
          if not same_bits(x, y)]
-  bad += [f'ema {name}' for name in a.state.ema
+  if (a.state.ema is None) != (b.state.ema is None):
+    bad.append('ema')
+  bad += [f'ema {name}' for name in a.state.ema or {}
           if not same_bits(a.state.ema[name], b.state.ema[name])]
   sa, sb = a.state.optimizer.state_dict(), b.state.optimizer.state_dict()
   if sa['param_groups'] != sb['param_groups']:
@@ -5251,15 +5276,71 @@ def run_dispatch_binary(root):
       f'committed steps {steps}')
 
 
+def profile_dispatches(name, trainer, batches, want, steps=2 * DISPATCH_K):
+  """Device ms a step and kernel rows (torch.profiler) over ``steps`` more
+  steps of ``trainer`` on ``batches()`` (an iterator of host batches),
+  every Python launch counter zeroed just before. At K > 1 the steps are
+  two replays, whose rows must read ``want`` with one ``cudaGraphLaunch``
+  a replay and no Python launch: a pair that the profiler delivered short
+  is profiled again, up to ``DISPATCH_PROFILE_ATTEMPTS`` pairs, and a row
+  above its count, a third graph launch or a Python launch fails at once.
+  An eager K=1 run records the card's activity only: its device time is
+  all that is read there. Returns the device ms a step, host-to-device
+  copies included."""
+  from torch.profiler import ProfilerActivity, profile
+
+  k = trainer.config.steps_per_dispatch
+  activities = [ProfilerActivity.CUDA]
+  if k > 1:
+    activities.append(ProfilerActivity.CPU)
+  for attempt in range(1, DISPATCH_PROFILE_ATTEMPTS + 1):
+    trainer.config.max_train_steps = trainer.step + steps
+    torch.cuda.synchronize()
+    zero_counters()
+    with profile(activities=activities) as prof:
+      trainer.train(batches(), None)
+      torch.cuda.synchronize()
+    python_launches = read_counters()
+    averages = prof.key_averages()
+    device_ms = device_time_us(averages) / 1e3 / steps
+    h2d_ms = device_time_us(averages, 'Memcpy HtoD') / 1e3 / steps
+    rows = {kernel: sum(e.count for e in averages if kernel in e.key)
+            for kernel in want}
+    graph_launches = sum(e.count for e in averages
+                         if e.key.startswith('cudaGraphLaunch'))
+    h2d = sum(e.count for e in averages if e.key.startswith('Memcpy HtoD'))
+    log(f'dispatch profile: {name}: device {device_ms:.3f} ms/step '
+        f'({h2d_ms:.3f} of it host-to-device copies); over {steps} steps: '
+        f'kernel rows {rows}, cudaGraphLaunch {graph_launches}, '
+        f'host-to-device copies {h2d}; Python launch counters '
+        f'{python_launches}')
+    if k == 1:
+      return device_ms
+    short = rows != want or graph_launches != 2
+    if (any(python_launches.values()) or graph_launches > 2 or
+        any(rows[kernel] > n for kernel, n in want.items()) or
+        (short and attempt == DISPATCH_PROFILE_ATTEMPTS)):
+      raise AssertionError(
+          f'dispatch profile {name}: rows {rows}, expected {want}; '
+          f'{graph_launches} cudaGraphLaunch; Python counters '
+          f'{python_launches} (a replay runs no Python); profiled pair '
+          f'{attempt} of {DISPATCH_PROFILE_ATTEMPTS}')
+    if not short:
+      return device_ms
+    lost = sum(want.values()) - sum(rows.values())
+    log(f'dispatch profile: {name}: the profiler delivered {lost} fewer '
+        f'kernel rows and {2 - graph_launches} fewer cudaGraphLaunch than 2 '
+        f'replays launch (pair {attempt} of {DISPATCH_PROFILE_ATTEMPTS}); '
+        'profiling the next 2 dispatches')
+  raise AssertionError('unreachable')
+
+
 def phase_dispatch_profile(seed):
   """Kernel rows over two replays (torch.profiler) of the stock and the
   fused K=8 trainers, with the device ms a step of K=1 eager, K=8 graph
-  and K=8 graph with the device feed. A pair of replays whose rows the
-  profiler delivered short is profiled again, up to
-  ``DISPATCH_PROFILE_ATTEMPTS`` pairs. Runs after the timing phase: a
-  profiler session early in a process left later sessions empty."""
-  from torch.profiler import ProfilerActivity, profile
-
+  and K=8 graph with the device feed (``profile_dispatches``). Runs after
+  the timing phase: a profiler session early in a process left later
+  sessions empty."""
   batches = train_batches(seed + 24, 3 * DISPATCH_K, TRAIN_BATCH)
   arms = (('K=1 eager', 1, {}), ('K=8 graph', DISPATCH_K, {}),
           ('K=8 graph + device_feed', DISPATCH_K, dict(device_feed=True)),
@@ -5271,47 +5352,9 @@ def phase_dispatch_profile(seed):
       trainer.train(iter(batches[:DISPATCH_K]))
       want = {kernel: 2 * n for kernel, n in DISPATCH_ROWS.items()}
       want['fused_update_kernel'] = 2 * DISPATCH_K if cfg.get('fused') else 0
-      for attempt in range(1, DISPATCH_PROFILE_ATTEMPTS + 1):
-        trainer.config.max_train_steps = trainer.step + 2 * DISPATCH_K
-        torch.cuda.synchronize()
-        zero_counters()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-          trainer.train(iter(batches[DISPATCH_K:]))
-          torch.cuda.synchronize()
-        python_launches = read_counters()
-        averages = prof.key_averages()
-        steps = 2 * DISPATCH_K
-        device_ms = device_time_us(averages) / 1e3 / steps
-        rows = {kernel: sum(e.count for e in averages if kernel in e.key)
-                for kernel in want}
-        graph_launches = sum(e.count for e in averages
-                             if e.key.startswith('cudaGraphLaunch'))
-        h2d = sum(e.count for e in averages
-                  if e.key.startswith('Memcpy HtoD'))
-        log(f'dispatch profile: {name}: device {device_ms:.3f} ms/step; over '
-            f'2 dispatches of 8 steps: kernel rows {rows}, cudaGraphLaunch '
-            f'{graph_launches}, host-to-device copies {h2d}; Python launch '
-            f'counters {python_launches}')
-        if k == 1:
-          break
-        short = rows != want or graph_launches != 2
-        if (any(python_launches.values()) or graph_launches > 2 or
-            any(rows[kernel] > n for kernel, n in want.items()) or
-            (short and attempt == DISPATCH_PROFILE_ATTEMPTS)):
-          raise AssertionError(
-              f'dispatch profile {name}: rows {rows}, expected {want}; '
-              f'{graph_launches} cudaGraphLaunch; Python counters '
-              f'{python_launches} (a replay runs no Python); profiled pair '
-              f'{attempt} of {DISPATCH_PROFILE_ATTEMPTS}')
-        if not short:
-          break
-        lost = sum(want.values()) - sum(rows.values())
-        log(f'dispatch profile: {name}: the profiler delivered {lost} fewer '
-            f'kernel rows and {2 - graph_launches} fewer cudaGraphLaunch '
-            f'than 2 replays launch (pair {attempt} of '
-            f'{DISPATCH_PROFILE_ATTEMPTS}); profiling the next 2 dispatches')
-      del trainer, prof
+      profile_dispatches(f'QT-Opt {name}', trainer,
+                         lambda: iter(batches[DISPATCH_K:]), want)
+      del trainer
       torch.cuda.empty_cache()
   if sum(plain.values()):
     raise AssertionError(f'dispatch profile: plain versions ran {plain}')
@@ -5789,6 +5832,227 @@ def phase_grasp2vec_profile(trainer, batch):
   return device_us / 1e3
 
 
+# ------------------------------------ SNAIL and Grasp2Vec at K=8 a dispatch
+
+# The SNAIL arms cycle this many distinct host batches (405.5 MB each on
+# long-horizon).
+MODEL_DISPATCH_BATCHES = 4
+# Host-clock turns (K=1, K=8, K=8, K=1) of this many steps each: two
+# dispatches on SNAIL, whose host assembles a superbatch of up to 3.24 GB
+# before the first one; one on Grasp2Vec, whose dispatch takes 2 s of
+# device time.
+SNAIL_TIMED_STEPS = 2 * DISPATCH_K
+GRASP2VEC_TIMED_STEPS = DISPATCH_K
+# Steps of the K=1 eager profile.
+MODEL_K1_PROFILED = 4
+# Kernel rows a replayed dispatch of 8 steps must show in the profiler: two
+# attention blocks a SNAIL step, two stem pools a Grasp2Vec step.
+SNAIL_DISPATCH_ROWS = {'flash_fwd_kernel': 2 * DISPATCH_K,
+                       'flash_dq_kernel': 2 * DISPATCH_K,
+                       'flash_dkv_kernel': 2 * DISPATCH_K}
+GRASP2VEC_DISPATCH_ROWS = {'pool_fwd_kernel': 2 * DISPATCH_K,
+                           'pool_bwd_gather_kernel': 2 * DISPATCH_K,
+                           'pool_bwd_scatter_kernel': 0}
+
+
+def phase_dispatch_models(seed, card):
+  """SNAIL long-horizon and sequential and Grasp2Vec (record-fed) at
+  ``steps_per_dispatch=8``, each with the stock Adam and the fused update,
+  under deterministic cuDNN without autotuning, no plain-version call in
+  the phase (``model_dispatch_arm``). Returns the Python launch counts of
+  its K=8 runs (their warm-ups and captures; the replays are counted from
+  the profiler)."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='dispatch_models_',
+                                       dir=OUT_DIR))
+  begin = time.perf_counter()
+  launches = collections.Counter()
+  opened = []
+  try:
+    with cudnn_settings(deterministic=True, benchmark=False), \
+        _dispatch.force_kernels(True), counted_plain_calls() as plain:
+      for name, model_cls, kwargs, batch in SNAIL_CONFIGS:
+        episode = kwargs.get('episode_length', 40)
+        host = snail_batches(seed + 40, MODEL_DISPATCH_BATCHES, batch,
+                             episode)
+        frame_mb = sum(v.nbytes for v in host[0][0].values()
+                       if v.dtype == np.uint8) / 1e6
+
+        def feed(host=host):
+          return itertools.cycle(host)
+
+        for fused in (False, True):
+          launches.update(model_dispatch_arm(
+              f'snail {name}', seed, card,
+              lambda model_cls=model_cls, kwargs=kwargs: model_cls(**kwargs),
+              (feed, feed), fused, SNAIL_LAUNCHES, SNAIL_DISPATCH_ROWS,
+              host[0], frame_mb, SNAIL_TIMED_STEPS))
+        del host
+      paths, nbytes, write_s = write_grasp2vec_shards(root, seed + 41)
+      log(f'dispatch models: {GRASP2VEC_SHARDS} Grasp2Vec shards, '
+          f'{nbytes / 1e6:.1f} MB, written in {write_s:.2f} s')
+
+      def records():
+        it = grasp2vec_generator(paths, seed).create_iterator(ModeKeys.TRAIN)
+        opened.append(it)
+        return it
+
+      sample = next(records())
+      for fused in (False, True):
+        # One record stream for each trainer, from the same seed: the K=8
+        # and the K=1 trainer see the same batches in the same order.
+        streams = (records(), records())
+        launches.update(model_dispatch_arm(
+            'grasp2vec', seed, card, grasp2vec_model,
+            tuple(lambda it=it: it for it in streams), fused,
+            GRASP2VEC_STEP_LAUNCHES, GRASP2VEC_DISPATCH_ROWS, sample,
+            sum(v.nbytes for v in sample[0].values()) / 1e6,
+            GRASP2VEC_TIMED_STEPS))
+    if sum(plain.values()):
+      raise AssertionError(f'dispatch models: plain versions ran {plain}')
+  finally:
+    for it in opened:
+      it.close()
+    shutil.rmtree(root, ignore_errors=True)
+  log(f'dispatch models: 0 plain-version calls; phase '
+      f'{time.perf_counter() - begin:.1f} s')
+  return dict(launches)
+
+
+def model_dispatch_arm(label, seed, card, make_model, feeds, fused,
+                       per_step, rows, upload_batch, batch_mb, timed_steps):
+  """One model's K=8 arm: a K=8 trainer over 2 dispatches (the first
+  warms up and captures, both replay), every counter zeroed just before
+  and read just after, against a K=1 trainer over the same 16 batches,
+  bit for bit (parameters, batch statistics, Adam moments and groups,
+  generator, step); on the stock arm K=1 and K=8 in turns on the host
+  clock, the superbatch upload's ms against one batch's pageable upload
+  (``upload_batch``); then two replays
+  and, on the stock arm, K=1 steps profiled. ``feeds`` gives the K=8 and
+  the K=1 trainer's batch iterators. Returns the K=8 run's launches."""
+  arm = f'{label} K=8{" fused" if fused else ""}'
+  begin = time.perf_counter()
+
+  def trainer(k):
+    return Trainer(make_model(), TrainerConfig(
+        model_dir='', log_interval_steps=0, seed=seed, steps_per_dispatch=k,
+        max_train_steps=2 * DISPATCH_K, fused_update=fused))
+
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  grouped = trainer(DISPATCH_K)
+  zero_counters()
+  start = time.perf_counter()
+  grouped.train(feeds[0](), None)
+  torch.cuda.synchronize()
+  first_s = time.perf_counter() - start
+  launches = read_counters()
+  grouped_peak = torch.cuda.max_memory_allocated() - base
+  torch.cuda.reset_peak_memory_stats()
+  before = torch.cuda.memory_allocated()
+  single = trainer(1)
+  single.train(feeds[1](), None)
+  torch.cuda.synchronize()
+  single_peak = torch.cuda.max_memory_allocated() - before
+  (captured,) = grouped.captured_dispatches.values()
+  bad = state_mismatches(single, grouped)
+  if (bad or captured.replays != 2 or grouped.step != 2 * DISPATCH_K or
+      single.step != 2 * DISPATCH_K or (grouped.fused_plan is None) == fused):
+    raise AssertionError(
+        f'{arm}: K=8 against K=1 differs in {bad[:8]} ({len(bad)} parts); '
+        f'{captured.replays} replays, steps {grouped.step} and '
+        f'{single.step}, fused plan {grouped.fused_plan is not None}')
+  leaves = len(list(grouped.state.network.parameters()))
+  step_launches = dict(per_step)
+  if fused:
+    step_launches['fused_update'] = -(-leaves //
+                                      fused_update.LEAVES_PER_LAUNCH)
+  want = {k: v * 2 * DISPATCH_K for k, v in step_launches.items()}
+  if launches != want:
+    raise AssertionError(f'{arm}: launches at the warm-up and capture '
+                         f'{launches}, expected {want}')
+  log(f'dispatch models: {arm}: 2 dispatches of 8 (the first warms up, '
+      f'captures and replays; {first_s:.1f} s with the capture\'s '
+      f'{captured.capture_ms:.1f} ms) bit for bit 16 K=1 steps on the same '
+      f'batches: parameters, batch statistics, Adam moments, groups, '
+      f'generator, step {grouped.step}; {leaves} leaves; launches at the '
+      f'warm-up and capture {launches}; peak device memory above the '
+      f'{base / 2**30:.3f} GiB before: K=8 {grouped_peak / 2**30:.3f} GiB '
+      f'(two landing buffers and the graph\'s input included), K=1 '
+      f'{single_peak / 2**30:.3f} GiB, on {card}')
+  want_rows = {kernel: 2 * n for kernel, n in rows.items()}
+  want_rows['fused_update_kernel'] = 2 * DISPATCH_K if fused else 0
+  if not fused:
+    dispatch_turns(arm, grouped, single, feeds, upload_batch, batch_mb,
+                   timed_steps, card)
+  device_ms = profile_dispatches(arm, grouped, feeds[0], want_rows)
+  summary = f'dispatch models: {arm}: device {device_ms:.3f} ms/step'
+  if not fused:
+    single_ms = profile_dispatches(f'{label} K=1', single, feeds[1], {},
+                                   steps=MODEL_K1_PROFILED)
+    summary += f' against K=1\'s {single_ms:.3f}'
+  log(f'{summary}; each replay {rows} kernel rows, 1 cudaGraphLaunch, no '
+      f'Python launch; the arm took {time.perf_counter() - begin:.1f} s, on '
+      f'{card}')
+  del grouped, single, captured
+  torch.cuda.empty_cache()
+  return launches
+
+
+def dispatch_turns(arm, grouped, single, feeds, upload_batch, batch_mb,
+                   steps, card):
+  """Host ms/step of K=1 and K=8 in turns (K=1, K=8, K=8, K=1) over
+  ``steps`` steps each, synchronised; the host ms of assembling each
+  superbatch (on the prefetch thread) and its upload's ms (CUDA events on
+  the feed's side stream) against one batch's pageable upload of its
+  uint8 frames (CUDA events)."""
+  feed = grouped._feed  # pylint: disable=protected-access
+  finish, uploads = feed.finish, []
+  assemble = trainer_lib._SuperbatchAssembler._assemble  # pylint: disable=protected-access
+  assembly = _HostClock(assemble)
+
+  def timed_finish(staged, release):
+    finish(staged, release)
+    if staged.start is not None:
+      uploads.append(staged.start.elapsed_time(staged.ready))
+
+  feed.finish = timed_finish
+  trainer_lib._SuperbatchAssembler._assemble = (  # pylint: disable=protected-access
+      lambda self, group: assembly(self, group))
+  ms = collections.defaultdict(list)
+  try:
+    for trainer, it in ((single, feeds[1]), (grouped, feeds[0]),
+                        (grouped, feeds[0]), (single, feeds[1])):
+      trainer.config.max_train_steps = trainer.step + steps
+      torch.cuda.synchronize()
+      begin = time.perf_counter()
+      trainer.train(it(), None)
+      torch.cuda.synchronize()
+      ms[trainer.config.steps_per_dispatch].append(
+          1e3 * (time.perf_counter() - begin) / steps)
+  finally:
+    feed.finish = finish
+    trainer_lib._SuperbatchAssembler._assemble = assemble  # pylint: disable=protected-access
+  line = (f'dispatch models: {arm} host ms/step over {steps} steps in '
+          f'turns: K=1 {ms[1][0]:.3f}, {ms[1][1]:.3f}; K=8 '
+          f'{ms[DISPATCH_K][0]:.3f}, {ms[DISPATCH_K][1]:.3f}; superbatch '
+          f'assembly on the host {statistics.median(assembly.ms):.3f} ms '
+          f'({min(assembly.ms):.3f}-{max(assembly.ms):.3f}, '
+          f'{statistics.median(assembly.ms) / DISPATCH_K:.3f} a step); its '
+          f'upload (8 batches, {8 * batch_mb:.1f} MB of frames, pinned) '
+          f'{statistics.median(uploads):.3f} ms ({min(uploads):.3f}-'
+          f'{max(uploads):.3f}), {statistics.median(uploads) / DISPATCH_K:.3f}'
+          ' ms a step')
+  frames = [torch.from_numpy(np.asarray(v)) for v in upload_batch[0].values()
+            if np.asarray(v).dtype == np.uint8]
+  pageable = cuda_ms(lambda: [x.to('cuda', non_blocking=True)
+                              for x in frames], iters=3, warmup=1)
+  line += (f'; K=1\'s pageable upload of a batch\'s {batch_mb:.1f} MB of '
+           f'frames {pageable:.3f} ms')
+  log(line + f' on {card}')
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -5903,6 +6167,20 @@ def main(argv=None):
   grasp2vec_device_ms = phase_grasp2vec_profile(grasp2vec_trainer,
                                                 grasp2vec_batch)
   del grasp2vec_trainer
+  torch.cuda.empty_cache()
+  # SNAIL and Grasp2Vec at K=8, after the timings because its profiles are
+  # sessions of their own. Its warm-ups' and captures' launches join the
+  # kernels line; the replays' are the profiler's rows.
+  model_launches = phase_dispatch_models(args.seed, card)
+  extra = {name: model_launches[name] for name in (
+      'flash_fwd', 'flash_dq', 'flash_dkv', 'fused_update', 'pool_fwd')}
+  extra['pool_fwd_stem'] = model_launches['pool_fwd']
+  extra['pool_bwd_gather'] = (model_launches['pool_bwd'] -
+                              model_launches['pool_bwd_scatter'])
+  for entry in kernels:
+    entry['launches'] += extra.get(entry['name'], 0)
+  log(f'launches: SNAIL and Grasp2Vec K=8 path (warm-ups and captures) '
+      f'{model_launches}')
   if args.profile:
     phase_profile_reference(args.seed)
     phase_profile(policy, frames)

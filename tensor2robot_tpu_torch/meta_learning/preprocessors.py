@@ -17,7 +17,9 @@ The port's counterpart of ``tensor2robot_tpu/meta_learning/preprocessors.py``:
 The JAX package hands the condition and the inference episodes the same
 random key, so both draw the same crop offsets. Here the generator's state
 is saved before the condition call and restored for the inference call,
-which gives the same pairing.
+which gives the same pairing. At ``steps_per_dispatch`` > 1 the base
+preprocessor's draws are taken once (``host_draws``) and both calls take
+the same ``DeviceDraws``.
 """
 
 from __future__ import annotations
@@ -25,8 +27,7 @@ from __future__ import annotations
 import torch
 
 from tensor2robot_tpu_torch.meta_learning import meta_tfdata
-from tensor2robot_tpu_torch.preprocessors.base import (AbstractPreprocessor,
-                                                     refuse_device_draws)
+from tensor2robot_tpu_torch.preprocessors.base import AbstractPreprocessor
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec, algebra
 
 
@@ -83,6 +84,12 @@ class MAMLPreprocessorV2(AbstractPreprocessor):
     return create_maml_label_spec(
         self._base_preprocessor.get_out_label_specification(mode))
 
+  def host_draws(self, generator: torch.Generator):
+    """The base preprocessor's draws, taken once: the condition and the
+    inference call replay the same generator state, so they take the same
+    ``DeviceDraws``."""
+    return self._base_preprocessor.host_draws(generator)
+
   def _subtree(self, features, prefix: str) -> SpecStruct:
     out = SpecStruct()
     for key, value in features.items():
@@ -104,8 +111,8 @@ class MAMLPreprocessorV2(AbstractPreprocessor):
     flat_labels = (None if labels is None else
                    meta_tfdata.flatten_batch_examples(labels))
 
-    refuse_device_draws(generator, type(self).__name__)
-    state = None if generator is None else generator.get_state()
+    state = (generator.get_state() if isinstance(generator, torch.Generator)
+             else None)
     flat_cond_f, flat_cond_l = self._base_preprocessor._preprocess_fn(  # pylint: disable=protected-access
         flat_cond_f, flat_cond_l, mode, generator)
     if state is not None:

@@ -14,11 +14,13 @@ explicit: a ``torch.Generator`` is threaded in.
 
 A step that runs inside a captured CUDA graph cannot draw on the host at
 each replay. There the trainer asks :meth:`AbstractPreprocessor.host_draws`
-for the values one TRAIN preprocess draws (in the order it draws them),
-hands them over on the device as :class:`DeviceDraws` in place of the
-generator, and ``_preprocess_fn`` uses them instead of drawing. A
-preprocessor that draws without declaring it fails loudly there: a
-``DeviceDraws`` is no ``torch.Generator``.
+for the values one TRAIN preprocess draws (in the order it draws them,
+the same count at every step), hands them over on the device as
+:class:`DeviceDraws` in place of the generator, and ``_preprocess_fn``
+uses them instead of drawing: QT-Opt's crop, the vrgripper crop-resize
+and mixup (once for a meta batch's condition and inference calls) and
+Grasp2Vec's crops and flips. A preprocessor that draws without declaring
+it fails loudly there: a ``DeviceDraws`` is no ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -41,17 +43,6 @@ class DeviceDraws:
 
   def __init__(self, values: torch.Tensor):
     self.values = values
-
-
-def refuse_device_draws(generator, what: str) -> None:
-  """Raises for a preprocessor that draws within its step and has no
-  :meth:`AbstractPreprocessor.host_draws` yet, when handed
-  :class:`DeviceDraws` (``steps_per_dispatch`` > 1)."""
-  if isinstance(generator, DeviceDraws):
-    raise NotImplementedError(
-        f'{what} draws its random values within the step; '
-        'steps_per_dispatch > 1 is not ported for it yet: ROADMAP.md queue '
-        '1 item 11.')
 
 
 class AbstractPreprocessor(abc.ABC):

@@ -10,8 +10,9 @@ Randomness comes from an explicit ``torch.Generator`` where the JAX
 package takes a key. The two give different numbers from one seed, so a
 test that needs both packages to agree injects the crop offsets
 (``offsets=``) or leaves the distortions off. A step inside a captured
-CUDA graph cannot draw on the host: it crops at offsets drawn beforehand
-and handed over on the device (:func:`crop_at_device_offsets`).
+CUDA graph cannot draw on the host: it crops, or crops and resizes, at
+offsets drawn beforehand and handed over on the device
+(:func:`crop_at_device_offsets`, :func:`crop_resize_at_device_offsets`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from tensor2robot_tpu_torch.ops import photometric
+from tensor2robot_tpu_torch.preprocessors.base import DeviceDraws
 
 
 def _check_crop(input_shape, target_shape) -> None:
@@ -133,20 +135,41 @@ def resize_weights(input_size: int, output_size: int) -> np.ndarray:
       np.where(inside[None, :], weights, f32(0.0)).T.astype(f32))
 
 
+@functools.lru_cache(maxsize=None)
+def _device_resize_weights(input_size: int, output_size: int,
+                           device: torch.device) -> torch.Tensor:
+  """:func:`resize_weights` as a tensor on ``device``, copied there once: a
+  captured CUDA graph may not copy from the host, and a step need not."""
+  return torch.from_numpy(resize_weights(input_size, output_size)).to(device)
+
+
+def _resize_crop(crop: torch.Tensor, crop_shape: Sequence[int],
+                 target_shape: Sequence[int]) -> torch.Tensor:
+  """The two contractions of :func:`crop_resize_images` over a crop
+  window, made a contiguous float32 tensor first, so that a view and a
+  gathered copy of the same window give the same bits."""
+  a_h = _device_resize_weights(int(crop_shape[0]), int(target_shape[0]),
+                               crop.device)
+  a_w = _device_resize_weights(int(crop_shape[1]), int(target_shape[1]),
+                               crop.device)
+  x = crop.float().contiguous()
+  x = torch.einsum('iy,byxc->bixc', a_h, x)
+  return torch.einsum('jx,bixc->bijc', a_w, x)
+
+
 def crop_resize_images(offset_y: int, offset_x: int, images: torch.Tensor,
                        crop_shape: Sequence[int],
                        target_shape: Sequence[int]) -> torch.Tensor:
   """Bilinear ``resize(crop(images, offset, crop_shape), target_shape)``
   as two contractions with per-axis weight matrices (:func:`resize_weights`):
-  an H pass, then a W pass, over the crop (a view).
+  an H pass, then a W pass, over the crop.
 
   The JAX package pads its matrices to the full image and rolls them by
-  the offset; contracting the cropped view with the unpadded matrices
+  the offset; contracting the cropped window with the unpadded matrices
   sums the same non-zero terms. Input may be uint8; the output is
   float32 in the input's units (divide by 255 afterwards).
   """
   _check_crop(images.shape, crop_shape)
-  th, tw = int(target_shape[0]), int(target_shape[1])
   ch, cw = int(crop_shape[0]), int(crop_shape[1])
   h, w = images.shape[-3], images.shape[-2]
   oy, ox = int(offset_y), int(offset_x)
@@ -154,11 +177,22 @@ def crop_resize_images(offset_y: int, offset_x: int, images: torch.Tensor,
     raise ValueError(
         f'Crop offsets {(oy, ox)} out of range for a {crop_shape} crop of '
         f'{(h, w)}')
-  a_h = torch.from_numpy(resize_weights(ch, th)).to(images.device)
-  a_w = torch.from_numpy(resize_weights(cw, tw)).to(images.device)
-  x = images[..., oy:oy + ch, ox:ox + cw, :].float()
-  x = torch.einsum('iy,byxc->bixc', a_h, x)
-  return torch.einsum('jx,bixc->bijc', a_w, x)
+  return _resize_crop(images[..., oy:oy + ch, ox:ox + cw, :], crop_shape,
+                      target_shape)
+
+
+def crop_resize_at_device_offsets(images: torch.Tensor,
+                                  crop_shape: Sequence[int],
+                                  target_shape: Sequence[int],
+                                  offsets: torch.Tensor) -> torch.Tensor:
+  """:func:`crop_resize_images` at offsets that lie on the images' device
+  (an int64 tensor (row, column), in range): the window gathered as
+  :func:`crop_at_device_offsets` gathers it, then the same contractions
+  with the same matrices, which depend on the crop and target sizes and
+  never on the offset. So the result is bit for bit the host-offset one,
+  and no value is read back to the host."""
+  return _resize_crop(crop_at_device_offsets(images, crop_shape, offsets),
+                      crop_shape, target_shape)
 
 
 # ------------------------------------------------------------- color space
@@ -241,7 +275,9 @@ def apply_photometric_image_distortions(
   key. Each enabled distortion draws independent per-image parameters from
   ``generator`` (on the generator's device, then moved to the images'),
   in the JAX chain's order: brightness, saturation, hue, contrast, noise.
-  With every distortion off (the default) only the clip runs.
+  With every distortion off (the default) only the clip runs, also under
+  ``DeviceDraws`` (a K-step dispatch); a distortion under ``DeviceDraws``
+  raises, since its per-image draws are not taken beforehand yet.
 
   ``use_fused_kernel`` routes the brightness+contrast-only case (no
   saturation, hue or noise) to the fused pass of ``ops/photometric.py``:
@@ -253,6 +289,13 @@ def apply_photometric_image_distortions(
   mean; it writes the input's dtype. The JAX package's two branches split
   their key differently and cannot agree so.
   """
+  if isinstance(generator, DeviceDraws) and (
+      random_brightness or random_saturation or random_hue or
+      random_contrast or random_noise_level):
+    raise NotImplementedError(
+        'The photometric distortions draw per image within the step; at '
+        'steps_per_dispatch > 1 they are not ported yet: ROADMAP.md queue 1 '
+        'item 12.')
   if (use_fused_kernel and random_brightness and random_contrast and
       not random_saturation and not random_hue and not random_noise_level):
     return photometric.random_brightness_contrast(

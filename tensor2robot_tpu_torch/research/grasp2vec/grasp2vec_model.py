@@ -13,7 +13,9 @@ has no labels.
   with an exclusive upper bound as ``jax.random.randint`` has; then a
   left-right and an up-down flip per image key (pregrasp, postgrasp,
   goal), each flipping the whole batch. EVAL and PREDICT (or TRAIN with
-  no generator) take the centre crop and no flips.
+  no generator) take the centre crop and no flips. At
+  ``steps_per_dispatch`` > 1 the same ten values are drawn beforehand
+  (``host_draws``) and the crops and flips are taken on the device.
 * :class:`Grasp2VecModel`: the two :class:`networks.Embedding` towers in
   one module (``scene`` and ``goal``, the halves of the flax tree, see
   ``utils/convert.grasp2vec_variables_to_torch``).
@@ -30,8 +32,9 @@ from torch import nn
 from tensor2robot_tpu_torch.layers import remat
 from tensor2robot_tpu_torch.models.base import AbstractT2RModel, set_mode
 from tensor2robot_tpu_torch.modes import ModeKeys
+from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.preprocessors.base import (
-    SpecTransformationPreprocessor, refuse_device_draws)
+    DeviceDraws, SpecTransformationPreprocessor)
 from tensor2robot_tpu_torch.research.grasp2vec import losses, networks
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec
 
@@ -57,10 +60,14 @@ def crop_offsets(generator: Optional[torch.Generator], crop: Sequence[int],
 
 
 def crop_images(images: Sequence[torch.Tensor], crop: Sequence[int],
-                offsets: Tuple[int, int]) -> List[torch.Tensor]:
+                offsets) -> List[torch.Tensor]:
   """The crop window at (row, column) ``offsets`` of every NHWC image
-  batch in ``images``: views, no copy."""
+  batch in ``images``: views for host offsets, gathered copies for an
+  int64 tensor of device offsets (the same elements)."""
   _, _, target_h, _, _, target_w = crop
+  if isinstance(offsets, torch.Tensor):
+    return [image_transformations.crop_at_device_offsets(
+        img, (target_h, target_w), offsets) for img in images]
   oh, ow = offsets
   return [img[:, oh:oh + target_h, ow:ow + target_w, :] for img in images]
 
@@ -75,10 +82,20 @@ def maybe_crop_images(generator: Optional[torch.Generator],
 
 class Augmentation(NamedTuple):
   """One preprocess's draws: the scene's and the goal's (row, column) crop
-  offsets and a (left-right, up-down) flip pair per image key."""
+  offsets and a (left-right, up-down) flip pair per image key. On the
+  device (:meth:`Grasp2VecPreprocessor.device_augmentation`) each offset
+  pair is an int64 tensor and each flip a boolean tensor."""
   scene: Tuple[int, int]
   goal: Tuple[int, int]
   flips: Tuple[Tuple[bool, bool], ...]
+
+
+def _flip(image: torch.Tensor, flip, dim: int) -> torch.Tensor:
+  """``image`` flipped along ``dim`` where ``flip`` holds: a host bool, or
+  a boolean device tensor (a select, so nothing is read back)."""
+  if isinstance(flip, torch.Tensor):
+    return torch.where(flip, torch.flip(image, dims=(dim,)), image)
+  return torch.flip(image, dims=(dim,)) if flip else image
 
 
 class Grasp2VecPreprocessor(SpecTransformationPreprocessor):
@@ -114,6 +131,21 @@ class Grasp2VecPreprocessor(SpecTransformationPreprocessor):
                 for _ in range(2)) for _ in self.IMAGE_KEYS)
     return Augmentation(scene, goal, flips)
 
+  def host_draws(self, generator: torch.Generator) -> List[int]:
+    """The ten integers of :meth:`draw_augmentation` in TRAIN, in its
+    order: the scene's (row, column), the goal's, then the (left-right,
+    up-down) flips of each image key as 0 or 1."""
+    augmentation = self.draw_augmentation(generator, ModeKeys.TRAIN)
+    return list(augmentation.scene + augmentation.goal) + [
+        int(flip) for pair in augmentation.flips for flip in pair]
+
+  def device_augmentation(self, values: torch.Tensor) -> Augmentation:
+    """The :class:`Augmentation` of the :meth:`host_draws` values on the
+    device."""
+    flips = values[4:].reshape(-1, 2) != 0
+    return Augmentation(values[0:2], values[2:4],
+                        tuple((pair[0], pair[1]) for pair in flips))
+
   def augment(self, features, augmentation: Augmentation):
     """Crops, scales to float32 [0, 1] and flips the three images."""
     features['pregrasp_image'], features['postgrasp_image'] = crop_images(
@@ -123,19 +155,15 @@ class Grasp2VecPreprocessor(SpecTransformationPreprocessor):
         [features['goal_image']], self._goal_crop, augmentation.goal)[0]
     for name, (flip_lr, flip_ud) in zip(self.IMAGE_KEYS, augmentation.flips):
       image = features[name].to(torch.float32) / 255.0
-      if flip_lr:
-        image = torch.flip(image, dims=(2,))
-      if flip_ud:
-        image = torch.flip(image, dims=(1,))
-      features[name] = image
+      features[name] = _flip(_flip(image, flip_lr, 2), flip_ud, 1)
     return features
 
   def _preprocess_fn(self, features, labels, mode, generator):
-    # The draws are host draws inside the step; steps_per_dispatch > 1
-    # needs them declared (host_draws) first.
-    refuse_device_draws(generator, type(self).__name__)
-    return self.augment(features, self.draw_augmentation(generator, mode)), (
-        labels)
+    if isinstance(generator, DeviceDraws):
+      augmentation = self.device_augmentation(generator.values)
+    else:
+      augmentation = self.draw_augmentation(generator, mode)
+    return self.augment(features, augmentation), labels
 
 
 class _Grasp2VecNet(nn.Module):

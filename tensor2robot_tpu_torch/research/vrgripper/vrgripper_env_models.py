@@ -5,13 +5,14 @@ The port's counterpart of :class:`DefaultVRGripperPreprocessor` in
 uint8 episode frames → one crop offset per batch (random in TRAIN, centred
 otherwise) → resize to the model's image size, with the crop folded into
 the resize matrices (``crop_resize_images``) → float32 / 255, and optional
-mixup. The regression and domain-adaptive models of that module are not
-ported yet.
+mixup. At ``steps_per_dispatch`` > 1 the draws are taken beforehand
+(``host_draws``) and the crop runs at device offsets. The regression and
+domain-adaptive models of that module are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +20,7 @@ import torch
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.preprocessors.base import (AbstractPreprocessor,
-                                                     refuse_device_draws)
+                                                     DeviceDraws)
 from tensor2robot_tpu_torch.specs import SpecStruct, TensorSpec, algebra
 
 
@@ -31,6 +32,10 @@ class DefaultVRGripperPreprocessor(AbstractPreprocessor):
   give different offsets); ``crop_offsets=(row, col)`` injects them
   instead. Mixup (``mixup_alpha > 0``) draws its Beta(α, α) weight from a
   numpy generator seeded from the generator.
+
+  Handed :class:`DeviceDraws` (from :meth:`host_draws`) it crops at the
+  drawn offsets on the device and mixes with the drawn weights, bit for
+  bit what the same draws give from the generator.
   """
 
   def __init__(self,
@@ -66,6 +71,30 @@ class DefaultVRGripperPreprocessor(AbstractPreprocessor):
   def get_out_label_specification(self, mode: str):
     return self.model_label_specification(mode)
 
+  def _mixup_weights(self, generator: torch.Generator) -> Tuple[float, float]:
+    """(λ, 1 − λ) in float64: a seed drawn from ``generator``, then
+    Beta(α, α) from a numpy generator of that seed."""
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    lmbda = float(np.random.RandomState(seed).beta(self._mixup_alpha,
+                                                   self._mixup_alpha))
+    return lmbda, 1 - lmbda
+
+  def host_draws(self, generator: torch.Generator) -> Optional[List[int]]:
+    """What one TRAIN preprocess draws, in its order: the crop's row and
+    column offsets (none under ``crop_offsets``), then with mixup λ and
+    1 − λ, computed on the host as the step computes them and carried as
+    the bits of their float32 roundings (the step multiplies by them in
+    float32). None when it draws nothing."""
+    if 'image' not in self.get_in_feature_specification(ModeKeys.TRAIN):
+      return None
+    draws = []
+    if self._crop_offsets is None:
+      draws += self._offsets(*self._src_img_res, True, generator)
+    if self._mixup_alpha > 0.0:
+      draws += [int(np.float32(w).view(np.int32))
+                for w in self._mixup_weights(generator)]
+    return draws or None
+
   def _offsets(self, h: int, w: int, training_crop: bool, generator):
     ch, cw = self._crop_size
     if self._crop_offsets is not None:
@@ -76,33 +105,47 @@ class DefaultVRGripperPreprocessor(AbstractPreprocessor):
       return oh, ow
     return (h - ch) // 2, (w - cw) // 2
 
+  def _crop(self, merged, target_hw, training_crop: bool, generator):
+    """The crop of the [N, H, W, C] frames, resized to ``target_hw``, as
+    float32 in [0, 1]: at the device offsets of ``DeviceDraws``, else at
+    host offsets."""
+    ch, cw = self._crop_size
+    if isinstance(generator, DeviceDraws) and self._crop_offsets is None:
+      offsets = generator.values[:2]
+      if target_hw != self._crop_size:
+        return image_transformations.crop_resize_at_device_offsets(
+            merged, self._crop_size, target_hw, offsets) / 255.0
+      return image_transformations.crop_at_device_offsets(
+          merged, self._crop_size, offsets).float() / 255.0
+    oh, ow = self._offsets(merged.shape[-3], merged.shape[-2],
+                          training_crop, generator)
+    if target_hw != self._crop_size:
+      return image_transformations.crop_resize_images(
+          oh, ow, merged, self._crop_size, target_hw) / 255.0
+    return merged[:, oh:oh + ch, ow:ow + cw].float() / 255.0
+
   def _preprocess_fn(self, features, labels, mode, generator):
-    refuse_device_draws(generator, type(self).__name__)
     if 'image' in features:
       image = features['image']
       lead_shape = tuple(image.shape[:-3])
       merged = image.reshape((-1,) + tuple(image.shape[-3:]))
-      h, w = merged.shape[-3], merged.shape[-2]
       training_crop = mode == ModeKeys.TRAIN and generator is not None
       target_hw = tuple(
           self.get_out_feature_specification(mode)['image'].shape[-3:-1])
-      oh, ow = self._offsets(h, w, training_crop, generator)
-      ch, cw = self._crop_size
-      if target_hw != self._crop_size:
-        cropped = image_transformations.crop_resize_images(
-            oh, ow, merged, self._crop_size, target_hw) / 255.0
-      else:
-        cropped = merged[:, oh:oh + ch, ow:ow + cw].float() / 255.0
+      cropped = self._crop(merged, target_hw, training_crop, generator)
       features['original_image'] = features['image']
       features['image'] = cropped.reshape(lead_shape + cropped.shape[1:])
 
       if (self._mixup_alpha > 0.0 and labels is not None and
           mode == ModeKeys.TRAIN and generator is not None):
-        seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
-        lmbda = float(np.random.RandomState(seed).beta(self._mixup_alpha,
-                                                       self._mixup_alpha))
+        if isinstance(generator, DeviceDraws):
+          start = 0 if self._crop_offsets is not None else 2
+          lmbda, rest = generator.values[start:start + 2].to(
+              torch.int32).view(torch.float32).unbind(0)
+        else:
+          lmbda, rest = self._mixup_weights(generator)
         for collection in (features, labels):
           for key, x in list(collection.items()):
             if x.is_floating_point():
-              collection[key] = lmbda * x + (1 - lmbda) * torch.flip(x, [0])
+              collection[key] = lmbda * x + rest * torch.flip(x, [0])
     return features, labels

@@ -37,8 +37,11 @@ copy) and runs K steps that read nothing back to the host
 (``_device_step``):
 
 * the preprocessor's random values are drawn on the host beforehand, in
-  the order K single steps draw them (``host_draws``), and handed over on
-  the device (``DeviceDraws``: QT-Opt crops by index arithmetic);
+  the order K single steps draw them (``host_draws``, one row of the same
+  width a step), and handed over on the device (``DeviceDraws``: QT-Opt
+  and Grasp2Vec crop by index arithmetic, Grasp2Vec flips by a select,
+  the vrgripper and meta preprocessors crop-resize at device offsets and
+  mix up with weights drawn on the host);
 * the rates (learning rate, bias corrections) of the K counts the
   dispatch may reach are computed on the host from the schedule and
   selected on the device by the dispatch's applied count;

@@ -11,8 +11,8 @@
   port's crops, scaling and flips are bit for bit the JAX ones, in TRAIN
   for several keys and in EVAL (the centre crop); the port draws them
   from the step's generator in the JAX order, with exclusive upper
-  bounds; handed ``DeviceDraws`` (``steps_per_dispatch`` > 1) it raises,
-  naming ROADMAP item 11.
+  bounds (handed ``DeviceDraws`` at ``steps_per_dispatch`` > 1 it takes
+  the same draws on the device: ``tests/test_torch_device_draws.py``).
 * One train step at ResNet-18, 64 px, batch 2, float32: with the JAX
   variables converted by ``utils/convert.grasp2vec_variables_to_torch``,
   the loss within 1e-5 relative, every gradient and every new batch
@@ -62,7 +62,6 @@ from tensor2robot_tpu_torch.layers import resnet
 from tensor2robot_tpu_torch.models import optimizers, warm_start
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.predictors import CheckpointPredictor
-from tensor2robot_tpu_torch.preprocessors.base import DeviceDraws
 from tensor2robot_tpu_torch.research.grasp2vec import (Grasp2VecModel,
                                                        Grasp2VecPreprocessor,
                                                        losses, visualization)
@@ -272,22 +271,6 @@ def test_preprocessor_draw_order_and_exclusive_bounds():
   assert offsets.min() == 0
   assert pre.draw_augmentation(None, ModeKeys.TRAIN) == Augmentation(
       (20, 84), (20, 84), ((False, False),) * 3)
-
-
-def test_preprocessor_refuses_device_draws_naming_item_11():
-  pre = Grasp2VecModel(device_type='cpu').preprocessor
-  frames = {k: torch.from_numpy(v) for k, v in _frames(0, batch=1).items()}
-  with pytest.raises(NotImplementedError, match='item 11'):
-    pre.preprocess(frames, None, ModeKeys.TRAIN,
-                   DeviceDraws(torch.zeros(10, dtype=torch.int64)))
-
-
-def test_trainer_at_two_steps_a_dispatch_raises_naming_item_11():
-  trainer = Trainer(_tiny_crop_model(Grasp2VecModel), TrainerConfig(
-      max_train_steps=2, log_interval_steps=0, steps_per_dispatch=2),
-                    device='cpu')
-  with pytest.raises(NotImplementedError, match='item 11'):
-    trainer.train(iter(_frame_batches(2, batch=2)))
 
 
 # ------------------------------------------------------- the model's step

@@ -593,18 +593,3 @@ def test_the_qtopt_config_binds_the_dispatch_knobs(tmp_path):
     assert model.remat_policy == 'conv_towers'
   finally:
     t2r_config.clear_config()
-
-
-def test_snail_at_k_steps_per_dispatch_raises():
-  """The vrgripper preprocessors draw their crop within the step and have
-  no host draws yet: K > 1 raises, citing its ROADMAP item."""
-  from test_torch_vrgripper import EPISODE, IMAGE, _PortModel
-  from test_torch_vrgripper import _batches as snail_batches
-
-  model = _PortModel(episode_length=EPISODE, image_size=IMAGE,
-                     device_type='cpu')
-  trainer = Trainer(model, TrainerConfig(max_train_steps=2,
-                                         log_interval_steps=0,
-                                         steps_per_dispatch=2), device='cpu')
-  with pytest.raises(NotImplementedError, match='queue 1 item 11'):
-    trainer.train(iter(snail_batches(count=2)))
