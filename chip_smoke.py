@@ -100,10 +100,11 @@ Run from the repository root. The phases:
    makes the same ``device_serving_fn`` serve step 12; every part's
    launches counted (3 ``pool_fwd``, 3 ``pool_bwd``, 1 ``conv_s2d_fwd``
    and 1 ``conv_s2d_dw`` a step, 3 ``pool_fwd`` and 1 ``conv_s2d_fwd`` an
-   eval batch, 9 and 3 an action); the checkpoint's size, an async save's
-   host copy and write, the restore, the eval pass, ms/step with and
-   without a save in the window and the predictor's restore to first
-   action printed beside the card; and the trainer binary
+   eval batch, 9 and 3 an action); the checkpoint's size, the restore,
+   the eval pass and the predictor's restore to first action printed
+   beside the card, and the split of an async save (the loop's save call
+   and its host copy, the step after the save against three quiet steps,
+   the writer thread's ``torch.save`` and fsync); and the trainer binary
    (``python -m tensor2robot_tpu_torch.bin.run_t2r_trainer`` on the
    port's ``train_qtopt.gin``, 3 steps) in a subprocess, which must exit
    0 and leave a committed ``ckpt_3``;
@@ -259,7 +260,10 @@ Run from the repository root. The phases:
    card; the same model with ``fused_update=True`` for 4 steps (1
    ``fused_update`` a step), each update held within FUSED_BAND to the
    stock ``Adam.step`` on copies of the same parameters, gradients and
-   moments; the trainer binary on the port's ``train_grasp2vec.gin``
+   moments; 12 more steps of the in-process trainer on those batches, its
+   state saved through an async ``CheckpointManager`` after the 4th and
+   the 8th, with each save's split printed as in phase 6; the trainer
+   binary on the port's ``train_grasp2vec.gin``
    (cut to 4 steps, saves every 2, one eval batch) in a subprocess that
    prints its launches, plain calls, step times and peak memory (it must
    exit 0 and commit steps 2 and 4); ``CheckpointPredictor`` restores the
@@ -270,6 +274,30 @@ Run from the repository root. The phases:
    [16, 236, 236, 64] bfloat16 with the check phases, timed there with the
    other kernels (rows ``pool_fwd_stem`` and ``pool_bwd_gather``), and the
    step's device time by op is profiled after the other profile phases;
+12c. SNAIL sequential from records (``phase_record_snail``, after the
+   Grasp2Vec phase): 4 MetaExample shards of 4 records (a condition and
+   an inference episode of 40 seeded 220x300x3 uint8 frames as PNG, 14-d
+   poses and 7-d actions under the reference's names; about 15.8 MB a
+   record) in a temporary directory below ``chiprun_out/`` that the phase
+   removes, their size on disk printed; ``Trainer`` steps of
+   ``VRGripperEnvSequentialModel`` at ``run_train_sequential.gin``'s
+   width (episode 40, batch 8, default Adam) from
+   ``DefaultRecordInputGenerator`` through the engine's page-locked ring:
+   a warm-up step, then 4 counted ones (2 ``flash_fwd``, 2 ``flash_dq``
+   and 2 ``flash_dkv`` a step, 0 plain calls), finite loss and gradients,
+   parameters moved; the record feed and the same batches decoded
+   beforehand in turns (twice each, 4 timed steps a turn), the host's
+   parse + decode ms of one batch of 640 frames, and under ``--profile``
+   the device ms and idle share of record-fed steps; the first EVAL batch
+   of the feed bit for bit the same records parsed by the plain Python
+   decoder; the trainer binary on the port's ``run_train_sequential.gin``
+   (cut to 24 steps, saves every 12, 2 eval batches, a shuffle buffer of
+   8 records) in a subprocess that must exit 0, commit steps 12 and 24
+   and launch the flash kernels for every step and eval batch; and the
+   pose_env gate (800 steps at batch 16, seeds 7 and 8, eval ``pose_mse``
+   at most 1.5e-3) through the binary on the port's ``run_train_reg.gin``
+   and ``tests/test_data/pose_env_test_data.tfrecord``, with the JPEG
+   route of the host (PIL where ``jpeglib.h`` is absent) printed;
 13. timings with CUDA events (each call after an L2 flush and a spin
    kernel that keeps the card busy while the host enqueues it): each
    kernel, its plain version, one library
@@ -1353,10 +1381,13 @@ def payload_mismatches(got, want):
 
 class _Recorder(TrainerCallback):
   """Keeps the eval metrics by step, a host copy of the state at each
-  checkpoint, and the host-clock time of each step (synchronised)."""
+  checkpoint (while ``keep``: a timing window turns it off, since the copy
+  is the harness's, not the loop's), and the host-clock time of each step
+  (synchronised)."""
 
   def __init__(self):
     self.metrics, self.saved, self.step_ms = {}, {}, {}
+    self.keep = True
     self._last = None
 
   def begin(self, trainer):
@@ -1370,10 +1401,93 @@ class _Recorder(TrainerCallback):
     self._last = now
 
   def after_checkpoint(self, trainer, step):
-    self.saved[step] = ckpt_lib.to_host(train_state.state_dict(trainer.state))
+    if self.keep:
+      self.saved[step] = ckpt_lib.to_host(
+          train_state.state_dict(trainer.state))
 
   def after_eval(self, trainer, step, metrics):
     self.metrics[step] = dict(metrics)
+
+
+# The step after a save before the staged writer (PR 12 and PR 17's
+# chip_smoke.py runs, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+# run's split.
+SAVE_BEFORE = {'qtopt': 'the step after a save 41-54 ms (PR 12)',
+               'grasp2vec': 'the binary\'s step after a save 0.982-1.175 s '
+                            '(PR 17)'}
+
+
+class SaveTimes:
+  """Each save of a ``CheckpointManager``: its ``timings`` dict (the
+  writer thread completes it with ``serialize_ms``, ``sync_ms`` and
+  ``write_ms``) with the loop's whole ``save`` call as ``call_ms``."""
+
+  def __init__(self, manager):
+    self.by_step = {}
+    real = manager.save
+
+    def save(step, payload, force=False):
+      start = time.perf_counter()
+      saved = real(step, payload, force=force)
+      if saved:
+        manager.timings['call_ms'] = 1e3 * (time.perf_counter() - start)
+        self.by_step[int(step)] = manager.timings
+      return saved
+
+    manager.save = save
+
+
+class SaveWindow(TrainerCallback):
+  """Once armed, times every step (synchronised) and saves the trainer's
+  state through ``manager`` after the steps of ``at``, as the trainer's
+  own save follows a step's callbacks: a save's cost falls in the next
+  step's time. Unarmed, it does nothing."""
+
+  def __init__(self):
+    self.step_ms, self.manager, self.at, self.saves = {}, None, (), None
+    self._last = None
+
+  def arm(self, manager, at):
+    self.manager, self.at, self.saves = manager, set(at), SaveTimes(manager)
+
+  def begin(self, trainer):
+    if self.manager is not None:
+      torch.cuda.synchronize()
+      self._last = time.perf_counter()
+
+  def after_step(self, trainer, step, scalars):
+    if self.manager is None:
+      return
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    self.step_ms[step] = 1e3 * (now - self._last)
+    self._last = now
+    if step in self.at:
+      self.manager.save(step, train_state.state_dict(trainer.state),
+                        force=True)
+
+
+def log_save_split(what, step_ms, quiet, saves, size_mb, card):
+  """The loop's cost of each save of ``saves`` (a SaveTimes whose writes
+  have ended) against the ``quiet`` steps, which had no save in them."""
+  quiet_ms = [step_ms[s] for s in quiet]
+  mean = float(np.mean(quiet_ms))
+  for step, t in sorted(saves.by_step.items()):
+    if step + 1 not in step_ms:
+      continue
+    after = step_ms[step + 1]
+    log(f'{what}: async save of step {step} ({size_mb:.1f} MB payload): the '
+        f'loop\'s save call {t["call_ms"]:.3f} ms, {t["copy_ms"]:.3f} of it '
+        f'the host copy (into the page-locked staging buffers); the step '
+        f'after it {after:.3f} ms against the quiet steps '
+        f'{np.round(quiet_ms, 3).tolist()} (mean {mean:.3f}, spread '
+        f'{max(quiet_ms) - min(quiet_ms):.3f}): {after - mean:.3f} ms over a '
+        f'quiet step, {after - mean - t["copy_ms"]:.3f} beyond the copy; the '
+        f'next steps {[round(step_ms[s], 3) for s in range(step + 2, step + 4) if s in step_ms]};'
+        f' on the writer thread torch.save {t.get("serialize_ms", 0):.3f} ms, '
+        f'fsync {t.get("sync_ms", 0):.3f}, write to durable '
+        f'{t.get("write_ms", 0):.3f} (host clock, synchronised steps) on '
+        f'{card}; before the staged writer: {SAVE_BEFORE[what]}')
 
 
 def synced_ms(fn):
@@ -1571,17 +1685,17 @@ def checkpoint_paths(seed, card, root):
       'from the state), then the same device_serving_fn served step 12')
 
   # 8. Timings: steps 13-15 with no save in them, 16-18 with step 15's
-  # save (its host copy before step 16, its write during 16-17).
+  # save (its host copy before step 16, its write during 16-17); the
+  # recorder keeps no copy of its own in the window.
   trainer.config.max_train_steps = 18
-  trainer.train(iter(batches[6:12]))
   manager = trainer.checkpoint_manager
+  saves = SaveTimes(manager)
+  timed.keep = False
+  trainer.train(iter(batches[6:12]))
   quiet = [timed.step_ms[s] for s in (13, 14, 15)]
   saving = [timed.step_ms[s] for s in (16, 17, 18)]
   log(f'checkpoint: state.pt {size_mb:.2f} MB on {card}')
-  log(f'checkpoint: async save of step 18: host copy '
-      f'{manager.timings["copy_ms"]:.2f} ms (the train loop waits for it), '
-      f'write to durable {manager.timings["write_ms"]:.2f} ms (background '
-      f'thread) on {card}')
+  log_save_split('qtopt', timed.step_ms, (13, 14, 15), saves, size_mb, card)
   log(f'checkpoint: restore of step 6 {restore_ms:.2f} ms (host clock, '
       f'synchronised: read, copy into the live state) on {card}')
   log(f'checkpoint: eval pass {eval_ms / CKPT_EVAL_BATCHES:.2f} ms/batch '
@@ -2553,8 +2667,8 @@ def http_serving_paths(seed, card, device, model, root):
 
 
 # The record-fed QT-Opt path: shards of PNG frames (the card's host had no
-# libjpeg header when probed, so JPEG records and the pose_env gate are
-# not driven on the card; ROADMAP queue 1 item 4).
+# libjpeg header when probed, so JPEG decodes there through PIL, as the
+# pose_env gate of phase_record_snail prints; ROADMAP queue 1 item 4).
 RECORD_SHARDS = 4
 RECORD_PER_SHARD = 48
 RECORD_SHUFFLE = 64
@@ -2938,7 +3052,7 @@ def upload_timing(frames, card):
       f'(CUDA events, mean of 10) on {card}')
 
 
-def phase_profile_records(trainer, stream, card):
+def phase_profile_records(trainer, stream, card, label='records'):
   """Device time and the compute stream's idle share over record-fed
   steps (torch.profiler)."""
   from torch.profiler import ProfilerActivity, profile
@@ -2955,18 +3069,18 @@ def phase_profile_records(trainer, stream, card):
   averages = prof.key_averages()
   table = averages.table(sort_by='self_cuda_time_total', row_limit=40)
   OUT_DIR.mkdir(exist_ok=True)
-  (OUT_DIR / 'chip_smoke_profile_records.txt').write_text(table)
+  (OUT_DIR / f'chip_smoke_profile_{label}.txt').write_text(table)
   upload_us = device_time_us(averages, 'Memcpy HtoD')
   kernel_us = device_time_us(averages) - upload_us
   steps = RECORD_PROFILE_STEPS
-  log(f'profile records: {RECORD_PROFILE_STEPS} record-fed steps, '
+  log(f'profile {label}: {RECORD_PROFILE_STEPS} record-fed steps, '
       f'{kernel_us / 1e3 / steps:.3f} ms of device time a step outside the '
       f'upload, {upload_us / 1e3 / steps:.3f} ms of host-to-device copy a '
       f'step (side stream), {wall_ms / steps:.3f} ms a step on the host clock;'
       f' the device idle share {1 - kernel_us / 1e3 / wall_ms:.3f} (1 - '
       f'device time outside the upload / wall time) on {card}; table in '
-      'chiprun_out/chip_smoke_profile_records.txt')
-  log_activity_row(' records', averages)
+      f'chiprun_out/chip_smoke_profile_{label}.txt')
+  log_activity_row(f' {label}', averages)
 
 
 def phase_dx_path(generator):
@@ -5370,6 +5484,7 @@ GRASP2VEC_SHARDS = 4
 GRASP2VEC_PER_SHARD = 12
 GRASP2VEC_STEPS = 3
 GRASP2VEC_FUSED_STEPS = 3
+GRASP2VEC_SAVE_STEPS = 12  # the in-process save window: saves after 4, 8
 # The binary: its steps and save interval (saves at 2 and 4), one eval
 # batch at the end.
 GRASP2VEC_BINARY_STEPS = 4
@@ -5642,9 +5757,10 @@ def grasp2vec_paths(seed, card, root, device):
   gen = grasp2vec_generator(paths, seed)
   it = gen.create_iterator(ModeKeys.TRAIN)
   model = grasp2vec_model()
+  window = SaveWindow()
   trainer = Trainer(model, TrainerConfig(model_dir='', max_train_steps=1,
                                          log_interval_steps=0, seed=seed),
-                    device=device)
+                    callbacks=[window], device=device)
   try:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -5729,6 +5845,38 @@ def grasp2vec_paths(seed, card, root, device):
       f'out: every update is compared on its own gradients); launches '
       f'{fused_launches}')
   del fused
+
+  # 2b. Saves: GRASP2VEC_SAVE_STEPS more steps of the in-process trainer on
+  # the pre-read batches, its state saved through an async
+  # CheckpointManager after the 4th and the 8th (the staging allocated
+  # beforehand, as Trainer.initialize allocates it); the 2nd-4th have no
+  # save in them.
+  manager = ckpt_lib.CheckpointManager(str(root / 'saves'), async_save=True)
+  prepare_ms, _ = synced_ms(lambda: manager.prepare(
+      train_state.state_dict(trainer.state)))
+  log(f'grasp2vec: the save\'s page-locked staging allocated in '
+      f'{prepare_ms:.1f} ms, as the trainer allocates it when it builds its '
+      f'state with a model_dir, on {card}')
+  start = trainer.step
+  window.arm(manager, (start + 4, start + 8))
+  trainer.config.max_train_steps = start + GRASP2VEC_SAVE_STEPS
+  with counted_plain_calls() as plain:
+    zero_counters()
+    trainer.train(itertools.cycle(batches), None)
+    torch.cuda.synchronize()
+    save_launches = read_counters()
+  manager.close()
+  add(save_launches)
+  want = {k: v * GRASP2VEC_SAVE_STEPS
+          for k, v in GRASP2VEC_STEP_LAUNCHES.items()}
+  if save_launches != want or sum(plain.values()):
+    raise AssertionError(f'grasp2vec saves: launches {save_launches}, '
+                         f'expected {want}; plain calls {plain}')
+  size_mb = pathlib.Path(ckpt_lib.state_path(str(
+      root / 'saves' / f'ckpt_{start + 4}'))).stat().st_size / 1e6
+  log_save_split('grasp2vec', window.step_ms,
+                 (start + 2, start + 3, start + 4), window.saves, size_mb,
+                 card)
 
   # 3. The binary on the port's gin.
   model_dir, report, binary_s = run_grasp2vec_binary(root, paths)
@@ -6053,6 +6201,368 @@ def dispatch_turns(arm, grouped, single, feeds, upload_batch, batch_mb,
   log(line + f' on {card}')
 
 
+# ------------------------------------------ SNAIL sequential from records
+
+SEQUENTIAL_GIN = ('tensor2robot_tpu_torch/research/vrgripper/configs/'
+                  'run_train_sequential.gin')
+REG_GIN = 'tensor2robot_tpu_torch/research/pose_env/configs/run_train_reg.gin'
+POSE_DATA = pathlib.Path(__file__).resolve().parent / 'tests' / 'test_data' / (
+    'pose_env_test_data.tfrecord')
+SNAIL_RECORD_FILES = 4
+SNAIL_RECORD_PER_FILE = 4
+SNAIL_RECORD_BATCH = 8       # run_train_sequential.gin's batch size
+SNAIL_RECORD_STEPS = 4       # counted record-fed steps after the warm-up
+SNAIL_RECORD_TURN_STEPS = 4  # timed steps a feed's turn, after a warm-up
+# The shuffle buffer, in records: the generator's default of 1000 would
+# hold 1000 records of 15.8 MB before the first batch.
+SNAIL_RECORD_SHUFFLE = 8
+# The binary on run_train_sequential.gin, cut: its steps (of 5000), its
+# save interval (the gin has none: the trainer's 500) and eval batches
+# (of 100); one eval at the end.
+SNAIL_BINARY_STEPS = 24
+SNAIL_BINARY_SAVES = (12, 24)
+SNAIL_BINARY_EVAL = 2
+# The pose_env gate (tests/test_torch_pose_env.py): 800 steps at batch 16,
+# generator seeds 7 (train) and 8 (eval), 4 eval batches, pose_mse at most
+# 1.5e-3; through the binary on run_train_reg.gin.
+POSE_GATE = dict(steps=800, batch=16, seeds=(7, 8), eval_steps=4,
+                 pose_mse=1.5e-3)
+
+# Runs the trainer binary's main unchanged and prints, as its last stdout
+# line, the flash kernels' launches, the plain versions' calls, the JPEG
+# route of this host and the metrics main returned.
+RECORD_BINARY = '''
+import json, sys
+from tensor2robot_tpu_torch.bin import run_t2r_trainer
+from tensor2robot_tpu_torch.data import image_codec
+from tensor2robot_tpu_torch.ops import flash_attention as fa
+plain = {'flash': 0}
+for name in ('plain_flash_fwd', 'plain_flash_dq', 'plain_flash_dkv'):
+  def counted(*args, fn=getattr(fa, name), **kwargs):
+    plain['flash'] += 1
+    return fn(*args, **kwargs)
+  setattr(fa, name, counted)
+metrics = run_t2r_trainer.main(sys.argv[1:])
+print(json.dumps({'flash_fwd': fa.flash_fwd.launches,
+                  'flash_dq': fa.flash_dq.launches,
+                  'flash_dkv': fa.flash_dkv.launches, 'plain': plain['flash'],
+                  'jpeg_route': image_codec.jpeg_route(),
+                  'metrics': {k: float(v) for k, v in metrics.items()}}))
+'''
+
+
+def sequential_model():
+  """run_train_sequential.gin's model: episode 40, batch 8, default Adam."""
+  return VRGripperEnvSequentialModel(num_mixture_components=1,
+                                     condition_gripper_pose=False)
+
+
+def write_snail_shards(root, seed):
+  """SNAIL_RECORD_FILES MetaExample shards of SNAIL_RECORD_PER_FILE
+  records at the sequential model's in-specs: a condition and an
+  inference episode of 40 seeded 220x300x3 uint8 frames as PNG (zlib
+  level 1), 14-d poses and 7-d actions under the reference's names.
+  Returns the paths, the bytes on disk and the seconds taken."""
+  pre = sequential_model().preprocessor
+  spec = dict(pre.get_in_feature_specification(ModeKeys.TRAIN).items())
+  spec.update(pre.get_in_label_specification(ModeKeys.TRAIN).items())
+  rng = np.random.RandomState(seed + 41)
+
+  def values():
+    out = {}
+    for key, s in spec.items():
+      if s.dtype == torch.uint8:
+        out[key] = np.frombuffer(bytearray(rng.bytes(int(np.prod(s.shape)))),
+                                 np.uint8).reshape(s.shape)
+      else:
+        out[key] = rng.randn(*s.shape).astype(np.float32)
+    return out
+
+  start = time.perf_counter()
+  per_file = [[values() for _ in range(SNAIL_RECORD_PER_FILE)]
+              for _ in range(SNAIL_RECORD_FILES)]
+
+  def write(index):
+    path = str(root / f'meta-{index:05d}-of-{SNAIL_RECORD_FILES:05d}.tfrecord')
+    records.write_examples(path, [
+        example_codec.encode_example(spec, value, png_level=1)
+        for value in per_file[index]])
+    return path
+
+  with concurrent.futures.ThreadPoolExecutor(SNAIL_RECORD_FILES) as pool_:
+    paths = list(pool_.map(write, range(SNAIL_RECORD_FILES)))
+  return (paths, sum(pathlib.Path(p).stat().st_size for p in paths),
+          time.perf_counter() - start)
+
+
+def snail_generator(paths, seed, **kwargs):
+  gen = input_generators.DefaultRecordInputGenerator(
+      file_patterns=','.join(paths), batch_size=SNAIL_RECORD_BATCH,
+      shuffle_buffer_size=SNAIL_RECORD_SHUFFLE, seed=seed, **kwargs)
+  gen.set_specification_from_model(sequential_model(), ModeKeys.TRAIN)
+  return gen
+
+
+def run_record_binary(gin, bindings, timeout):
+  """The trainer binary through RECORD_BINARY; returns its report, its
+  committed steps and its seconds. It must exit 0."""
+  repo = pathlib.Path(__file__).resolve().parent
+  cmd = [sys.executable, '-c', RECORD_BINARY, '--gin_configs',
+         str(repo / gin)]
+  for binding in bindings:
+    cmd += ['--gin_bindings', binding]
+  start = time.perf_counter()
+  proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                        timeout=timeout, check=False)
+  seconds = time.perf_counter() - start
+  if proc.returncode != 0 or not proc.stdout.strip():
+    raise AssertionError(f'{gin}: the binary exited {proc.returncode}; its '
+                         f'output ended:\n{proc.stdout[-3000:]}\n'
+                         f'{proc.stderr[-3000:]}')
+  return json.loads(proc.stdout.strip().splitlines()[-1]), seconds
+
+
+def committed_steps(model_dir):
+  directory = str(model_dir / 'checkpoints')
+  return [s for s in ckpt_lib.CheckpointManager(directory).all_steps()
+          if ckpt_lib.read_commit_marker(directory, s) is not None]
+
+
+def phase_record_snail(seed, card, profile):
+  """SNAIL sequential trained from MetaExample shards at the reference
+  config's full width (see the module doc, 12c). Returns its launch
+  counts."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='record_snail_', dir=OUT_DIR))
+  begin = time.perf_counter()
+  try:
+    with _dispatch.force_kernels(True):
+      total = record_snail_paths(seed, card, root, profile)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  log(f'record snail: phase took {time.perf_counter() - begin:.1f} s')
+  return total
+
+
+def record_snail_paths(seed, card, root, profile):
+  paths, nbytes, write_s = write_snail_shards(root, seed)
+  episode = sequential_model().preprocessor.get_in_feature_specification(
+      ModeKeys.TRAIN)['condition/features/image/0'].shape
+  log(f'record snail: {SNAIL_RECORD_FILES} shards of {SNAIL_RECORD_PER_FILE} '
+      'MetaExample records (a condition and an inference episode of '
+      f'{"x".join(map(str, episode))} uint8 frames as PNG at zlib level 1, '
+      f'14-d poses, 7-d actions), {nbytes / 1e6:.1f} MB on disk, '
+      f'{nbytes / 1e6 / (SNAIL_RECORD_FILES * SNAIL_RECORD_PER_FILE):.2f} MB '
+      f'a record, written in {write_s:.2f} s')
+  total = {name: 0 for name in read_counters()}
+
+  def add(launches):
+    for name, value in launches.items():
+      total[name] += value
+
+  # 1. Trainer steps from DefaultRecordInputGenerator at batch 8, the
+  # engine's ring of page-locked slots: a warm-up step, then counted ones.
+  gen = snail_generator(paths, seed, reuse_batch_buffers=True)
+  timed = _Recorder()
+  trainer = Trainer(sequential_model(), TrainerConfig(
+      model_dir='', max_train_steps=1, log_interval_steps=0, seed=seed),
+                    callbacks=[timed])
+  it = gen.create_iterator(ModeKeys.TRAIN)
+  try:
+    if not it.reuse_buffers:
+      raise AssertionError('the record feed did not take the ring of slots')
+    zero_counters()
+    trainer.train(it, None)  # builds the state; warm-up step
+    torch.cuda.synchronize()
+    add(read_counters())
+    params = dict(trainer.state.network.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    trainer.config.max_train_steps = 1 + SNAIL_RECORD_STEPS
+    with counted_plain_calls() as plain:
+      zero_counters()
+      scalars = trainer.train(it, None)
+      torch.cuda.synchronize()
+      launches = read_counters()
+  finally:
+    it.close()
+  add(launches)
+  want = {k: v * SNAIL_RECORD_STEPS for k, v in SNAIL_LAUNCHES.items()}
+  if launches != want or sum(plain.values()):
+    raise AssertionError(f'record snail: launches over {SNAIL_RECORD_STEPS} '
+                         f'steps {launches}, expected {want}; plain calls '
+                         f'{dict(plain)}')
+  if not all(np.isfinite(v) for v in scalars.values()):
+    raise AssertionError(f'record snail: non-finite summaries {scalars}')
+  for name, param in params.items():
+    if param.grad is None or not bool(torch.isfinite(param.grad).all()):
+      raise AssertionError(f'record snail {name}: gradient {param.grad!r}')
+  moved = sum(not torch.equal(p.detach(), before[k])
+              for k, p in params.items())
+  if not moved:
+    raise AssertionError('record snail: no parameter moved')
+  log(f'record snail: {SNAIL_RECORD_STEPS} record-fed steps of '
+      'VRGripperEnvSequentialModel (run_train_sequential.gin: episode 40, '
+      f'batch {SNAIL_RECORD_BATCH}, 220x300 frames, default Adam) after a '
+      f'warm-up, launches {launches} (2 flash_fwd, 2 flash_dq, 2 flash_dkv a '
+      f'step), plain calls 0, loss {scalars["loss"]:.4f}, {len(params)} '
+      f'parameters with finite gradients, {moved} moved; engine '
+      f'{gen.last_decision.num_workers} workers, a ring of '
+      f'{gen.last_decision.ring_depth} page-locked slots')
+
+  # 2. The feeds in turns on the same trainer: the record feed, and the
+  # same batches decoded beforehand into pageable memory.
+  plain_it = snail_generator(paths, seed, engine_workers=0).create_iterator(
+      ModeKeys.TRAIN)
+  try:
+    decoded = list(itertools.islice(plain_it, 1 + SNAIL_RECORD_TURN_STEPS))
+  finally:
+    plain_it.close()
+  feeds = {'record-fed': lambda: gen.create_iterator(ModeKeys.TRAIN),
+           'pre-decoded batches': lambda: iter(decoded)}
+  block_ms = {name: [] for name in feeds}
+  for name, make in list(feeds.items()) * 2:
+    stream = make()
+    try:
+      start = trainer.step
+      trainer.config.max_train_steps = start + 1 + SNAIL_RECORD_TURN_STEPS
+      zero_counters()
+      trainer.train(stream, None)
+      torch.cuda.synchronize()
+      turn = read_counters()
+    finally:
+      if hasattr(stream, 'close'):
+        stream.close()
+    add(turn)
+    if turn != {k: v * (1 + SNAIL_RECORD_TURN_STEPS)
+                for k, v in SNAIL_LAUNCHES.items()}:
+      raise AssertionError(f'record snail, {name}: launches {turn}')
+    block_ms[name].append([timed.step_ms[s] for s in range(
+        start + 2, start + 2 + SNAIL_RECORD_TURN_STEPS)])
+  for name, blocks in block_ms.items():
+    log(f'record snail: ms/step, {name}: median of two turns of '
+        f'{SNAIL_RECORD_TURN_STEPS} steps after a warm-up '
+        f'{np.median(blocks[0]):.3f} and {np.median(blocks[1]):.3f} (each '
+        f'{[np.round(b, 3).tolist() for b in blocks]}; host clock, '
+        f'synchronised), on {card}')
+  parse_fn = native_io.make_native_parse_fn(gen.feature_spec, gen.label_spec,
+                                            decode_workers=8)
+  with native_io.NativeInterleaveReader(paths) as reader:
+    raw = list(itertools.islice(reader, SNAIL_RECORD_BATCH))
+  frames = sum(int(spec.shape[0]) for spec in gen.feature_spec.values()
+               if len(spec.shape) == 4)
+  image_shape = next(tuple(spec.shape) for spec in gen.feature_spec.values()
+                     if len(spec.shape) == 4)
+  parse_fn(raw)
+  times = []
+  for _ in range(3):
+    t0 = time.perf_counter()
+    parse_fn(raw)
+    times.append(1e3 * (time.perf_counter() - t0))
+  log(f'record snail: host parse + PNG decode of one batch of '
+      f'{SNAIL_RECORD_BATCH} records ({SNAIL_RECORD_BATCH * frames} frames '
+      f'into {[SNAIL_RECORD_BATCH, *image_shape]} buffers) '
+      f'{np.median(times):.2f} ms (median of 3, '
+      f'8 decode threads, one engine worker\'s share) on {card}\'s host')
+  if profile:
+    stream = gen.create_iterator(ModeKeys.TRAIN)
+    try:
+      trainer.config.max_train_steps = trainer.step + 2
+      trainer.train(stream, None)  # the ring fills
+      phase_profile_records(trainer, stream, card, 'snail')
+    finally:
+      stream.close()
+
+  # 3. The feed against the parser: the first EVAL batch of the record
+  # feed (files in order, through the ring) bit for bit the same records
+  # parsed by the plain Python decoder.
+  eval_gen = input_generators.DefaultRecordInputGenerator(
+      file_patterns=','.join(paths), batch_size=SNAIL_RECORD_BATCH,
+      reuse_batch_buffers=True)
+  eval_gen.set_specification_from_model(sequential_model(), ModeKeys.EVAL)
+  eval_it = eval_gen.create_iterator(ModeKeys.EVAL)
+  try:
+    features, labels = next(eval_it)
+    fed = {**{f'f/{k}': np.array(v) for k, v in features.items()},
+           **{f'l/{k}': np.array(v) for k, v in labels.items()}}
+  finally:
+    eval_it.close()
+  in_order = [r for p in paths for r in native_io.read_records(p)]
+  want_f, want_l = example_codec.make_plain_parse_fn(
+      eval_gen.feature_spec, eval_gen.label_spec)(
+          in_order[:SNAIL_RECORD_BATCH])
+  want = {**{f'f/{k}': v for k, v in want_f.items()},
+          **{f'l/{k}': v for k, v in want_l.items()}}
+  bad = [k for k in want if k not in fed or fed[k].dtype != want[k].dtype or
+         not np.array_equal(fed[k], want[k])]
+  if bad or sorted(fed) != sorted(want):
+    raise AssertionError(f'record snail: the fed batch differs from the plain '
+                         f'decoder at {bad}')
+  log(f'record snail: the first record-fed EVAL batch ({len(want)} leaves, '
+      f'{sum(v.nbytes for v in want.values()) / 1e6:.1f} MB) is bit for bit '
+      'the same records parsed and decoded by the plain Python decoder')
+  del trainer
+
+  # 4. The binary on the port's run_train_sequential.gin.
+  model_dir = root / 'binary'
+  patterns = ','.join(paths)
+  report, seconds = run_record_binary(SEQUENTIAL_GIN, [
+      f"train/DefaultRecordInputGenerator.file_patterns = '{patterns}'",
+      f"eval/DefaultRecordInputGenerator.file_patterns = '{patterns}'",
+      f"train_eval_model.model_dir = '{model_dir}'",
+      f'train_eval_model.max_train_steps = {SNAIL_BINARY_STEPS}',
+      f'train_eval_model.save_interval_steps = {SNAIL_BINARY_SAVES[0]}',
+      f'train_eval_model.eval_steps = {SNAIL_BINARY_EVAL}',
+      'DefaultRecordInputGenerator.shuffle_buffer_size = '
+      f'{SNAIL_RECORD_SHUFFLE}'], timeout=600)
+  steps = committed_steps(model_dir)
+  want = {'flash_fwd': 2 * (SNAIL_BINARY_STEPS + SNAIL_BINARY_EVAL),
+          'flash_dq': 2 * SNAIL_BINARY_STEPS,
+          'flash_dkv': 2 * SNAIL_BINARY_STEPS, 'plain': 0}
+  got = {key: report[key] for key in want}
+  if steps != list(SNAIL_BINARY_SAVES) or got != want or not all(
+      np.isfinite(v) for v in report['metrics'].values()):
+    raise AssertionError(f'record snail binary: committed steps {steps}, '
+                         f'launches {got} (expected {want}), metrics '
+                         f'{report["metrics"]}')
+  add({k: report[k] for k in ('flash_fwd', 'flash_dq', 'flash_dkv')})
+  log(f'record snail: python -m tensor2robot_tpu_torch.bin.run_t2r_trainer '
+      f'--gin_configs {SEQUENTIAL_GIN} (cut: max_train_steps '
+      f'{SNAIL_BINARY_STEPS} of 5000, save_interval_steps '
+      f'{SNAIL_BINARY_SAVES[0]}, eval_steps {SNAIL_BINARY_EVAL} of 100, '
+      f'shuffle_buffer_size {SNAIL_RECORD_SHUFFLE} of 1000; file_patterns '
+      f'and model_dir bound) exited 0 in {seconds:.1f} s, committed steps '
+      f'{steps}, launches {got}, eval {report["metrics"]}')
+
+  # 5. The pose_env gate through the binary on the port's run_train_reg.gin.
+  gate_dir = root / 'pose_env'
+  train_seed, eval_seed = POSE_GATE['seeds']
+  report, seconds = run_record_binary(REG_GIN, [
+      f"train/DefaultRecordInputGenerator.file_patterns = '{POSE_DATA}'",
+      f"eval/DefaultRecordInputGenerator.file_patterns = '{POSE_DATA}'",
+      f'train/DefaultRecordInputGenerator.seed = {train_seed}',
+      f'eval/DefaultRecordInputGenerator.seed = {eval_seed}',
+      f"train_eval_model.model_dir = '{gate_dir}'",
+      f'train_eval_model.max_train_steps = {POSE_GATE["steps"]}',
+      f'train_eval_model.eval_steps = {POSE_GATE["eval_steps"]}',
+      f'DefaultRecordInputGenerator.batch_size = {POSE_GATE["batch"]}'],
+                                     timeout=600)
+  mse = report['metrics'].get('pose_mse', float('nan'))
+  if not mse <= POSE_GATE['pose_mse'] or committed_steps(gate_dir) != [
+      POSE_GATE['steps']]:
+    raise AssertionError(f'pose_env gate: pose_mse {mse} (at most '
+                         f'{POSE_GATE["pose_mse"]}), committed steps '
+                         f'{committed_steps(gate_dir)}')
+  log(f'record snail: the pose_env gate through python -m '
+      f'tensor2robot_tpu_torch.bin.run_t2r_trainer --gin_configs {REG_GIN} '
+      f'on tests/test_data/pose_env_test_data.tfrecord ({POSE_GATE["steps"]} '
+      f'of 10000 steps at batch {POSE_GATE["batch"]} of 64, seeds '
+      f'{POSE_GATE["seeds"]}, eval_steps {POSE_GATE["eval_steps"]} of 10): '
+      f'eval pose_mse {mse:.6f} <= {POSE_GATE["pose_mse"]} in {seconds:.1f} '
+      f's; JPEG decoded through {report["jpeg_route"]} on this host '
+      f'(jpeglib.h {"present" if report["jpeg_route"] == "libjpeg" else "absent"})')
+  return total
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -6118,6 +6628,8 @@ def main(argv=None):
   (grasp2vec_launches, grasp2vec_ms, grasp2vec_trainer,
    grasp2vec_batch) = phase_grasp2vec(args.seed, card)
   torch.cuda.empty_cache()
+  record_snail_launches = phase_record_snail(args.seed, card, args.profile)
+  torch.cuda.empty_cache()
   # Launches: the pool and conv forward kernels over the QT-Opt serving,
   # training, checkpoint, export, HTTP serving, record-fed and K-step
   # paths, their backward ones over the training paths, dx over the path
@@ -6130,7 +6642,8 @@ def main(argv=None):
            export_launches, http_launches, record_launches, fused_launches,
            *(result[1] for result in snail.values()),
            *(result[1] for result in snail_fused.values()),
-           photometric_launches, dispatch_launches, grasp2vec_launches]
+           photometric_launches, dispatch_launches, grasp2vec_launches,
+           record_snail_launches]
   launches = {name: sum(path[name] for path in paths)
               for name in serve_launches}
   # The Grasp2Vec stem's routes have rows of their own.
@@ -6157,7 +6670,8 @@ def main(argv=None):
       f'{ {name: result[1] for name, result in snail_fused.items()} } over '
       f'{args.snail_steps} steps each; photometric path '
       f'{photometric_launches}; K-step path {dispatch_launches}; Grasp2Vec '
-      f'path {grasp2vec_launches}')
+      f'path {grasp2vec_launches}; record-fed SNAIL path '
+      f'{record_snail_launches}')
   if tf32_flags() != defaults:
     raise AssertionError(f'TF32 flags {tf32_flags()} before the timings, '
                          f'{defaults} at the start')

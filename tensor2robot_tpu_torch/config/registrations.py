@@ -41,6 +41,9 @@ def register() -> None:
   reg(ig.DefaultConstantInputGenerator, 'DefaultConstantInputGenerator')
   reg(ig.DefaultRecordInputGenerator, 'DefaultRecordInputGenerator')
   reg(ig.NativeRecordInputGenerator, 'NativeRecordInputGenerator')
+  reg(ig.FractionalRecordInputGenerator, 'FractionalRecordInputGenerator')
+  reg(ig.MultiEvalRecordInputGenerator, 'MultiEvalRecordInputGenerator')
+  reg(ig.TaskGroupedRecordInputGenerator, 'TaskGroupedRecordInputGenerator')
   # Optimizer factories and learning-rate schedules.
   reg(optimizers.create_adam_optimizer, 'create_adam_optimizer')
   reg(optimizers.create_gradient_descent_optimizer,

@@ -22,7 +22,11 @@ Like ``tf.io.decode_image``, the bytes decide the codec, not the spec's
 Channels are forced to the spec's count as the JAX package's PIL route
 does: gray to RGB by repetition, RGBA to RGB by dropping alpha, RGB or
 RGBA to gray by PIL's ``convert('L')`` (ITU-R 601-2 luma in 16-bit fixed
-point). A decoded size other than the spec's raises, naming the feature.
+point). A decoded size other than the spec's raises, naming the feature. A
+batch's blobs decode into one contiguous buffer: [B, H, W, C] for an
+image feature, and for an episode's frames ([T, H, W, C] specs) or a
+sequence's steps the same buffer seen as [B, T, H, W, C]
+(``example_codec.decode_values``), on one shared pool of threads.
 
 :func:`encode_png` writes the port's shards (filter 0 by default, zlib at
 a chosen level); it takes any of the five filters per row, which is how

@@ -12,10 +12,13 @@ reader and parser (``data/native_io.py``), decode images
 (``data/image_codec.py``) and batch in the parallel engine
 (``data/engine.py``): :class:`NativeRecordInputGenerator`, and
 :class:`DefaultRecordInputGenerator` with the JAX package's constructor
-over the same stream. Their iterators expose ``release()``, which the
-trainer calls once a batch's upload has ended. Not ported yet (ROADMAP
-queue 1 item 4): follow mode, the fractional and multi-eval generators,
-the task-grouped (meta-learning) generator and SequenceExample specs.
+over the same stream (one file set, or a ``dataset_map`` of streams
+zipped per example), :class:`FractionalRecordInputGenerator` and
+:class:`MultiEvalRecordInputGenerator`. Their iterators expose
+``release()``, which the trainer calls once a batch's upload has ended.
+:class:`TaskGroupedRecordInputGenerator` groups per-task files into the
+meta-learning layout. Not ported yet (ROADMAP queue 1 item 4): follow
+mode.
 """
 
 from __future__ import annotations
@@ -247,20 +250,34 @@ class NativeRecordInputGenerator(AbstractInputGenerator):
     """(cycle length, whether the stream repeats) of ``mode``."""
     return self._cycle_length, mode == ModeKeys.TRAIN
 
-  def _resolved_filenames(self):
-    data_format, filenames = records.get_data_format_and_filenames(
-        self._file_patterns)
-    if data_format != 'tfrecord':
-      raise ValueError(f'The record reader reads tfrecord, got {data_format}')
+  def _streams(self) -> Dict[str, str]:
+    """``{dataset_key: file patterns}``: '' for the single stream."""
+    if isinstance(self._file_patterns, dict):
+      return dict(self._file_patterns)
+    return {'': self._file_patterns}
+
+  def _resolved_filenames(self, patterns: Optional[str] = None):
+    """The files of ``patterns``; of every stream by default."""
+    filenames = []
+    for pattern in ([patterns] if patterns is not None else
+                    [p for _, p in sorted(self._streams().items())]):
+      data_format, files = records.get_data_format_and_filenames(pattern)
+      if data_format != 'tfrecord':
+        raise ValueError(
+            f'The record reader reads tfrecord, got {data_format}')
+      filenames.extend(files)
     return filenames
 
-  def _records(self, mode: str, resume=None) -> Iterator[bytes]:
-    """Raw serialized examples: forever in a repeating mode, else one
-    pass. ``resume`` (a ``seek_resume.ResumePlan``) starts mid-epoch: the
+  def _records(self, mode: str, resume=None,
+               patterns: Optional[str] = None) -> Iterator[bytes]:
+    """Raw serialized examples of one stream (``patterns``, the single
+    stream's by default): forever in a repeating mode, else one pass.
+    ``resume`` (a ``seek_resume.ResumePlan``) starts mid-epoch: the
     partial epoch runs through per-slot readers seeked by the shard index
     (the interleave reader's order), full epochs through the interleave
     reader."""
-    filenames = self._resolved_filenames()
+    filenames = self._resolved_filenames(
+        self._file_patterns if patterns is None else patterns)
     cycle_length, repeat = self._stream_config(mode)
     if resume is not None:
       if not repeat and resume.epoch > 0:
@@ -302,16 +319,16 @@ class NativeRecordInputGenerator(AbstractInputGenerator):
         decode_workers=self._decode_workers, pin_memory=self.pin_memory)
     shuffling = mode == ModeKeys.TRAIN and self._shuffle_buffer_size > 1
 
-    def stream():
+    def stream(patterns=None):
       if not shuffling:
-        yield from self._records(mode, resume=resume)
+        yield from self._records(mode, resume=resume, patterns=patterns)
         return
       if resume is None:
         rng = np.random.RandomState(self._seed)
         buf = []
       else:
         rng, buf = resume.rng, list(resume.buffer)
-      for record in self._records(mode, resume=resume):
+      for record in self._records(mode, resume=resume, patterns=patterns):
         if len(buf) < self._shuffle_buffer_size:
           buf.append(record)
           continue
@@ -321,7 +338,16 @@ class NativeRecordInputGenerator(AbstractInputGenerator):
       while buf:
         yield buf.pop(rng.randint(len(buf)))
 
-    raw = stream()
+    streams = self._streams()
+    if list(streams) == ['']:
+      raw = stream()
+    else:
+      # Each dataset's stream read and shuffled on its own, then zipped
+      # example by example: batches of the zip are the zip of the
+      # streams' batches, as the JAX pipeline zips them.
+      keys = sorted(streams)
+      raw = (dict(zip(keys, examples)) for examples in
+             zip(*(stream(streams[key]) for key in keys)))
     if skip_batches:
       raw = itertools.islice(raw, skip_batches * batch_size, None)
     decision = engine_lib.autotune(self._engine_workers,
@@ -408,7 +434,9 @@ class _CheckpointableEngineIterator:
     gen = self._generator
     filenames = gen._resolved_filenames()  # pylint: disable=protected-access
     counts, seekable, reason = [], True, None
-    for path in filenames:
+    if list(gen._streams()) != ['']:  # pylint: disable=protected-access
+      seekable, reason = False, 'zipped dataset streams resume by replay'
+    for path in filenames if seekable else ():
       index = self._indexes.get(path)
       if index is None:
         seekable, reason = False, f'no index for {path}'
@@ -523,11 +551,16 @@ class DefaultRecordInputGenerator(NativeRecordInputGenerator):
   Other modes read the files one after another, unshuffled, and repeat,
   as the JAX generator's tf.data pipeline does (``list_files`` unshuffled,
   cycle length 1, ``repeat()``), so eval batches are the JAX generator's.
+  ``dataset_map`` ({dataset_key: file patterns}) reads each dataset's
+  files as one such stream and zips the streams example by example; a
+  spec whose ``dataset_key`` names a dataset is parsed from that stream
+  under its own name, as ``pipeline.make_dataset`` zips and parses them.
   The TRAIN stream is NOT tf.data's: its files interleave round-robin and
-  its shuffle is a ``numpy.random.RandomState(seed)`` buffer, so it is a
-  function of (files, seed, batch size) and its position saves and
-  restores. ``dataset_map`` (multi-dataset specs, ROADMAP queue 1 item 4)
-  and ``error_budget`` (item 10) are not ported yet and raise.
+  its shuffle is a ``numpy.random.RandomState(seed)`` buffer (one a
+  dataset), so it is a function of (files, seed, batch size) and its
+  position saves and restores (by a replay for zipped streams).
+  ``error_budget`` (ROADMAP queue 1 item 10) is not ported yet and
+  raises.
   """
 
   def __init__(self,
@@ -544,13 +577,11 @@ class DefaultRecordInputGenerator(NativeRecordInputGenerator):
     if file_patterns and dataset_map:
       raise ValueError('file_patterns and dataset_map are mutually '
                        'exclusive.')
-    if dataset_map:
-      raise NotImplementedError('dataset_map: multi-dataset record input is '
-                                'not ported yet: ROADMAP.md queue 1 item 4.')
     if error_budget is not None:
       raise NotImplementedError('error_budget: data error budgets are not '
                                 'ported yet: ROADMAP.md queue 1 item 10.')
-    super().__init__(file_patterns, batch_size=batch_size,
+    super().__init__(dict(dataset_map) if dataset_map else file_patterns,
+                     batch_size=batch_size,
                      shuffle_buffer_size=shuffle_buffer_size,
                      cycle_length=parallel_shards, seed=seed, **kwargs)
 
@@ -558,3 +589,235 @@ class DefaultRecordInputGenerator(NativeRecordInputGenerator):
     if mode == ModeKeys.TRAIN:
       return self._cycle_length, True
     return 1, True
+
+
+class FractionalRecordInputGenerator(DefaultRecordInputGenerator):
+  """Data-ablation input: only the first ``file_fraction`` of the files
+  (at least one), as the JAX package's generator keeps them. A
+  ``dataset_map`` is read whole."""
+
+  def __init__(self, file_fraction: float = 1.0, **kwargs):
+    super().__init__(**kwargs)
+    if not 0.0 < file_fraction <= 1.0:
+      raise ValueError(f'file_fraction must be in (0, 1], got {file_fraction}')
+    if isinstance(self._file_patterns, str):
+      data_format, filenames = records.get_data_format_and_filenames(
+          self._file_patterns)
+      n = max(1, int(file_fraction * len(filenames)))
+      self._file_patterns = ','.join(
+          f'{data_format}:{f}' for f in filenames[:n])
+
+
+MULTI_EVAL_ENV = 'T2R_MULTI_EVAL_NAME'
+
+
+class MultiEvalRecordInputGenerator(DefaultRecordInputGenerator):
+  """The eval dataset of ``eval_dataset_map`` named by
+  ``multi_eval_name``, else by the ``T2R_MULTI_EVAL_NAME`` environment
+  variable, else by ``multi_eval_name`` in the ``TF_CONFIG`` JSON (the
+  reference's drop-in route)."""
+
+  def __init__(self, eval_dataset_map: Dict[str, str],
+               multi_eval_name: Optional[str] = None, **kwargs):
+    multi_eval_name = multi_eval_name or os.environ.get(MULTI_EVAL_ENV)
+    if not multi_eval_name:
+      tf_config = json.loads(os.environ.get('TF_CONFIG', '{}'))
+      multi_eval_name = tf_config.get('multi_eval_name')
+    if not multi_eval_name:
+      raise ValueError('MultiEvalRecordInputGenerator needs multi_eval_name.')
+    if multi_eval_name not in eval_dataset_map:
+      raise ValueError(
+          f'Unknown eval dataset {multi_eval_name!r}; available: '
+          f'{sorted(eval_dataset_map)}')
+    super().__init__(file_patterns=eval_dataset_map[multi_eval_name],
+                     **kwargs)
+    self.multi_eval_name = multi_eval_name
+
+
+def interleave(inputs: Iterator, open_element: Callable[[object], Iterator],
+               cycle_length: int, block_length: int = 1) -> Iterator:
+  """tf.data's sequential ``interleave``: ``cycle_length`` slots, each
+  filled with ``open_element(input)`` when the turn reaches it empty,
+  ``block_length`` items a turn; an element that ends frees its slot and
+  passes the turn on. Raises when a full cycle of new elements yields
+  nothing (tf.data would loop forever on a repeated input)."""
+  slots: list = [None] * cycle_length
+  index = block = opened = 0
+  ended = False
+  barren = 0  # elements opened in a row that ended without an item
+  fresh = [False] * cycle_length
+  while not ended or opened:
+    if slots[index] is not None:
+      try:
+        item = next(slots[index])
+      except StopIteration:
+        if fresh[index]:
+          barren += 1
+          if barren > cycle_length:
+            raise ValueError('interleave: every element is empty')
+        slots[index], fresh[index] = None, False
+        opened -= 1
+        block, index = 0, (index + 1) % cycle_length
+        continue
+      barren, fresh[index] = 0, False
+      block += 1
+      if block == block_length:
+        block, index = 0, (index + 1) % cycle_length
+      yield item
+    elif not ended:
+      try:
+        slots[index] = iter(open_element(next(inputs)))
+        fresh[index] = True
+        opened += 1
+      except StopIteration:
+        ended = True
+    else:
+      block, index = 0, (index + 1) % cycle_length
+
+
+class TaskGroupedRecordInputGenerator(AbstractInputGenerator):
+  """Per-task record files in the meta-learning batch layout.
+
+  Each file holds one task's examples under the base model's specs (the
+  wrapped preprocessor's, unwrapped through ``base_preprocessor``). A meta
+  batch holds ``batch_size`` tasks, each a group of
+  ``num_train_samples_per_task`` condition and ``num_val_samples_per_task``
+  inference examples of one file:
+
+  * ``condition/features/*``, ``condition/labels/*``: [tasks, num_train, ...]
+  * ``inference/features/*``: [tasks, num_val, ...]
+  * labels: the inference examples' labels, [tasks, num_val, ...]
+
+  The group stream is the JAX package's ``pipeline.make_task_grouped_dataset``
+  (tasks interleaved with block length 1, ``interleave_cycle_length`` or
+  one slot a task). Outside TRAIN it is the same stream: the files in
+  order, repeated, each drained in groups of consecutive examples (a
+  short tail dropped). In TRAIN each epoch visits the files in a seeded
+  permutation and a visit takes one group from a shuffle buffer of
+  ``max(shuffle_buffer_size, group size)`` over the repeated file, drawn
+  by ``numpy.random.RandomState(seed + visit)``: not tf.data's draws.
+  Records parse on the port's C++ parser, a meta batch at a time.
+  """
+
+  def __init__(self,
+               file_patterns: str,
+               num_train_samples_per_task: int = 4,
+               num_val_samples_per_task: int = 4,
+               shuffle_buffer_size: int = 50,
+               interleave_cycle_length: Optional[int] = None,
+               batch_size: int = 4,
+               seed: Optional[int] = None,
+               decode_workers: int = 8):
+    super().__init__(batch_size)
+    self._file_patterns = file_patterns
+    self._num_train = num_train_samples_per_task
+    self._num_val = num_val_samples_per_task
+    self._shuffle_buffer_size = shuffle_buffer_size
+    self._interleave_cycle_length = interleave_cycle_length
+    self._seed = seed
+    self._decode_workers = decode_workers
+    self._base_feature_spec: Optional[SpecStruct] = None
+    self._base_label_spec: Optional[SpecStruct] = None
+
+  def set_specification_from_model(self, model, mode: str) -> None:
+    """Takes the BASE specs (the on-disk record contract) from the wrapped
+    preprocessor; this generator assembles the meta layout."""
+    super().set_specification_from_model(model, mode)
+    preprocessor = model.preprocessor
+    while hasattr(preprocessor, 'base_preprocessor'):
+      preprocessor = preprocessor.base_preprocessor
+    self._base_feature_spec = algebra.flatten_spec_structure(
+        preprocessor.get_in_feature_specification(mode))
+    label_spec = preprocessor.get_in_label_specification(mode)
+    self._base_label_spec = (None if label_spec is None else
+                             algebra.flatten_spec_structure(label_spec))
+
+  def _groups(self, mode: str, filenames) -> Iterator[list]:
+    """Groups of ``num_train + num_val`` raw records, one task each."""
+    samples = self._num_train + self._num_val
+    training = mode == ModeKeys.TRAIN
+    rng = np.random.RandomState(self._seed)
+
+    def files():
+      while True:
+        yield from (rng.permutation(filenames).tolist() if training
+                    else filenames)
+
+    visits = itertools.count()
+
+    def per_task(path):
+      if not training:
+        return _chunks(native_io.read_records(path), samples)
+      visit = next(visits)
+      draw = np.random.RandomState(
+          None if self._seed is None else self._seed + visit)
+      return [_shuffled_take(path, max(self._shuffle_buffer_size, samples),
+                             samples, draw)]
+
+    return interleave(files(), per_task,
+                      self._interleave_cycle_length or len(filenames))
+
+  def _create_iterator(self, mode, batch_size):
+    if self._base_feature_spec is None:
+      raise ValueError(
+          'TaskGroupedRecordInputGenerator needs base specs; call '
+          'set_specification_from_model first.')
+    data_format, filenames = records.get_data_format_and_filenames(
+        self._file_patterns)
+    if data_format != 'tfrecord':
+      raise ValueError(f'The record reader reads tfrecord, got {data_format}')
+    parse_fn = native_io.make_native_parse_fn(
+        self._base_feature_spec, self._base_label_spec,
+        decode_workers=self._decode_workers)
+    num_train = self._num_train
+    samples = num_train + self._num_val
+
+    def iterate():
+      groups = self._groups(mode, filenames)
+      while True:
+        batch = list(itertools.islice(groups, batch_size))
+        if len(batch) < batch_size:
+          return
+        features, labels = parse_fn([r for group in batch for r in group])
+
+        def tasks(value):
+          return value.reshape((batch_size, samples) + tuple(value.shape[1:]))
+
+        meta = SpecStruct()
+        for key, value in features.items():
+          value = tasks(value)
+          meta[f'condition/features/{key}'] = value[:, :num_train]
+          meta[f'inference/features/{key}'] = value[:, num_train:]
+        meta_labels = None
+        if labels is not None:
+          meta_labels = SpecStruct()
+          for key, value in labels.items():
+            value = tasks(value)
+            meta[f'condition/labels/{key}'] = value[:, :num_train]
+            meta_labels[key] = value[:, num_train:]
+        yield meta, meta_labels
+
+    return iterate()
+
+
+def _chunks(items: list, size: int) -> Iterator[list]:
+  """Consecutive groups of ``size`` items, a short tail dropped."""
+  for start in range(0, len(items) - size + 1, size):
+    yield items[start:start + size]
+
+
+def _shuffled_take(path: str, buffer_size: int, count: int,
+                   rng: np.random.RandomState) -> list:
+  """``count`` records drawn by a shuffle buffer of ``buffer_size`` over
+  the records of ``path`` repeated."""
+  records_ = native_io.read_records(path)
+  if not records_:
+    raise ValueError(f'{path} holds no records')
+  source = itertools.cycle(records_)
+  buf = list(itertools.islice(source, buffer_size))
+  out = []
+  for _ in range(count):
+    i = rng.randint(len(buf))
+    out.append(buf[i])
+    buf[i] = next(source)
+  return out

@@ -13,7 +13,8 @@ reader behind it. Its plain versions: ``records.iter_records_plain``
   (``cycle_length`` slots, slot ``s`` reading files ``s, s+C, ...``,
   round-robin one record a slot: the stream order that
   ``data/seek_resume.py`` inverts);
-* :class:`NativeExampleParser`, the spec-driven batch parser;
+* :class:`NativeExampleParser`, the spec-driven batch parser
+  (tf.Example and tf.SequenceExample);
 * :func:`make_native_parse_fn`, ``parse_fn(records) -> (features,
   labels)`` with image decode (``data/image_codec.py``) and the ring-slot
   protocol of ``data/engine.py``: ``parse_fn.make_image_buffers(batch)``
@@ -31,7 +32,6 @@ import torch
 
 from tensor2robot_tpu_torch import native
 from tensor2robot_tpu_torch.data import example_codec
-from tensor2robot_tpu_torch.specs import algebra
 from tensor2robot_tpu_torch.specs.tensor_spec import to_numpy_dtype
 
 
@@ -182,61 +182,88 @@ def iter_records_from(path: str, offset: int = 0,
 
 
 class NativeExampleParser:
-  """Spec-driven tf.Example batch parser on the C++ wire decoder.
+  """Spec-driven tf.Example / tf.SequenceExample batch parser on the C++
+  wire decoder.
 
   ``named_specs``: ``(output key, on-disk name, spec)`` triples
   (``example_codec.named_specs``). ``parse_batch`` returns the same as
   ``example_codec.parse_batch``, its plain version: numeric features as
-  ``[B, *spec.shape]`` arrays, image features as one encoded image each,
-  a ``memoryview`` into its record (no copy).
+  ``[B, *spec.shape]`` arrays, image features as ``B * count`` encoded
+  images, each a ``memoryview`` into its record (no copy), and a sequence
+  feature's steps padded to the batch's longest list with its
+  ``<output key>_length``. With sequence specs a first C++ pass counts
+  every record's steps, so the buffers are sized before the parse.
   """
 
   def __init__(self, named_specs):
     self._lib = native.record_io()
     self._fields = []
-    keys, kinds, lens, req, varlen = [], [], [], [], []
+    keys, kinds, lens, req, varlen, sequence = [], [], [], [], [], []
     for out_key, name, spec in named_specs:
-      kind, flat = example_codec.feature_kind(spec)
+      kind, count = example_codec.feature_kind(spec)
       pad = spec.varlen_default_value
-      self._fields.append((out_key, spec, kind, flat))
+      self._fields.append((out_key, spec, kind, count))
       keys.append(name.encode())
       kinds.append(kind)
-      lens.append(flat)
+      lens.append(count)
       req.append(int(pad is None and not spec.is_optional))
       varlen.append(int(pad is not None))
+      sequence.append(int(spec.is_sequence))
+    self._sequence = [f for f in self._fields if f[1].is_sequence]
     n = len(keys)
     self._h = self._lib.t2r_parser_create(
         (ctypes.c_char_p * n)(*keys), (ctypes.c_int * n)(*kinds),
         (ctypes.c_int64 * n)(*lens), (ctypes.c_int * n)(*req),
-        (ctypes.c_int * n)(*varlen), n)
+        (ctypes.c_int * n)(*varlen), (ctypes.c_int * n)(*sequence), n)
+
+  def _error(self) -> str:
+    return self._lib.t2r_parser_error(self._h).decode()
 
   def parse_batch(self, records: Sequence[bytes]):
     batch = len(records)
     recs = (ctypes.c_char_p * batch)(*records)
     lens = (ctypes.c_uint64 * batch)(*[len(r) for r in records])
+    lengths = np.zeros((batch, len(self._sequence)), np.int64)
+    if self._sequence:
+      if self._lib.t2r_parser_sequence_lengths(
+          self._h, recs, lens, batch,
+          lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))):
+        raise ValueError(f'example parse failed: {self._error()}')
+      steps = (lengths.max(axis=0) if batch else
+               np.zeros(len(self._sequence), np.int64))
+      self._lib.t2r_parser_set_steps(
+          self._h, steps.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+      longest = dict(zip((f[0] for f in self._sequence), steps.tolist()))
     buffers = []
     outs = (ctypes.c_void_p * len(self._fields))()
-    for i, (_, spec, kind, flat) in enumerate(self._fields):
+    for i, (key, spec, kind, count) in enumerate(self._fields):
       pad = spec.varlen_default_value
+      rows = batch * longest[key] if spec.is_sequence else batch
       if kind == example_codec.KIND_BYTES:
-        buf = np.full((batch, flat, 2), -1, np.int64)
+        buf = np.full((rows, count, 2), -1, np.int64)
       elif kind == example_codec.KIND_FLOAT:
-        buf = np.full((batch, flat), pad or 0.0, np.float32)
+        buf = np.full((rows, count), pad or 0.0, np.float32)
       else:
-        buf = np.full((batch, flat), int(pad or 0), np.int64)
+        buf = np.full((rows, count), int(pad or 0), np.int64)
       buffers.append(buf)
       outs[i] = buf.ctypes.data_as(ctypes.c_void_p)
     if self._lib.t2r_parser_parse_batch(self._h, recs, lens, batch, outs):
-      raise ValueError('example parse failed: '
-                       f'{self._lib.t2r_parser_error(self._h).decode()}')
+      raise ValueError(f'example parse failed: {self._error()}')
     out = {}
-    for (key, spec, kind, _), buf in zip(self._fields, buffers):
+    for (key, spec, kind, count), buf in zip(self._fields, buffers):
       if kind == example_codec.KIND_BYTES:
-        out[key] = [memoryview(records[b])[start:start + length]
+        per = buf.shape[0] * count // batch if batch else 0
+        out[key] = [memoryview(records[j // per])[start:start + length]
                     if start >= 0 else b''
-                    for b, (start, length) in enumerate(buf[:, 0].tolist())]
+                    for j, (start, length) in enumerate(
+                        buf.reshape(-1, 2).tolist())]
+      elif spec.is_sequence:
+        out[key] = example_codec.as_spec_array(buf, spec, batch,
+                                               (longest[key],))
       else:
         out[key] = example_codec.as_spec_array(buf, spec, batch)
+    for j, (key, _, _, _) in enumerate(self._sequence):
+      out[key + '_length'] = lengths[:, j].copy()
     return out
 
   def close(self) -> None:
@@ -255,40 +282,42 @@ def make_native_parse_fn(feature_spec, label_spec=None,
                          decode_workers: int = 8,
                          pin_memory: bool = False) -> Callable:
   """``parse_fn(records, image_out=None) -> (features, labels)``: the C++
-  wire parser, then image decode on ``decode_workers`` threads.
+  wire parser, then image decode on ``decode_workers`` threads
+  (``example_codec.make_parse_fn``: records of one stream, or of zipped
+  dataset streams).
 
   Safe to call concurrently on different record batches (the engine's
-  workers do): each calling thread gets its own parser, whose only
-  cross-call state is its error text. ``parse_fn.make_image_buffers(
-  batch_size)`` allocates one ring slot, a contiguous decode buffer per
-  image feature, in page-locked memory with ``pin_memory`` (the trainer
-  uploads such a slot without a staging copy). Sequence, multi-dataset
-  and multi-image specs raise (``example_codec.feature_kind``).
+  workers do): each calling thread gets its own parsers, whose only
+  cross-call state is their error text and step counts.
+  ``parse_fn.make_image_buffers(batch_size)`` allocates one ring slot, a
+  contiguous decode buffer per image feature of a fixed shape ([B, H, W,
+  C], or [B, T, H, W, C] for an episode's frames; a sequence's images are
+  sized by each batch and decode into buffers of their own), in
+  page-locked memory with ``pin_memory`` (the trainer uploads such a slot
+  without a staging copy).
   """
-  named = example_codec.named_specs(feature_spec, label_spec)
-  flat_f = algebra.flatten_spec_structure(feature_spec)
-  flat_l = (None if label_spec is None else
-            algebra.flatten_spec_structure(label_spec))
   tls = threading.local()
-  tls.parser = NativeExampleParser(named)  # validates the specs once
 
-  def parse_fn(records, image_out=None):
-    parser = getattr(tls, 'parser', None)
-    if parser is None:
-      parser = tls.parser = NativeExampleParser(named)
-    parsed = parser.parse_batch(list(records))
-    feats, labels = example_codec.decode_values(
-        named, parsed, image_out=image_out, decode_workers=decode_workers)
-    features = algebra.pack_flat_sequence_to_spec_structure(flat_f, feats)
-    if flat_l is None:
-      return features, None
-    return features, algebra.pack_flat_sequence_to_spec_structure(
-        flat_l, labels)
+  def parser(dataset_key, named):
+    parsers = getattr(tls, 'parsers', None)
+    if parsers is None:
+      parsers = tls.parsers = {}
+    if dataset_key not in parsers:
+      parsers[dataset_key] = NativeExampleParser(named)
+    return parsers[dataset_key].parse_batch
+
+  parse_fn = example_codec.make_parse_fn(
+      feature_spec, label_spec, parser_factory=parser,
+      decode_workers=decode_workers)
+  for key, named in parse_fn.plans.items():
+    parser(key, named)  # validates the specs once
 
   def make_image_buffers(batch_size: int):
     buffers = {}
-    for out_key, _, spec in named:
-      if example_codec.is_encoded_image(spec):
+    for named in parse_fn.plans.values():
+      for out_key, _, spec in named:
+        if not example_codec.is_encoded_image(spec) or spec.is_sequence:
+          continue
         shape = (batch_size,) + tuple(spec.shape)
         if pin_memory:
           buffers[out_key] = torch.empty(shape, dtype=spec.dtype,

@@ -161,6 +161,17 @@ class AbstractT2RModel(ModelInterface):
                      mode: str) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (scalar loss, scalar summaries) for one batch."""
 
+  def model_eval_fn(self, features: SpecStruct,
+                    labels: Optional[SpecStruct],
+                    inference_outputs: SpecStruct) -> Dict[str, torch.Tensor]:
+    """Per-batch eval metrics, which the trainer averages over the eval
+    batches; by default the train summaries and the loss in EVAL mode."""
+    loss, scalars = self.model_train_fn(features, labels, inference_outputs,
+                                        ModeKeys.EVAL)
+    metrics = dict(scalars)
+    metrics['loss'] = loss
+    return metrics
+
   def create_optimizer(self) -> Callable:
     """The optimizer factory ``fn(params) -> torch.optim.Optimizer``."""
     if self._create_optimizer_fn is not None:

@@ -1,8 +1,8 @@
 """The port's native (C++) host libraries, built at first use, bound by ctypes.
 
 * ``record_io.cpp``: TFRecord framing with CRC32C, a threaded round-robin
-  interleave reader, a tf.Example wire parser (no protobuf) and the PNG
-  row unfilter;
+  interleave reader, a tf.Example and tf.SequenceExample wire parser (no
+  protobuf) and the PNG row unfilter;
 * ``jpeg_decode.cpp``: libjpeg batch decode into a contiguous buffer.
 
 Each source compiles with
@@ -105,7 +105,14 @@ def _bind_record_io(lib: ctypes.CDLL) -> ctypes.CDLL:
       't2r_parser_create': (ctypes.c_void_p, [
           ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int),
           ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
-          ctypes.POINTER(ctypes.c_int), ctypes.c_int]),
+          ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+          ctypes.c_int]),
+      't2r_parser_sequence_lengths': (ctypes.c_int, [
+          ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p),
+          ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64,
+          ctypes.POINTER(ctypes.c_int64)]),
+      't2r_parser_set_steps': (None, [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int64)]),
       't2r_parser_parse_batch': (ctypes.c_int, [
           ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p),
           ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64,

@@ -16,8 +16,11 @@
 // order) so disk latency overlaps the training step. The plain Python
 // reader of data/records.py is this reader's plain version.
 //
-// Beside them, and not in the JAX package's copy: t2r_png_unfilter, the
-// PNG row filters undone for data/image_codec.py's decoder.
+// Beside them, and not in the JAX package's copy: the SequenceExample
+// FeatureLists of the parser (t2r_parser_sequence_lengths,
+// t2r_parser_set_steps, a sequence flag in t2r_parser_create) and
+// t2r_png_unfilter, the PNG row filters undone for data/image_codec.py's
+// decoder.
 
 #include <cstdint>
 #include <cstdlib>
@@ -400,16 +403,22 @@ uint32_t t2r_masked_crc32c(const void* data, uint64_t len) {
 }  // extern "C"
 
 // ===================================================================
-// tf.Example wire-format parser (no protobuf dependency).
+// tf.Example / tf.SequenceExample wire-format parser (no protobuf
+// dependency).
 //
 // Schema subset used by the spec-driven codec (data/example_codec.py,
 // whose plain Python decoder is this parser's plain version):
 //   Example{1: Features{1: map<string, Feature{1:BytesList 2:FloatList
 //   3:Int64List}>}}
+//   SequenceExample{1: Features (the context), 2: FeatureLists{1:
+//   map<string, FeatureList{1: Feature*}>}}
 // Fixed- and padded-varlen float/int64 features fill contiguous [B, N]
-// buffers; bytes features (encoded images) are returned as
-// (offset, length) spans into the caller's record so Python can slice
-// without copying.
+// buffers; bytes features (encoded images, N of them an example) are
+// returned as (offset, length) spans into the caller's record so Python
+// can slice without copying. A sequence field's steps fill [B, T, N]
+// (spans: [B, T, 1, 2]), T the batch's longest list, which a first pass
+// (t2r_parser_sequence_lengths) measures and t2r_parser_set_steps hands
+// to the parse.
 
 namespace {
 
@@ -472,9 +481,12 @@ enum FieldKind { kFloat = 0, kInt64 = 1, kBytes = 2 };
 struct FieldSpec {
   std::string key;
   int kind;
-  int64_t flat_len;   // elements per example; for kBytes: max spans
+  int64_t flat_len;   // elements per example (per step of a sequence);
+                      // for kBytes: max spans
   int required;
   int varlen;         // pad/clip to flat_len; fixed specs error on mismatch
+  int sequence;       // a FeatureList of steps of exactly flat_len values
+  int64_t steps = 0;  // a sequence field's T in this batch's buffer
 };
 
 struct Parser {
@@ -482,9 +494,11 @@ struct Parser {
   std::string error;
 };
 
-// Parses one Feature submessage into the output slot for record b.
+// Parses one Feature submessage into output row b (of a sequence field:
+// row b * steps + step).
 bool parse_feature(Cursor fc, const FieldSpec& fs, int64_t b,
-                   void* out, const uint8_t* rec_base, Parser* pr) {
+                   void* out, const uint8_t* rec_base, Parser* pr,
+                   int64_t step = -1) {
   uint32_t field, wire;
   int64_t count = 0;
   while (fc.tag(&field, &wire)) {
@@ -569,6 +583,15 @@ bool parse_feature(Cursor fc, const FieldSpec& fs, int64_t b,
     pr->error = fs.key + ": malformed Feature";
     return false;
   }
+  if (fs.sequence) {
+    if (count != fs.flat_len) {
+      pr->error = fs.key + ": step " + std::to_string(step) + " has " +
+                  std::to_string(count) + " values, expected " +
+                  std::to_string(fs.flat_len);
+      return false;
+    }
+    return true;
+  }
   if (count == 0 && fs.required) {
     pr->error = fs.key + ": required feature empty/missing";
     return false;
@@ -581,6 +604,62 @@ bool parse_feature(Cursor fc, const FieldSpec& fs, int64_t b,
   return true;
 }
 
+// Calls fn(field index, FeatureList cursor) for each entry of a
+// FeatureLists message whose key is a sequence field's; false when the
+// message is malformed.
+template <typename Fn>
+bool for_each_feature_list(Cursor lists, Parser* pr, Fn fn) {
+  uint32_t f1, w1;
+  while (lists.tag(&f1, &w1)) {
+    if (f1 != 1 || w1 != 2) {
+      if (!lists.skip(w1)) return false;
+      continue;
+    }
+    Cursor entry = lists.sub();
+    if (!lists.ok || !entry.ok) return false;
+    std::string key;
+    Cursor list{nullptr, nullptr, false};
+    uint32_t f2, w2;
+    while (entry.tag(&f2, &w2)) {
+      if (f2 == 1 && w2 == 2) {
+        Cursor kc = entry.sub();
+        if (!entry.ok || !kc.ok) return false;
+        key.assign(reinterpret_cast<const char*>(kc.p), kc.end - kc.p);
+      } else if (f2 == 2 && w2 == 2) {
+        list = entry.sub();
+        if (!entry.ok) return false;
+      } else if (!entry.skip(w2)) {
+        return false;
+      }
+    }
+    if (!entry.ok) return false;
+    for (size_t i = 0; i < pr->fields.size(); i++) {
+      if (pr->fields[i].sequence && pr->fields[i].key == key) {
+        if (list.ok && !fn(i, list)) return false;
+        break;
+      }
+    }
+  }
+  return lists.ok;
+}
+
+// The Feature submessages of a FeatureList, in order: fn(step, cursor).
+template <typename Fn>
+bool for_each_step(Cursor list, Fn fn) {
+  uint32_t f, w;
+  int64_t step = 0;
+  while (list.tag(&f, &w)) {
+    if (f != 1 || w != 2) {
+      if (!list.skip(w)) return false;
+      continue;
+    }
+    Cursor feature = list.sub();
+    if (!list.ok || !feature.ok) return false;
+    if (!fn(step++, feature)) return false;
+  }
+  return list.ok;
+}
+
 }  // namespace
 
 extern "C" {
@@ -589,22 +668,85 @@ extern "C" {
 // the parser only overwrites what the wire data provides.
 void* t2r_parser_create(const char** keys, const int* kinds,
                         const int64_t* flat_lens, const int* required,
-                        const int* varlen, int n_fields) {
+                        const int* varlen, const int* sequence,
+                        int n_fields) {
   auto* p = new Parser();
   for (int i = 0; i < n_fields; i++) {
     p->fields.push_back(FieldSpec{keys[i], kinds[i], flat_lens[i],
-                                  required[i], varlen[i]});
+                                  required[i], varlen[i], sequence[i]});
   }
   return p;
+}
+
+// The step count of every sequence field of every record: lengths is
+// int64 [B, n_sequence_fields], the sequence fields in creation order. A
+// record without one of the lists fails, as tf.io.parse_sequence_example
+// fails on a missing FixedLenSequenceFeature. Returns 0 or -1 (see
+// t2r_parser_error).
+int t2r_parser_sequence_lengths(void* handle, const uint8_t* const* recs,
+                                const uint64_t* lens, int64_t batch,
+                                int64_t* lengths) {
+  auto* pr = static_cast<Parser*>(handle);
+  pr->error.clear();
+  std::vector<int64_t> slot(pr->fields.size(), -1);
+  int64_t n_seq = 0;
+  for (size_t i = 0; i < pr->fields.size(); i++)
+    if (pr->fields[i].sequence) slot[i] = n_seq++;
+  std::vector<int64_t> count(pr->fields.size());
+  for (int64_t b = 0; b < batch; b++) {
+    std::fill(count.begin(), count.end(), -1);
+    Cursor rc{recs[b], recs[b] + lens[b]};
+    uint32_t field, wire;
+    bool ok = true;
+    while (ok && rc.tag(&field, &wire)) {
+      if (!rc.ok) break;
+      if (field != 2 || wire != 2) {
+        if (!rc.skip(wire)) break;
+        continue;
+      }
+      Cursor lists = rc.sub();
+      if (!rc.ok || !lists.ok) { rc.ok = false; break; }
+      ok = for_each_feature_list(lists, pr, [&](size_t i, Cursor list) {
+        int64_t steps = 0;
+        if (!for_each_step(list, [&](int64_t, Cursor) { steps++; return true; }))
+          return false;
+        count[i] = steps;
+        return true;
+      });
+    }
+    if (!rc.ok || !ok) {
+      pr->error = "malformed Example at batch index " + std::to_string(b);
+      return -1;
+    }
+    for (size_t i = 0; i < pr->fields.size(); i++) {
+      if (slot[i] < 0) continue;
+      if (count[i] < 0) {
+        pr->error = pr->fields[i].key + ": feature list missing";
+        return -1;
+      }
+      lengths[b * n_seq + slot[i]] = count[i];
+    }
+  }
+  return 0;
+}
+
+// Each sequence field's T (steps in its output buffer), in creation
+// order of the sequence fields, for the next t2r_parser_parse_batch.
+void t2r_parser_set_steps(void* handle, const int64_t* steps) {
+  auto* pr = static_cast<Parser*>(handle);
+  int64_t j = 0;
+  for (auto& fs : pr->fields)
+    if (fs.sequence) fs.steps = steps[j++];
 }
 
 const char* t2r_parser_error(void* handle) {
   return static_cast<Parser*>(handle)->error.c_str();
 }
 
-// Fills per-field output buffers for a batch of serialized Examples.
-// float fields: float32 [B, flat_len]; int64 fields: int64 [B, flat_len];
-// bytes fields: int64 [B, flat_len, 2] (offset, len) into each record.
+// Fills per-field output buffers for a batch of serialized Examples or
+// SequenceExamples. float fields: float32 [B, flat_len]; int64 fields:
+// int64 [B, flat_len]; bytes fields: int64 [B, flat_len, 2] (offset, len)
+// into each record; a sequence field the same with [B, steps] rows.
 // Buffers must be pre-filled by the caller with pad/default values.
 // Returns 0 on success, -1 on error (see t2r_parser_error).
 int t2r_parser_parse_batch(void* handle, const uint8_t* const* recs,
@@ -620,6 +762,26 @@ int t2r_parser_parse_batch(void* handle, const uint8_t* const* recs,
     uint32_t field, wire;
     while (rc.tag(&field, &wire)) {
       if (!rc.ok) break;
+      if (field == 2 && wire == 2) {  // a SequenceExample's FeatureLists
+        Cursor lists = rc.sub();
+        if (!rc.ok || !lists.ok) { rc.ok = false; break; }
+        bool failed = false;
+        bool ok = for_each_feature_list(lists, pr, [&](size_t i, Cursor list) {
+          const FieldSpec& fs = pr->fields[i];
+          return for_each_step(list, [&](int64_t t, Cursor feature) {
+            if (t >= fs.steps) return true;  // a later duplicate list
+            if (!parse_feature(feature, fs, b * fs.steps + t, outs[i],
+                               recs[b], pr, t)) {
+              failed = true;
+              return false;
+            }
+            return true;
+          });
+        });
+        if (failed) return -1;
+        if (!ok) { rc.ok = false; break; }
+        continue;
+      }
       if (field != 1 || wire != 2) {  // not Features
         if (!rc.skip(wire)) break;
         continue;
@@ -652,7 +814,7 @@ int t2r_parser_parse_batch(void* handle, const uint8_t* const* recs,
         }
         if (!entry.ok) { feats.ok = false; break; }
         for (size_t i = 0; i < nf; i++) {
-          if (pr->fields[i].key == key) {
+          if (!pr->fields[i].sequence && pr->fields[i].key == key) {
             if (feature.ok) {
               if (!parse_feature(feature, pr->fields[i], b, outs[i],
                                  recs[b], pr))
@@ -670,7 +832,7 @@ int t2r_parser_parse_batch(void* handle, const uint8_t* const* recs,
       return -1;
     }
     for (size_t i = 0; i < nf; i++) {
-      if (!seen[i] && pr->fields[i].required) {
+      if (!seen[i] && pr->fields[i].required && !pr->fields[i].sequence) {
         pr->error = pr->fields[i].key + ": required feature missing";
         return -1;
       }

@@ -1,7 +1,9 @@
 """Spec algebra: flatten / pack / validate / filter.
 
 The port's counterpart of ``tensor2robot_tpu/specs/algebra.py``, limited
-to what the port's paths call. Semantics are the same:
+to what the port's paths call (the record feed's helpers among them:
+dataset filters, sequence-length specs, spec names, varlen pad or clip).
+Semantics are the same:
 
 * flattening joins paths with '/' and drops ``None`` leaves;
 * packing matches the flat path keys of the expected spec;
@@ -12,6 +14,7 @@ to what the port's paths call. Semantics are the same:
 
 from __future__ import annotations
 
+import collections
 from collections import abc as collections_abc
 
 import numpy as np
@@ -223,3 +226,57 @@ def filter_required_flat_tensor_spec(flat_tensor_spec) -> SpecStruct:
   return SpecStruct(
       (k, v) for k, v in flat_tensor_spec.items()
       if not getattr(v, 'is_optional', False))
+
+
+def filter_spec_structure_by_dataset(spec_structure,
+                                     dataset_key: str) -> SpecStruct:
+  """Subset whose specs route to ``dataset_key`` (everything if '' or
+  None)."""
+  return SpecStruct(
+      (k, v) for k, v in flatten_spec_structure(spec_structure).items()
+      if not dataset_key or getattr(v, 'dataset_key', '') == dataset_key)
+
+
+def add_sequence_length_specs(spec_structure) -> SpecStruct:
+  """Adds '<key>_length' int64 scalar specs for every sequence spec."""
+  flat = flatten_spec_structure(spec_structure)
+  out = flat.copy()
+  for key, value in flat.items():
+    if getattr(value, 'is_sequence', False):
+      out[key + '_length'] = TensorSpec(
+          shape=(), dtype=np.int64,
+          name=(value.name or key.split(_SEP)[-1]) + '_length',
+          dataset_key=value.dataset_key)
+  return out
+
+
+def spec_names(spec_structure) -> 'collections.OrderedDict[str, TensorSpec]':
+  """Maps unique spec *names* to specs (the serialized-data key space). A
+  name may be shared by several paths only if their specs are equal."""
+  by_name = collections.OrderedDict()
+  for key, value in flatten_spec_structure(spec_structure).items():
+    spec = TensorSpec.to_spec(value)
+    name = spec.name or key.split(_SEP)[-1]
+    if name in by_name and by_name[name] != spec:
+      raise ValueError(
+          f'Duplicate spec name {name!r} with differing specs:\n'
+          f'  {by_name[name]}\n  {spec}')
+    by_name[name] = spec
+  return by_name
+
+
+def pad_or_clip_to_spec_shape(array: np.ndarray, spec: TensorSpec):
+  """Pads (with ``varlen_default_value``) or clips dim 0 to the spec's
+  shape; a spec without a varlen default is returned as it is."""
+  if spec.varlen_default_value is None:
+    return array
+  target = spec.shape[0]
+  if target is None:
+    return array
+  length = array.shape[0]
+  if length >= target:
+    return array[:target]
+  pad_value = np.asarray(spec.varlen_default_value, dtype=array.dtype)
+  padding = np.full((target - length,) + array.shape[1:], pad_value,
+                    dtype=array.dtype)
+  return np.concatenate([array, padding], axis=0)

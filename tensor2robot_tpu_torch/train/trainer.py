@@ -985,6 +985,10 @@ class Trainer:
           save_interval_steps=config.save_interval_steps,
           async_save=config.async_checkpoints,
           topology=topology)
+    # Whether the manager's host staging has been allocated: after the
+    # first update, when the optimizer's slots exist, so that no save pays
+    # the page-locked allocation inside a step.
+    self._staging_ready = self._manager is None
 
   @property
   def model(self):
@@ -1083,6 +1087,11 @@ class Trainer:
     logging.info('Restored checkpoint step %d from %s.', step,
                  self._manager.directory)
     return step
+
+  def _prepare_staging(self) -> None:
+    if not self._staging_ready:
+      self._staging_ready = True
+      self._manager.prepare(state_dict(self._state))
 
   def save_checkpoint(self, force: bool = False) -> None:
     """Saves the current state (see ``CheckpointManager.save``)."""
@@ -1435,6 +1444,7 @@ class Trainer:
       breakdown.record(start, timer.wait_ms, timer.place_ms, dispatch_ms,
                        device_ms, time.perf_counter(), step, 1,
                        _batch_examples(current.features))
+      self._prepare_staging()
       self._dispatch_start_step = before
       if crossed_interval(config.log_interval_steps, before, step):
         scalars = {k: float(v) for k, v in scalars.items()}
@@ -1512,6 +1522,7 @@ class Trainer:
         breakdown.record(start, timer.wait_ms, timer.place_ms, dispatch_ms,
                          device_ms, time.perf_counter(), host_step,
                          current.k, _batch_examples(current.features, 2))
+        self._prepare_staging()
         self._grouped_trained += current.k
         self._dispatch_start_step = before
         scalars = {k: v for k, v in out.items() if k != 'applied'}

@@ -181,7 +181,8 @@ def test_async_save_commits_at_the_next_save_or_wait(tmp_path):
   assert ckpt.latest_checkpoint_step(directory) == 2
   assert torch.equal(manager.restore(step=1)[1]['x'], torch.zeros(4))
   assert torch.equal(manager.restore()[1]['x'], torch.ones(4))
-  assert set(manager.timings) == {'copy_ms', 'write_ms'}
+  assert set(manager.timings) == {'copy_ms', 'serialize_ms', 'sync_ms',
+                                  'write_ms'}
   # Not a multiple of the interval, and not forced: no save.
   interval = ckpt.CheckpointManager(str(tmp_path / 'i'),
                                     save_interval_steps=3, async_save=False)

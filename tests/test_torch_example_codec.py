@@ -252,9 +252,23 @@ def test_wrong_length_and_malformed_examples_raise_in_both_parsers():
 
 
 def test_sequence_specs_are_refused():
+  # Sequence specs are decoded (tests/test_torch_sequence_example.py); what
+  # neither package reads is refused: a sequence spec with a varlen
+  # default, a sequence image of more than [H, W, C], and a spec routed to
+  # a dataset on the single stream.
   spec = SpecStruct()
-  spec['s'] = TensorSpec((3,), torch.float32, name='s', is_sequence=True)
-  with pytest.raises(NotImplementedError, match='queue 1 item 4'):
+  spec['s'] = TensorSpec((3,), torch.float32, name='s', is_sequence=True,
+                         varlen_default_value=0.0)
+  with pytest.raises(ValueError, match='no varlen_default_value'):
+    example_codec.named_specs(spec)
+  spec = SpecStruct()
+  spec['s'] = TensorSpec((2, 8, 8, 3), np.uint8, name='s', is_sequence=True,
+                         data_format='PNG')
+  with pytest.raises(ValueError, match='outside a sequence'):
+    example_codec.named_specs(spec)
+  spec = SpecStruct()
+  spec['s'] = TensorSpec((3,), torch.float32, name='s', dataset_key='d')
+  with pytest.raises(ValueError, match='dataset_map'):
     example_codec.named_specs(spec)
 
 

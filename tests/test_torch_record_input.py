@@ -193,8 +193,13 @@ def test_eval_stream_matches_jax_default_generator(png_shards):
 
 
 def test_default_generator_refuses_what_is_not_ported():
-  with pytest.raises(NotImplementedError, match='queue 1 item 4'):
-    input_generators.DefaultRecordInputGenerator(dataset_map={'a': 'x'})
+  # dataset_map is ported (tests/test_torch_record_meta.py); both sources
+  # at once, or neither, are refused as in the JAX package.
+  with pytest.raises(ValueError, match='mutually exclusive'):
+    input_generators.DefaultRecordInputGenerator(file_patterns='x.tfrecord',
+                                                 dataset_map={'a': 'x'})
+  with pytest.raises(ValueError, match='Provide file_patterns'):
+    input_generators.DefaultRecordInputGenerator()
   with pytest.raises(NotImplementedError, match='queue 1 item 10'):
     input_generators.DefaultRecordInputGenerator(file_patterns='x.tfrecord',
                                                  error_budget=3)
