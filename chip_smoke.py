@@ -3,8 +3,13 @@
 
     python3 chip_smoke.py [--seed N] [--actions N] [--steps N]
                           [--snail-steps N] [--profile]
+    python3 chip_smoke.py --main-path-turns OTHER_CHECKOUT [--actions N]
 
-Run from the repository root. The phases:
+Run from the repository root. ``--main-path-turns`` runs only phases 1, 2
+and the main path's timing (phase 5's ms/action) of this checkout and of
+OTHER_CHECKOUT in turns (other, this, this, other), each turn a child
+process run from its checkout's root, and prints the ms/action of each
+turn as JSON. The phases of a run without it:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions and
    both TF32 flags. The paths and timings run at torch's defaults (cuDNN
@@ -141,7 +146,7 @@ Run from the repository root. The phases:
    of 1.5 critics. One request of one frame and one grasp to A, bit for
    bit the in-process ``ExportedModelPredictor``'s q at batch 1, its
    ``X-Request-Id`` echoed; ``loadgen`` from this process, closed loop
-   (4 clients, 12 s) and then open loop at half that rate for 20 s with
+   (4 clients, 6 s) and then open loop at half that rate for 6 s with
    half the arrivals best-effort (requests/s, examples/s, p50/p99/max and
    the request count on the client's clock, sheds, errors), and the host
    ms of ``json.loads`` + ``np.asarray`` of one request body here (a
@@ -151,7 +156,7 @@ Run from the repository root. The phases:
    and ejection settings over A and B with 2 clients, A SIGTERM'd under
    traffic (drains, exits 0, ejected), restarted on its port and
    readmitted, no failed request; full-sample request tracing's cost to
-   the in-process batcher (8 clients over the mock model, 6 rounds of a
+   the in-process batcher (8 clients over the mock model, 2 rounds of a
    traced and an untraced slice, every round printed); every replica's
    launches after its start
    3 ``pool_fwd`` and 1 ``conv_s2d_fwd`` (tensor cores) a dispatch, no
@@ -238,14 +243,14 @@ Run from the repository root. The phases:
    peak device memory of both at batch 32 and 96;
    ``grad_accum_microbatches=2`` at batch 64 against the eager
    accumulation written out (``DISPATCH_ACCUM_BAND``); K=1 eager, K=8
-   graph and K=8 graph with ``device_feed`` in turns, 3 runs of 16 steps
+   graph and K=8 graph with ``device_feed`` in turns, 2 runs of 48 steps
    each on the same pre-decoded batches: host ms/step, host ms a dispatch
    outside the replay, the superbatch upload's ms (CUDA events) and the
    copies a dispatch, the capture's one-off ms; and the trainer binary on
    the port's ``train_qtopt.gin`` (``steps_per_dispatch = 8`` live; cut to
-   112 of its 1000 steps and a save interval of 50, because the host's
+   64 of its 1000 steps and a save interval of 50, because the host's
    random generator bounds it, with one batch's draw time printed) in a
-   subprocess, which must exit 0 and commit steps [56, 104, 112];
+   subprocess, which must exit 0 and commit steps [56, 64];
 12b. Grasp2Vec at the reference config's full width (``phase_grasp2vec``,
    after the K-step path): 4 TFRecord shards of 12 examples, each three
    seeded 512x640x3 uint8 frames as PNG under the spec names ``image``,
@@ -291,13 +296,45 @@ Run from the repository root. The phases:
    the device ms and idle share of record-fed steps; the first EVAL batch
    of the feed bit for bit the same records parsed by the plain Python
    decoder; the trainer binary on the port's ``run_train_sequential.gin``
-   (cut to 24 steps, saves every 12, 2 eval batches, a shuffle buffer of
-   8 records) in a subprocess that must exit 0, commit steps 12 and 24
+   (cut to 12 steps, saves every 6, 2 eval batches, a shuffle buffer of
+   8 records) in a subprocess that must exit 0, commit steps 6 and 12
    and launch the flash kernels for every step and eval batch; and the
    pose_env gate (800 steps at batch 16, seeds 7 and 8, eval ``pose_mse``
    at most 1.5e-3) through the binary on the port's ``run_train_reg.gin``
-   and ``tests/test_data/pose_env_test_data.tfrecord``, with the JPEG
-   route of the host (PIL where ``jpeglib.h`` is absent) printed;
+   and ``tests/test_data/pose_env_test_data.tfrecord`` (its model runs no
+   kernel, so it is started before the build, trains beside it and is
+   collected right after it, before the first check phase: no timed phase
+   runs beside it), with the JPEG route of the host (PIL where ``jpeglib.h`` is absent) printed;
+12d. SNAIL and Grasp2Vec served from exported programs
+   (``phase_export_models``, after ``phase_record_snail``, deterministic
+   cuDNN): SNAIL sequential (``run_train_sequential.gin``: episode 40,
+   220x300 frames), SNAIL long-horizon (episode 512, 8 heads of 8) and
+   Grasp2Vec (``train_grasp2vec.gin``: ResNet-50 v2, 472x472, bf16, the
+   stem pools on the kernels), seeded weights, each exported on the card
+   by ``ModelExporter`` (its op and kernel nodes, 2 ``t2r.flash_fwd`` or 2
+   ``t2r.pool_fwd``, ``serving_fn.pt2``'s bytes and the export's ms
+   printed; ``self_contained_serving_fn`` true); the eager
+   ``CheckpointPredictor`` predicts seeded batches of 1 and 8 (Grasp2Vec 1
+   and 4), 2 launches a predict counted; ONE subprocess that cannot import
+   the port's ``research`` and ``models`` modules loads all three
+   versions and predicts the same batches (and the larger once more):
+   every output bit for bit the eager one, each predict moving
+   ``flash_fwd`` or ``pool_fwd`` by 2, its restore and predict ms printed;
+   the photometric pass exported as a program on the card at
+   [32, 472, 472, 3] float32, one ``t2r.photometric`` node, launched once
+   and bit for bit the eager kernel;
+12e. weight-only int8 and fp8 serving (``phase_quantized_serving``): the
+   QT-Opt critic (bf16, ``pool_conv``, spread seeded weights) exported on
+   the card and served by ``DynamicBatcher(64)`` in full precision, int8
+   and fp8 (start ms; param bytes and their ratio; the parity report,
+   which must lie within the default band; 3/1 launches a program run,
+   the parity check's four included); one dispatch of 64 pairs for each
+   in turns (off, int8, fp8, fp8, int8, off; blocks of 10, host clock);
+   the zero band (atol = rtol = 0) refused, 1 ``quant_parity_rejects``,
+   full precision served bit for bit; ``run_serving --quantize int8`` in
+   a process of its own (``SERVE_WRAPPER``) answers one request within
+   the band, ``/statz`` shows the active twin, 3/1 launches a dispatch;
+   every phase's host seconds are printed before the kernels line;
 13. timings with CUDA events (each call after an L2 flush and a spin
    kernel that keeps the card busy while the host enqueues it): each
    kernel, its plain version, one library
@@ -366,12 +403,14 @@ Any failure exits non-zero before them, and nothing falls back to the CPU.
 """
 
 import argparse
+import atexit
 import collections
 import concurrent.futures
 import contextlib
 import copy
 import functools
 import http.client
+import inspect
 import itertools
 import json
 import os
@@ -401,6 +440,7 @@ from tensor2robot_tpu_torch.ops import (_build, _dispatch, conv_s2d,
                                         fused_update, photometric, pool)
 from tensor2robot_tpu_torch.ops import flash_attention as fa
 from tensor2robot_tpu_torch.preprocessors import image_transformations
+from tensor2robot_tpu_torch.quantize import quantization as quant_lib
 from tensor2robot_tpu_torch.policies import CEMPolicy
 from tensor2robot_tpu_torch.predictors import (CheckpointPredictor,
                                                ExportedModelPredictor)
@@ -764,6 +804,7 @@ def phase_build():
     raise AssertionError(f'fused_update_kernel stack frames: {frames}')
   log('ptxas: all 8 fused_update_kernel instantiations have a 0-byte stack '
       'frame')
+  return seconds
 
 
 def same_bits(a, b):
@@ -2193,9 +2234,11 @@ def dispatch_parts(exported, executor, requests):
 # comes back on its port.
 HTTP_MAX_BATCH = 8
 HTTP_CLIENTS = 4
-HTTP_CLOSED_SECONDS = 12.0
-HTTP_OPEN_SECONDS = 20.0
-HTTP_TRACE_ROUNDS = 6  # untraced and traced slices, the order alternated
+# Cut from 12 s, 20 s and 6 rounds when the exported-models and
+# quantized-serving phases joined the run, to keep it inside its limit.
+HTTP_CLOSED_SECONDS = 6.0
+HTTP_OPEN_SECONDS = 6.0
+HTTP_TRACE_ROUNDS = 2  # untraced and traced slices, the order alternated
 HTTP_TRACE_SLICE_SECONDS = 1.5
 HTTP_ALTERNATIONS = 6  # named requests, the two critics in turn
 HTTP_BUDGET_CRITICS = 1.5  # the paging replica's budget, in critics
@@ -2668,7 +2711,7 @@ def http_serving_paths(seed, card, device, model, root):
 
 # The record-fed QT-Opt path: shards of PNG frames (the card's host had no
 # libjpeg header when probed, so JPEG decodes there through PIL, as the
-# pose_env gate of phase_record_snail prints; ROADMAP queue 1 item 4).
+# pose_env gate prints; ROADMAP queue 1 item 4).
 RECORD_SHARDS = 4
 RECORD_PER_SHARD = 48
 RECORD_SHUFFLE = 64
@@ -4975,14 +5018,15 @@ DISPATCH_K = 8
 DISPATCH_BATCHES = 19     # two graph dispatches and a 3-batch ragged tail
 DISPATCH_NAN_AT = 8 + 3   # slot 3 of the second dispatch
 DISPATCH_TIMED = 48       # steps a timed run: six dispatches of 8
-DISPATCH_TURNS = 3
+DISPATCH_TURNS = 2  # 3 until the run's limit needed the seconds
 DISPATCH_ACCUM_BATCH = 64
 # The binary's run, cut from the config's 1000 steps (run_dispatch_binary),
 # and the steps it must commit: the dispatch boundaries on or after 50 and
 # 100, and the final step.
-DISPATCH_BINARY_STEPS = 112
+# 112 steps until the exported-models phases needed the run's seconds.
+DISPATCH_BINARY_STEPS = 64
 DISPATCH_BINARY_SAVE_INTERVAL = 50
-DISPATCH_BINARY_SAVES = (56, 104, 112)
+DISPATCH_BINARY_SAVES = (56, 64)
 DISPATCH_MEMORY_BATCHES = (32, 96)
 # The M=2 step against the eager accumulation written out: every parameter
 # within 1e-6 of its leaf's largest magnitude (the same operations in the
@@ -5342,7 +5386,7 @@ def run_dispatch_binary(root):
   """The trainer binary on the port's train_qtopt.gin, steps_per_dispatch
   = 8 live, in a subprocess; it must exit 0, commit the final step and
   save at dispatch boundaries: the first on or after each multiple of the
-  save interval (56, 104), then the final step (112). The config's own
+  save interval (56), then the final step (64). The config's own
   1000 steps are bound by the host's random input generator (it draws
   31.5 MB of uint8 a batch; the phase prints the seconds one draw takes),
   not by depth, so the run is cut by binding ``DISPATCH_BINARY_STEPS`` and
@@ -6219,8 +6263,8 @@ SNAIL_RECORD_SHUFFLE = 8
 # The binary on run_train_sequential.gin, cut: its steps (of 5000), its
 # save interval (the gin has none: the trainer's 500) and eval batches
 # (of 100); one eval at the end.
-SNAIL_BINARY_STEPS = 24
-SNAIL_BINARY_SAVES = (12, 24)
+SNAIL_BINARY_STEPS = 12  # 24 before the exported-models phases
+SNAIL_BINARY_SAVES = (6, 12)
 SNAIL_BINARY_EVAL = 2
 # The pose_env gate (tests/test_torch_pose_env.py): 800 steps at batch 16,
 # generator seeds 7 (train) and 8 (eval), 4 eval batches, pose_mse at most
@@ -6230,9 +6274,10 @@ POSE_GATE = dict(steps=800, batch=16, seeds=(7, 8), eval_steps=4,
 
 # Runs the trainer binary's main unchanged and prints, as its last stdout
 # line, the flash kernels' launches, the plain versions' calls, the JPEG
-# route of this host and the metrics main returned.
+# route of this host, the metrics main returned and its own seconds.
 RECORD_BINARY = '''
-import json, sys
+import json, sys, time
+start = time.perf_counter()
 from tensor2robot_tpu_torch.bin import run_t2r_trainer
 from tensor2robot_tpu_torch.data import image_codec
 from tensor2robot_tpu_torch.ops import flash_attention as fa
@@ -6247,7 +6292,8 @@ print(json.dumps({'flash_fwd': fa.flash_fwd.launches,
                   'flash_dq': fa.flash_dq.launches,
                   'flash_dkv': fa.flash_dkv.launches, 'plain': plain['flash'],
                   'jpeg_route': image_codec.jpeg_route(),
-                  'metrics': {k: float(v) for k, v in metrics.items()}}))
+                  'metrics': {k: float(v) for k, v in metrics.items()},
+                  'seconds': time.perf_counter() - start}))
 '''
 
 
@@ -6303,29 +6349,125 @@ def snail_generator(paths, seed, **kwargs):
   return gen
 
 
-def run_record_binary(gin, bindings, timeout):
-  """The trainer binary through RECORD_BINARY; returns its report, its
-  committed steps and its seconds. It must exit 0."""
+def start_record_binary(gin, bindings, out_dir):
+  """Starts the trainer binary through RECORD_BINARY, its stdout and
+  stderr into files under ``out_dir``; returns the running handle."""
   repo = pathlib.Path(__file__).resolve().parent
   cmd = [sys.executable, '-c', RECORD_BINARY, '--gin_configs',
          str(repo / gin)]
   for binding in bindings:
     cmd += ['--gin_bindings', binding]
-  start = time.perf_counter()
-  proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
-                        timeout=timeout, check=False)
+  out_dir.mkdir(parents=True, exist_ok=True)
+  with open(out_dir / 'stdout.txt', 'w') as out, \
+      open(out_dir / 'stderr.txt', 'w') as err:
+    proc = subprocess.Popen(cmd, cwd=repo, stdout=out, stderr=err, text=True)
+  return proc, out_dir, time.perf_counter()
+
+
+def finish_record_binary(running, gin, timeout):
+  """Waits for a started binary; returns its report (the last stdout
+  line) and its seconds since the start. It must exit 0."""
+  proc, out_dir, start = running
+  try:
+    proc.wait(timeout=timeout)
+  finally:
+    if proc.poll() is None:
+      proc.kill()
+      proc.wait()
   seconds = time.perf_counter() - start
-  if proc.returncode != 0 or not proc.stdout.strip():
+  stdout = (out_dir / 'stdout.txt').read_text()
+  if proc.returncode != 0 or not stdout.strip():
     raise AssertionError(f'{gin}: the binary exited {proc.returncode}; its '
-                         f'output ended:\n{proc.stdout[-3000:]}\n'
-                         f'{proc.stderr[-3000:]}')
-  return json.loads(proc.stdout.strip().splitlines()[-1]), seconds
+                         f'output ended:\n{stdout[-3000:]}\n'
+                         f'{(out_dir / "stderr.txt").read_text()[-3000:]}')
+  return json.loads(stdout.strip().splitlines()[-1]), seconds
+
+
+def run_record_binary(gin, bindings, timeout, out_dir):
+  """The trainer binary through RECORD_BINARY, run to its end; returns its
+  report and its seconds. It must exit 0."""
+  return finish_record_binary(start_record_binary(gin, bindings, out_dir),
+                              gin, timeout)
 
 
 def committed_steps(model_dir):
   directory = str(model_dir / 'checkpoints')
   return [s for s in ckpt_lib.CheckpointManager(directory).all_steps()
           if ckpt_lib.read_commit_marker(directory, s) is not None]
+
+
+class PoseGate:
+  """The pose_env gate: the trainer binary on the port's run_train_reg.gin
+  over ``tests/test_data/pose_env_test_data.tfrecord`` (POSE_GATE's steps,
+  batch and seeds), in a process of its own started by :meth:`start`. Its
+  model runs no kernel of the port, so ``main`` starts it before the build
+  and it trains while the kernels compile; ``phase_pose_gate`` checks it
+  with :meth:`finish` before any timed phase. A gate still running at exit
+  is killed."""
+
+  def __init__(self):
+    OUT_DIR.mkdir(exist_ok=True)
+    self.root = pathlib.Path(tempfile.mkdtemp(prefix='pose_gate_',
+                                              dir=OUT_DIR))
+    self.running = None
+
+  def start(self):
+    train_seed, eval_seed = POSE_GATE['seeds']
+    self.running = start_record_binary(REG_GIN, [
+        f"train/DefaultRecordInputGenerator.file_patterns = '{POSE_DATA}'",
+        f"eval/DefaultRecordInputGenerator.file_patterns = '{POSE_DATA}'",
+        f'train/DefaultRecordInputGenerator.seed = {train_seed}',
+        f'eval/DefaultRecordInputGenerator.seed = {eval_seed}',
+        f"train_eval_model.model_dir = '{self.root / 'pose_env'}'",
+        f'train_eval_model.max_train_steps = {POSE_GATE["steps"]}',
+        f'train_eval_model.eval_steps = {POSE_GATE["eval_steps"]}',
+        f'DefaultRecordInputGenerator.batch_size = {POSE_GATE["batch"]}'],
+                                       self.root / 'logs')
+    atexit.register(self.stop)
+    return self
+
+  def stop(self):
+    if self.running is not None and self.running[0].poll() is None:
+      self.running[0].kill()
+      self.running[0].wait()
+    shutil.rmtree(self.root, ignore_errors=True)
+
+  def finish(self):
+    """Waits for the gate: eval ``pose_mse`` at most POSE_GATE's and the
+    final step committed; logs it."""
+    try:
+      report, seconds = finish_record_binary(self.running, REG_GIN, 600)
+      gate_dir = self.root / 'pose_env'
+      mse = report['metrics'].get('pose_mse', float('nan'))
+      if not mse <= POSE_GATE['pose_mse'] or committed_steps(gate_dir) != [
+          POSE_GATE['steps']]:
+        raise AssertionError(f'pose_env gate: pose_mse {mse} (at most '
+                             f'{POSE_GATE["pose_mse"]}), committed steps '
+                             f'{committed_steps(gate_dir)}')
+    finally:
+      self.stop()
+    log(f'pose_env gate: the trainer binary python -m '
+        f'tensor2robot_tpu_torch.bin.run_t2r_trainer --gin_configs {REG_GIN} '
+        f'on tests/test_data/pose_env_test_data.tfrecord '
+        f'({POSE_GATE["steps"]} of 10000 steps at batch {POSE_GATE["batch"]} '
+        f'of 64, seeds {POSE_GATE["seeds"]}, eval_steps '
+        f'{POSE_GATE["eval_steps"]} of 10): eval pose_mse {mse:.6f} <= '
+        f'{POSE_GATE["pose_mse"]}; it ran {report["seconds"]:.1f} s (its own '
+        f'clock, beside the build) and was collected {seconds:.1f} s after '
+        f'its start; JPEG decoded through {report["jpeg_route"]} on this '
+        f'host (jpeglib.h '
+        f'{"present" if report["jpeg_route"] == "libjpeg" else "absent"})')
+
+
+def phase_pose_gate(gate, build_seconds):
+  """Collects the pose_env gate (a :class:`PoseGate` started before the
+  build) before the first check phase, and logs how long it ran on after
+  the build: no timed phase runs beside it."""
+  start = time.perf_counter()
+  gate.finish()
+  log(f'pose_env gate: collected {time.perf_counter() - start:.1f} s after '
+      f'the build ({build_seconds:.1f} s) ended; it overlapped no timed '
+      f'phase')
 
 
 def phase_record_snail(seed, card, profile):
@@ -6513,7 +6655,7 @@ def record_snail_paths(seed, card, root, profile):
       f'train_eval_model.save_interval_steps = {SNAIL_BINARY_SAVES[0]}',
       f'train_eval_model.eval_steps = {SNAIL_BINARY_EVAL}',
       'DefaultRecordInputGenerator.shuffle_buffer_size = '
-      f'{SNAIL_RECORD_SHUFFLE}'], timeout=600)
+      f'{SNAIL_RECORD_SHUFFLE}'], timeout=600, out_dir=root / 'binary_logs')
   steps = committed_steps(model_dir)
   want = {'flash_fwd': 2 * (SNAIL_BINARY_STEPS + SNAIL_BINARY_EVAL),
           'flash_dq': 2 * SNAIL_BINARY_STEPS,
@@ -6532,35 +6674,538 @@ def record_snail_paths(seed, card, root, profile):
       f'shuffle_buffer_size {SNAIL_RECORD_SHUFFLE} of 1000; file_patterns '
       f'and model_dir bound) exited 0 in {seconds:.1f} s, committed steps '
       f'{steps}, launches {got}, eval {report["metrics"]}')
-
-  # 5. The pose_env gate through the binary on the port's run_train_reg.gin.
-  gate_dir = root / 'pose_env'
-  train_seed, eval_seed = POSE_GATE['seeds']
-  report, seconds = run_record_binary(REG_GIN, [
-      f"train/DefaultRecordInputGenerator.file_patterns = '{POSE_DATA}'",
-      f"eval/DefaultRecordInputGenerator.file_patterns = '{POSE_DATA}'",
-      f'train/DefaultRecordInputGenerator.seed = {train_seed}',
-      f'eval/DefaultRecordInputGenerator.seed = {eval_seed}',
-      f"train_eval_model.model_dir = '{gate_dir}'",
-      f'train_eval_model.max_train_steps = {POSE_GATE["steps"]}',
-      f'train_eval_model.eval_steps = {POSE_GATE["eval_steps"]}',
-      f'DefaultRecordInputGenerator.batch_size = {POSE_GATE["batch"]}'],
-                                     timeout=600)
-  mse = report['metrics'].get('pose_mse', float('nan'))
-  if not mse <= POSE_GATE['pose_mse'] or committed_steps(gate_dir) != [
-      POSE_GATE['steps']]:
-    raise AssertionError(f'pose_env gate: pose_mse {mse} (at most '
-                         f'{POSE_GATE["pose_mse"]}), committed steps '
-                         f'{committed_steps(gate_dir)}')
-  log(f'record snail: the pose_env gate through python -m '
-      f'tensor2robot_tpu_torch.bin.run_t2r_trainer --gin_configs {REG_GIN} '
-      f'on tests/test_data/pose_env_test_data.tfrecord ({POSE_GATE["steps"]} '
-      f'of 10000 steps at batch {POSE_GATE["batch"]} of 64, seeds '
-      f'{POSE_GATE["seeds"]}, eval_steps {POSE_GATE["eval_steps"]} of 10): '
-      f'eval pose_mse {mse:.6f} <= {POSE_GATE["pose_mse"]} in {seconds:.1f} '
-      f's; JPEG decoded through {report["jpeg_route"]} on this host '
-      f'(jpeglib.h {"present" if report["jpeg_route"] == "libjpeg" else "absent"})')
   return total
+
+
+# The models exported and served from their programs (phase_export_models):
+# each one's predict batches, and the kernel node its program holds twice
+# with the counter that node moves once a predict.
+EXPORT_MODEL_BATCHES = {'sequential': (1, 8), 'long_horizon': (1, 8),
+                        'grasp2vec': (1, 4)}
+EXPORT_MODEL_NODES = {'sequential': ('t2r.flash_fwd.default', 'flash_fwd'),
+                      'long_horizon': ('t2r.flash_fwd.default', 'flash_fwd'),
+                      'grasp2vec': ('t2r.pool_fwd.default', 'pool_fwd')}
+
+
+def seeded_features(spec, batch, seed):
+  """Seeded spec-shaped numpy features, the keys in sorted order: uint8
+  frames drawn as uint8 (a long-horizon batch of 8 holds 1.6 GB of them)
+  and float32 uniform [0, 1) otherwise."""
+  rng = np.random.default_rng(seed)
+  out = {}
+  for key in sorted(spec):
+    shape = (batch,) + tuple(spec[key].shape)
+    if spec[key].dtype == torch.uint8:
+      out[key] = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    else:
+      out[key] = rng.random(size=shape, dtype=np.float32)
+  return out
+
+
+# Loads every export root of the parent in ONE process that cannot import
+# the model's modules, predicts seeded spec-shaped batches (the parent
+# draws the same ones with the same function) and prints, per root, the
+# restore ms, each predict's ms and launches, and saves the outputs.
+EXPORT_MODELS_LOADER = '''
+import importlib.abc, json, sys, time
+class _Blocked(importlib.abc.MetaPathFinder):
+  def find_spec(self, name, path=None, target=None):
+    if name.startswith(('tensor2robot_tpu_torch.research',
+                        'tensor2robot_tpu_torch.models')):
+      raise ImportError('blocked: ' + name)
+    return None
+sys.meta_path.insert(0, _Blocked())
+import numpy as np
+import torch
+from tensor2robot_tpu_torch.ops import flash_attention as fa, pool
+from tensor2robot_tpu_torch.predictors import ExportedModelPredictor
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+SEEDED_FEATURES
+def launches():
+  return {'flash_fwd': fa.flash_fwd.launches, 'pool_fwd': pool.pool_fwd.launches}
+report = {}
+device = sys.argv[2]
+def sync():
+  if device == 'cuda':
+    torch.cuda.synchronize()
+for name, root, batches, seed, out in json.loads(sys.argv[1]):
+  sync()
+  start = time.perf_counter()
+  predictor = ExportedModelPredictor(root, device=device)
+  assert predictor.restore()
+  sync()
+  entry = {'restore_ms': 1e3 * (time.perf_counter() - start), 'predicts': []}
+  outputs = {}
+  for batch in list(batches) + [batches[-1]]:
+    features = seeded_features(predictor.get_feature_specification(), batch,
+                               seed + batch)
+    before = launches()
+    sync()
+    start = time.perf_counter()
+    result = predictor.predict(features)
+    sync()
+    ms = 1e3 * (time.perf_counter() - start)
+    entry['predicts'].append(dict(
+        batch=batch, ms=ms,
+        **{k: v - before[k] for k, v in launches().items()}))
+    for key, value in result.items():
+      outputs[f'{batch}/{key}'] = value
+  np.savez(out, **outputs)
+  report[name] = entry
+leaked = sorted(m for m in sys.modules if m.startswith((
+    'tensor2robot_tpu_torch.research', 'tensor2robot_tpu_torch.models')))
+assert not leaked, leaked
+print(json.dumps(report))
+'''
+
+
+def export_model(name):
+  """The full-width model of each exported configuration: SNAIL
+  sequential (run_train_sequential.gin), SNAIL long-horizon
+  (run_train_long_horizon.gin: episode 512, 8 heads of 8) and Grasp2Vec
+  (train_grasp2vec.gin: ResNet-50 v2, 472x472, bfloat16, the stem pools on
+  the kernels)."""
+  if name == 'sequential':
+    return sequential_model()
+  if name == 'long_horizon':
+    return VRGripperEnvLongHorizonModel(**SNAIL_CONFIGS[0][2])
+  return grasp2vec_model()
+
+
+class _PhotometricProgram(torch.nn.Module):
+  """The fused photometric pass as a module, for ``torch.export``."""
+
+  def forward(self, images, delta, factor):  # pylint: disable=arguments-differ
+    return photometric.fused_brightness_contrast(images, delta, factor)
+
+
+def kernels_forced(device):
+  """Kernels forced on for the card; nothing forced on the CPU (a
+  rehearsal of a phase runs the plain versions)."""
+  return (_dispatch.force_kernels(True) if device == 'cuda' else
+          contextlib.nullcontext())
+
+
+def phase_export_models(seed, card, device='cuda', make_model=export_model):
+  """SNAIL sequential, SNAIL long-horizon and Grasp2Vec exported on the
+  card and served from their programs, under deterministic cuDNN without
+  autotuning (restored after the phase); files under a temporary
+  directory below OUT_DIR, removed at the end. Returns the
+  launches of its eager and program predicts and of the photometric
+  program, with the Grasp2Vec stem's pool launches under
+  ``pool_fwd_stem``."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='export_models_', dir=OUT_DIR))
+  try:
+    with cudnn_settings(deterministic=True, benchmark=False), \
+        kernels_forced(device):
+      return export_models_paths(seed, card, root, device, make_model)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def export_models_paths(seed, card, root, device, make_model):
+  begin = time.perf_counter()
+  total = path_launches()
+  total['pool_fwd_stem'] = 0
+  eager_out, jobs = {}, []
+  for index, name in enumerate(EXPORT_MODEL_BATCHES):
+    model = make_model(name)
+    node, counter = EXPORT_MODEL_NODES[name]
+    eager = CheckpointPredictor(model, device=device)
+    eager.init_randomly(torch.Generator().manual_seed(seed + index))
+    export_ms, version = synced_ms(lambda: export_version(
+        model, eager.network.state_dict(), 0, root / name, 1))
+    meta = check_meta(version, device)
+    program = torch.export.load(str(version / exporters.SERVING_FN_FILENAME))
+    ops = exporters.program_op_counts(program)
+    if meta['kernel_ops'] != {node: 2} or exporters.kernel_op_counts(
+        program) != {node: 2}:
+      raise AssertionError(f'export models, {name}: kernel nodes '
+                           f'{meta["kernel_ops"]}, expected 2 {node}')
+    del program
+    artifact = (version / exporters.SERVING_FN_FILENAME).stat().st_size
+    log(f'export models, {name}: program traced on {meta["trace_device"]} '
+        f'with {sum(ops.values())} op nodes, kernel nodes '
+        f'{meta["kernel_ops"]}; self_contained_serving_fn '
+        f'{meta["self_contained_serving_fn"]}; serving_fn.pt2 {artifact} '
+        f'bytes; export {export_ms:.1f} ms (trace, state, assets, warmup, '
+        f'commit; host clock) on {card}')
+    batches = EXPORT_MODEL_BATCHES[name]
+    eager_out[name] = {}
+    for batch in batches:
+      features = seeded_features(eager.get_feature_specification(), batch,
+                                 seed + 100 * index + batch)
+      zero_counters()
+      ms, out = synced_ms(lambda: eager.predict(features))
+      launches = read_counters()
+      want = dict(path_launches(), **{counter: 2})
+      if launches != want:
+        raise AssertionError(f'export models, {name}: an eager predict at '
+                             f'batch {batch} launched {launches}, expected '
+                             f'{want}')
+      for key in total:
+        total[key] += launches.get(key, 0)
+      if name == 'grasp2vec':
+        total['pool_fwd_stem'] += launches['pool_fwd']
+      eager_out[name][batch] = out
+      log(f'export models, {name}: eager CheckpointPredictor predict at '
+          f'batch {batch} {ms:.1f} ms (host clock, synchronised, the first '
+          f'call of its shape) on {card}')
+      del features
+    jobs.append((name, str(root / name), batches, seed + 100 * index,
+                 str(root / f'{name}.npz')))
+    del eager
+    torch.cuda.empty_cache()
+
+  # One process without the model modules loads the three programs.
+  repo = pathlib.Path(__file__).resolve().parent
+  start = time.perf_counter()
+  env = dict(os.environ)
+  if device == 'cuda':
+    env['T2R_FORCE_PALLAS_KERNELS'] = '1'
+  loader = EXPORT_MODELS_LOADER.replace('SEEDED_FEATURES',
+                                        inspect.getsource(seeded_features))
+  proc = subprocess.run(
+      [sys.executable, '-c', loader, json.dumps(jobs), device],
+      cwd=repo, capture_output=True, text=True, timeout=900, check=False,
+      env=env)
+  child_s = time.perf_counter() - start
+  if proc.returncode != 0:
+    raise AssertionError(f'export models loader: exit {proc.returncode}:\n'
+                         f'{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}')
+  loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+  for name, _, batches, _, out_path in jobs:
+    node, counter = EXPORT_MODEL_NODES[name]
+    entry = loaded[name]
+    for predict in entry['predicts']:
+      moved = {key: predict[key] for key in ('flash_fwd', 'pool_fwd')}
+      want = {'flash_fwd': 0, 'pool_fwd': 0, counter: 2}
+      if moved != want:
+        raise AssertionError(f'export models, {name}: a program predict at '
+                             f'batch {predict["batch"]} moved the counters '
+                             f'by {moved}, expected {want}')
+      total[counter] += 2
+      if name == 'grasp2vec':
+        total['pool_fwd_stem'] += 2
+    got = np.load(out_path)
+    for batch in batches:
+      for key, value in eager_out[name][batch].items():
+        program_value = got[f'{batch}/{key}']
+        if (program_value.dtype != value.dtype or
+            program_value.shape != value.shape or
+            program_value.tobytes() != value.tobytes()):
+          raise AssertionError(
+              f'export models, {name}: {key} at batch {batch} from the '
+              f'program differs from the eager predictor (max abs diff '
+              f'{float(np.abs(program_value - value).max()):.3e})')
+    predicts = ', '.join(
+        f'batch {p["batch"]} {p["ms"]:.1f} ms ({p[counter]} {counter})'
+        for p in entry['predicts'])
+    log(f'export models, {name}: loaded without the model modules, restore '
+        f'{entry["restore_ms"]:.1f} ms; program predicts {predicts} (the '
+        f'last a second call at its batch; host clock, synchronised); every '
+        f'output bit for bit the eager predictor\'s at batches {batches} on '
+        f'{card}')
+  log(f'export models: the loader process took {child_s:.1f} s (start, '
+      f'imports, three loads and their predicts) on {card}')
+
+  # The photometric pass as an exported program at the training shape.
+  generator = torch.Generator(device=device).manual_seed(seed + 5)
+  images = torch.rand(PHOTOMETRIC_SHAPE, generator=generator, device=device)
+  shape = (PHOTOMETRIC_SHAPE[0], 1, 1, 1)
+  delta = torch.rand(shape, generator=generator, device=device) * 0.25 - 0.125
+  factor = torch.rand(shape, generator=generator, device=device) + 0.5
+  export_ms, program = synced_ms(lambda: torch.export.export(
+      _PhotometricProgram(), (images, delta, factor)))
+  nodes = exporters.kernel_op_counts(program)
+  if nodes != {'t2r.photometric.default': 1}:
+    raise AssertionError(f'photometric program: kernel nodes {nodes}')
+  zero_counters()
+  got = program.module()(images, delta, factor)
+  torch.cuda.synchronize()
+  launches = read_counters()
+  if launches != dict(path_launches(), photometric=1):
+    raise AssertionError(f'photometric program launched {launches}')
+  total['photometric'] += 1
+  eager = (photometric.photometric if device == 'cuda' else
+           photometric.plain_brightness_contrast)
+  if not same_bits(got, eager(images, delta, factor)):
+    raise AssertionError('the photometric program differs from the eager '
+                         'kernel')
+  log(f'export models: the photometric pass exported on the card '
+      f'({export_ms:.1f} ms) holds 1 t2r.photometric node, launched it once '
+      f'at {list(PHOTOMETRIC_SHAPE)} float32 and matched the eager kernel '
+      f'bit for bit on {card}')
+  log(f'export models: phase {time.perf_counter() - begin:.1f} s on {card}')
+  return total
+
+
+QUANT_MODES = ('off', 'int8', 'fp8')
+QUANT_DISPATCH_TURNS = ('off', 'int8', 'fp8', 'fp8', 'int8', 'off')
+QUANT_DISPATCH_REPEATS = 10
+QUANT_CALIBRATION_RUNS = 4  # two calibration batches, full and quantized
+
+
+def phase_quantized_serving(seed, card, device='cuda', model=None):
+  """The QT-Opt critic's weight-only int8 and fp8 twins served from its
+  exported program, under deterministic cuDNN without autotuning
+  (restored after the phase); files under a temporary directory below
+  OUT_DIR, removed at the end. Returns the launches."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='quant_phase_', dir=OUT_DIR))
+  try:
+    with cudnn_settings(deterministic=True, benchmark=False), \
+        kernels_forced(device):
+      return quantized_serving_paths(seed, card, root, device, model)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def quantized_device_ms(exported, features, card):
+  """Device ms (``cuda_ms``, CUDA events) of the twins' eager
+  dequantize alone and of one serving-fn call on a batch already on the
+  card, full precision beside int8 and fp8."""
+  batch = {key: torch.from_numpy(np.ascontiguousarray(value)).cuda()
+           for key, value in features.items()}
+  snapshots = {mode: exported.stateless_serving_fn(quantize=mode)
+               for mode in QUANT_MODES}
+  with torch.inference_mode():
+    call_ms = {mode: cuda_ms(lambda s=s: s.fn(s.params, batch), iters=10)
+               for mode, s in snapshots.items()}
+    dequantize_ms = {mode: cuda_ms(
+        lambda s=snapshots[mode]: quant_lib.dequantize_params(s.params),
+        iters=10) for mode in ('int8', 'fp8')}
+  n = len(next(iter(features.values())))
+  for mode in ('int8', 'fp8'):
+    log(f'quantized serving, {mode}: device ms (CUDA events, L2 flushed): '
+        f'dequantize_params {dequantize_ms[mode]:.3f} '
+        f'({quant_lib.quantized_leaf_count(snapshots[mode].params)} leaves), '
+        f'the serving fn on {n} pairs on the card {call_ms[mode]:.3f} '
+        f'against full precision {call_ms["off"]:.3f} '
+        f'({call_ms[mode] / call_ms["off"]:.3f}x) on {card}')
+
+
+def quantized_serving_paths(seed, card, root, device, model):
+  begin = time.perf_counter()
+  model = model or GraspingModelWrapper(device_type='gpu',
+                                        kernel_policy='pool_conv')
+  eager = CheckpointPredictor(model, device=device)
+  # Spread weights: a fresh critic scores every pair near 0.5, where the
+  # twins' errors could round away in bfloat16.
+  eager.load_state_dict(spread_weights(
+      model.create_module(), torch.Generator().manual_seed(seed + 3)))
+  export_version(model, eager.network.state_dict(), 0, root / 'export', 1)
+  exported = ExportedModelPredictor(str(root / 'export'), device=device)
+  if not exported.restore():
+    raise AssertionError('quantized serving: the export did not load')
+  total = path_launches()
+
+  def counted(what, fn, eval_batches):
+    zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = path_launches(eval_batches=eval_batches)
+    if launches != want:
+      raise AssertionError(f'quantized serving, {what}: launches {launches}, '
+                           f'expected {want}')
+    for name in total:
+      total[name] += launches[name]
+    return out
+
+  batchers, reports = {}, {}
+  try:
+    for mode in QUANT_MODES:
+      warm = len(default_buckets(BATCHER_MAX_BATCH)) + (
+          QUANT_CALIBRATION_RUNS if mode != 'off' else 0)
+      start_ms, batchers[mode] = synced_ms(lambda mode=mode: counted(
+          f'{mode} start', lambda: DynamicBatcher(
+              exported, max_batch=BATCHER_MAX_BATCH, quantize=mode,
+              metrics_prefix=f'serving/quant_{mode}',
+              register_report=False).start(), warm))
+      reports[mode] = batchers[mode].report()
+      if reports[mode]['quantized_active'] != (mode != 'off'):
+        raise AssertionError(f'quantized serving, {mode}: report '
+                             f'{reports[mode]}')
+      log(f'quantized serving, {mode}: batcher start {start_ms:.1f} ms '
+          f'(the quantization and its parity check where on, '
+          f'{len(default_buckets(BATCHER_MAX_BATCH))} bucket warm-ups; host '
+          f'clock) on {card}')
+    full = reports['off']['param_bytes']
+    for mode in ('int8', 'fp8'):
+      r = reports[mode]
+      log(f'quantized serving, {mode}: param bytes {r["param_bytes"]} of '
+          f'{full} full ({r["param_bytes"] / full:.4f}x; gauge '
+          f'{r["quant_param_bytes_ratio"]:.4f}); parity within the default '
+          f'band (atol 0.05, rtol 0.05): max abs err '
+          f'{r["quant_parity_max_abs_err"]:.3e}, max rel err '
+          f'{r["quant_parity_max_rel_err"]:.3e}, rejects '
+          f'{r["quant_parity_rejects"]}, errors {r["quant_errors"]}')
+      if r['quant_parity_rejects'] or r['quant_errors']:
+        raise AssertionError(f'quantized serving, {mode}: refused: {r}')
+
+    # One dispatch of 64 (frame, grasp) pairs, the three in turns.
+    features = serving_pairs(model, seed + 21, BATCHER_MAX_BATCH)
+    executors = {mode: batchers[mode].current_executor()
+                 for mode in QUANT_MODES}
+    outputs = {mode: counted(f'{mode} dispatch warm-up', lambda mode=mode:
+                             executors[mode].execute(features,
+                                                     BATCHER_MAX_BATCH), 1)
+               for mode in QUANT_MODES}
+    times = {mode: [] for mode in QUANT_MODES}
+    for mode in QUANT_DISPATCH_TURNS:
+      def block(mode=mode):
+        for _ in range(QUANT_DISPATCH_REPEATS):
+          executors[mode].execute(features, BATCHER_MAX_BATCH)
+      ms, _ = synced_ms(lambda: counted(f'{mode} dispatches', block,
+                                        QUANT_DISPATCH_REPEATS))
+      times[mode].append(ms / QUANT_DISPATCH_REPEATS)
+    want = outputs['off']['q_predicted']
+    for mode in ('int8', 'fp8'):
+      diff = float(np.abs(outputs[mode]['q_predicted'] - want).max())
+      log(f'quantized serving, {mode}: one dispatch of '
+          f'{BATCHER_MAX_BATCH} {np.round(times[mode], 3).tolist()} ms '
+          f'against full precision {np.round(times["off"], 3).tolist()} ms '
+          f'(blocks of {QUANT_DISPATCH_REPEATS} in turns '
+          f'{list(QUANT_DISPATCH_TURNS)}; host clock, synchronised, the '
+          f'upload and the read-back included); q max abs diff from full '
+          f'precision {diff:.3e} on {card}')
+    if device == 'cuda':
+      quantized_device_ms(exported, features, card)
+
+    # The zero band: refused, full precision served bit for bit.
+    control = counted('zero-band start', lambda: DynamicBatcher(
+        exported, max_batch=BATCHER_MAX_BATCH, quantize='int8',
+        quant_parity_atol=0.0, quant_parity_rtol=0.0,
+        metrics_prefix='serving/quant_zero', register_report=False).start(),
+        len(default_buckets(BATCHER_MAX_BATCH)) + QUANT_CALIBRATION_RUNS)
+    batchers['zero'] = control
+    request = serving_pairs(model, seed + 22, BATCHER_EXAMPLES)
+    got = counted('zero-band request', lambda: control.submit(
+        request).result(timeout=120), 1)['q_predicted']
+    want = counted('full-precision predict', lambda: exported.predict(
+        request), 1)['q_predicted']
+    report = control.report()
+    if (report['quant_parity_rejects'] != 1 or report['quantized_active'] or
+        not np.array_equal(got.view(np.int32), want.view(np.int32))):
+      raise AssertionError(f'quantized serving, zero band: report {report}, '
+                           f'q {got} against full precision {want}')
+    log(f'quantized serving: the zero band (atol = rtol = 0) refused the '
+        f'int8 twin (quant_parity_rejects {report["quant_parity_rejects"]}, '
+        f'measured max abs err {report["quant_parity_max_abs_err"]:.3e}) and '
+        f'served full precision, q bit for bit the exported predictor\'s on '
+        f'{BATCHER_EXAMPLES} pairs on {card}')
+  finally:
+    for batcher in batchers.values():
+      batcher.close()
+
+  # The serving binary with --quantize int8, in a process of its own.
+  replica = Replica(['--export_dir', root / 'export', '--port', 0, '--device',
+                     device, '--max-batch', 8, '--batch-deadline-ms', 5,
+                     '--reload-interval-secs', 0, '--quantize', 'int8'],
+                    root / 'quantized.log', device)
+  try:
+    start_s = time.perf_counter()
+    replica.wait_ready()
+    start_s = time.perf_counter() - start_s
+    one = serving_pairs(model, seed + 23, 1)
+    status, _, reply = http_call(replica.port, '/v1/predict',
+                                 loadgen.encode_request(one))
+    got = np.asarray(reply.get('outputs', {}).get('q_predicted'), np.float32)
+    want = counted('full-precision predict', lambda: exported.predict(one),
+                   1)['q_predicted']
+    _, _, statz = http_call(replica.port, '/statz')
+    if (status != 200 or got.shape != want.shape or
+        float(np.abs(got - want).max()) > 0.05 + 0.05 * float(
+            np.abs(want).max()) or statz.get('quantize') != 'int8' or
+        statz.get('quantized_active') is not True):
+      raise AssertionError(f'run_serving --quantize int8: status {status}, '
+                           f'q {got} against {want}, statz {statz}')
+    seconds, doc = replica.stop()
+  finally:
+    replica.kill()
+  launches = http_replica_launches('quantized', doc)
+  for name, count in launches.items():
+    total[name] += count
+  log(f'quantized serving: run_serving --quantize int8 ready in '
+      f'{start_s:.1f} s (imports, load, quantize, parity, warm-ups), answered '
+      f'one request (q max abs diff from full precision '
+      f'{float(np.abs(got - want).max()):.3e}), /statz quantized_active '
+      f'{statz["quantized_active"]} at {statz["quant_param_bytes_ratio"]:.4f}'
+      f' of the full param bytes, exited 0 in {seconds:.1f} s after SIGTERM, '
+      f'launches {launches} on {card}')
+  log(f'quantized serving: phase {time.perf_counter() - begin:.1f} s on '
+      f'{card}')
+  return total
+
+
+# One turn of --main-path-turns: run from a checkout's root, it builds
+# that checkout's kernels (cached) and times its main path.
+MAIN_PATH_TURN = '''
+import json, sys
+import chip_smoke
+chip_smoke.phase_build()
+ms = chip_smoke.phase_main_path(int(sys.argv[1]), int(sys.argv[2]))[0]
+print(json.dumps({'ms_per_action': ms}))
+'''
+MAIN_PATH_TURNS = ('other', 'this', 'this', 'other')
+
+
+def phase_main_path_turns(other, seed, actions, card):
+  """ms/action of the main path (``phase_main_path``) of this checkout and
+  of the checkout at ``other`` in turns (MAIN_PATH_TURNS), each turn in a
+  child process run from its checkout's root. ``other``'s build directory
+  takes this checkout's libraries first: a library's name hashes its
+  sources, so ``other`` uses those it shares and builds the rest."""
+  roots = {'this': pathlib.Path(__file__).resolve().parent,
+           'other': pathlib.Path(other).resolve()}
+  other_build = roots['other'] / _build.BUILD_DIR.relative_to(roots['this'])
+  other_build.mkdir(parents=True, exist_ok=True)
+  for lib in _build.BUILD_DIR.glob('lib*'):
+    shutil.copy2(lib, other_build / lib.name)
+  times = {'this': [], 'other': []}
+  for which in MAIN_PATH_TURNS:
+    done = subprocess.run(
+        [sys.executable, '-c', MAIN_PATH_TURN, str(seed), str(actions)],
+        cwd=roots[which], capture_output=True, text=True, timeout=600,
+        check=False)
+    if done.returncode != 0:
+      raise AssertionError(f'main path turn in {roots[which]} exited '
+                           f'{done.returncode}: {done.stderr[-4000:]}')
+    times[which].append(json.loads(
+        done.stdout.strip().splitlines()[-1])['ms_per_action'])
+    log(f'main path turn, {which} ({roots[which]}): '
+        f'{times[which][-1]:.3f} ms/action over {actions} actions')
+  log(f'main path turns {list(MAIN_PATH_TURNS)} (host clock, synchronised, '
+      f'each turn a fresh process after one warm-up action) on {card}')
+  log(json.dumps({'main_path_turns': {
+      'actions': actions, 'this': times['this'], 'other': times['other'],
+      'other_root': str(roots['other'])}}))
+
+
+PHASE_SECONDS = {}
+
+
+def time_phases():
+  """Wraps every module-level ``phase_*`` function so that each call's host
+  seconds add up in PHASE_SECONDS under the phase's name, printed before
+  the kernels line."""
+  def timed(name, phase):
+    @functools.wraps(phase)
+    def run(*args, **kwargs):
+      start = time.perf_counter()
+      try:
+        return phase(*args, **kwargs)
+      finally:
+        PHASE_SECONDS[name] = round(PHASE_SECONDS.get(name, 0.0) +
+                                    time.perf_counter() - start, 1)
+    return run
+
+  for name, fn in list(globals().items()):
+    if name.startswith('phase_') and callable(fn):
+      globals()[name] = timed(name[len('phase_'):], fn)
 
 
 def main(argv=None):
@@ -6570,14 +7215,25 @@ def main(argv=None):
   parser.add_argument('--steps', type=int, default=3)
   parser.add_argument('--snail-steps', type=int, default=3)
   parser.add_argument('--profile', action='store_true')
+  parser.add_argument('--main-path-turns', metavar='OTHER_CHECKOUT',
+                      help='time the main path of this checkout and of '
+                      'OTHER_CHECKOUT in turns, and nothing else')
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA card is visible; nothing was run.',
           file=sys.stderr)
     return 2
+  time_phases()
   defaults = tf32_flags()
   card = phase_card()
-  phase_build()
+  if args.main_path_turns:
+    phase_build()
+    phase_main_path_turns(args.main_path_turns, args.seed, args.actions, card)
+    return 0
+  # The pose_env gate runs no kernel: it trains while the kernels build,
+  # and is collected before the first check phase.
+  gate = PoseGate().start()
+  phase_pose_gate(gate, phase_build())
   generator = torch.Generator(device='cuda').manual_seed(args.seed)
   errors = {'pool_fwd': phase_check_pool(generator),
             'pool_bwd': phase_check_pool_bwd(generator)}
@@ -6630,6 +7286,10 @@ def main(argv=None):
   torch.cuda.empty_cache()
   record_snail_launches = phase_record_snail(args.seed, card, args.profile)
   torch.cuda.empty_cache()
+  export_models_launches = phase_export_models(args.seed, card)
+  torch.cuda.empty_cache()
+  quantized_launches = phase_quantized_serving(args.seed, card)
+  torch.cuda.empty_cache()
   # Launches: the pool and conv forward kernels over the QT-Opt serving,
   # training, checkpoint, export, HTTP serving, record-fed and K-step
   # paths, their backward ones over the training paths, dx over the path
@@ -6637,17 +7297,22 @@ def main(argv=None):
   # update over the two fused training paths, the photometric pass over
   # its branch. The K-step path counts its warm-up, its capture and its
   # eager tail (a replay runs no Python); its replays' kernels are counted
-  # from the profiler by phase_dispatch_profile.
+  # from the profiler by phase_dispatch_profile. The exported SNAIL,
+  # Grasp2Vec and photometric programs and the quantized QT-Opt serving
+  # count their eager and program predicts, those of their child processes
+  # included.
   paths = [serve_launches, train_launches, checkpoint_launches,
            export_launches, http_launches, record_launches, fused_launches,
            *(result[1] for result in snail.values()),
            *(result[1] for result in snail_fused.values()),
            photometric_launches, dispatch_launches, grasp2vec_launches,
-           record_snail_launches]
+           record_snail_launches, export_models_launches,
+           quantized_launches]
   launches = {name: sum(path[name] for path in paths)
               for name in serve_launches}
   # The Grasp2Vec stem's routes have rows of their own.
-  launches['pool_fwd_stem'] = grasp2vec_launches['pool_fwd']
+  launches['pool_fwd_stem'] = (grasp2vec_launches['pool_fwd'] +
+                               export_models_launches['pool_fwd_stem'])
   launches['pool_bwd_gather'] = (grasp2vec_launches['pool_bwd'] -
                                  grasp2vec_launches['pool_bwd_scatter'])
   for name in ('conv_s2d_dx', 'conv_s2d_dx_tensor_core'):
@@ -6671,7 +7336,8 @@ def main(argv=None):
       f'{args.snail_steps} steps each; photometric path '
       f'{photometric_launches}; K-step path {dispatch_launches}; Grasp2Vec '
       f'path {grasp2vec_launches}; record-fed SNAIL path '
-      f'{record_snail_launches}')
+      f'{record_snail_launches}; exported models '
+      f'{export_models_launches}; quantized serving {quantized_launches}')
   if tf32_flags() != defaults:
     raise AssertionError(f'TF32 flags {tf32_flags()} before the timings, '
                          f'{defaults} at the start')
@@ -6712,6 +7378,8 @@ def main(argv=None):
       f'{ {name: round(result[0], 3) for name, result in snail_fused.items()} }'
       f'; Grasp2Vec ms/step {grasp2vec_ms:.3f} (device '
       f'{grasp2vec_device_ms:.3f}) at batch {GRASP2VEC_BATCH} on {card}')
+  log(f'phase seconds (host clock, a phase inside another counted in both): '
+      f'{json.dumps(PHASE_SECONDS)} on {card}')
   log(json.dumps({'kernels': kernels}))
   log(card)
   log(json.dumps({'ok': True, 'device': {

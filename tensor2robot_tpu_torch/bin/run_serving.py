@@ -34,9 +34,17 @@ threads of a server that had served traffic still alive aborted the
 process on the CPU ("terminate called without an active exception") in
 4 of 72 SIGTERMs under traffic and in none of 25 idle ones.
 
-``--quantize`` other than ``off`` (ROADMAP.md queue 1 item 8) and
+``--quantize int8`` (or ``fp8``) serves each model's weight-only
+quantized twin behind the parity gate (``serving/batching.py``):
+  python -m tensor2robot_tpu_torch.bin.run_serving \
+      --export_dir /models/m/export --port 8000 --quantize int8 \
+      --quant-parity-atol 0.05 --quant-parity-rtol 0.05
+A generation outside the band serves full precision
+(``serving/quant_parity_rejects``); ``GET /statz`` shows the
+quantization block.
+
 ``--compilation-cache-dir`` (an exported program has no compiled form to
-cache; item 6) raise.
+cache; ROADMAP.md queue 1 item 6) raises.
 """
 
 from __future__ import annotations
@@ -101,12 +109,19 @@ def main(argv=None):
                       help='Not ported: raises when set.')
   parser.add_argument('--quantize', choices=('off', 'int8', 'fp8'),
                       default='off',
-                      help='Weight-only quantized serving; not ported, '
-                           'anything but off raises.')
-  parser.add_argument('--quant-parity-atol', type=float, default=None,
-                      help='Parity band of --quantize; raises when set.')
-  parser.add_argument('--quant-parity-rtol', type=float, default=None,
-                      help='Parity band of --quantize; raises when set.')
+                      help='Weight-only quantized serving: int8 or fp8 '
+                           'params with per-output-channel scales, '
+                           'dequantized inside each dispatch. Parity-gated: '
+                           'a generation outside the band serves full '
+                           'precision (serving/quant_parity_rejects).')
+  parser.add_argument('--quant-parity-atol', type=float, default=0.05,
+                      help='Absolute term of the quantization parity band, '
+                           'checked on calibration batches before a '
+                           'quantized generation may serve.')
+  parser.add_argument('--quant-parity-rtol', type=float, default=0.05,
+                      help='Relative term of the quantization parity band '
+                           '(scaled by the full-precision output\'s '
+                           'largest magnitude).')
   parser.add_argument('--request-trace-sample', type=float, default=0.0,
                       help='Fraction of requests whose lifecycle is '
                            'recorded into the flight ring.')
@@ -130,10 +145,6 @@ def main(argv=None):
   if bool(args.export_dir) == bool(args.model):
     parser.error('pass exactly one of --export_dir or --model NAME=DIR '
                  '(repeatable)')
-  if (args.quant_parity_atol, args.quant_parity_rtol) != (None, None):
-    raise NotImplementedError(
-        '--quant-parity-atol/--quant-parity-rtol: quantized serving is not '
-        'ported yet: ROADMAP.md queue 1 item 8.')
 
   from tensor2robot_tpu_torch.observability import anomaly as anomaly_lib  # pylint: disable=import-outside-toplevel
   from tensor2robot_tpu_torch.observability import metricsz  # pylint: disable=import-outside-toplevel
@@ -159,6 +170,8 @@ def main(argv=None):
       max_queue=args.max_queue,
       reload_interval_secs=reload_interval,
       quantize=args.quantize,
+      quant_parity_atol=args.quant_parity_atol,
+      quant_parity_rtol=args.quant_parity_rtol,
       request_trace_sample=args.request_trace_sample,
       postmortem_dir=args.postmortem_dir)
   server_kwargs = dict(

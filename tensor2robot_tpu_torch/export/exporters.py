@@ -15,18 +15,20 @@ the order :class:`ModelExporter` writes them:
    ``torch.export.save``. It takes ``(params, features)``, two flat dicts:
    the weights are inputs of the program, not constants, so ``state/``
    holds them once and weights-only versions carry the same program. The
-   batch dimension is symbolic unless ``serving_batch_size`` pins it. The
-   pool and conv1 kernels are the custom ops ``t2r::pool_fwd`` and
-   ``t2r::conv_s2d_fwd`` (``ops/``), which dispatch by device where the
+   batch dimension is symbolic unless ``serving_batch_size`` pins it;
+   every other dimension (a SNAIL episode's length, an image's size) is
+   static. Every kernel a forward reaches is a custom op
+   (``t2r::pool_fwd``, ``t2r::conv_s2d_fwd``, ``t2r::flash_fwd``,
+   ``t2r::photometric``; ``ops/``), which dispatches by device where the
    program runs, so a program traced on the CPU launches the kernels on
    the card; a host that loads it imports ``tensor2robot_tpu_torch.ops``
-   and not the model. The flash and photometric kernels are not custom
-   ops and refuse export (``ops/_dispatch.refuse_export``);
+   and not the model;
 4. ``assets.extra/warmup_requests.npz`` and ``warmup_requests.tfexamples``
    (length-prefixed serialized tf.Examples, ``data/example_codec``);
 5. ``export_meta.json``: the model class, the global step, whether the
    serving program was written (``self_contained_serving_fn``), its file
-   name and the device that traced it;
+   name, its kernel nodes (``kernel_ops``: ``{op: count}`` over the
+   ``t2r::`` ops) and the device that traced it;
 6. ``export_commit.json``, last. The version is then published by an
    atomic ``os.replace`` and old versions are collected.
 
@@ -164,17 +166,15 @@ def export_serving_program(model, serving_params: Mapping[str, torch.Tensor],
   return program
 
 
-def serialize_serving_fn(model, serving_params: Mapping[str, torch.Tensor],
-                         batch_size: Optional[int] = None) -> bytes:
-  """:func:`export_serving_program`, written by ``torch.export.save``."""
+def serialize_program(program) -> bytes:
+  """An ``ExportedProgram`` written by ``torch.export.save``."""
   buffer = io.BytesIO()
-  torch.export.save(export_serving_program(model, serving_params,
-                                           batch_size), buffer)
+  torch.export.save(program, buffer)
   return buffer.getvalue()
 
 
 def deserialize_serving_program(data: bytes, device='cuda'):
-  """The ``ExportedProgram`` of :func:`serialize_serving_fn`'s bytes, moved
+  """The ``ExportedProgram`` of :func:`serialize_program`'s bytes, moved
   to ``device`` (``move_to_device_pass``; the card unless the caller asks
   for ``'cpu'``, and a CUDA request with no card raises). Needs only this
   package's ``ops`` (the custom ops), never the model."""
@@ -205,6 +205,13 @@ def program_op_counts(program) -> Dict[str, int]:
       name = str(node.target)
       counts[name] = counts.get(name, 0) + 1
   return counts
+
+
+def kernel_op_counts(program) -> Dict[str, int]:
+  """{op target: count} over the program's kernel nodes, the ``t2r::``
+  custom ops (``t2r.pool_fwd.default``, ``t2r.flash_fwd.default``, ...)."""
+  return {name: count for name, count in program_op_counts(program).items()
+          if name.startswith('t2r.')}
 
 
 WARMUP_REQUESTS = 2  # one example each
@@ -398,12 +405,14 @@ class ModelExporter:
         global_step=step)
 
     # 3. The serving program and the warmup requests.
-    serving_fn_ok = False
+    serving_fn_ok, kernel_ops = False, None
     if self._serialize_serving:
       try:
-        data = serialize_serving_fn(model, params, self._serving_batch_size)
+        program = export_serving_program(model, params,
+                                         self._serving_batch_size)
+        kernel_ops = kernel_op_counts(program)
         with open(os.path.join(tmp_dir, SERVING_FN_FILENAME), 'wb') as f:
-          f.write(data)
+          f.write(serialize_program(program))
         serving_fn_ok = True
       except Exception as e:  # pylint: disable=broad-except
         logging.warning(
@@ -423,6 +432,7 @@ class ModelExporter:
         'global_step': step,
         'self_contained_serving_fn': serving_fn_ok,
         'serving_fn': SERVING_FN_FILENAME if serving_fn_ok else None,
+        'kernel_ops': kernel_ops,
         'trace_device': str(device),
         'torch_version': torch.__version__,
         'tf_saved_model': False,

@@ -16,10 +16,14 @@ parameter trees (``utils/convert.py`` maps the flax leaves):
 Both attention blocks take the flash kernels (``ops/flash_attention.py``)
 when ``use_flash`` is None (auto) and :func:`_flash_auto_ok` says the
 activations lie on a CUDA device and the problem is supported; otherwise
-the dense form. ``forward(x, allow_flash=False)`` (the serving path)
-pins the dense form. ``return_prob=True
-forces the dense form (the [B, T, T]
-probabilities are what flash attention avoids) and cannot be combined with
+the dense form. ``forward(x, serving=True)`` (the PREDICT path) takes the
+flash forward wherever the problem is supported, on every device: it is
+the custom op ``t2r::flash_fwd``, which launches the kernel on the card
+and runs its plain version on the CPU, so an exported program holds the
+kernel whatever device traced it, and the eager chain computes what the
+program computes. ``use_flash=False`` pins the dense form.
+``return_prob=True`` forces the dense form (the [B, T, T] probabilities
+are what flash attention avoids) and cannot be combined with
 ``use_flash=True``. Every layer computes in the promotion of its input and
 its float32 parameters, as the flax modules do.
 """
@@ -165,13 +169,14 @@ class AttentionBlock(nn.Module):
     self.value = Dense(in_channels, value_size)
     self.out_channels = in_channels + value_size
 
-  def forward(self, x: torch.Tensor, allow_flash: bool = True
+  def forward(self, x: torch.Tensor, serving: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     key, query, values = self.key(x), self.query(x), self.value(x)
     t = x.shape[1]
-    use_flash = self.use_flash if allow_flash else False
+    use_flash = self.use_flash
     if use_flash is None:
-      use_flash = (not self.return_prob and _flash_auto_ok(query) and
+      use_flash = (not self.return_prob and
+                   (serving or _flash_auto_ok(query)) and
                    flash_supported(t, self.key_size, self.value_size,
                                    itemsize=query.dtype.itemsize))
     if use_flash:
@@ -193,7 +198,7 @@ class MultiHeadAttentionBlock(nn.Module):
   """Causal multi-head SNAIL attention for long-horizon sequences.
 
   H heads of size D: the flash kernels when ``use_flash`` (or, under None,
-  :func:`_flash_auto_ok` and
+  ``serving`` or :func:`_flash_auto_ok`, and
   :func:`~tensor2robot_tpu_torch.ops.flash_attention.is_supported`),
   otherwise the dense oracle. Returns ``([B, T, C + H·D], {})``. The JAX
   block's ``attention_fn`` (ring/Ulysses sequence parallelism) is not
@@ -210,7 +215,7 @@ class MultiHeadAttentionBlock(nn.Module):
     self.value = Dense(in_channels, num_heads * head_size)
     self.out_channels = in_channels + num_heads * head_size
 
-  def forward(self, x: torch.Tensor, allow_flash: bool = True
+  def forward(self, x: torch.Tensor, serving: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     b, t = x.shape[:2]
     h, d = self.num_heads, self.head_size
@@ -219,9 +224,9 @@ class MultiHeadAttentionBlock(nn.Module):
       return dense(x).reshape(b, t, h, d)
 
     query, key, values = heads(self.query), heads(self.key), heads(self.value)
-    use_flash = self.use_flash if allow_flash else False
+    use_flash = self.use_flash
     if use_flash is None:
-      use_flash = _flash_auto_ok(query) and fa.is_supported(
+      use_flash = (serving or _flash_auto_ok(query)) and fa.is_supported(
           t, d, itemsize=query.dtype.itemsize)
     if use_flash:
       out = fa.flash_attention(query, key, values, causal=True)

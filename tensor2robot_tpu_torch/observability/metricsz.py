@@ -6,6 +6,8 @@ bind is loopback by default.
 
 Endpoints:
   ``/metricsz``              the full ``metrics.report()`` JSON document
+                             (each serving plane's section, with its
+                             quantization block, as ``/statz`` serves it)
   ``/metricsz?history=1``    the time-series ring (``timeseries.py``)
   ``/metricsz?format=prom``  Prometheus/OpenMetrics text exposition
                              (:func:`prom_exposition`), histogram buckets

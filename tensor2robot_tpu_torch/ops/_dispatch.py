@@ -14,6 +14,11 @@ The port's counterpart of ``tensor2robot_tpu/ops/_pallas_dispatch.py``.
   forced off, a CUDA tensor raises.
 * The ``kernel_policy`` model knob (``'none' | 'pool' | 'pool_conv'``)
   names which kernel families a tower routes through its kernel entries.
+* Every kernel that a forward reaches is a custom op (``t2r::pool_fwd``,
+  ``t2r::conv_s2d_fwd``, ``t2r::flash_fwd``, ``t2r::photometric``), so a
+  ``torch.export`` trace holds it as a node that dispatches by device
+  where the program runs. The backward kernels and the fused update run
+  only in training, never in an exported serving program.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ import threading
 from typing import Optional
 
 import torch
-from torch._subclasses import fake_tensor
 
 KERNEL_NONE = 'none'
 KERNEL_POOL = 'pool'
@@ -90,25 +94,6 @@ def force_kernels(enabled: bool = True):
     yield
   finally:
     _force_override.value = previous
-
-
-def refuse_export(what: str, x: torch.Tensor) -> None:
-  """Raises when ``x`` is a tensor that ``torch.export`` is tracing: a
-  kernel bound through ``ctypes`` is invisible to the tracer, which would
-  bake its plain version into the artifact. Only ``pool_fwd`` and
-  ``conv_s2d_fwd`` are custom ops that an exported program carries
-  (ROADMAP.md queue 2).
-
-  The call's own input decides, because ``torch.compiler.is_exporting()``
-  is a process-wide flag: while one thread exports (an asynchronous
-  export callback), a real tensor on another thread (the train step) runs
-  as always. A trace hands the function fake tensors."""
-  if torch.compiler.is_exporting() and fake_tensor.is_fake(x):
-    raise NotImplementedError(
-        f'{what} cannot be exported: its kernel is not a custom op, so the '
-        'artifact would hold its plain version in place of the kernel. '
-        'Only t2r::pool_fwd and t2r::conv_s2d_fwd export (ROADMAP.md queue '
-        '2).')
 
 
 def resolve_device(device) -> torch.device:

@@ -6,11 +6,14 @@ the FlashAttention-2 backward (dq in a q-tile grid, dk/dv in a k-tile grid,
 ``delta = rowsum(dO ⊙ O)`` precomputed in plain torch).
 
 * :func:`flash_attention` goes through the autograd Function
-  :class:`FlashAttention` on every device. Its forward dispatches on the
+  :class:`FlashAttention` on every device. Its forward is the custom op
+  ``t2r::flash_fwd`` (:func:`flash_fwd_op`), which dispatches on the
   tensors' device (``ops/_dispatch.py``): a CUDA tensor launches
   :func:`flash_fwd` (``csrc/flash_attention.cu``), a CPU tensor runs
-  :func:`plain_flash_fwd`. Its backward does the same with
-  :func:`flash_dq` / :func:`flash_dkv` and their plain versions.
+  :func:`plain_flash_fwd`. As one op it is one node of an exported
+  serving program. Its backward dispatches the same way with
+  :func:`flash_dq` / :func:`flash_dkv` and their plain versions; it runs
+  only in training.
 * :func:`fwd_plan` and :func:`bwd_plan` choose the forward's and the
   backward kernels' route and launch from the shape, dtype and mask alone,
   as the C entries do (they refuse any other plan): bfloat16 with a head
@@ -523,25 +526,48 @@ flash_dkv.launches = 0
 # ------------------------------------------------------ autograd + api
 
 
+@torch.library.custom_op('t2r::flash_fwd', mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, block_q: Optional[int],
+                 block_k: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+  """``torch.ops.t2r.flash_fwd``: (out, lse) of [B, T, H, D] q, k, v. A
+  CUDA tensor launches :func:`flash_fwd` (the kernel tiles as
+  :func:`fwd_plan` says; the blocks set only the plain version's), a CPU
+  tensor runs :func:`plain_flash_fwd`; the gate is ``ops/_dispatch.py``'s.
+  As one op, the forward is one node of an exported program, which
+  dispatches by device where it runs."""
+  q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+  _check(q, block_q, block_k)
+  if dispatch.kernels_enabled(q):
+    return flash_fwd(q, k, v, causal)
+  out, lse = plain_flash_fwd(q, k, v, causal, block_q, block_k)
+  return out, lse.contiguous()
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, block_q, block_k):
+  """The outputs' shapes alone (the batch may be symbolic): ``out`` like
+  q, ``lse`` float32 [B*H, 1, T]."""
+  del k, v, causal, block_q, block_k
+  b, t, h, _ = q.shape
+  return (torch.empty_like(q, memory_format=torch.contiguous_format),
+          q.new_empty((b * h, 1, t), dtype=torch.float32))
+
+
 class FlashAttention(torch.autograd.Function):
   """out = softmax(q·kᵀ/√D [+ causal mask])·v on [B, T, H, D], with the
   FlashAttention-2 backward.
 
-  The forward saves q, k, v, out and the float32 logsumexp; the backward
-  computes ``delta`` in plain torch, then dq and dk/dv. Each direction
-  runs the kernels for CUDA tensors and the plain versions for CPU
-  tensors.
+  The forward (``torch.ops.t2r.flash_fwd``) saves q, k, v, out and the
+  float32 logsumexp; the backward computes ``delta`` in plain torch, then
+  dq and dk/dv. Each direction runs the kernels for CUDA tensors and the
+  plain versions for CPU tensors.
   """
 
   @staticmethod
   def forward(ctx, q, k, v, causal, block_q, block_k):  # pylint: disable=arguments-differ
-    dispatch.refuse_export('flash_attention', q)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check(q, block_q, block_k)
-    if dispatch.kernels_enabled(q):
-      out, lse = flash_fwd(q, k, v, causal)
-    else:
-      out, lse = plain_flash_fwd(q, k, v, causal, block_q, block_k)
+    out, lse = torch.ops.t2r.flash_fwd(q, k, v, causal, block_q, block_k)
     ctx.save_for_backward(q, k, v, out, lse)
     ctx.config = (causal, block_q, block_k)
     return out

@@ -6,11 +6,13 @@ image, brightness shift, contrast about the per-channel spatial mean, clip
 to [0, 1], over ``[B, H, W, C]`` images, computed in float32 and written in
 the input's dtype (float32 or bfloat16).
 
-* :func:`fused_brightness_contrast` dispatches on the images' device
+* :func:`fused_brightness_contrast` is the custom op ``t2r::photometric``
+  (:func:`photometric_op`), which dispatches on the images' device
   (``ops/_dispatch.py``): a CUDA tensor launches :func:`photometric`
   (``csrc/photometric.cu``: a per-slice sum kernel, then an apply kernel,
   counted as one launch of the pass), a CPU tensor runs
-  :func:`plain_brightness_contrast`.
+  :func:`plain_brightness_contrast`. As one op, the pass is one node of an
+  exported program.
 * :func:`random_brightness_contrast` draws each image's brightness shift,
   then its contrast factor, from a ``torch.Generator`` with the shapes and
   in the order of the stock chain
@@ -129,16 +131,48 @@ def plain_brightness_contrast(images: torch.Tensor, delta: torch.Tensor,
   return torch.clamp(out, 0.0, 1.0).to(images.dtype)
 
 
+@torch.library.custom_op('t2r::photometric', mutates_args=())
+def photometric_op(images: torch.Tensor, delta: torch.Tensor,
+                   factor: torch.Tensor) -> torch.Tensor:
+  """``torch.ops.t2r.photometric``: the distorted [B, H, W, C] images. A
+  CUDA tensor launches :func:`photometric` (copied to contiguous first
+  where it is not), a CPU tensor runs :func:`plain_brightness_contrast`;
+  the gate is ``ops/_dispatch.py``'s."""
+  if dispatch.kernels_enabled(images):
+    return photometric(images.contiguous(), delta, factor)
+  return plain_brightness_contrast(images, delta, factor).contiguous()
+
+
+@photometric_op.register_fake
+def _photometric_fake(images, delta, factor):
+  """The output's shape alone (the batch may be symbolic)."""
+  _check(images, delta, factor)
+  return torch.empty_like(images, memory_format=torch.contiguous_format)
+
+
+def _photometric_setup_context(ctx, inputs, output):
+  del output
+  ctx.save_for_backward(*inputs)
+
+
+def _photometric_backward(ctx, g):
+  """The plain version's vector-Jacobian product: the pass is applied to
+  inputs that need no gradient in training (a preprocessor's images), so
+  its backward has no kernel."""
+  _, vjp = torch.func.vjp(plain_brightness_contrast, *ctx.saved_tensors)
+  return vjp(g)
+
+
+photometric_op.register_autograd(_photometric_backward,
+                                 setup_context=_photometric_setup_context)
+
+
 def fused_brightness_contrast(images: torch.Tensor, delta: torch.Tensor,
                               factor: torch.Tensor) -> torch.Tensor:
   """Brightness + contrast + clip over [B, H, W, C] images with per-image
-  ``delta`` and ``factor``: the kernel for a CUDA tensor, the plain version
-  for a CPU tensor. Raises under ``torch.export``
-  (``_dispatch.refuse_export``)."""
-  dispatch.refuse_export('the fused photometric pass', images)
-  if dispatch.kernels_enabled(images):
-    return photometric(images, delta, factor)
-  return plain_brightness_contrast(images, delta, factor)
+  ``delta`` and ``factor``, through ``torch.ops.t2r.photometric``: the
+  kernel for a CUDA tensor, the plain version for a CPU tensor."""
+  return torch.ops.t2r.photometric(images, delta, factor)
 
 
 def random_brightness_contrast(images: torch.Tensor,

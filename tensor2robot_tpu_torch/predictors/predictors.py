@@ -14,7 +14,9 @@ on its device:
 * :meth:`~AbstractPredictor.stateless_serving_fn` returns the loaded
   model as an immutable :class:`StatelessServingFn` snapshot, ``fn(params,
   features)`` closing over no weights: the batching plane's seam
-  (``serving/batching.py``).
+  (``serving/batching.py``). ``quantize='int8'`` or ``'fp8'`` returns its
+  weight-only quantized twin (``quantize/``), which dequantizes inside
+  each call.
 
 :class:`CheckpointPredictor` builds the network from the model class and
 loads weights from :meth:`~CheckpointPredictor.restore` (the newest
@@ -31,8 +33,10 @@ new weights.
 :class:`ExportedModelPredictor` polls a versioned export root
 (``export/exporters.py``) and runs the version's ``torch.export`` program
 without constructing the model: the loading side imports this package's
-``ops`` (the custom ops the program holds), ``export`` and ``specs``, and
-no model module. A version without the program takes the model-class path.
+``ops`` (the custom ops the program holds: ``t2r::pool_fwd``,
+``t2r::conv_s2d_fwd``, ``t2r::flash_fwd``, ``t2r::photometric``),
+``export`` and ``specs``, and no model module. A version without the
+program takes the model-class path.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from tensor2robot_tpu_torch.export import exporters as exporters_lib
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.observability import metrics as metrics_lib
 from tensor2robot_tpu_torch.ops import _dispatch as dispatch
+from tensor2robot_tpu_torch.quantize import quantization as quantize_lib
 from tensor2robot_tpu_torch.specs import SpecStruct, algebra
 from tensor2robot_tpu_torch.specs import assets as assets_lib
 from tensor2robot_tpu_torch.specs.dtypes import to_host_numpy
@@ -80,11 +85,14 @@ class StatelessServingFn(NamedTuple):
   program_key: Any
 
 
-def _refuse_quantize(quantize: Optional[str]) -> None:
-  if quantize not in (None, '', 'off'):
-    raise NotImplementedError(
-        f'quantize={quantize!r}: quantized serving is not ported yet: '
-        'ROADMAP.md queue 1 item 8.')
+def _maybe_quantize_serving(serving: StatelessServingFn,
+                            quantize: Optional[str]) -> StatelessServingFn:
+  """The predictors' shared quantize hook: the snapshot itself for None
+  or 'off', else its weight-only twin (``quantize.quantize_serving_fn``),
+  quantized outside any predictor lock."""
+  if quantize in (None, '', 'off'):
+    return serving
+  return quantize_lib.quantize_serving_fn(serving, mode=quantize)
 
 
 class AbstractPredictor(abc.ABC):
@@ -126,8 +134,10 @@ class AbstractPredictor(abc.ABC):
     """The loaded model as a :class:`StatelessServingFn` snapshot. Raises
     for a predictor whose compute path is not a function of its params;
     the serving plane then batches whole ``predict()`` calls.
-    ``quantize`` other than None or 'off' raises (ROADMAP queue 1 item
-    8)."""
+    ``quantize`` ('int8' / 'fp8') returns the weight-only quantized twin:
+    the int8/fp8 payload with per-output-channel scales as params,
+    dequantized inside each call, under ``('quant', mode, program_key)``.
+    """
     raise NotImplementedError(
         f'{type(self).__name__} does not expose a stateless serving fn.')
 
@@ -159,6 +169,7 @@ class EagerServingFn:
     self._model = model
     self._lock = threading.Lock()
     self._bound = collections.OrderedDict()  # GUARDED_BY(self._lock)
+    self._local = threading.local()
 
   def _chain(self, params) -> exporters_lib.ServingChain:
     with self._lock:
@@ -175,6 +186,23 @@ class EagerServingFn:
 
   def __call__(self, params, features) -> Dict[str, torch.Tensor]:
     return self._chain(params)(features)
+
+  def call_transient(self, params, features) -> Dict[str, torch.Tensor]:
+    """``fn(params, features)`` over params that live for this call only
+    (a quantized twin's dequantized weights): this thread's own network,
+    its tensors reassigned each call (``assign=True``: no copy), so no
+    network is built a call; they are let go when the call returns (the
+    network moves to the meta device)."""
+    chain = getattr(self._local, 'chain', None)
+    if chain is None:
+      network = self._model.create_module().requires_grad_(False)
+      chain = exporters_lib.ServingChain(self._model, network, inference=True)
+      self._local.chain = chain
+    chain.network.load_state_dict(dict(params), strict=True, assign=True)
+    try:
+      return chain(features)
+    finally:
+      chain.network.to('meta')
 
 
 class _ProgramFn:
@@ -319,7 +347,6 @@ class CheckpointPredictor(AbstractPredictor):
     ``program_key`` is ``('eager_forward', id(network))``. The weights are
     copied once a load: a later load copies into the network's own
     tensors, and the snapshot must not change with them."""
-    _refuse_quantize(quantize)
     self.assert_is_loaded()
     if self._stateless is None:
       if self._eager_fn is None:
@@ -330,7 +357,7 @@ class CheckpointPredictor(AbstractPredictor):
           fn=self._eager_fn, params=params, feature_spec=self._feature_spec,
           version=self._global_step,
           program_key=('eager_forward', id(self._chain.network)))
-    return self._stateless
+    return _maybe_quantize_serving(self._stateless, quantize)
 
   @property
   def network(self) -> torch.nn.Module:
@@ -496,16 +523,17 @@ class ExportedModelPredictor(AbstractPredictor):
   def stateless_serving_fn(self, quantize: Optional[str] = None
                            ) -> StatelessServingFn:
     """``program_key`` is ``('torch_export', fingerprint)`` for a program,
-    ``('eager_forward', id(fn))`` on the model-class path."""
-    _refuse_quantize(quantize)
+    ``('eager_forward', id(fn))`` on the model-class path. The quantized
+    twin wraps the loaded program unchanged (no re-export)."""
     self.assert_is_loaded()
     with self._reload_lock.read_locked():
       program_key = (('torch_export', self._digest)
                      if self._digest is not None
                      else ('eager_forward', id(self._fn)))
-      return StatelessServingFn(
+      serving = StatelessServingFn(
           fn=self._fn, params=self._params, feature_spec=self._feature_spec,
           version=self._global_step, program_key=program_key)
+    return _maybe_quantize_serving(serving, quantize)
 
   def predict_example_bytes(self, serialized_examples) -> Dict[str, Any]:
     """Serialized tf.Examples -> outputs, parsed by the native parser

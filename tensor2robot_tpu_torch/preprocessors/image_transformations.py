@@ -22,6 +22,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses import fake_tensor
 
 from tensor2robot_tpu_torch.ops import photometric
 from tensor2robot_tpu_torch.preprocessors.base import DeviceDraws
@@ -148,10 +149,12 @@ def _resize_crop(crop: torch.Tensor, crop_shape: Sequence[int],
   """The two contractions of :func:`crop_resize_images` over a crop
   window, made a contiguous float32 tensor first, so that a view and a
   gathered copy of the same window give the same bits."""
-  a_h = _device_resize_weights(int(crop_shape[0]), int(target_shape[0]),
-                               crop.device)
-  a_w = _device_resize_weights(int(crop_shape[1]), int(target_shape[1]),
-                               crop.device)
+  # Under a trace (``torch.export``) the weights are constants of that
+  # program alone: the cache keeps only real tensors.
+  weights = (_device_resize_weights.__wrapped__ if fake_tensor.is_fake(crop)
+             else _device_resize_weights)
+  a_h = weights(int(crop_shape[0]), int(target_shape[0]), crop.device)
+  a_w = weights(int(crop_shape[1]), int(target_shape[1]), crop.device)
   x = crop.float().contiguous()
   x = torch.einsum('iy,byxc->bixc', a_h, x)
   return torch.einsum('jx,bixc->bijc', a_w, x)

@@ -242,8 +242,11 @@ class Grasp2VecModel(AbstractT2RModel):
         dim=0).to(dtype)
     scene_v, scene_s = network.scene(scene_images)
     goal_v, goal_s = network.goal(features['goal_image'].to(dtype))
-    pre_v, post_v = torch.chunk(scene_v, 2, dim=0)
-    pre_s, post_s = torch.chunk(scene_s, 2, dim=0)
+    # Split at the pregrasp batch (the views ``torch.chunk`` gives), so
+    # that a trace keeps the batch symbolic.
+    n = features['pregrasp_image'].shape[0]
+    pre_v, post_v = scene_v[:n], scene_v[n:]
+    pre_s, post_s = scene_s[:n], scene_s[n:]
     outputs = SpecStruct()
     outputs['pre_vector'] = pre_v
     outputs['post_vector'] = post_v

@@ -15,9 +15,13 @@ The port's counterpart of
 * :class:`VRGripperEnvLongHorizonModel` (``_long_horizon_net``) — the
   same skeleton with multi-head attention blocks.
 
-The attention blocks run the flash kernels in TRAIN and EVAL on the card;
-PREDICT pins the dense form (``allow_flash=False``), as the JAX package
-does. Like the JAX models, these return their preprocessor without the
+The attention blocks run the flash kernels in TRAIN and EVAL on the card.
+PREDICT takes the flash forward on every device (``serving=True``): it is
+the custom op ``t2r::flash_fwd``, so an exported serving program holds it
+as a node (two, one per attention block) that launches the kernel on the
+card and runs the plain version on the CPU. The JAX package pins PREDICT
+to the dense form because a Mosaic kernel cannot lower for a CPU host; the
+custom op has no such limit. Like the JAX models, these return their preprocessor without the
 bfloat16 dtype policy, so the whole network computes in float32 and the
 flash kernels take float32 q, k, v.
 
@@ -235,10 +239,10 @@ class _SnailSequenceNet(nn.Module):
     self.frame_features.init_weights(generator)
     snail.init_snail_weights(self, generator)
 
-  def forward(self, images, aux_input, allow_flash: bool = True):
+  def forward(self, images, aux_input, serving: bool = False):
     """images [B, T, H, W, C], aux_input [B, T, P] → (poses [B, T, out],
-    end_points). ``allow_flash=False`` (the PREDICT path) pins the
-    attention blocks to the dense form."""
+    end_points). ``serving=True`` (the PREDICT path) sends the attention
+    blocks through the flash forward on every device (``layers/snail``)."""
     b, t = images.shape[:2]
     merged = images.reshape((-1,) + tuple(images.shape[2:]))
     frame_features, _ = self.frame_features(merged)
@@ -246,9 +250,9 @@ class _SnailSequenceNet(nn.Module):
     dtype = torch.promote_types(net.dtype, aux_input.dtype)
     net = self.in_proj(torch.cat([net.to(dtype), aux_input.to(dtype)], -1))
     net = self.tc1(net)
-    net, attn1 = self.attn1(net, allow_flash)
+    net, attn1 = self.attn1(net, serving=serving)
     net = self.tc2(net)
-    net, attn2 = self.attn2(net, allow_flash)
+    net, attn2 = self.attn2(net, serving=serving)
     end_points = {}
     if self.return_attention_probs:
       end_points['attn_probs/0'] = attn1['attn_prob']
@@ -308,7 +312,7 @@ class VRGripperEnvSequentialModel(VRGripperEnvTecModel):
     set_mode(network, mode)
     images, aux, condition_length = self._sequence_inputs(features)
     poses, end_points = network(images, aux,
-                                allow_flash=mode != ModeKeys.PREDICT)
+                                serving=mode == ModeKeys.PREDICT)
     outputs = SpecStruct()
     for key, value in end_points.items():
       outputs[key] = value

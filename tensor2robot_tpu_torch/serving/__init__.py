@@ -5,8 +5,9 @@ routing with paging under a byte budget and priority-class admission
 (``router``), the stdlib HTTP front door (``server``) and its request
 decode, off the interpreter lock for large bodies (``wire``), the
 balancer over serving replicas (``balancer``) and closed- and open-loop
-load generation (``loadgen``). Quantized serving waits for ROADMAP queue
-1 item 8."""
+load generation (``loadgen``). The batcher serves a weight-only int8 or
+fp8 twin of a model behind a parity gate (``quantize=``, the
+``quantize`` package)."""
 
 from tensor2robot_tpu_torch.serving.balancer import Balancer
 from tensor2robot_tpu_torch.serving.batching import (

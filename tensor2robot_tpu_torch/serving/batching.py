@@ -47,9 +47,18 @@ is registered as the report section of that name. ``queue_depth`` and
 ``page_out()`` keeps a host copy of the params, so a page-in is one
 host-to-device copy.
 
-Not ported here: quantized serving (``quantize``, ROADMAP queue 1 item 8;
-a value other than 'off' raises) and the program-ledger hook
-(``observability/programs.py``, item 10).
+* **Weight-only quantization behind a parity gate.** ``quantize='int8'``
+  or ``'fp8'`` serves the predictor's quantized twin (``quantize/``),
+  prepared off the dispatch thread at start and at each reload: the twin is
+  checked against full precision on calibration batches
+  (``quant_parity_atol`` / ``quant_parity_rtol``); outside the band it is
+  refused (``serving/quant_parity_rejects``) and full precision serves, as
+  it does when the preparation raises (``serving/quant_errors``). Reload
+  polls compare the predictor's own generation, so a poll never
+  re-quantizes.
+
+Not ported here: the program-ledger hook (``observability/programs.py``,
+ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ import torch
 from tensor2robot_tpu_torch.observability import flight
 from tensor2robot_tpu_torch.observability import metrics as metrics_lib
 from tensor2robot_tpu_torch.observability import postmortem, tracing
+from tensor2robot_tpu_torch.quantize import quantization as quant_lib
 from tensor2robot_tpu_torch.specs.tensor_spec import to_numpy_dtype
 from tensor2robot_tpu_torch.specs.dtypes import to_host_numpy
 
@@ -186,7 +196,11 @@ class ServingFuture:
 
 
 def _param_signature(params) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
-  return {k: (tuple(v.shape), v.dtype) for k, v in params.items()}
+  """Each leaf's shapes and dtypes (a quantized leaf's payload and
+  scale)."""
+  return {k: tuple((tuple(t.shape), t.dtype)
+                   for t in quant_lib.tensors({k: v}))
+          for k, v in params.items()}
 
 
 class TorchBucketExecutor:
@@ -198,7 +212,9 @@ class TorchBucketExecutor:
   bucket's batch; each first run is counted in ``serving/bucket_compiles``
   and timed in ``serving/bucket_compile_ms``. A generation with the same
   ``program_key`` and param shapes inherits the warmed buckets
-  (:meth:`compatible_cache`).
+  (:meth:`compatible_cache`). The params may hold quantized leaves
+  (``quantize.QuantizedTensor``); :attr:`param_bytes` counts what the
+  device holds.
   """
 
   def __init__(self, serving, buckets: Sequence[int],
@@ -212,10 +228,9 @@ class TorchBucketExecutor:
     self.params_ref = serving.params  # identity marker for swap detection
     self.source_params_ref = serving.params
     self.source_program_key = serving.program_key
-    self._device = next(iter(serving.params.values())).device
+    self._device = next(quant_lib.tensors(serving.params)).device
     self._param_signature = _param_signature(serving.params)
-    self.param_bytes = int(sum(v.numel() * v.element_size()
-                               for v in serving.params.values()))
+    self.param_bytes = quant_lib.param_bytes(serving.params)
     # The page lock orders paging against dispatches: a page-out waits for
     # the dispatch in flight. Exactly one of the two is set.
     self._page_lock = threading.Lock()
@@ -269,8 +284,8 @@ class TorchBucketExecutor:
     with self._page_lock:
       if self._device_params is None:
         return 0
-      self._host_params = {k: v.detach().to('cpu', copy=True)
-                           for k, v in self._device_params.items()}
+      self._host_params = quant_lib.map_tensors(
+          self._device_params, lambda t: t.detach().to('cpu', copy=True))
       self._device_params = None
       metrics_lib.counter('serving/page_outs').inc()
       flight.event('router', f'{self._label}/page_out',
@@ -287,8 +302,8 @@ class TorchBucketExecutor:
 
   def _page_in_locked(self) -> None:  # HOLDS(self._page_lock)
     start = time.perf_counter()
-    self._device_params = {k: v.to(self._device)
-                           for k, v in self._host_params.items()}
+    self._device_params = quant_lib.map_tensors(
+        self._host_params, lambda t: t.to(self._device))
     self._host_params = None
     metrics_lib.counter('serving/page_ins').inc()
     metrics_lib.histogram('serving/page_in_ms').observe(
@@ -372,17 +387,27 @@ class DynamicBatcher:
                max_queue: int = 1024,
                reload_interval_secs: Optional[float] = None,
                quantize: str = 'off',
+               quant_parity_atol: float = 0.05,
+               quant_parity_rtol: float = 0.05,
+               quant_calibration_batches: int = 2,
+               quant_calibration_batch_size: int = 4,
+               quant_skip_patterns: Sequence[str] = (),
                request_trace_sample: float = 0.0,
                postmortem_dir: Optional[str] = None,
                metrics_prefix: str = 'serving',
                register_report: bool = True):
     if max_batch < 1:
       raise ValueError(f'max_batch must be >= 1, got {max_batch}')
-    if quantize not in (None, '', 'off'):
-      raise NotImplementedError(
-          f'quantize={quantize!r}: quantized serving is not ported yet: '
-          'ROADMAP.md queue 1 item 8.')
+    if quantize not in (None, '', 'off') + quant_lib.MODES:
+      raise ValueError(f"quantize must be one of 'off'/'int8'/'fp8', "
+                       f'got {quantize!r}')
     self._predictor = predictor
+    self._quantize = quantize if quantize not in (None, '') else 'off'
+    self._quant_parity_atol = float(quant_parity_atol)
+    self._quant_parity_rtol = float(quant_parity_rtol)
+    self._quant_calibration_batches = int(quant_calibration_batches)
+    self._quant_calibration_batch_size = int(quant_calibration_batch_size)
+    self._quant_skip_patterns = tuple(quant_skip_patterns)
     self._max_batch = int(max_batch)
     self._deadline_s = float(batch_deadline_ms) / 1e3
     self._max_queue = int(max_queue)
@@ -438,6 +463,14 @@ class DynamicBatcher:
     self._m_actions_per_sec = s.gauge('actions_per_sec')
     self._m_version = s.gauge('model_version')
     self._m_param_bytes = s.gauge('param_bytes')
+    self._m_quant_rejects = s.counter('quant_parity_rejects')
+    self._m_quant_errors = s.counter('quant_errors')
+    qs = metrics_lib.scope(self._metrics_prefix + '/quant')
+    self._m_quant_active = qs.gauge('active')
+    self._m_quant_bytes_full = qs.gauge('param_bytes_full')
+    self._m_quant_bytes_ratio = qs.gauge('param_bytes_ratio')
+    self._m_quant_abs_err = qs.gauge('parity_max_abs_err')
+    self._m_quant_rel_err = qs.gauge('parity_max_rel_err')
     # A committed but broken export that the predictor absorbed (it keeps
     # its last good generation) is seen only as this counter moving.
     self._m_predictor_fallbacks = metrics_lib.counter(
@@ -795,14 +828,63 @@ class DynamicBatcher:
 
   def _build_executor(self, reuse_from):
     try:
-      serving = self._predictor.stateless_serving_fn()
+      source = self._predictor.stateless_serving_fn()
     except NotImplementedError:
       return PredictCallableExecutor(self._predictor)
+    serving = self._quantize_gate(source)
     compiled = (reuse_from.compatible_cache(serving)
                 if reuse_from is not None else None)
-    return TorchBucketExecutor(serving, self._buckets,
-                               compiled=compiled or (),
-                               label=self._metrics_prefix)
+    executor = TorchBucketExecutor(serving, self._buckets,
+                                   compiled=compiled or (),
+                                   label=self._metrics_prefix)
+    # Reload polls compare the predictor's own generation, not the derived
+    # quantized one (see _same_generation).
+    executor.source_params_ref = source.params
+    executor.source_program_key = source.program_key
+    return executor
+
+  def _quantize_gate(self, serving):
+    """Weight-only quantization behind the parity gate, on the preparing
+    thread (start or the reload poller, never the dispatcher): quantize
+    the snapshot, check it against full precision on calibration batches,
+    and serve it only inside the band. A band violation
+    (``quant_parity_rejects``) or a preparation that raises
+    (``quant_errors``) serves full precision instead."""
+    mode = self._quantize
+    if mode == 'off':
+      return serving
+    try:
+      quantized = quant_lib.quantize_serving_fn(
+          serving, mode=mode, skip_patterns=self._quant_skip_patterns)
+      report = quant_lib.check_parity(
+          serving, quantized, atol=self._quant_parity_atol,
+          rtol=self._quant_parity_rtol,
+          calibration_batches=self._quant_calibration_batches,
+          calibration_batch_size=self._quant_calibration_batch_size)
+      full_bytes = quant_lib.param_bytes(serving.params)
+    except Exception as e:  # pylint: disable=broad-except
+      self._m_quant_errors.inc()
+      self._m_quant_active.set(0.0)
+      logging.warning('Quantized (%s) serving preparation failed (%r); '
+                      'serving full precision.', mode, e)
+      return serving
+    self._m_quant_abs_err.set(report.max_abs_err)
+    self._m_quant_rel_err.set(report.max_rel_err)
+    self._m_quant_bytes_full.set(float(full_bytes))
+    if not report.ok:
+      self._m_quant_rejects.inc()
+      self._m_quant_active.set(0.0)
+      logging.warning('Quantized (%s) generation refused by the parity '
+                      'gate: %s; serving full precision.', mode,
+                      report.describe())
+      return serving
+    quant_bytes = quant_lib.param_bytes(quantized.params)
+    self._m_quant_bytes_ratio.set(quant_bytes / max(full_bytes, 1))
+    self._m_quant_active.set(1.0)
+    logging.info('Quantized (%s) serving adopted: %s; param bytes %d -> %d '
+                 '(%.3fx).', mode, report.describe(), full_bytes,
+                 quant_bytes, quant_bytes / max(full_bytes, 1))
+    return quantized
 
   def maybe_reload(self) -> bool:
     """One reload poll: restore the predictor and, when a new generation
@@ -856,6 +938,9 @@ class DynamicBatcher:
       serving = self._predictor.stateless_serving_fn()
     except NotImplementedError:
       return False
+    # The source generation: under quantization the executor serves a
+    # derived dict the predictor never hands out again, and matching on it
+    # would re-quantize at every poll.
     return (serving.params is current.source_params_ref and
             serving.program_key == current.source_program_key)
 
@@ -894,4 +979,16 @@ class DynamicBatcher:
         'bucket_compiles': metrics_lib.counter(
             'serving/bucket_compiles').value,
         'param_bytes': int(snap.get(f'{p}/param_bytes', 0.0)),
+        'quantize': self._quantize,
+        'quantized_active': bool(snap.get(f'{p}/quant/active', 0.0)),
+        'quant_parity_rejects': snap.get(f'{p}/quant_parity_rejects', 0),
+        'quant_errors': snap.get(f'{p}/quant_errors', 0),
+        'quant_param_bytes_full': int(
+            snap.get(f'{p}/quant/param_bytes_full', 0.0)),
+        'quant_param_bytes_ratio': snap.get(
+            f'{p}/quant/param_bytes_ratio', 0.0),
+        'quant_parity_max_abs_err': snap.get(
+            f'{p}/quant/parity_max_abs_err', 0.0),
+        'quant_parity_max_rel_err': snap.get(
+            f'{p}/quant/parity_max_rel_err', 0.0),
     }

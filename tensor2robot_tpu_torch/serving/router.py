@@ -65,8 +65,10 @@ class ModelRouter:
 
   ``predictors`` maps model name → predictor (each typically an
   ``ExportedModelPredictor`` over its own export root). Batcher knobs
-  (``max_batch``, ``batch_deadline_ms``, ``reload_interval_secs``, ...)
-  pass through ``**batcher_kwargs`` and apply to every model's batcher.
+  (``max_batch``, ``batch_deadline_ms``, ``reload_interval_secs``,
+  ``quantize=...``, ...) pass through ``**batcher_kwargs`` and apply to
+  every model's batcher; a quantized model's ``param_bytes`` is its
+  payload's, which is what the paging budget counts.
 
   ``hbm_budget_bytes=None`` disables paging (every model stays
   resident). With a budget, models are paged LRU so the resident set's

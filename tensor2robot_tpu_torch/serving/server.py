@@ -300,7 +300,8 @@ class ServingServer:
 
   Single-model: ``ServingServer(predictor, **batcher_kwargs)`` (knobs:
   ``max_batch``, ``batch_deadline_ms``, ``max_queue``,
-  ``reload_interval_secs``, ... — see :class:`~tensor2robot_tpu_torch.
+  ``reload_interval_secs``, ``quantize='int8'``/``'fp8'`` with its
+  ``quant_parity_*`` band, ... — see :class:`~tensor2robot_tpu_torch.
   serving.batching.DynamicBatcher`). Multi-model: ``ServingServer(router=
   ModelRouter(...))`` — the router owns its batchers; batcher kwargs are
   rejected here (configure them on the router).

@@ -176,10 +176,6 @@ class TestAssembly:
     with pytest.raises(batching_lib.OverloadedError):
       b.submit({'x': np.zeros((1, 2), np.float32)})
 
-  def test_quantized_serving_is_not_ported(self):
-    with pytest.raises(NotImplementedError, match='queue 1 item 8'):
-      self._batcher(quantize='int8')
-
 
 # ------------------------------------------------- bucketed dispatch + swap
 

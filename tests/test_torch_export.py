@@ -5,8 +5,9 @@ Mirrors ``tests/test_export_serving.py``'s exporter cases on the port's
 mock model, and adds the program's own pins: the tiny QT-Opt program holds
 the pool and conv1 kernels as the custom ops ``t2r.pool_fwd`` (3) and
 ``t2r.conv_s2d_fwd`` (1) under ``kernel_policy='pool_conv'`` and none
-under ``'none'``; kernels that are not custom ops (flash attention, the
-photometric pass) refuse export; the program fingerprint ignores weights;
+under ``'none'``; the flash forward and the photometric pass export as
+the custom ops ``t2r.flash_fwd`` and ``t2r.photometric``, one node each,
+bit for bit the eager function; the program fingerprint ignores weights;
 one artifact serves batch 1 and batch 5; and a process that cannot import
 the model's modules loads and runs it. The assets' text format is read by
 the JAX package's ``load_specs_from_export_dir`` and the port reads the
@@ -305,13 +306,13 @@ class _PhotometricNet(nn.Module):
   def forward(self, x):
     images = (x * self.scale).reshape(x.shape[0], 4, 4, 8)
     ones = torch.ones((x.shape[0], 1, 1, 1))
-    return photometric.fused_brightness_contrast(images, 0.0 * ones,
-                                                 ones).sum((1, 2, 3))
+    return photometric.fused_brightness_contrast(images, 0.1 * ones,
+                                                 1.5 * ones).sum((1, 2, 3))
 
 
 class _KernelModel(AbstractT2RModel):
-  """A one-parameter model whose forward reaches a kernel that is not a
-  custom op."""
+  """A one-parameter model whose forward reaches the flash forward or the
+  photometric pass."""
 
   def __init__(self, net_cls):
     super().__init__(device_type='cpu')
@@ -337,19 +338,30 @@ class _KernelModel(AbstractT2RModel):
     raise NotImplementedError
 
 
-@pytest.mark.parametrize('net_cls', [_AttentionNet, _PhotometricNet])
-def test_kernels_without_custom_ops_refuse_export(net_cls, tmp_path):
+@pytest.mark.parametrize('net_cls, op', [
+    (_AttentionNet, 't2r.flash_fwd.default'),
+    (_PhotometricNet, 't2r.photometric.default')],
+                         ids=['attention', 'photometric'])
+def test_kernels_export_as_custom_ops(net_cls, op, tmp_path):
+  """The flash forward and the photometric pass are custom ops: the
+  program holds one node of each, runs at a batch other than the trace's
+  and gives the eager function's outputs bit for bit."""
   model = _KernelModel(net_cls)
-  params = dict(model.create_module().state_dict())
-  # Eager runs are unaffected: the plain version on the CPU.
-  out = exporters.build_serving_fn(model)(params,
-                                          {'x': torch.ones((2, 16, 8))})
-  assert out['y'].shape == (2,)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    exporters.export_serving_program(model, params)
+  generator = torch.Generator().manual_seed(3)
+  params = {k: torch.rand(v.shape, generator=generator) + 0.5
+            for k, v in model.create_module().state_dict().items()}
+  program = exporters.export_serving_program(model, params)
+  assert exporters.kernel_op_counts(program) == {op: 1}
+  features = {'x': torch.rand((3, 16, 8), generator=generator)}
+  want = exporters.build_serving_fn(model)(params, features)['y']
+  got = program.module()(params, features)['y']
+  assert got.shape == (3,)
+  assert torch.equal(got, want)
   state = exporters.ServingState(1, params)
   path = export_lib.ModelExporter().export(model, state, str(tmp_path))
-  assert exporters.read_export_meta(path)['self_contained_serving_fn'] is False
+  meta = exporters.read_export_meta(path)
+  assert meta['self_contained_serving_fn'] is True
+  assert meta['kernel_ops'] == {op: 1}
 
 
 class _GatedNet(nn.Module):

@@ -229,17 +229,3 @@ def test_first_load_failure_raises_and_timeout_returns_false(tmp_path):
   os.remove(os.path.join(path, 'state', exporters.STATE_FILENAME))
   with pytest.raises(FileNotFoundError):
     ExportedModelPredictor(root, device='cpu').restore()
-
-
-def test_quantized_serving_is_not_ported(tmp_path):
-  trainer, model = trained_mock(tmp_path)
-  root = str(tmp_path / 'export')
-  exporters.ModelExporter().export(model, trainer.state, root)
-  predictor = ExportedModelPredictor(root, device='cpu')
-  assert predictor.restore()
-  with pytest.raises(NotImplementedError, match='queue 1 item 8'):
-    predictor.stateless_serving_fn(quantize='int8')
-  eager = CheckpointPredictor(model, device='cpu')
-  eager.load_state_dict(trainer.state.eval_state_dict())
-  with pytest.raises(NotImplementedError, match='queue 1 item 8'):
-    eager.stateless_serving_fn(quantize='fp8')

@@ -12,7 +12,8 @@
   the export loaders and the serving binary included (they default to the
   card).
 * The serving front door's and observability plane's modules are among
-  those scanned and imported, and so are the Grasp2Vec slice's modules.
+  those scanned and imported, and so are the Grasp2Vec slice's modules
+  and the weight-only quantization package.
 """
 
 import ast
@@ -63,6 +64,11 @@ GRASP2VEC_MODULES = (
 )
 
 
+# Weight-only int8/fp8 serving: the port keeps its own copy of the JAX
+# package's quantization API.
+QUANTIZE_MODULES = ('quantize/__init__.py', 'quantize/quantization.py')
+
+
 def _is_blocked(name: str) -> bool:
   if name.split('.')[0] in BLOCKED_ROOTS:
     return True
@@ -105,6 +111,14 @@ def test_static_scan_finds_no_jax_import():
 
 @pytest.mark.parametrize('relative', SERVING_MODULES)
 def test_serving_modules_are_scanned_and_mirror_the_jax_layout(relative):
+  path = PACKAGE / relative
+  assert path in _port_sources()
+  assert (REPO / 'tensor2robot_tpu' / relative).exists()
+  assert not [name for name in _imported_names(path) if _is_blocked(name)]
+
+
+@pytest.mark.parametrize('relative', QUANTIZE_MODULES)
+def test_quantize_modules_are_scanned_and_mirror_the_jax_layout(relative):
   path = PACKAGE / relative
   assert path in _port_sources()
   assert (REPO / 'tensor2robot_tpu' / relative).exists()

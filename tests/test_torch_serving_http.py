@@ -247,7 +247,7 @@ def test_gets_answer_alike(planes):
       assert set(port_reply[2]) == set(jax_reply[2])
   statz = _call(planes.port.port, 'GET', '/statz')[2]
   jax_statz = _call(planes.jax.port, 'GET', '/statz')[2]
-  assert set(statz) == {k for k in jax_statz if not k.startswith('quant')}
+  assert set(statz) == set(jax_statz)
   assert statz['requests'] > 0 and statz['slow_requests']
   assert _call(planes.port.port, 'GET', '/healthz')[2] == {
       'status': 'ok', 'model_version': 3}
@@ -481,8 +481,6 @@ def _hooks_run(pkg, prefix, fake, **kwargs):
       except pkg.batching.ServingError as e:
         outputs.append(type(e).__name__)
     report = batcher.report()
-  for key in [k for k in report if k.startswith('quant')]:
-    report.pop(key)
   report.pop('bucket_compiles')
   for entry in report['slow_requests']:
     entry.pop('time')
@@ -610,8 +608,6 @@ def test_unported_knobs_raise_naming_their_roadmap_items():
   predictor = _loaded_predictor()
   with pytest.raises(NotImplementedError, match='queue 1 item 6'):
     server.ServingServer(predictor, compilation_cache_dir='/tmp/cache')
-  with pytest.raises(NotImplementedError, match='queue 1 item 8'):
-    server.ServingServer(predictor, quantize='int8')
   with pytest.raises(ValueError, match='exactly one'):
     server.ServingServer()
   with pytest.raises(ValueError):
@@ -619,8 +615,6 @@ def test_unported_knobs_raise_naming_their_roadmap_items():
 
 
 @pytest.mark.parametrize('flags,match', [
-    (['--quantize', 'int8'], 'queue 1 item 8'),
-    (['--quant-parity-atol', '0.1'], 'queue 1 item 8'),
     (['--compilation-cache-dir', '/tmp/cache'], 'queue 1 item 6'),
 ])
 def test_serving_binary_refuses_unported_flags(tmp_path, flags, match):

@@ -133,7 +133,8 @@ def test_attention_block_takes_the_flash_path_when_allowed(monkeypatch):
   monkeypatch.setattr(snail, '_flash_auto_ok', lambda x: True)
   block(x)
   assert calls == [(2, 16, 1, 64)]
-  block(x, allow_flash=False)
+  block.use_flash = False
+  block(x)
   assert len(calls) == 1
   with pytest.raises(ValueError, match='return_prob'):
     snail.AttentionBlock(10, 64, 32, return_prob=True, use_flash=True)(x)

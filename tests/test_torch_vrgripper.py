@@ -4,7 +4,8 @@ Preprocessing (``crop_resize_images`` and its resize matrices,
 ``DefaultVRGripperPreprocessor`` with the JAX package's crop offsets
 injected), the meta spec transforms, ``pack_vrgripper_meta_features``,
 both models' forward in TRAIN (flash: the JAX side's Pallas kernels in
-interpret mode, the port's plain versions) and PREDICT (dense), the dtype
+interpret mode, the port's plain versions) and PREDICT (the JAX side
+dense, the port's flash forward, which serving exports), the dtype
 that reaches the attention kernels, and the port's ``Trainer`` against the
 JAX ``Trainer`` over 1 and 3 steps.
 
@@ -268,15 +269,24 @@ def _carried(name, seed=1):
 @pytest.mark.parametrize('mode', [ModeKeys.TRAIN, ModeKeys.PREDICT])
 @pytest.mark.parametrize('name', sorted(MODELS))
 def test_forward_matches_jax(force_flash, monkeypatch, name, mode):
-  """TRAIN runs the flash path on both sides, PREDICT the dense one (the
-  flash entry raises if reached); ``inference_output`` within 2e-5."""
+  """TRAIN runs the flash path on both sides. In PREDICT the JAX model
+  pins the dense form (its flash entry raises if reached) and the port
+  takes the flash forward on every device (the custom op an exported
+  program holds), once per attention block; ``inference_output`` within
+  2e-5."""
   del force_flash
   jax_model, model, variables, network, features = _carried(name)
+  calls = []
   if mode == ModeKeys.PREDICT:
     def boom(*args, **kwargs):
       raise AssertionError('flash_attention reached in PREDICT')
     monkeypatch.setattr(jax_fa, 'flash_attention', boom)
-    monkeypatch.setattr(fa, 'flash_attention', boom)
+    monkeypatch.setattr(snail, '_flash_auto_ok', lambda x: False)
+
+    def counted(*args, fn=fa.flash_attention, **kwargs):
+      calls.append(args[0].shape)
+      return fn(*args, **kwargs)
+    monkeypatch.setattr(fa, 'flash_attention', counted)
   want, _ = jax_model.inference_network_fn(
       variables, {k: jnp.asarray(v) for k, v in features.items()}, None, mode)
   got = model.inference_network_fn(
@@ -285,6 +295,7 @@ def test_forward_matches_jax(force_flash, monkeypatch, name, mode):
   assert set(got) == set(want)
   out = got['inference_output']
   assert out.shape == (BATCH, 1, EPISODE, 7)
+  assert len(calls) == (2 if mode == ModeKeys.PREDICT else 0)
   np.testing.assert_allclose(out.detach().numpy(),
                              np.asarray(want['inference_output']), rtol=0,
                              atol=2e-5)

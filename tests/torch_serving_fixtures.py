@@ -8,9 +8,11 @@
   ``kernel_policy='pool_conv'``) in a ``CheckpointPredictor`` with seeded
   weights of std 1/sqrt(fan_in), so that candidate actions score apart.
 * :func:`qtopt_features`: seeded numpy frames and actions for it.
-* :func:`paired_qtopt_exports`: one seeded variables tree exported by the
-  JAX package (``jax.export``) and by the port (``torch.export``, through
-  ``utils/convert``), float32 on the CPU, for the HTTP parity tests.
+* :func:`paired_qtopt_variables` and :func:`paired_qtopt_exports`: one
+  seeded variables tree for both packages, and exported by the JAX package
+  (``jax.export``) and by the port (``torch.export``, through
+  ``utils/convert``), on the CPU, for the HTTP and quantized-serving parity
+  tests.
 * :func:`one_thread`: a module fixture, autouse wherever it is imported.
 """
 
@@ -130,32 +132,45 @@ def version_files(path):
   return sorted(out)
 
 
-def paired_qtopt_exports(root, seed: int = 1, step: int = 3):
-  """(model, eager port predictor, JAX export root, port export root) of
-  one seeded variables tree of the float32 tiny QT-Opt config."""
-  import types  # pylint: disable=import-outside-toplevel
-
+def paired_qtopt_variables(seed: int = 1, bfloat16: bool = False):
+  """(JAX model, port model, variables): one seeded numpy variables tree of
+  the tiny QT-Opt config (``tests/torch_port_weights.py``), with the
+  float32 or the bfloat16 dtype policy on both sides."""
   import jax  # pylint: disable=import-outside-toplevel
   from torch_port_weights import random_variables  # pylint: disable=import-outside-toplevel
 
-  from tensor2robot_tpu.export import exporters as jax_exporters  # pylint: disable=import-outside-toplevel
   from tensor2robot_tpu.ops import _pallas_dispatch  # pylint: disable=import-outside-toplevel
   from tensor2robot_tpu.predictors import (  # pylint: disable=import-outside-toplevel
       CheckpointPredictor as JaxCheckpointPredictor)
   from tensor2robot_tpu.research.qtopt import (  # pylint: disable=import-outside-toplevel
       GraspingModelWrapper as JaxGraspingModelWrapper)
 
-  jax_model = JaxGraspingModelWrapper(device_type='cpu', **QT_CONFIG)
+  jax_model = JaxGraspingModelWrapper(
+      device_type='tpu' if bfloat16 else 'cpu', **QT_CONFIG)
   jax_predictor = JaxCheckpointPredictor(jax_model, model_dir='unused')
   with _pallas_dispatch.force_kernels(True):
     jax_predictor.init_randomly()
   variables = random_variables(jax.device_get(jax_predictor._variables),  # pylint: disable=protected-access
                                seed=seed)
+  model = GraspingModelWrapper(device_type='gpu' if bfloat16 else 'cpu',
+                               **QT_CONFIG)
+  return jax_model, model, variables
+
+
+def paired_qtopt_exports(root, seed: int = 1, step: int = 3,
+                         bfloat16: bool = False):
+  """(model, eager port predictor, JAX export root, port export root) of
+  one seeded variables tree of the tiny QT-Opt config (float32 unless
+  ``bfloat16``)."""
+  import types  # pylint: disable=import-outside-toplevel
+
+  from tensor2robot_tpu.export import exporters as jax_exporters  # pylint: disable=import-outside-toplevel
+
+  jax_model, model, variables = paired_qtopt_variables(seed, bfloat16)
   jax_root, port_root = str(root / 'jax'), str(root / 'port')
   jax_exporters.ModelExporter().export(
       jax_model, types.SimpleNamespace(eval_variables=variables, step=step),
       jax_root)
-  model = GraspingModelWrapper(device_type='cpu', **QT_CONFIG)
   eager = CheckpointPredictor(model, device='cpu')
   eager.load_variables(variables, global_step=step)
   export_predictor(model, eager, root / 'port')
