@@ -248,9 +248,9 @@ turn as JSON. The phases of a run without it:
    outside the replay, the superbatch upload's ms (CUDA events) and the
    copies a dispatch, the capture's one-off ms; and the trainer binary on
    the port's ``train_qtopt.gin`` (``steps_per_dispatch = 8`` live; cut to
-   64 of its 1000 steps and a save interval of 50, because the host's
+   24 of its 1000 steps and a save interval of 12, because the host's
    random generator bounds it, with one batch's draw time printed) in a
-   subprocess, which must exit 0 and commit steps [56, 64];
+   subprocess, which must exit 0 and commit steps [16, 24];
 12b. Grasp2Vec at the reference config's full width (``phase_grasp2vec``,
    after the K-step path): 4 TFRecord shards of 12 examples, each three
    seeded 512x640x3 uint8 frames as PNG under the spec names ``image``,
@@ -389,6 +389,27 @@ turn as JSON. The phases of a run without it:
    ``pool_bwd_gather_kernel`` (Grasp2Vec), 8 ``fused_update_kernel`` on
    the fused arms, one ``cudaGraphLaunch`` a replay and no Python launch,
    with the device ms a step of K=8 and of 4 K=1 steps;
+13c. fp8 training (``phase_fp8_train``, after ``phase_dispatch_profile``,
+   deterministic cuDNN, no plain-version call): the card's
+   ``quantize_dequantize`` bit for bit the CPU's on 2**18 seeded values
+   with the edges (e4m3fn and e5m2, float32 and bfloat16 sources, six
+   amaxes, the cotangent's qdq at its own amax) and a ``DelayedAmax``
+   window over 20 calls; the QT-Opt critic at full width with
+   ``TrainerConfig.matmul_precision='fp8'``: 16 batches at K=8 (2
+   replays) bit for bit 16 K=1 steps (parameters, batch statistics, the
+   42 amax windows, all 16 slots filled and finite, momentum, groups, EMA,
+   generator, step), parameters and slots float32; each of the 16 losses
+   within 0.02 + 0.1|bf16| of the bf16 run's; ``with_gradient_accumulation(
+   with_gradient_clipping(momentum, 1.0, 0.5), 3)`` under a halving rate
+   at K=8 bit for bit K=1 (5 updates, ``mini_step`` 1); eval twice with
+   equal metrics and the windows unmoved; the K=1 run's saved step
+   restored by ``CheckpointPredictor`` (q on 8 pairs bit for bit the live
+   state's), one CEM action, and its export (3 + 1 kernel nodes, 42
+   float8_e4m3fn casts, the same q through ``ExportedModelPredictor``);
+   every run's launches counted; fp8 and bf16 at K=8 in turns on the host
+   clock (fp8, bf16, bf16, fp8) and each profiled over two replays (the
+   rows of 13a, one ``cudaGraphLaunch`` a replay), the device ms a step
+   split by kernel name into contractions and the rest;
    ``--profile`` adds ``torch.profiler`` breakdowns of two actions, a
    stock and a fused QT-Opt training step and one stock and one fused step
    of each SNAIL path, written to
@@ -440,6 +461,7 @@ from tensor2robot_tpu_torch.ops import (_build, _dispatch, conv_s2d,
                                         fused_update, photometric, pool)
 from tensor2robot_tpu_torch.ops import flash_attention as fa
 from tensor2robot_tpu_torch.preprocessors import image_transformations
+from tensor2robot_tpu_torch.quantize import fp8_training as fp8_lib
 from tensor2robot_tpu_torch.quantize import quantization as quant_lib
 from tensor2robot_tpu_torch.policies import CEMPolicy
 from tensor2robot_tpu_torch.predictors import (CheckpointPredictor,
@@ -5021,12 +5043,13 @@ DISPATCH_TIMED = 48       # steps a timed run: six dispatches of 8
 DISPATCH_TURNS = 2  # 3 until the run's limit needed the seconds
 DISPATCH_ACCUM_BATCH = 64
 # The binary's run, cut from the config's 1000 steps (run_dispatch_binary),
-# and the steps it must commit: the dispatch boundaries on or after 50 and
-# 100, and the final step.
-# 112 steps until the exported-models phases needed the run's seconds.
-DISPATCH_BINARY_STEPS = 64
-DISPATCH_BINARY_SAVE_INTERVAL = 50
-DISPATCH_BINARY_SAVES = (56, 64)
+# and the steps it must commit: the dispatch boundary on or after 12, and
+# the final step, 24 (a multiple itself).
+# 112 steps until the exported-models phases needed the run's seconds, 64
+# until the fp8 phase did.
+DISPATCH_BINARY_STEPS = 24
+DISPATCH_BINARY_SAVE_INTERVAL = 12
+DISPATCH_BINARY_SAVES = (16, 24)
 DISPATCH_MEMORY_BATCHES = (32, 96)
 # The M=2 step against the eager accumulation written out: every parameter
 # within 1e-6 of its leaf's largest magnitude (the same operations in the
@@ -5386,7 +5409,7 @@ def run_dispatch_binary(root):
   """The trainer binary on the port's train_qtopt.gin, steps_per_dispatch
   = 8 live, in a subprocess; it must exit 0, commit the final step and
   save at dispatch boundaries: the first on or after each multiple of the
-  save interval (56), then the final step (64). The config's own
+  save interval (16), then the final step (24). The config's own
   1000 steps are bound by the host's random input generator (it draws
   31.5 MB of uint8 a batch; the phase prints the seconds one draw takes),
   not by depth, so the run is cut by binding ``DISPATCH_BINARY_STEPS`` and
@@ -5434,10 +5457,12 @@ def run_dispatch_binary(root):
       f'committed steps {steps}')
 
 
-def profile_dispatches(name, trainer, batches, want, steps=2 * DISPATCH_K):
+def profile_dispatches(name, trainer, batches, want, steps=2 * DISPATCH_K,
+                       keep=None):
   """Device ms a step and kernel rows (torch.profiler) over ``steps`` more
   steps of ``trainer`` on ``batches()`` (an iterator of host batches),
-  every Python launch counter zeroed just before. At K > 1 the steps are
+  every Python launch counter zeroed just before (``keep``, a list, gets
+  each profiled pair's ``key_averages()``). At K > 1 the steps are
   two replays, whose rows must read ``want`` with one ``cudaGraphLaunch``
   a replay and no Python launch: a pair that the profiler delivered short
   is profiled again, up to ``DISPATCH_PROFILE_ATTEMPTS`` pairs, and a row
@@ -5460,6 +5485,8 @@ def profile_dispatches(name, trainer, batches, want, steps=2 * DISPATCH_K):
       torch.cuda.synchronize()
     python_launches = read_counters()
     averages = prof.key_averages()
+    if keep is not None:
+      keep.append(averages)
     device_ms = device_time_us(averages) / 1e3 / steps
     h2d_ms = device_time_us(averages, 'Memcpy HtoD') / 1e3 / steps
     rows = {kernel: sum(e.count for e in averages if kernel in e.key)
@@ -5516,6 +5543,373 @@ def phase_dispatch_profile(seed):
       torch.cuda.empty_cache()
   if sum(plain.values()):
     raise AssertionError(f'dispatch profile: plain versions ran {plain}')
+
+
+# ------------------------------------------------------------ fp8 training
+
+FP8_STEPS = 2 * DISPATCH_K  # two replays of K=8
+# with_gradient_accumulation's window over the 16 steps: 5 updates and a
+# window held open at 1 call.
+FP8_ACCUMULATE = 3
+FP8_CLIP = dict(clip_norm=1.0, clip_value=0.5)
+# The JAX package's fp8-against-bf16 loss band (tests/test_kernels.py):
+# |fp8 - bf16| <= atol + rtol * |bf16| at every step.
+FP8_LOSS_BAND = (0.02, 0.1)
+FP8_QDQ_VALUES = 1 << 18
+FP8_QDQ_AMAXES = (0.0, 1.0, 448.0, 3.7e3, 2.5e-3, 5e4)
+FP8_EVAL_BATCHES = 2
+FP8_PAIRS = 8
+# Kernel names that are contractions on this path: cuBLAS/cuDNN GEMMs and
+# convolutions, and conv1's kernels; every other kernel of a step (qdq,
+# batch norm, pools, elementwise, reductions, the optimizer) is "other".
+CONTRACTION_KEYS = ('gemm', 'conv', 'cutlass', 'xmma', 'wgmma', 'dgrad',
+                    'wgrad', 'fprop', 'cudnn', 'sm90_')
+
+
+def fp8_qdq_values(seed):
+  """Seeded float32 values over the e4m3 and e5m2 ranges with the edges:
+  +-0, the bounds and past them, subnormals of both formats, a tiny
+  normal float32."""
+  rng = np.random.RandomState(seed)
+  x = (rng.lognormal(0, 3, FP8_QDQ_VALUES) *
+       rng.choice([-1, 1], FP8_QDQ_VALUES)).astype(np.float32)
+  edges = np.array([0.0, -0.0, 448.0, -448.0, 464.0, 600.0, -600.0, 57344.0,
+                    -61440.0, 7e4, 2.0**-9, 2.0**-10, 2.0**-16, 2.0**-17,
+                    2.0**-6 * 0.75, 1e-30], np.float32)
+  return torch.from_numpy(np.concatenate([x, edges]))
+
+
+def fp8_qdq_check(seed):
+  """The card's qdq bit for bit the CPU's: e4m3fn and e5m2, float32 and
+  bfloat16 sources, scales of several amaxes (0: an empty window's 1),
+  the cotangent's qdq at its own amax, and a window's 20 rolls."""
+  x = fp8_qdq_values(seed)
+  checked = 0
+  for dtype in (fp8_lib.E4M3, fp8_lib.E5M2):
+    for source in (torch.float32, torch.bfloat16):
+      cpu = x.to(source)
+      card = cpu.cuda()
+      for amax in FP8_QDQ_AMAXES:
+        scales = [fp8_lib.amax_scale(torch.tensor(amax, device=d), dtype)
+                  for d in ('cpu', 'cuda')]
+        got = fp8_lib.quantize_dequantize(card, scales[1], dtype).cpu()
+        want = fp8_lib.quantize_dequantize(cpu, scales[0], dtype)
+        if not (same_bits(scales[1].cpu(), scales[0]) and
+                same_bits(got, want)):
+          bad = int((got.float() != want.float()).sum())
+          raise AssertionError(
+              f'fp8 qdq {dtype} from {source} at amax {amax}: the card '
+              f'differs from the CPU at {bad} values (scale '
+              f'{float(scales[1])} against {float(scales[0])})')
+        checked += got.numel()
+      if not same_bits(fp8_lib.qdq_current(card, dtype).cpu(),
+                       fp8_lib.qdq_current(cpu, dtype)):
+        raise AssertionError(f'fp8 qdq_current {dtype} from {source}: the '
+                             'card differs from the CPU')
+      checked += cpu.numel()
+  rng = np.random.RandomState(seed + 1)
+  windows = [fp8_lib.DelayedAmax().train(),
+             fp8_lib.DelayedAmax().cuda().train()]
+  for call in range(20):
+    step = torch.from_numpy(
+        (rng.randn(4096) * rng.lognormal(0, 2)).astype(np.float32))
+    got = windows[1](step.cuda()).cpu()
+    want = windows[0](step)
+    if not (same_bits(got, want) and same_bits(
+        windows[1].amax_history.cpu(), windows[0].amax_history)):
+      raise AssertionError(f'fp8 window: call {call} differs on the card')
+  log(f'fp8: qdq on the card bit for bit the CPU on {checked} values '
+      f'(e4m3fn and e5m2, float32 and bfloat16 sources, amaxes '
+      f'{FP8_QDQ_AMAXES}, the cotangent qdq at its own amax; +-0, the bounds '
+      'and past them, subnormals included), and a DelayedAmax window over '
+      '20 calls')
+
+
+class _StepLosses(TrainerCallback):
+
+  def __init__(self):
+    self.losses = []
+
+  def after_step(self, trainer, step, scalars):
+    self.losses.append(float(scalars['loss']))
+
+
+def fp8_windows(trainer):
+  return {name: b for name, b in trainer.state.network.named_buffers()
+          if name.endswith('amax_history')}
+
+
+def fp8_wrapped_optimizer():
+  """with_gradient_accumulation(with_gradient_clipping(momentum)) under a
+  rate that halves every 2 updates, so the count the schedule reads
+  matters."""
+  return optimizers.with_gradient_accumulation(
+      optimizers.with_gradient_clipping(
+          optimizers.create_momentum_optimizer(
+              optimizers.create_exp_decaying_learning_rate_fn(
+                  1e-3, decay_steps=2, decay_rate=0.5, staircase=True), 0.9),
+          **FP8_CLIP), FP8_ACCUMULATE)
+
+
+def fp8_trainer(seed, k, precision='fp8', wrapped=False, callbacks=(),
+                **cfg):
+  """The QT-Opt critic at full width (batch 32, 472x472, bf16,
+  pool_conv) with ``matmul_precision`` set through the trainer's config,
+  as train_qtopt.gin would bind it."""
+  kwargs = {}
+  if wrapped:
+    kwargs['create_optimizer_fn'] = fp8_wrapped_optimizer
+  model = GraspingModelWrapper(device_type='gpu', kernel_policy='pool_conv',
+                               **kwargs)
+  cfg.setdefault('model_dir', '')
+  return Trainer(model, TrainerConfig(
+      log_interval_steps=0, seed=seed, steps_per_dispatch=k,
+      max_train_steps=FP8_STEPS, matmul_precision=precision, **cfg),
+                 callbacks=list(callbacks))
+
+
+def counted_run(what, fn, want, total):
+  zero_counters()
+  out = fn()
+  torch.cuda.synchronize()
+  launches = read_counters()
+  if launches != want:
+    raise AssertionError(f'fp8 phase, {what}: launches {launches}, '
+                         f'expected {want}')
+  for name, value in launches.items():
+    total[name] += value
+  return out
+
+
+def device_split_ms(averages, steps):
+  """Device ms a step of the contractions and of every other kernel (see
+  CONTRACTION_KEYS), from a profile's averages."""
+  contraction = other = 0.0
+  for e in averages:
+    if (not str(getattr(e, 'device_type', '')).endswith('CUDA') or
+        e.key.startswith(('Memcpy', 'Memset', 'Activity', 'Optimizer.')) or
+        getattr(e, 'is_user_annotation', False)):
+      continue
+    us = (getattr(e, 'self_device_time_total', None) or
+          getattr(e, 'self_cuda_time_total', 0))
+    if any(key in e.key.lower() for key in CONTRACTION_KEYS):
+      contraction += us
+    else:
+      other += us
+  return contraction / 1e3 / steps, other / 1e3 / steps
+
+
+def phase_fp8_train(seed, card):
+  """fp8 training on the QT-Opt critic at full width, after the profile
+  phases (it profiles two replays), deterministic cuDNN, no plain-version
+  call, files under a temporary directory below ``chiprun_out/``. Returns
+  the launch counts of its Python-counted runs."""
+  OUT_DIR.mkdir(exist_ok=True)
+  root = pathlib.Path(tempfile.mkdtemp(prefix='fp8_phase_', dir=OUT_DIR))
+  try:
+    with cudnn_settings(deterministic=True, benchmark=False), \
+        _dispatch.force_kernels(True), counted_plain_calls() as plain:
+      launches = fp8_paths(seed, card, root)
+    if sum(plain.values()):
+      raise AssertionError(f'fp8 phase: plain versions ran {plain}')
+    return launches
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def fp8_paths(seed, card, root):
+  start = time.perf_counter()
+  fp8_qdq_check(seed + 30)
+  batches = train_batches(seed + 31, FP8_STEPS, TRAIN_BATCH)
+  total = path_launches()
+  # Warm-up and capture run 8 steps each in Python; the replays none.
+  k8_want = path_launches(steps=2 * DISPATCH_K)
+  k1_want = path_launches(steps=FP8_STEPS)
+
+  # (b) fp8 at K=8 against K=1; the K=1 run saves its final step.
+  grouped = fp8_trainer(seed, DISPATCH_K)
+  counted_run('fp8 K=8', lambda: grouped.train(iter(batches)), k8_want, total)
+  fp8_losses = _StepLosses()
+  model_dir = root / 'fp8'
+  single = fp8_trainer(seed, 1, callbacks=[fp8_losses],
+                       model_dir=str(model_dir), save_interval_steps=0)
+  counted_run('fp8 K=1', lambda: single.train(iter(batches)), k1_want, total)
+  single.close()
+  (captured,) = grouped.captured_dispatches.values()
+  bad = state_mismatches(single, grouped)
+  windows = fp8_windows(grouped)
+  filled = [int((w > 0).sum()) for w in windows.values()]
+  network = grouped.state.network
+  layers = 1 + sum(network.num_convs) + 3 + network.hid_layers
+  if (bad or captured.replays != 2 or grouped.step != FP8_STEPS or
+      len(windows) != 2 * layers or
+      not all(bool(torch.isfinite(w).all()) for w in windows.values()) or
+      min(filled) != min(FP8_STEPS, fp8_lib.DEFAULT_HISTORY_LENGTH)):
+    raise AssertionError(
+        f'fp8 K=8 against K=1 differs in {bad[:8]} ({len(bad)} parts); '
+        f'{captured.replays} replays, step {grouped.step}; {len(windows)} '
+        f'windows, filled {sorted(set(filled))}')
+  dtypes = {p.dtype for p in single.state.network.parameters()} | {
+      v.dtype for slots in single.state.optimizer.state.values()
+      for v in slots.values() if isinstance(v, torch.Tensor)}
+  if dtypes != {torch.float32}:
+    raise AssertionError(f'fp8: master weights and slots in {dtypes}')
+  log(f'fp8: K=8 over {FP8_STEPS} batches (2 replays) bit for bit K=1: '
+      f'parameters, batch statistics, {len(windows)} amax windows (all '
+      f'finite, {min(filled)} of {fp8_lib.DEFAULT_HISTORY_LENGTH} slots '
+      f'filled; conv1 input amax now '
+      f'{float(windows["conv1_1.fp8.lhs.amax_history"][-1]):.4g}), momentum, '
+      f'groups, EMA, generator, step {grouped.step}; parameters and slots '
+      'float32')
+
+  # (c) fp8 against bf16, step by step.
+  bf16_losses = _StepLosses()
+  reference = fp8_trainer(seed, 1, precision='bf16', callbacks=[bf16_losses])
+  counted_run('bf16 K=1', lambda: reference.train(iter(batches)), k1_want,
+              total)
+  atol, rtol = FP8_LOSS_BAND
+  gaps = [abs(a - b) - (atol + rtol * abs(b))
+          for a, b in zip(fp8_losses.losses, bf16_losses.losses)]
+  if (len(gaps) != FP8_STEPS or max(gaps) > 0 or
+      not np.isfinite(fp8_losses.losses).all() or fp8_windows(reference)):
+    raise AssertionError(f'fp8 losses {fp8_losses.losses} against bf16 '
+                         f'{bf16_losses.losses}: outside the band')
+  worst = max(abs(a - b) for a, b in zip(fp8_losses.losses,
+                                         bf16_losses.losses))
+  log(f'fp8: every one of {FP8_STEPS} losses within |fp8 - bf16| <= {atol} + '
+      f'{rtol}|bf16| (largest gap {worst:.4g}); fp8 '
+      f'{np.round(fp8_losses.losses, 4).tolist()}, bf16 '
+      f'{np.round(bf16_losses.losses, 4).tolist()}')
+  del reference
+  torch.cuda.empty_cache()
+
+  # (e) The wrappers at K=8 against K=1.
+  wrapped = {k: fp8_trainer(seed, k, wrapped=True) for k in (DISPATCH_K, 1)}
+  counted_run('wrapped K=8', lambda: wrapped[DISPATCH_K].train(
+      iter(batches)), k8_want, total)
+  counted_run('wrapped K=1', lambda: wrapped[1].train(iter(batches)),
+              k1_want, total)
+  bad = state_mismatches(wrapped[1], wrapped[DISPATCH_K])
+  group = wrapped[DISPATCH_K].state.optimizer.param_groups[0]
+  counts = (group['mini_step'], group['gradient_step'], group['count'])
+  updates = FP8_STEPS // FP8_ACCUMULATE
+  if bad or counts != (FP8_STEPS % FP8_ACCUMULATE, updates, updates):
+    raise AssertionError(f'wrapped K=8 against K=1 differs in {bad[:8]}; '
+                         f'(mini_step, gradient_step, count) {counts}')
+  log(f'fp8: with_gradient_accumulation(with_gradient_clipping(momentum, '
+      f'{FP8_CLIP}), {FP8_ACCUMULATE}) at K=8 bit for bit K=1 over '
+      f'{FP8_STEPS} steps: {updates} updates, a window held at mini_step '
+      f'{counts[0]}, accumulators, momentum, parameters, windows')
+  del wrapped
+  torch.cuda.empty_cache()
+
+  # (f) Eval, then serving from the saved step.
+  eval_batches = train_batches(seed + 32, FP8_EVAL_BATCHES, TRAIN_BATCH)
+  frozen = {k: v.clone() for k, v in fp8_windows(single).items()}
+  metrics = [counted_run('eval', lambda: single.evaluate(iter(eval_batches)),
+                         path_launches(eval_batches=FP8_EVAL_BATCHES), total)
+             for _ in range(2)]
+  moved = [k for k, v in fp8_windows(single).items()
+           if not same_bits(v, frozen[k])]
+  if (moved or metrics[0] != metrics[1] or
+      not all(np.isfinite(v) for v in metrics[0].values())):
+    raise AssertionError(f'fp8 eval: metrics {metrics}, windows moved '
+                         f'{moved}')
+  serving_model = GraspingModelWrapper(device_type='gpu',
+                                       kernel_policy='pool_conv',
+                                       matmul_precision='fp8')
+  predictor = CheckpointPredictor(serving_model, str(model_dir),
+                                  device='cuda')
+  direct = CheckpointPredictor(serving_model, device='cuda')
+  direct.load_state_dict(single.state.eval_state_dict(),
+                         global_step=FP8_STEPS)
+  features = serving_pairs(serving_model, seed + 33, FP8_PAIRS)
+  q = counted_run('restore and predict', lambda: (
+      predictor.restore(), predictor.predict(features))[1]['q_predicted'],
+                  path_launches(eval_batches=1), total)
+  want = counted_run('eager predict', lambda: direct.predict(features)[
+      'q_predicted'], path_launches(eval_batches=1), total)
+  if (predictor.global_step != FP8_STEPS or not np.isfinite(q).all() or
+      not np.array_equal(q.view(np.int32), want.view(np.int32))):
+    raise AssertionError(f'fp8 serving: step {predictor.global_step}, q '
+                         f'{q.ravel()} against {want.ravel()}')
+  policy = CEMPolicy(t2r_model=serving_model, predictor=predictor,
+                     action_size=5, cem_samples=64, cem_iters=3,
+                     num_elites=6, device_resident=True)
+  np.random.seed(seed)
+  frame = np.random.RandomState(seed + 34).randint(
+      0, 256, frame_shape(serving_model), dtype=np.uint8)
+  action = counted_run('CEM action', lambda: policy.SelectAction(
+      frame, None, 0), path_launches(actions=1), total)
+  if action.shape != (5,) or not np.isfinite(action).all():
+    raise AssertionError(f'fp8 CEM action {action}')
+  export_ms, version = synced_ms(lambda: export_version(
+      serving_model, single.state.eval_state_dict(), FP8_STEPS,
+      root / 'export', 1))
+  program = torch.export.load(str(version / exporters.SERVING_FN_FILENAME))
+  casts = sum(1 for n in program.graph.nodes if n.op == 'call_function' and
+              'float8_e4m3fn' in str(n.kwargs))
+  pools, convs, ops = program_nodes(version)
+  exported = ExportedModelPredictor(str(root / 'export'), device='cuda')
+  if not exported.restore():
+    raise AssertionError('fp8: the exported predictor found no version')
+  got = counted_run('exported predict', lambda: exported.predict(features)[
+      'q_predicted'], path_launches(eval_batches=1), total)
+  if ((pools, convs) != (3, 1) or casts != 2 * layers or
+      not np.array_equal(got.view(np.int32), want.view(np.int32))):
+    raise AssertionError(f'fp8 export: {pools} pool_fwd, {convs} '
+                         f'conv_s2d_fwd, {casts} e4m3 casts; q {got.ravel()} '
+                         f'against {want.ravel()}')
+  log(f'fp8: eval of {FP8_EVAL_BATCHES} batches twice at step {FP8_STEPS}, '
+      f'equal metrics {metrics[0]}, the windows unmoved; '
+      f'CheckpointPredictor.restore() of the saved step {FP8_STEPS}: q on '
+      f'{FP8_PAIRS} pairs bit for bit the eager predictor on the live '
+      f'state, one CEM action (64 x 3) {np.round(action, 4).tolist()}; the '
+      f'exported program ({ops} op nodes, {pools} t2r.pool_fwd, {convs} '
+      f't2r.conv_s2d_fwd, {casts} float8_e4m3fn casts; export '
+      f'{export_ms:.1f} ms) gives the same q bit for bit')
+  del single, predictor, direct, exported, policy, program
+  torch.cuda.empty_cache()
+
+  # Timings: fp8 and bf16 at K=8 in turns on the host clock, then each
+  # profiled over two replays (the rows of DISPATCH_ROWS a replay).
+  arms = {'bf16': fp8_trainer(seed, DISPATCH_K, precision='bf16'),
+          'fp8': grouped}
+  counted_run('bf16 K=8', lambda: arms['bf16'].train(iter(batches)), k8_want,
+              total)
+  ms = collections.defaultdict(list)
+  for name in ('fp8', 'bf16', 'bf16', 'fp8'):
+    trainer = arms[name]
+    trainer.config.max_train_steps = trainer.step + FP8_STEPS
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    trainer.train(iter(batches))
+    torch.cuda.synchronize()
+    ms[name].append(1e3 * (time.perf_counter() - begin) / FP8_STEPS)
+  rows = {kernel: 2 * n for kernel, n in DISPATCH_ROWS.items()}
+  rows['fused_update_kernel'] = 0
+  device, split = {}, {}
+  for name, trainer in arms.items():
+    averages = []
+    device[name] = profile_dispatches(f'QT-Opt K=8 {name}', trainer,
+                                      lambda: iter(batches), rows,
+                                      keep=averages)
+    split[name] = device_split_ms(averages[-1], 2 * DISPATCH_K)
+  extra = device['fp8'] - device['bf16']
+  other_extra = split['fp8'][1] - split['bf16'][1]
+  log(f'fp8 timing: K=8 host ms/step fp8 {np.round(ms["fp8"], 3).tolist()} '
+      f'against bf16 {np.round(ms["bf16"], 3).tolist()} (turns fp8, bf16, '
+      f'bf16, fp8; {FP8_STEPS} steps each); device ms/step fp8 '
+      f'{device["fp8"]:.3f} (contractions {split["fp8"][0]:.3f}, other '
+      f'kernels {split["fp8"][1]:.3f}) against bf16 {device["bf16"]:.3f} '
+      f'(contractions {split["bf16"][0]:.3f}, other {split["bf16"][1]:.3f}): '
+      f'fp8 adds {extra:.3f} ms/step, {other_extra:.3f} of it in the other '
+      f'kernels (the qdq passes), {100 * other_extra / device["fp8"]:.1f}% '
+      f'of the fp8 step; each replay the bf16 arm\'s kernel rows; on {card}')
+  del arms, grouped
+  torch.cuda.empty_cache()
+  log(f'fp8: phase {time.perf_counter() - start:.1f} s; launches {total}')
+  return total
 
 
 # ------------------------------------------------------------- Grasp2Vec
@@ -7344,6 +7738,12 @@ def main(argv=None):
   kernels = phase_timing(generator, errors, launches, card)
   torch.cuda.empty_cache()
   phase_dispatch_profile(args.seed)
+  # fp8 training after the timings too: it profiles two replays. Its
+  # Python-counted runs (K=1 steps, the K=8 warm-ups and captures, eval,
+  # serving) join the kernels line; its replays' kernels are the
+  # profiler's rows.
+  fp8_launches = phase_fp8_train(args.seed, card)
+  torch.cuda.empty_cache()
   grasp2vec_device_ms = phase_grasp2vec_profile(grasp2vec_trainer,
                                                 grasp2vec_batch)
   del grasp2vec_trainer
@@ -7357,10 +7757,12 @@ def main(argv=None):
   extra['pool_fwd_stem'] = model_launches['pool_fwd']
   extra['pool_bwd_gather'] = (model_launches['pool_bwd'] -
                               model_launches['pool_bwd_scatter'])
+  for name in ('pool_fwd', 'pool_bwd', 'conv_s2d_fwd', 'conv_s2d_dw'):
+    extra[name] = extra.get(name, 0) + fp8_launches[name]
   for entry in kernels:
     entry['launches'] += extra.get(entry['name'], 0)
   log(f'launches: SNAIL and Grasp2Vec K=8 path (warm-ups and captures) '
-      f'{model_launches}')
+      f'{model_launches}; fp8 training path {fp8_launches}')
   if args.profile:
     phase_profile_reference(args.seed)
     phase_profile(policy, frames)

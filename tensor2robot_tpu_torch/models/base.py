@@ -32,6 +32,7 @@ from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 from tensor2robot_tpu_torch.preprocessors import (AbstractPreprocessor,
                                                   DtypePolicyPreprocessor,
                                                   NoOpPreprocessor)
+from tensor2robot_tpu_torch.quantize import fp8_training as fp8_lib
 from tensor2robot_tpu_torch.specs import SpecStruct, algebra
 
 DEVICE_TYPE_CPU = 'cpu'
@@ -87,6 +88,12 @@ class AbstractT2RModel(ModelInterface):
   * ``init_from_checkpoint_fn``: ``fn(network) -> None``, run on the freshly
     initialised network before the optimizer and the average are built
     (the warm-start hook; it loads weights into the module in place).
+  * ``matmul_precision``: ``'bf16' | 'fp8'``, the contraction precision of
+    the Dense/Conv layers of networks that thread it
+    (``quantize/fp8_training.py``): ``'fp8'`` runs them through
+    delayed-amax-scaled float8 quantize-dequantize, with float32 master
+    weights. ``TrainerConfig.matmul_precision`` overrides it
+    (:meth:`set_matmul_precision`) before the network is built.
   """
 
   def __init__(self,
@@ -97,7 +104,8 @@ class AbstractT2RModel(ModelInterface):
                avg_model_params_decay: float = 0.9999,
                init_from_checkpoint_fn: Optional[Callable[[nn.Module],
                                                           None]] = None,
-               kernel_policy: str = 'none'):
+               kernel_policy: str = 'none',
+               matmul_precision: str = 'bf16'):
     if device_type not in DEVICE_TYPES:
       raise ValueError(
           f'Unknown device_type {device_type!r}; expected one of '
@@ -109,6 +117,8 @@ class AbstractT2RModel(ModelInterface):
     self.avg_model_params_decay = avg_model_params_decay
     self.init_from_checkpoint_fn = init_from_checkpoint_fn
     self._kernel_policy = dispatch.validate_kernel_policy(kernel_policy)
+    self._matmul_precision = fp8_lib.validate_matmul_precision(
+        matmul_precision)
 
   @property
   def device_type(self) -> str:
@@ -117,6 +127,17 @@ class AbstractT2RModel(ModelInterface):
   @property
   def kernel_policy(self) -> str:
     return self._kernel_policy
+
+  @property
+  def matmul_precision(self) -> str:
+    """Dense/Conv contraction precision ('bf16' | 'fp8')."""
+    return self._matmul_precision
+
+  def set_matmul_precision(self, precision: str) -> None:
+    """The trainer's override (``TrainerConfig.matmul_precision``), validated
+    and gated on this build's fp8 dtypes. Must run before
+    :meth:`create_module`: a network takes the precision at construction."""
+    self._matmul_precision = fp8_lib.require_fp8_support(precision)
 
   @property
   def compute_dtype(self) -> torch.dtype:

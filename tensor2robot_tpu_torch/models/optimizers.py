@@ -33,13 +33,28 @@ TAGGED for the fused update kernel (``ops/fused_update.py``,
 ``TrainerConfig.fused_update``): they carry a ``fused_spec``.
 ``MomentumSGD`` and ``RMSProp`` are untagged and keep the stock path, as
 in the JAX package.
+
+Two wrappers take an optimizer factory and return one:
+
+* :func:`with_gradient_clipping`: optax's ``clip_by_global_norm``, then
+  ``clip``, then the optimizer (:class:`GradientClipping`, stateless);
+* :func:`with_gradient_accumulation`: ``optax.MultiSteps``, one real
+  update every ``accumulate_steps`` calls from the running mean of the
+  gradients (:class:`GradientAccumulation`).
+
+A wrapped optimizer is untagged, as in the JAX package, so
+``fused_update=True`` over it takes the stock path. Both keep the protocol
+that K steps a dispatch needs (``dispatch_rates``, ``device_step``,
+``advance``, ``create_slots``): the accumulation's apply-or-hold is a
+device-side select, so which calls of a replay apply may change from
+replay to replay.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Iterable, Tuple, Union
+from typing import Callable, Iterable, List, Optional, Tuple, Union
 
 import torch
 
@@ -129,6 +144,13 @@ class _Scheduled:
     bias corrections of the first and second moment (1.0 where the
     optimizer has none)."""
     return float(self.schedule(count)), 1.0, 1.0
+
+  def dispatch_rates(self, k: int) -> List[Tuple[float, ...]]:
+    """The rates of the next ``k`` calls of :meth:`device_step`, one row a
+    call, as a dispatch of K steps hands them over (the trainer selects a
+    row by the calls applied so far in the dispatch)."""
+    count = self.param_groups[0].get('count', 0)
+    return [self.rates(count + j) for j in range(k)]
 
   def _update(self, group, lr: Rate, c1: Rate, c2: Rate) -> None:
     raise NotImplementedError
@@ -285,6 +307,201 @@ class GradientDescent(_Scheduled, torch.optim.Optimizer):
     for p in group['params']:
       if p.grad is not None:
         p.add_(p.grad * scale)
+
+
+class _Wrapped(_Scheduled):
+  """An optimizer around ``inner``: its groups, slots, counts, rates and
+  ``state_dict`` are the inner optimizer's."""
+
+  def __init__(self, inner):
+    self.inner = inner
+
+  param_groups = property(lambda self: self.inner.param_groups)
+  state = property(lambda self: self.inner.state)
+
+  def zero_grad(self, set_to_none: bool = True) -> None:
+    self.inner.zero_grad(set_to_none=set_to_none)
+
+  def state_dict(self):
+    return self.inner.state_dict()
+
+  def load_state_dict(self, state_dict) -> None:
+    self.inner.load_state_dict(state_dict)
+
+  def create_slots(self) -> None:
+    self.inner.create_slots()
+
+  def rates(self, count: int):
+    return self.inner.rates(count)
+
+  def dispatch_rates(self, k: int):
+    return self.inner.dispatch_rates(k)
+
+  def advance(self, applied: int) -> None:
+    self.inner.advance(applied)
+
+
+class GradientClipping(_Wrapped):
+  """An optimizer whose gradients are clipped before it steps: optax's
+  ``clip_by_global_norm(clip_norm)`` (``where(norm < max, g, g / norm *
+  max)``, the norm the root of the sum of every gradient's sum of
+  squares), then ``clip(clip_value)``, each when set. Stateless."""
+
+  def __init__(self, inner, clip_norm: Optional[float] = None,
+               clip_value: Optional[float] = None):
+    super().__init__(inner)
+    self.clip_norm, self.clip_value = clip_norm, clip_value
+
+  @torch.no_grad()
+  def clip(self) -> None:
+    """Clips every gradient in place, on the device."""
+    grads = [p.grad for group in self.param_groups for p in group['params']
+             if p.grad is not None]
+    if not grads:
+      return
+    if self.clip_norm is not None:
+      total = None
+      for g in grads:
+        square = torch.sum(g * g)
+        total = square if total is None else total + square
+      norm = torch.sqrt(total)
+      keep = norm < self.clip_norm
+      for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
+    if self.clip_value is not None:
+      for g in grads:
+        g.clamp_(-self.clip_value, self.clip_value)
+
+  @torch.no_grad()
+  def step(self, closure=None):  # pylint: disable=arguments-differ
+    self.clip()
+    return self.inner.step(closure)
+
+  @torch.no_grad()
+  def device_step(self, rates: torch.Tensor) -> None:
+    self.clip()
+    self.inner.device_step(rates)
+
+
+class GradientAccumulation(_Wrapped):
+  """``optax.MultiSteps(inner, every_k_schedule=accumulate_steps)``.
+
+  Each call folds the gradients into the running mean ``acc + (g - acc) /
+  (mini_step + 1)`` (the ``acc_grads`` slots) and hands the mean to the
+  inner optimizer, whose update is kept on the call that completes a
+  window and dropped otherwise; the mean then restarts from zero. The
+  inner optimizer's count, and so its schedule, moves on applying calls
+  only. ``mini_step`` (calls into the window) and ``gradient_step``
+  (applied updates) are host integers in the parameter groups, beside the
+  inner ``count``.
+
+  On the device (:meth:`device_step`) a call takes a row of five rates:
+  the inner rates, then the divisor ``mini_step + 1`` and the apply flag,
+  both computed on the host for the call the row belongs to
+  (:meth:`dispatch_rates`). The inner update always runs and a
+  ``where(apply, new, old)`` over the parameters and the inner slots keeps
+  or drops it, optax's ``lax.cond`` as a select, so a captured graph needs
+  no host branch. :meth:`step` runs the same device step from the host's
+  row, so both ways give the same bits.
+  """
+
+  def __init__(self, inner, accumulate_steps: int):
+    super().__init__(inner)
+    self.accumulate_steps = int(accumulate_steps)
+    for group in self.param_groups:
+      group.setdefault('mini_step', 0)
+      group.setdefault('gradient_step', 0)
+    # The inner slots exist before any call, so a dropped update can
+    # restore them (optax's init makes them all up front too).
+    self.create_slots()
+
+  def create_slots(self) -> None:
+    self.inner.create_slots()
+    for group in self.param_groups:
+      for p in group['params']:
+        if p.requires_grad and self.state[p].get('acc_grads') is None:
+          self.state[p]['acc_grads'] = torch.zeros_like(
+              p, memory_format=torch.preserve_format)
+
+  def dispatch_rates(self, k: int) -> List[Tuple[float, ...]]:
+    group = self.param_groups[0]
+    count, mini = group.get('count', 0), group['mini_step']
+    rows = []
+    for j in range(k):
+      n = (mini + j) % self.accumulate_steps + 1
+      rows.append(tuple(self.inner.rates(
+          count + (mini + j) // self.accumulate_steps)) +
+                  (float(n), float(n == self.accumulate_steps)))
+    return rows
+
+  def advance(self, applied: int) -> None:
+    group = self.param_groups[0]
+    total = group['mini_step'] + applied
+    updates = total // self.accumulate_steps
+    self.inner.advance(updates)
+    for group in self.param_groups:
+      group['mini_step'] = total % self.accumulate_steps
+      group['gradient_step'] += updates
+
+  @torch.no_grad()
+  def step(self, closure=None):  # pylint: disable=arguments-differ
+    loss = None if closure is None else closure()
+    params = [p for g in self.param_groups for p in g['params']]
+    device = params[0].device if params else torch.device('cpu')
+    row = torch.tensor(self.dispatch_rates(1)[0], dtype=torch.float32)
+    self.device_step(row.to(device))
+    self.advance(1)
+    return loss
+
+  @torch.no_grad()
+  def device_step(self, rates: torch.Tensor) -> None:
+    divisor, flag = rates[3], rates[4]
+    apply = flag > 0
+    live, accs = [], []
+    for group in self.param_groups:
+      for p in group['params']:
+        if p.grad is None:
+          continue
+        acc = self.state[p]['acc_grads']
+        acc.add_((p.grad - acc) / divisor)
+        p.grad.copy_(acc)
+        accs.append(acc)
+        live.append(p)
+        live += [v for k, v in self.state[p].items()
+                 if k != 'acc_grads' and isinstance(v, torch.Tensor)]
+    old = [t.clone() for t in live]
+    self.inner.device_step(rates[:3])
+    for t, o in zip(live, old):
+      t.copy_(torch.where(apply, t, o))
+    for acc in accs:
+      acc.masked_fill_(apply, 0.0)
+
+
+def with_gradient_clipping(optimizer: Callable,
+                           clip_norm: Optional[float] = None,
+                           clip_value: Optional[float] = None) -> Callable:
+  """Global-norm and value clipping in front of an optimizer factory (the
+  result is untagged: the fused update does not take it)."""
+
+  def factory(params):
+    return GradientClipping(optimizer(params), clip_norm, clip_value)
+
+  return factory
+
+
+def with_gradient_accumulation(optimizer: Callable,
+                               accumulate_steps: int) -> Callable:
+  """``optax.MultiSteps``: one real update every ``accumulate_steps``
+  calls, across dispatches (see :class:`GradientAccumulation`;
+  ``TrainerConfig.grad_accum_microbatches`` slices one batch instead).
+  With ``accumulate_steps <= 1`` it returns ``optimizer`` unchanged."""
+  if accumulate_steps <= 1:
+    return optimizer
+
+  def factory(params):
+    return GradientAccumulation(optimizer(params), accumulate_steps)
+
+  return factory
 
 
 def create_momentum_optimizer(learning_rate: LearningRate = 1e-4,

@@ -855,7 +855,11 @@ class SpaceToDepthConv(nn.Module):
   flax's ``promote_dtype`` does); None promotes input and kernel.
   ``use_kernel=False`` computes with the stock convolution instead of the
   kernel entry (a tower whose kernel policy leaves conv1 off the kernel
-  path); the parameters are the same either way.
+  path); the parameters are the same either way. ``fp8``, when set, is a
+  module ``(x, kernel) -> (x, kernel)`` applied to the compute-dtype
+  operands before the conv, with an ``output(y)`` applied to the conv's
+  result: the fp8 training injection or operand hook
+  (``quantize/fp8_training.py``), registered as the submodule ``fp8``.
   """
 
   def __init__(self,
@@ -866,7 +870,8 @@ class SpaceToDepthConv(nn.Module):
                padding: Union[str, Sequence[Tuple[int, int]]] = 'SAME',
                use_bias: bool = True,
                dtype: Optional[torch.dtype] = None,
-               use_kernel: bool = True):
+               use_kernel: bool = True,
+               fp8: Optional[nn.Module] = None):
     super().__init__()
     kh, kw = kernel_size
     self.strides = tuple(strides)
@@ -878,12 +883,17 @@ class SpaceToDepthConv(nn.Module):
       self.bias = nn.Parameter(torch.zeros(features))
     else:
       self.register_parameter('bias', None)
+    self.fp8 = fp8
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     dtype = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
     x, kernel = x.to(dtype), self.kernel.to(dtype)
+    if self.fp8 is not None:
+      x, kernel = self.fp8(x, kernel)
     conv = conv2d if self.use_kernel else reference_conv2d
     y = conv(x, kernel, self.strides, self.padding)
+    if self.fp8 is not None:
+      y = self.fp8.output(y)
     if self.bias is not None:
       y = y + self.bias.to(dtype)
     return y

@@ -38,6 +38,14 @@ Under ``kernel_policy='pool'`` the three max-pools go through
 layers are computed by ``F.conv2d`` / ``F.linear``, as the JAX package
 leaves them to XLA.
 
+Under ``matmul_precision='fp8'`` every conv and dense layer owns an
+``fp8`` injection (``quantize/fp8_training.py``): its operands are
+quantize-dequantized through float8_e4m3fn by their delayed amax windows
+(``<layer>.fp8.{lhs,rhs}.amax_history`` buffers) and its cotangent through
+float8_e5m2. ``conv1_1`` on the kernel path (``'pool_conv'``) takes the
+operand hook alone, so its kernels' backward reads the un-quantized
+cotangent, as in the JAX package.
+
 Parameter and buffer names (see ``utils/convert.py`` for the mapping from
 the flax tree): ``conv1_1.kernel`` (HWIO), ``bn1.{bias,mean,var}``,
 ``conv<l>.conv.weight`` (OIHW) and ``conv<l>.bn.*``, ``fcgrasp.weight``,
@@ -65,6 +73,7 @@ from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 from tensor2robot_tpu_torch.ops import pool as pool_ops
 from tensor2robot_tpu_torch.ops.conv_s2d import SpaceToDepthConv
 from tensor2robot_tpu_torch.ops.pool import resolve_padding
+from tensor2robot_tpu_torch.quantize import fp8_training as fp8_lib
 
 _INIT_STDDEV = 0.01
 
@@ -102,26 +111,32 @@ class _PooledBatchNormRelu(nn.Module):
 
 class _Conv(nn.Module):
   """Bias-free conv on NCHW tensors with an OIHW ``weight`` and XLA's
-  resolution of SAME padding."""
+  resolution of SAME padding; ``fp8``, the injection of
+  ``matmul_precision='fp8'`` (None for bf16)."""
 
   def __init__(self, in_features: int, features: int, kernel: int,
-               strides: int, padding: str, dtype: Optional[torch.dtype]):
+               strides: int, padding: str, dtype: Optional[torch.dtype],
+               matmul_precision: str = 'bf16'):
     super().__init__()
     self.kernel, self.strides, self.padding = kernel, strides, padding
     self.dtype = dtype
     self.weight = nn.Parameter(
         torch.zeros(features, in_features, kernel, kernel))
+    self.fp8 = fp8_lib.injection(matmul_precision)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
+    dtype = self.dtype or x.dtype
+    x, w = x.to(dtype), self.weight.to(dtype)
+    if self.fp8 is not None:
+      x, w = self.fp8(x, w)
     (plh, phh), (plw, phw) = resolve_padding(
         self.padding, (self.kernel, self.kernel), (self.strides,) * 2,
         tuple(x.shape[2:4]))
     if plh != phh or plw != phw:
       x = F.pad(x, (plw, phw, plh, phh))
       plh = plw = 0
-    dtype = self.dtype or x.dtype
-    return F.conv2d(x.to(dtype), self.weight.to(dtype),
-                    stride=self.strides, padding=(plh, plw))
+    y = F.conv2d(x, w, stride=self.strides, padding=(plh, plw))
+    return y if self.fp8 is None else self.fp8.output(y)
 
 
 class _ConvBN(nn.Module):
@@ -131,10 +146,12 @@ class _ConvBN(nn.Module):
 
   def __init__(self, in_features: int, features: int, kernel: int,
                padding: str, decay: float, epsilon: float,
-               dtype: Optional[torch.dtype], remat_policy: str = 'none'):
+               dtype: Optional[torch.dtype], remat_policy: str = 'none',
+               matmul_precision: str = 'bf16'):
     super().__init__()
     self.remat_policy = remat.validate_remat_policy(remat_policy)
-    self.conv = _Conv(in_features, features, kernel, 1, padding, dtype)
+    self.conv = _Conv(in_features, features, kernel, 1, padding, dtype,
+                      matmul_precision)
     self.bn = _BatchNorm(features, True, decay, epsilon, dtype)
 
   def _block(self, x: torch.Tensor) -> torch.Tensor:
@@ -145,10 +162,12 @@ class _ConvBN(nn.Module):
 
 
 class _Dense(nn.Module):
-  """Dense layer with a [out, in] ``weight`` and optional ``bias``."""
+  """Dense layer with a [out, in] ``weight`` and optional ``bias``;
+  ``fp8``, the injection of ``matmul_precision='fp8'`` (None for bf16),
+  wraps the product before the bias is added."""
 
   def __init__(self, in_features: int, features: int, use_bias: bool,
-               dtype: Optional[torch.dtype]):
+               dtype: Optional[torch.dtype], matmul_precision: str = 'bf16'):
     super().__init__()
     self.dtype = dtype
     self.weight = nn.Parameter(torch.zeros(features, in_features))
@@ -156,11 +175,16 @@ class _Dense(nn.Module):
       self.bias = nn.Parameter(torch.zeros(features))
     else:
       self.register_parameter('bias', None)
+    self.fp8 = fp8_lib.injection(matmul_precision)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     dtype = self.dtype or x.dtype
     bias = None if self.bias is None else self.bias.to(dtype)
-    return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+    if self.fp8 is None:
+      return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+    x, w = self.fp8(x.to(dtype), self.weight.to(dtype))
+    y = self.fp8.output(F.linear(x, w))
+    return y if bias is None else y + bias
 
 
 def _same(size: int, stride: int) -> int:
@@ -191,7 +215,8 @@ class Grasping44(nn.Module):
                batch_norm_epsilon: float = 0.001,
                dtype: Optional[torch.dtype] = None,
                kernel_policy: str = 'none',
-               remat_policy: str = 'none'):
+               remat_policy: str = 'none',
+               matmul_precision: str = 'bf16'):
     super().__init__()
     self.num_convs = tuple(num_convs)
     self.hid_layers = hid_layers
@@ -199,14 +224,19 @@ class Grasping44(nn.Module):
     self.dtype = dtype
     self.kernel_policy = dispatch.validate_kernel_policy(kernel_policy)
     self.remat_policy = remat.validate_remat_policy(remat_policy)
+    self.matmul_precision = fp8_lib.validate_matmul_precision(
+        matmul_precision)
+    precision = self.matmul_precision
     decay, eps = batch_norm_decay, batch_norm_epsilon
     tower = dict(decay=decay, epsilon=eps, dtype=dtype,
-                 remat_policy=self.remat_policy)
+                 remat_policy=self.remat_policy, matmul_precision=precision)
 
+    conv_kernel = dispatch.policy_enables_conv(self.kernel_policy)
     self.conv1_1 = SpaceToDepthConv(
         3, 64, (6, 6), strides=(2, 2), padding='SAME', use_bias=False,
-        dtype=dtype,
-        use_kernel=dispatch.policy_enables_conv(self.kernel_policy))
+        dtype=dtype, use_kernel=conv_kernel,
+        fp8=(fp8_lib.conv_operand_hook(precision) if conv_kernel else
+             fp8_lib.injection(precision)))
     self.bn1 = _PooledBatchNormRelu(64, decay, eps)
     n0, n1, n2 = self.num_convs
     self._tower1 = [f'conv{l}' for l in range(2, 2 + n0)]
@@ -219,9 +249,9 @@ class Grasping44(nn.Module):
     for name in self._tower3:
       self.add_module(name, _ConvBN(64, 64, 3, 'VALID', **tower))
 
-    self.fcgrasp = _Dense(grasp_param_size, 256, False, dtype)
+    self.fcgrasp = _Dense(grasp_param_size, 256, False, dtype, precision)
     self.fcgrasp_bn = _BatchNorm(256, False, decay, eps, dtype)
-    self.fcgrasp2 = _Dense(256, 64, True, dtype)
+    self.fcgrasp2 = _Dense(256, 64, True, dtype, precision)
 
     h, w = image_size
     for stride in (2, 3, 3, 2):  # conv1, pool1, pool2, pool3 (all SAME)
@@ -232,11 +262,13 @@ class Grasping44(nn.Module):
                        f'num_convs {num_convs}.')
     features = h * w * 64
     for l in range(hid_layers):
-      self.add_module(f'fc{l}', _Dense(features, 64, False, dtype))
+      self.add_module(f'fc{l}', _Dense(features, 64, False, dtype,
+                                       precision))
       self.add_module(f'fc{l}_bn', _BatchNorm(64, True, decay, eps, dtype))
       features = 64
     self.logit_name = 'logit' if num_classes == 1 else f'logit_{num_classes}'
-    self.add_module(self.logit_name, _Dense(64, num_classes, True, dtype))
+    self.add_module(self.logit_name,
+                    _Dense(64, num_classes, True, dtype, precision))
 
   def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
     """The JAX module's initialisers: conv and dense kernels from a normal

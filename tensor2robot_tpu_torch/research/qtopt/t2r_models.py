@@ -9,7 +9,9 @@
 * :class:`GraspingModelWrapper`: the critic over Grasping44 with the JAX
   wrapper's state/action specs, log loss, QT-Opt's momentum optimizer and
   parameter averaging (``optimizer_builder``), ``remat_policy`` (recompute
-  of the conv tower blocks, ``layers/remat.py``), ``grasp_params``,
+  of the conv tower blocks, ``layers/remat.py``), ``matmul_precision``
+  ('fp8': the network's contractions through ``quantize/fp8_training.py``),
+  ``grasp_params``,
   ``inference_network_fn`` (TRAIN mode updates the batch statistics in
   place) and ``pack_features``.
 """
@@ -136,7 +138,8 @@ class GraspingModelWrapper(critic_model.CriticModel):
     return networks.Grasping44(
         image_size=self._target_shape, grasp_param_size=action_size,
         num_convs=self._num_convs, dtype=self.compute_dtype,
-        kernel_policy=self.kernel_policy, remat_policy=self.remat_policy)
+        kernel_policy=self.kernel_policy, remat_policy=self.remat_policy,
+        matmul_precision=self.matmul_precision)
 
   def get_state_specification(self) -> SpecStruct:
     spec = SpecStruct()

@@ -5,7 +5,8 @@
 pulls (features, labels) batches of numpy arrays, as the JAX trainer does,
 and runs them on ``device`` (the card unless the caller asks for the CPU).
 A step follows the JAX step body: preprocess the whole batch, forward in
-TRAIN mode (batch statistics update in place), loss, backward (over
+TRAIN mode (batch statistics, and under ``matmul_precision='fp8'`` the
+amax windows, update in place), loss, backward (over
 ``grad_accum_microbatches`` slices of the batch, float32 gradients summed
 and divided, batch norm seeing each slice), then the update, on one of two
 arms:
@@ -43,8 +44,10 @@ copy) and runs K steps that read nothing back to the host
   the vrgripper and meta preprocessors crop-resize at device offsets and
   mix up with weights drawn on the host);
 * the rates (learning rate, bias corrections) of the K counts the
-  dispatch may reach are computed on the host from the schedule and
-  selected on the device by the dispatch's applied count;
+  dispatch may reach are computed on the host from the schedule
+  (``dispatch_rates``; an accumulating optimizer adds each call's divisor
+  and apply flag) and selected on the device by the dispatch's applied
+  count;
 * the guard selects old against new on the device, JAX's ``where(ok,
   new, old)``, and a skipped step's draws and rates go to the next step,
   as the JAX step keys them off the applied step.
@@ -154,6 +157,7 @@ from tensor2robot_tpu_torch.observability import postmortem, tracing
 from tensor2robot_tpu_torch.ops import _dispatch as dispatch
 from tensor2robot_tpu_torch.ops import fused_update as fused_lib
 from tensor2robot_tpu_torch.preprocessors.base import DeviceDraws
+from tensor2robot_tpu_torch.quantize import fp8_training as fp8_lib
 from tensor2robot_tpu_torch.specs import algebra
 from tensor2robot_tpu_torch.train import checkpoints as ckpt_lib
 from tensor2robot_tpu_torch.train import resilience
@@ -254,6 +258,13 @@ class TrainerConfig:
   # EMA step and one guard per batch. Batch norm sees each microbatch
   # ("ghost batch norm"), as in the JAX trainer. B % M must be 0.
   grad_accum_microbatches: int = 1
+  # Dense/Conv contraction precision (quantize/fp8_training.py): None
+  # leaves the model's own matmul_precision alone, 'bf16' forces it, 'fp8'
+  # routes the contractions of a network that threads it through
+  # delayed-amax float8 quantize-dequantize, with float32 master weights
+  # and the amax windows as network buffers. Applied to the model before
+  # the network is built; 'fp8' is gated on this build's fp8 dtypes.
+  matmul_precision: Optional[str] = None
   # The per-dispatch step-time breakdown (_DispatchBreakdown): host wait,
   # placement, dispatch, the device wait one dispatch behind (which caps
   # the host's run-ahead at one dispatch) and callbacks, merged into the
@@ -938,6 +949,13 @@ class Trainer:
                callbacks: Sequence[TrainerCallback] = (),
                shutdown: Optional[resilience.GracefulShutdown] = None):
     _refuse_unported(config)
+    if config.matmul_precision is not None:
+      # Before any network is built: a network takes its precision at
+      # construction.
+      if hasattr(model, 'set_matmul_precision'):
+        model.set_matmul_precision(config.matmul_precision)
+      else:
+        fp8_lib.require_fp8_support(config.matmul_precision)
     self._nonfinite_policy = (
         resilience.NonFinitePolicy(config.nonfinite_mode,
                                    config.nonfinite_halt_after)
@@ -1225,7 +1243,7 @@ class Trainer:
                     draws.index_select(0, row).reshape(-1))
       scalars, ok = self._device_step(
           f, l, DeviceDraws(step_draws),
-          rates.index_select(0, row).reshape(3))
+          rates.index_select(0, row).reshape(-1))
       if ok is None:
         slot.add_(1)
       else:
@@ -1252,8 +1270,7 @@ class Trainer:
     before = state.generator.get_state() if guard else None
     draws = [self._preprocessor.host_draws(state.generator) for _ in range(k)]
     draws = None if draws[0] is None else draws
-    count = state.optimizer.param_groups[0].get('count', 0)
-    rates = [state.optimizer.rates(count + j) for j in range(k)]
+    rates = state.optimizer.dispatch_rates(k)
     self._feed.consume(staged)
     if self._device.type == 'cuda' and k == self._k:
       out = self._replay(staged, draws, rates)
@@ -1287,15 +1304,17 @@ class Trainer:
       buffer = torch.empty(layout.nbytes, dtype=torch.uint8, device=device)
       features, labels = layout.views(buffer)
       width = 0 if draws is None else len(draws[0])
+      rate_width = len(rates[0])
       statics = dict(
           buffer=buffer, features=features, labels=labels,
           draws=(None if draws is None else torch.zeros(
               (self._k, width), dtype=torch.int64, device=device)),
-          rates=torch.zeros((self._k, 3), dtype=torch.float32, device=device),
+          rates=torch.zeros((self._k, rate_width), dtype=torch.float32,
+                            device=device),
           slot=torch.zeros((), dtype=torch.int64, device=device),
           host=[[torch.zeros((self._k, max(width, 1)), dtype=torch.int64,
                              pin_memory=True),
-                 torch.zeros((self._k, 3), dtype=torch.float32,
+                 torch.zeros((self._k, rate_width), dtype=torch.float32,
                              pin_memory=True), None] for _ in range(2)],
           turn=0)
       self._statics[key] = statics
@@ -1340,7 +1359,7 @@ class Trainer:
     them in place and the warm-up before a capture restores them)."""
     optimizer = self._state.optimizer
     if not all(hasattr(optimizer, name) for name in (
-        'rates', 'device_step', 'advance', 'create_slots')):
+        'dispatch_rates', 'device_step', 'advance', 'create_slots')):
       raise NotImplementedError(
           f'steps_per_dispatch={self._k} needs an optimizer that steps from '
           'rates on the device (models/optimizers.py); '

@@ -9,7 +9,8 @@ maps the pose_env regression and critic trees;
 Grasp2Vec ``Embedding`` tree and :func:`grasp2vec_variables_to_torch` the
 Grasp2Vec model's two towers;
 :func:`optax_state_to_torch` carries an optax Adam, momentum or SGD
-state across as the port optimizer's ``state_dict``;
+state, under gradient clipping and ``MultiSteps`` accumulation too, across
+as the port optimizer's ``state_dict``;
 :func:`jax_train_state_to_torch` maps a whole JAX ``TrainState`` onto the
 port's checkpoint payload. The Grasping44 rules:
 
@@ -26,12 +27,16 @@ Takes the variables tree the JAX package serves from
   (batch_stats), including the ``bn1`` tree of ``_PooledBatchNormRelu``;
 * flax's auto-numbered top-level ``BatchNorm_<i>``: ``BatchNorm_0`` is the
   grasp embedding's (``fcgrasp_bn``), ``BatchNorm_<i>`` for i >= 1 is
-  ``fc<i-1>``'s (``fc<i-1>_bn``), in the order the JAX module calls them.
+  ``fc<i-1>``'s (``fc<i-1>_bn``), in the order the JAX module calls them;
+* the ``fp8_stats`` windows of ``matmul_precision='fp8'``
+  (``<layer>/.../<lhs|rhs>/amax_history``) -> ``<layer>.fp8.<lhs|rhs>.
+  amax_history`` (``conv<l>.conv.fp8...`` in the tower blocks; conv1's two
+  flax scopes, one a kernel policy, both ``conv1_1.fp8...``).
 
-Every leaf must map: an unmapped key, a collection the port does not hold
-(e.g. ``fp8_stats``), or two keys mapping to one name raises instead of
-being left unused. Loading with ``load_state_dict(strict=True)`` then
-raises on any name the network expects and the tree lacks.
+Every leaf must map: an unmapped key, a collection the port does not hold,
+or two keys mapping to one name raises instead of being left unused.
+Loading with ``load_state_dict(strict=True)`` then raises on any name the
+network expects and the tree lacks.
 """
 
 from __future__ import annotations
@@ -91,6 +96,8 @@ def _rule(path: Tuple[str, ...]) -> Optional[Tuple[str, Any]]:
           return f'{head[0]}.weight', _dense_to_linear
         if leaf == 'bias':
           return f'{head[0]}.bias', None
+  elif collection == 'fp8_stats' and leaf == 'amax_history':
+    return _fp8_rule(head)
   elif collection == 'batch_stats' and leaf in ('mean', 'var'):
     if len(head) == 2 and _CONV.match(head[0]) and head[1] == 'BatchNorm_0':
       return f'{head[0]}.bn.{leaf}', None
@@ -100,6 +107,30 @@ def _rule(path: Tuple[str, ...]) -> Optional[Tuple[str, Any]]:
       bn = _TOP_BN.match(head[0])
       if bn:
         return f'{_top_bn_name(int(bn.group(1)))}.{leaf}', None
+  return None
+
+
+_FP8_SIDES = ('lhs', 'rhs')
+
+
+def _fp8_rule(head) -> Optional[Tuple[str, Any]]:
+  """An ``fp8_stats`` window (``.../<lhs|rhs>/amax_history``) -> the
+  ``amax_history`` buffer of the port layer's ``fp8`` injection. conv1's
+  scope is the conv injection's (``kernel_policy='none'``) or the
+  space-to-depth conv's operand hook (``'pool_conv'``); both land on
+  ``conv1_1.fp8``."""
+  if not head or head[-1] not in _FP8_SIDES:
+    return None
+  side, scope = head[-1], head[:-1]
+  if scope in (['conv1_1', 'Fp8ConvGeneralDilated_0'],
+               ['conv1_1', '_ConvOperandQdq_0']):
+    return f'conv1_1.fp8.{side}.amax_history', None
+  if (len(scope) == 3 and _CONV.match(scope[0]) and
+      scope[1:] == ['Conv_0', 'Fp8ConvGeneralDilated_0']):
+    return f'{scope[0]}.conv.fp8.{side}.amax_history', None
+  if (len(scope) == 2 and _DENSE.match(scope[0]) and
+      scope[1] == 'Fp8DotGeneral_0'):
+    return f'{scope[0]}.fp8.{side}.amax_history', None
   return None
 
 
@@ -351,7 +382,8 @@ def optax_state_to_torch(
     schedule_count: Optional[Any] = None,
     variables_to_torch: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]
     = jax_variables_to_torch,
-    momentum: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+    momentum: Optional[Mapping[str, Any]] = None,
+    multi_steps: Optional[Tuple[Any, Any, Any]] = None) -> Dict[str, Any]:
   """An optax optimizer state, as numpy, -> ``optimizer``'s ``state_dict``.
 
   ``adam`` is an optax ``ScaleByAdamState``'s ``(count, mu, nu)``, ``mu``
@@ -362,8 +394,13 @@ def optax_state_to_torch(
   (optax's ``t = momentum * t + g`` is torch SGD's buffer with
   ``dampening=0``); ``schedule_count`` is a ``ScaleByScheduleState``'s
   count. The port's optimizers keep one ``count`` per parameter group for
-  Adam and the schedule, so the two must agree. Load the result with
-  ``optimizer.load_state_dict`` or ``train_state.load_state_dict``.
+  Adam and the schedule, so the two must agree. ``multi_steps`` is an
+  ``optax.MultiStepsState``'s ``(mini_step, gradient_step, acc_grads)``
+  (``models/optimizers.GradientAccumulation``: the groups' ``mini_step``
+  and ``gradient_step``, the ``acc_grads`` slots; its inner state is
+  passed as the other arguments). Gradient clipping keeps no state. Load
+  the result with ``optimizer.load_state_dict`` or
+  ``train_state.load_state_dict``.
   """
   names = {id(p): name for name, p in network.named_parameters()}
   order = [names[id(p)] for group in optimizer.param_groups
@@ -379,6 +416,8 @@ def optax_state_to_torch(
     counts.add(int(np.asarray(count)))
   if momentum is not None:
     slots.append(('momentum_buffer', momentum))
+  if multi_steps is not None:
+    slots.append(('acc_grads', multi_steps[2]))
   for slot, tree in slots:
     tree = variables_to_torch({'params': tree})
     if set(tree) != set(order):
@@ -395,6 +434,12 @@ def optax_state_to_torch(
                      'port keeps one count.')
   groups = [dict(group) for group in template['param_groups']]
   for group in groups:
+    if multi_steps is not None:
+      if 'mini_step' not in group:
+        raise ValueError('The optax state accumulates (MultiSteps) but the '
+                         'optimizer does not (with_gradient_accumulation).')
+      group['mini_step'] = int(np.asarray(multi_steps[0]))
+      group['gradient_step'] = int(np.asarray(multi_steps[1]))
     if counts:
       if 'count' not in group:
         raise ValueError('The optimizer keeps no count (a constant-rate '
@@ -404,11 +449,17 @@ def optax_state_to_torch(
 
 
 def _optax_parts(opt_state) -> Dict[str, Any]:
-  """The Adam moments, the momentum trace and the schedule count found in
-  an optax state (nested tuples of optax's named states)."""
+  """The Adam moments, the momentum trace, the schedule count and the
+  ``MultiSteps`` accumulation found in an optax state (nested tuples of
+  optax's named states)."""
   parts: Dict[str, Any] = {}
   fields = set(getattr(opt_state, '_fields', ()))  # optax's namedtuples
-  if {'count', 'mu', 'nu'} <= fields:
+  if {'mini_step', 'gradient_step', 'acc_grads'} <= fields:
+    parts['multi_steps'] = (opt_state.mini_step, opt_state.gradient_step,
+                            opt_state.acc_grads)
+    for key, value in _optax_parts(opt_state.inner_opt_state).items():
+      parts[key] = value
+  elif {'count', 'mu', 'nu'} <= fields:
     parts['adam'] = (opt_state.count, opt_state.mu, opt_state.nu)
   elif 'trace' in fields:
     parts['momentum'] = opt_state.trace
@@ -436,7 +487,8 @@ def jax_train_state_to_torch(
   * ``params`` and ``model_state`` (batch statistics) -> the network;
   * ``ema_params`` -> the EMA;
   * ``opt_state`` -> the optimizer (the Adam moments or the momentum
-    trace, and the schedule count: :func:`optax_state_to_torch`);
+    trace, the schedule count, and a ``MultiSteps`` window:
+    :func:`optax_state_to_torch`);
   * ``step`` -> the step.
 
   The JAX ``rng`` key does not cross over: the two packages draw from
